@@ -1,0 +1,222 @@
+"""Split-learning VFL protocol of the PyTorch port: the serving half.
+
+Members own bottom towers over their feature slices; the master owns
+the top model and labels. Predict is the forward half federated end to
+end: members answer feature-slice queries with bottom activations, the
+master sums them with its own bottom activation and runs the top model
+— nobody ever holds another silo's features or parameters.
+
+Models come from the port's tower factory (``repro_torch.models.tower``)
+with the same specs, param layouts and checkpoint trees as the JAX
+package's ``repro/core/protocols/split_nn.py``, so a JAX-written
+checkpoint (``resume_dir``) serves here unchanged. Each party keeps its
+matched feature rows as one tensor on its ``device`` and gathers query
+rows there; tensors become numpy at every channel send and every return
+to the driver.
+
+Training (the master step, the member VJP and its pipelined stages)
+comes with the next slice of the port; its hooks raise until then.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.comm import schema
+from repro_torch.comm.schema import Field
+from repro_torch.core.protocols import base
+from repro_torch.core.protocols.driver import VFLProtocol
+from repro_torch.models import tower as twr
+
+# the same wire declarations as the JAX package: one world may mix
+# parties of both packages on the predict path
+schema.message("splitnn/u", {"u": Field("float32", 2)}, stepped=True,
+               compress=True,
+               doc="member bottom activations for one training round")
+schema.message("splitnn/du", {"du": Field("float32", 2)}, stepped=True,
+               compress=True,
+               doc="embedding gradient returned to one member")
+schema.message("splitnn/pred_u", {"u": Field("float32", 2)}, stepped=True,
+               doc="bottom activations for a predict query")
+
+_TRAINING = ("split-NN training is not ported yet: the master step, the "
+             "member VJP and the pipelined member stages come with the "
+             "next slice of repro_torch")
+
+
+def bottom_spec(cfg, in_dim: int) -> twr.TowerSpec:
+    """Resolve the bottom-model tower for one party's feature width."""
+    if cfg.tower:
+        return twr.resolve(tuple(cfg.tower), in_dim, cfg.embedding_dim)
+    return twr.mlp_tower(in_dim, cfg.hidden, cfg.embedding_dim,
+                         final_act=True)
+
+
+def top_spec(cfg, items: int) -> twr.TowerSpec:
+    """Resolve the master's top-model tower (embeddings -> logits)."""
+    if cfg.top_tower:
+        return twr.resolve(tuple(cfg.top_tower), cfg.embedding_dim,
+                           items)
+    return twr.mlp_tower(cfg.embedding_dim, cfg.hidden, items,
+                         final_act=False)
+
+
+def init_generator(seed: int, stream: int) -> torch.Generator:
+    """The init stream of one model of the federation: the master's
+    bottom (0) and top (1) and member ``i`` (``i + 2``), as the JAX
+    package folds them into its key."""
+    state = np.random.SeedSequence([seed, stream]).generate_state(1)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
+@base.register
+class SplitNNProtocol(VFLProtocol):
+    name = "split_nn"
+    supports_pipeline = True
+
+    def setup(self) -> None:
+        cfg, d, dev = self.cfg, self.data, self.device
+        if cfg.tower_shard > 1:
+            raise NotImplementedError("tower_shard > 1 is not ported yet")
+        if cfg.secure_agg:
+            raise NotImplementedError("secure_agg is not ported yet")
+        self.x = torch.as_tensor(
+            base._select(d.ids, self.order, d.x), dtype=torch.float32
+        ).to(dev)
+        if self.is_master:
+            self.y = torch.as_tensor(
+                base._select(d.ids, self.order, d.y), dtype=torch.float32
+            ).to(dev)
+            self._bspec = bottom_spec(cfg, self.x.shape[1])
+            self._tspec = top_spec(cfg, self.y.shape[1])
+            self.bottom = twr.init(self._bspec,
+                                   init_generator(cfg.seed, 0), dev)
+            self.top = twr.init(self._tspec, init_generator(cfg.seed, 1),
+                                dev)
+        else:
+            midx = int(self.role.replace("member", "")) + 2
+            self._spec = bottom_spec(cfg, self.x.shape[1])
+            self.params = twr.init(self._spec,
+                                   init_generator(cfg.seed, midx), dev)
+
+    def _index(self, rows) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(rows, np.int64),
+                               device=self.device)
+
+    def _rows(self, rows) -> torch.Tensor:
+        return self.x[self._index(rows)]
+
+    def roofline_profile(self) -> Dict[str, float]:
+        """Analytic per-step cost for the roofline accounting
+        (launch/roofline.py): training FLOPs ~= 3x the forward pass
+        (fwd + input/weight VJPs), wire bytes = the float32 u/du
+        exchange this role sees each round."""
+        cfg = self.cfg
+        nb = cfg.batch_size
+        ubytes = nb * cfg.embedding_dim * 4
+        if self.is_master:
+            flops = 3.0 * (twr.tower_flops(self._bspec, nb)
+                           + twr.tower_flops(self._tspec, nb))
+            wire = 2 * ubytes * max(1, len(self.ch.members))
+            pbytes = twr.params_bytes(self.bottom) \
+                + twr.params_bytes(self.top)
+        else:
+            flops = 3.0 * twr.tower_flops(self._spec, nb)
+            wire = 2 * ubytes
+            pbytes = twr.params_bytes(self.params)
+        return {"flops_per_step": flops, "bytes_per_step": float(wire),
+                "params_bytes": float(pbytes)}
+
+    # -- training: the next slice -------------------------------------------
+    def on_batch_master(self, rows, step) -> float:
+        raise NotImplementedError(_TRAINING)
+
+    def member_stage_send(self, rows, step):
+        raise NotImplementedError(_TRAINING)
+
+    def member_stage_recv(self, rows, step, xb) -> None:
+        raise NotImplementedError(_TRAINING)
+
+    # -- predict/serve -------------------------------------------------------
+    @torch.no_grad()
+    def predict_master(self, rows) -> np.ndarray:
+        u = twr.apply(self._bspec, self.bottom, self._rows(rows))
+        for msg in self.ch.gather(self.ch.members, "splitnn/pred_u"):
+            u = u + torch.as_tensor(msg.tensor("u"),
+                                    dtype=torch.float32).to(self.device)
+        return twr.apply(self._tspec, self.top, u).cpu().numpy()
+
+    def predict_member(self, rows) -> None:
+        self.send_embed(self.predict_embed(rows), rows)
+
+    @torch.no_grad()
+    def predict_embed(self, rows) -> np.ndarray:
+        # pure bottom-model forward: cacheable per row
+        return twr.apply(self._spec, self.params,
+                         self._rows(rows)).cpu().numpy()
+
+    def send_embed(self, u, rows) -> None:
+        self.ch.send("master", "splitnn/pred_u", {"u": np.asarray(u)})
+
+    def evaluate_master(self, scores, rows) -> Dict[str, float]:
+        from repro_torch.train.evals import recsys_report
+        return recsys_report(np.asarray(scores),
+                             self.y[self._index(rows)].cpu().numpy(), k=5)
+
+    def finalize(self) -> Dict:
+        if self.is_master:
+            return {"top": twr.to_numpy(self.top),
+                    "bottom": twr.to_numpy(self.bottom),
+                    "order": self.order}
+        return {"params": twr.to_numpy(self.params)}
+
+    def _ef_residuals(self) -> Dict:
+        # error feedback lives on the typed channel (schema-level
+        # compression); its residuals are part of this role's state
+        ef = self.ch.error_feedback
+        return dict(ef.residuals) if ef is not None else {}
+
+    def state_dict(self) -> Dict:
+        if self.is_master:
+            return {"top": twr.to_numpy(self.top),
+                    "bottom": twr.to_numpy(self.bottom),
+                    "ef": self._ef_residuals()}
+        return {"params": twr.to_numpy(self.params),
+                "ef": self._ef_residuals()}
+
+    def _as_tower(self, state):
+        """Migrate pre-§12 checkpoints: a flat legacy MLP layer list
+        becomes the one-block tower param tree. A legacy layer is a
+        dict of exactly ``{'w', 'b'}`` — new-format block entries
+        never look like that (an mlp block is a *list* of layers;
+        embed/attn dicts carry extra keys), so checking the full key
+        set keeps embed-first towers out of the legacy path."""
+        if (state and isinstance(state[0], dict)
+                and set(state[0]) == {"w", "b"}):
+            state = [state]
+        return twr.from_numpy(state, self.device)
+
+    def load_state_dict(self, state) -> None:
+        if self.is_master:
+            self.top = self._as_tower(state["top"])
+            self.bottom = self._as_tower(state["bottom"])
+        else:
+            self.params = self._as_tower(state["params"])
+        if state.get("ef"):
+            from repro_torch.core import compression
+            # migrate pre-§7 checkpoints: the protocol-owned EF keyed
+            # streams as "u" (member) / member name (master); channel
+            # EF keys are "{to}/{msg-type}/{field}"
+            residuals = {}
+            for k, v in state["ef"].items():
+                if "/" in k:
+                    residuals[k] = v
+                elif k == "u":
+                    residuals["master/splitnn/u/u"] = v
+                else:
+                    residuals[f"{k}/splitnn/du/du"] = v
+            if self.ch.error_feedback is None:
+                self.ch.error_feedback = compression.ErrorFeedback()
+            self.ch.error_feedback.residuals = residuals

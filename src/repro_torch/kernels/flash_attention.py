@@ -1,0 +1,81 @@
+"""Wrapper of the hand-written flash-attention kernel
+(``csrc/flash_attention.cu``, the port of the Pallas kernel in
+``repro/kernels/flash_attention.py``).
+
+On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
+computes the plain version (``ref.attention_ref``), and that is the only
+way the plain version is taken.
+
+Layout: q (b, h, sq, dh); k/v (b, kvh, sk, dh), contiguous, float32 or
+bfloat16; dh one of 16, 32, 64, 128. GQA by head grouping.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import attention_ref
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+launches = _build.LaunchCounter()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (b, h, sq, dh); k/v: (b, kvh, sk, dh) -> (b, h, sq, dh)."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    _check(q, k, v)
+    b, h, sq, dh = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    scale = dh ** -0.5 if scale is None else scale
+    o = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, h, kvh, sq, sk, dh, DTYPES[q.dtype], int(bool(causal)),
+            int(window), float(scale), stream)
+    _build.check(err, "flash_attention")
+    launches.add()
+    return o
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: tensors on {q.device}; the "
+                         f"kernel takes CUDA tensors (CPU ones take the "
+                         f"plain version)")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, "
+                             f"q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}, "
+                             f"q is {q.dtype}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not in "
+                         f"{sorted(map(str, DTYPES))}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: need q (b, h, sq, dh) and "
+                         f"k/v (b, kvh, sk, dh), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, dh = q.shape
+    if k.shape[0] != b or k.shape[3] != dh or h % k.shape[1]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {dh} not in "
+                         f"{HEAD_DIMS}")
+    if q.shape[2] == 0 or k.shape[2] == 0 or b == 0:
+        raise ValueError("flash_attention: empty sequence or batch")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} is not contiguous")

@@ -1,0 +1,59 @@
+"""Plain PyTorch versions of the port's hand-written kernels.
+
+They define the semantics each CUDA kernel must reproduce, mirroring
+the JAX package's pure-jnp oracles (``repro/kernels/ref.py``) line for
+line: quadratic attention with the same ``-1e30`` masking, per-row
+symmetric int8 quantization with the same division and rounding. A
+kernel wrapper takes these only for a tensor that lies on the CPU;
+``chip_smoke.py`` holds each kernel against them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+# 1/127 rounded to float32. The Pallas kernel's ``absmax / 127.0`` is
+# compiled by XLA into a multiply by this reciprocal (so is the jitted
+# jnp oracle; only an eager call divides), and the tower runs it jitted:
+# the port follows what the reference computes where it runs. The two
+# scales differ by at most one ulp.
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q: (b, h, sq, dh); k/v: (b, kvh, sk, dh). GQA by head grouping."""
+    b, h, sq, dh = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, sq, dh).float()
+    scale = dh ** -0.5 if scale is None else scale
+    s = torch.einsum("bngqd,bnkd->bngqk", qg * scale, k.float())
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window:
+        mask &= qi - ki < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngqk,bnkd->bngqd", p, v.float())
+    return o.reshape(b, h, sq, dh).to(q.dtype)
+
+
+def quantize_int8_ref(x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization. x: (rows, d) ->
+    (q int8 (rows, d), scale f32 (rows,)). ``torch.round`` rounds half
+    to even, as ``jnp.round`` does; ``x / scale`` is a true division on
+    every device (a tensor divisor is never turned into a reciprocal)."""
+    x32 = x.float()
+    absmax = torch.clamp(x32.abs().amax(dim=1), min=1e-12)
+    scale = absmax * INV_127
+    q = torch.clamp(torch.round(x32 / scale[:, None]), -127, 127)
+    return q.to(torch.int8), scale
