@@ -24,9 +24,24 @@ NVIDIA GPU.
    scores must agree with the same model run on the plain versions;
 5. times each kernel, its plain version and, for attention,
    ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it) with CUDA events at the path's shapes, and prints them in
-   one ``kernels`` JSON line with each kernel's least possible time;
-6. prints ``{"ok": true, "device": {...}}`` as its last line.
+   calls it) with CUDA events at the path's shapes;
+6. serves ``rwkv6-7b`` from the model zoo at full width and depth (32
+   layers, d_model 4096, 8.9 B params, 35.5 GB in f32, random weights
+   drawn on the card from a seed) through ``ServeEngine``: the WKV
+   kernel first against its plain version at the prefill shape
+   (4, 64, 511, 64) and at the JAX package's kernel-test shapes, within
+   5e-5 (f32) / 5e-2 (bf16); then ``score`` of a (4, 512) token batch, which must launch
+   the WKV kernel once per layer (32 times) and give a finite loss;
+   teacher-forced ``decode_step`` logits of one 64-token sequence (a path
+   with no WKV kernel) against ``forward`` logits within 2e-3; greedy
+   ``generate`` of 16 tokens from 4 prompts of 16; it prints the prefill
+   and decode tokens/s, runs the timed ``score`` and ``generate`` once
+   more under ``torch.profiler`` to print where their device time goes
+   (the WKV kernel, matmuls, the rest; the top kernels) and the device's
+   busy share, and times the WKV kernel as in step 5;
+7. prints all kernels in one ``kernels`` JSON line with each kernel's
+   least possible time, then ``{"ok": true, "device": {...}}`` as its
+   last line.
 
 Any failure raises and the script exits non-zero; it needs the repo's
 ``src/repro_torch`` beside it and a CUDA device, and prints no result
@@ -54,6 +69,21 @@ CALLERS, QUERIES, QUERY_ROWS = 16, 8, 64
 # float32 rate outside the tensor cores (both kernels use no MMA)
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+
+# the model-zoo phase: rwkv6-7b at full width and depth, f32
+ZOO_ARCH = "rwkv6-7b"
+SCORE_BATCH, SCORE_TOKENS = 4, 512        # score() prefills 511 of them
+CONSIST_TOKENS = 64
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 16, 16
+# substrings of the cuBLAS / CUTLASS kernel names the profile counts as
+# matmuls
+MATMUL_MARKS = ("gemm", "gemv", "cutlass", "xmma")
+WKV_CASES = [
+    # b, h, s, dh, dtype name (tests/test_kernels.py)
+    (1, 2, 64, 32, "float32"),
+    (2, 4, 128, 64, "float32"),
+    (1, 2, 128, 32, "bfloat16"),
+]
 
 TOWER = ("embed:tokens=8,dim=64", "attn_block:heads=4", "quantize",
          "mlp:hidden=64")
@@ -355,6 +385,233 @@ def time_kernels(torch, dev):
     return att, quant
 
 
+def wkv_inputs(torch, dev, b, h, s, dh, dtype, g):
+    """r, k, v, w (b, h, s, dh) of ``dtype`` and u (h, dh) f32 on the
+    card, drawn as the JAX kernel test draws them."""
+    r, k, v = (torch.randn((b, h, s, dh), generator=g) for _ in range(3))
+    w = torch.sigmoid(torch.randn((b, h, s, dh), generator=g)) * 0.5 + 0.45
+    u = torch.randn((h, dh), generator=g) * 0.3
+    return ([t.to(dtype).to(dev) for t in (r, k, v, w)]
+            + [u.to(dev)])
+
+
+def check_wkv(torch, dev):
+    """Phase 6a: the WKV kernel against its plain version on the card,
+    at the prefill path's shape and the JAX kernel test's shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    cfg = zoo_config()
+    h, dh = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    path_case = (SCORE_BATCH, h, SCORE_TOKENS - 1, dh, "float32")
+    g = torch.Generator().manual_seed(5)
+    err = None
+    for case in [path_case, (SCORE_BATCH, h, SCORE_TOKENS, dh,
+                             "float32")] + WKV_CASES:
+        b, hh, s, d, dt = case
+        ins = wkv_inputs(torch, dev, b, hh, s, d, getattr(torch, dt), g)
+        y, sf = wkv.rwkv6_wkv(*ins)
+        ey, es = ref.rwkv6_ref(*ins)
+        torch.cuda.synchronize()
+        tol = 5e-2 if dt == "bfloat16" else 5e-5
+        torch.testing.assert_close(y, ey, atol=tol, rtol=tol)
+        torch.testing.assert_close(sf, es, atol=tol, rtol=tol)
+        e = max((y - ey).abs().max().item(), (sf - es).abs().max().item())
+        log(f"rwkv6_wkv {case}: max_abs_err {e:.3e} (tol {tol})")
+        if case is path_case:
+            err = e
+    return err
+
+
+def zoo_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(ZOO_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == \
+        (32, 4096, 14336, 65536), "the full rwkv6-7b config"
+    return cfg
+
+
+def serve_zoo(torch, dev):
+    """Phase 6b: rwkv6-7b served at full width and depth through
+    ``ServeEngine``. Returns (WKV launches in the counted ``score``,
+    measured numbers)."""
+    import numpy as np
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.models import params as PRM, transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    cfg = zoo_config()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = PRM.init_tree(T.model_spec(cfg),
+                               torch.Generator(dev).manual_seed(0),
+                               torch.float32, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    # the spec's count is above the config's analytic one, which leaves
+    # out the norms and mixes and counts the gate as a LoRA, where the
+    # spec (the JAX package's) has a full projection
+    log(f"{ZOO_ARCH}: {n_params:,} params ({cfg.param_count():,} by the "
+        f"config's count) in f32, {n_params * 4 / 1e9:.2f} GB, drawn on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    engine = ServeEngine(cfg, params, max_seq=GEN_PROMPT + GEN_NEW + 1,
+                         dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (SCORE_BATCH, SCORE_TOKENS))
+    torch.cuda.reset_peak_memory_stats()
+    engine.score(toks)                 # warm-up: cuBLAS, the library
+    torch.cuda.synchronize()
+    wkv.launches.reset()
+    t0 = time.perf_counter()
+    loss = engine.score(toks)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    launches = wkv.launches.count
+    if launches != cfg.n_layers:
+        raise AssertionError(f"score launched the WKV kernel {launches} "
+                             f"times, expected {cfg.n_layers}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"score gave a non-finite loss {loss}")
+    prefill_tok = SCORE_BATCH * (SCORE_TOKENS - 1)
+    log(f"score of ({SCORE_BATCH}, {SCORE_TOKENS}) tokens: loss "
+        f"{loss:.6f} (ln vocab {np.log(cfg.vocab):.6f}) in "
+        f"{score_s * 1e3:.1f} ms, {launches} WKV launches")
+    log(f"prefill tokens/s: {prefill_tok / score_s:.1f}")
+    prof_prefill = profile_window(torch, lambda: engine.score(toks), score_s)
+    log("zoo profile prefill " + json.dumps(prof_prefill))
+
+    # decode (no WKV kernel) against prefill (the kernel) on one sequence
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab, (1, CONSIST_TOKENS)),
+                          device=dev)
+    with torch.inference_mode():
+        ref_logits, _ = T.forward(cfg, params, {"tokens": seq},
+                                  torch.float32)
+        cache = engine.init_cache(1)
+        consist_err = 0.0
+        for i in range(CONSIST_TOKENS):
+            logits, cache = T.decode_step(cfg, params, seq[:, i:i + 1],
+                                          cache, i, None, torch.float32)
+            torch.testing.assert_close(logits[:, 0], ref_logits[:, i],
+                                       rtol=2e-3, atol=2e-3)
+            consist_err = max(consist_err, (logits[:, 0] - ref_logits[:, i]
+                                            ).abs().max().item())
+        del cache, ref_logits
+    log(f"decode vs prefill logits over {CONSIST_TOKENS} tokens: "
+        f"max_abs_err {consist_err:.3e} (tol 2e-3)")
+
+    prompts = rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))
+    engine.generate(prompts[:, :2], 2)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, GEN_NEW)
+    gen_s = time.perf_counter() - t0
+    if out.shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW) \
+            or not ((out >= 0) & (out < cfg.vocab)).all() \
+            or not np.array_equal(out[:, :GEN_PROMPT], prompts):
+        raise AssertionError(f"generate gave {out.shape} {out[:, -4:]}")
+    # every decode step advances the whole batch by one token: the
+    # prompt's teacher-forced steps and the new tokens' (the last new
+    # token needs no step of its own)
+    decode_tok = GEN_BATCH * (GEN_PROMPT + GEN_NEW - 1)
+    log(f"generate {GEN_NEW} tokens from {GEN_BATCH} prompts of "
+        f"{GEN_PROMPT}: {gen_s * 1e3:.1f} ms; first new tokens "
+        f"{out[:, GEN_PROMPT:GEN_PROMPT + 4].tolist()}")
+    log(f"decode tokens/s: {decode_tok / gen_s:.1f}")
+    prof_decode = profile_window(
+        torch, lambda: engine.generate(prompts, GEN_NEW), gen_s)
+    log("zoo profile decode " + json.dumps(prof_decode))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory {peak:.2f} GiB")
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches, {"loss": loss, "score_s": score_s,
+                      "prefill_tok_s": prefill_tok / score_s,
+                      "consist_err": consist_err, "generate_s": gen_s,
+                      "decode_tok_s": decode_tok / gen_s,
+                      "prefill_busy_share":
+                          prof_prefill["device_busy_share"],
+                      "decode_busy_share": prof_decode["device_busy_share"],
+                      "peak_gib": peak}
+
+
+def _device_us(e) -> float:
+    t = getattr(e, "self_device_time_total", None)
+    return float(t if t is not None else e.self_cuda_time_total)
+
+
+def profile_window(torch, fn, wall_s: float) -> dict:
+    """Runs ``fn`` once under ``torch.profiler`` and sums its kernels'
+    device time, by kind (the WKV kernel, matmuls, the rest) and for the
+    six longest kernels. The busy share is that device time over
+    ``wall_s``, the wall time of the same call timed without the
+    profiler: the profiler slows the host's dispatch, not the kernels,
+    and the kernels run one at a time on one stream."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type is not None
+               and "cuda" in str(e.device_type).lower()
+               and _device_us(e) > 0]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    kinds = {"wkv": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        kind = ("wkv" if "rwkv6_wkv" in name else
+                "matmul" if any(m in name for m in MATMUL_MARKS) else
+                "other")
+        kinds[kind] += _device_us(e) / 1e3
+    ranked = sorted(kernels, key=_device_us, reverse=True)[:6]
+    return {"wall_ms": wall_s * 1e3, "device_ms": device_ms,
+            "device_busy_share": device_ms / 1e3 / wall_s,
+            "kernel_launches": sum(e.count for e in kernels),
+            "device_ms_by_kind": kinds,
+            "top_kernels": [{"name": e.key[:90], "count": e.count,
+                             "device_ms": _device_us(e) / 1e3}
+                            for e in ranked]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def time_wkv(torch, dev):
+    """Phase 6c: the WKV kernel at the prefill path's shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    cfg = zoo_config()
+    b, h, s, dh = (SCORE_BATCH, cfg.d_model // cfg.rwkv.head_dim,
+                   SCORE_TOKENS - 1, cfg.rwkv.head_dim)
+    g = torch.Generator().manual_seed(6)
+    ins = wkv_inputs(torch, dev, b, h, s, dh, torch.float32, g)
+    kernel = lambda: wkv.rwkv6_wkv(*ins)           # noqa: E731
+    plain = lambda: ref.rwkv6_ref(*ins)            # noqa: E731
+    out = {"ms": graph_ms(kernel), "eager_ms": eager_ms(kernel),
+           # the plain version is a loop of ~3,000 small kernels a call
+           "plain_ms": graph_ms(plain, reps=2, trials=5),
+           "plain_eager_ms": eager_ms(plain, reps=2, trials=5),
+           # no PyTorch call computes the WKV recurrence
+           "library_ms": None}
+    # least time: r, k, v, w read once, y and S_final written once; and
+    # the least f32 work of a step of one (batch, head) pair, 5 * dh^2
+    # flops (read-out r.S: dh^2 FMAs; update w*S + k v^T: a multiply
+    # and an FMA per element; the bonus term is O(dh))
+    nbytes = 4 * ins[0].numel() * 4 + ins[4].numel() * 4 \
+        + b * h * s * dh * 4 + b * h * dh * dh * 4
+    flops = 5.0 * b * h * s * dh * dh
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / F32_FLOP_S * 1e3
+    out["bound_ms"] = max(t_bytes, t_ops)
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"rwkv6_wkv at {(b, h, s, dh)} f32: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP; bound {out['bound_ms'] * 1e3:.1f} us "
+        f"({out['bound_by']})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -408,18 +665,27 @@ def main() -> int:
                              "versions")
 
     att, quant = time_kernels(torch, dev)
+
+    errs["rwkv6_wkv"] = check_wkv(torch, dev)
+    counts["rwkv6_wkv"], zoo = serve_zoo(torch, dev)
+    wkv_t = time_wkv(torch, dev)
+    log("zoo " + json.dumps(zoo))
     kernels = []
     for name, src, replaces, t in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:69", att),
             ("quantize_int8", "src/repro_torch/csrc/quantize.cu",
-             "src/repro/kernels/quantize.py:29", quant)):
+             "src/repro/kernels/quantize.py:29", quant),
+            ("rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
+             "src/repro/kernels/rwkv6_wkv.py:48", wkv_t)):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": errs[name], **t})
-    log(f"rounds {rounds}; launches per round "
-        f"{ {k: v / rounds for k, v in counts.items()} }; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+    per_round = {k: counts[k] / rounds
+                 for k in ("flash_attention", "quantize_int8")}
+    log(f"rounds {rounds}; launches per round {per_round}; WKV launches "
+        f"per score {counts['rwkv6_wkv']}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,22 +38,12 @@ from repro_torch.core.protocols.base import (MasterData, MemberData,
                                              resolve_protocol)
 from repro_torch.core.protocols.driver import (Callback, Driver,
                                                load_checkpoint)
+from repro_torch.models.params import resolve_device
 
 # ensure the ported protocols register
 from repro_torch.core.protocols import split_nn as _split_nn  # noqa: F401
 
 MODES = ("thread",)
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device that this machine
-    does not have raises instead of falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} but torch sees no CUDA device; pass "
-            f"device='cpu' to run the federation on the CPU")
-    return dev
 
 
 def world_for(cfg: VFLConfig, n_members: int) -> List[str]:

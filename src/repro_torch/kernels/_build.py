@@ -25,7 +25,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 # no --use_fast_math: quantize_int8 needs an IEEE division to agree
-# with the reference bit for bit, and attention an accurate expf
+# with the reference bit for bit, attention an accurate expf, and the
+# WKV recurrence keeps denormals (fast math flushes them) as its plain
+# version does
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -130,6 +132,9 @@ def library() -> ctypes.CDLL:
             lib.repro_quantize_int8.argtypes = [
                 p, p, p, ctypes.c_int64, i, i, p]
             lib.repro_quantize_int8.restype = i
+            lib.repro_rwkv6_wkv.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.repro_rwkv6_wkv.restype = i
             _lib = lib
         return _lib
 

@@ -11,8 +11,8 @@ package's ``repro/kernels/ops.py``.
 
 There is no fallback: a CUDA tensor under ``auto`` or ``pallas`` gets
 the kernel, or the kernel's error when it cannot build or launch. The
-Pallas tiling knobs (``block_q``, ``block_k``, ``block_r``) and
-``interpret`` have no counterpart: the CUDA kernels choose their own
+Pallas tiling knobs (``block_q``, ``block_k``, ``block_r``, ``chunk``)
+and ``interpret`` have no counterpart: the CUDA kernels choose their own
 tiles and take any length.
 """
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_wkv as _wkv
 
 KERNELS = ("auto", "pallas", "ref")
 
@@ -63,3 +64,14 @@ def quantize_int8(x: torch.Tensor, *, kernel: str = "auto"
     if _use_ref(kernel, x, "quantize_int8"):
         return ref.quantize_int8_ref(x)
     return _q.quantize_int8(x)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, *, kernel: str = "auto"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w: (b, h, s, dh); u: (h, dh); w is the per-step decay in
+    (0, 1). Returns (y f32 (b, h, s, dh), s_final f32 (b, h, dh, dh)),
+    the recurrence from S = 0."""
+    if _use_ref(kernel, r, "rwkv6_wkv"):
+        return ref.rwkv6_ref(r, k, v, w, u)
+    return _wkv.rwkv6_wkv(r, k, v, w, u)

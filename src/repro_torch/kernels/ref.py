@@ -3,7 +3,8 @@
 They define the semantics each CUDA kernel must reproduce, mirroring
 the JAX package's pure-jnp oracles (``repro/kernels/ref.py``) line for
 line: quadratic attention with the same ``-1e30`` masking, per-row
-symmetric int8 quantization with the same division and rounding. A
+symmetric int8 quantization with the same division and rounding, the
+RWKV-6 recurrence as a sequential loop over time steps. A
 kernel wrapper takes these only for a tensor that lies on the CPU;
 ``chip_smoke.py`` holds each kernel against them on the card.
 """
@@ -57,3 +58,30 @@ def quantize_int8_ref(x: torch.Tensor
     scale = absmax * INV_127
     q = torch.clamp(torch.round(x32 / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              s0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV. r/k/v/w: (b, h, s, dh); u: (h, dh); decay w in (0,1).
+
+    y_t[i] = sum_j r_t[j] * (S[j,i] + u[j] k_t[j] v_t[i])
+    S      = diag(w_t) S + k_t v_t^T
+    Returns (y (b, h, s, dh) fp32, s_final (b, h, dh, dh) fp32).
+    """
+    b, h, s, dh = r.shape
+    if s0 is None:
+        s0 = torch.zeros((b, h, dh, dh), dtype=torch.float32,
+                         device=r.device)
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    u = u.float()
+    state = s0.float()
+    ys = []
+    for t in range(s):
+        rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]           # (b, h, dh, dh)
+        ys.append(torch.einsum("bhj,bhji->bhi", rt,
+                               state + u[..., :, None] * kv))
+        state = wt[..., :, None] * state + kv
+    return torch.stack(ys, dim=2), state

@@ -1,0 +1,132 @@
+"""Spec-based parameters of the PyTorch port's model zoo, the counterpart
+of the JAX package's ``repro/models/params.py``.
+
+Each layer module defines a *spec tree*: nested dicts whose leaves are
+:class:`Spec` (shape + logical axes + initializer). ``init_tree`` turns
+it into tensors; ``stack(spec, n)`` prepends a layer dimension, so a
+stack of layers is stored stacked and walked by index.
+
+``init_tree`` draws from an explicit ``torch.Generator`` on the target
+device (the JAX package's per-path ``jax.random`` stream cannot be
+reproduced), with the same distributions. ``from_numpy`` / ``to_numpy``
+carry a JAX-made tree (nested dicts of stacked leaves, through
+``np.asarray``) across unchanged, so one set of weights drives either
+package. ``abstract_tree`` and ``axes_tree`` come with the sharding
+slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+PyTree = Any
+Device = Union[str, torch.device]
+
+
+def resolve_device(device: Device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device that this machine
+    does not have raises instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but torch sees no CUDA device; pass "
+            f"device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclass(frozen=True)
+class Spec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"          # normal | zeros | ones
+    scale: float = 1.0            # stddev multiplier (normal) or value
+    dtype: Any = None             # override param dtype (e.g. fp32 norms)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"spec rank mismatch: {self.shape} vs "
+                             f"{self.axes}")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
+def _map_specs(fn: Callable[[Tuple[str, ...], Spec], Any], tree: PyTree,
+               path: Tuple[str, ...] = ()) -> PyTree:
+    if is_spec(tree):
+        return fn(path, tree)
+    return {k: _map_specs(fn, v, path + (k,)) for k, v in tree.items()}
+
+
+def _tree_map(fn, tree: PyTree) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_tree(spec: PyTree, generator: torch.Generator,
+              param_dtype: torch.dtype = torch.float32,
+              device: Device = "cuda") -> PyTree:
+    """Concrete params for ``spec`` on ``device``, drawn from
+    ``generator`` (which must live on that device): normal with std
+    ``scale / sqrt(fan_in)`` where ``fan_in`` is the product of all but
+    the last dim (a stacked leaf's layer dim included, as in the JAX
+    package), ``zeros``, or ``ones`` times ``scale``. Draws happen on
+    the device: an 8-billion-parameter model is never built on the
+    host."""
+    dev = resolve_device(device)
+
+    def leaf(_, s: Spec):
+        dtype = s.dtype or param_dtype
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dtype, device=dev)
+        if s.init == "ones":
+            return torch.full(s.shape, s.scale, dtype=dtype, device=dev)
+        fan_in = s.shape[0] if len(s.shape) == 1 else int(
+            np.prod(s.shape[:-1]))
+        std = s.scale / max(1.0, fan_in) ** 0.5
+        # drawn in f32 (in place, no temporary) and cast, as JAX does
+        x = torch.empty(s.shape, dtype=torch.float32, device=dev)
+        x.normal_(0.0, std, generator=generator)
+        return x if dtype == torch.float32 else x.to(dtype)
+    return _map_specs(leaf, spec)
+
+
+def stack(spec: PyTree, n: int, axis_name: str = "layers") -> PyTree:
+    """Prepend a layer dimension of size ``n`` to every leaf."""
+    def leaf(_, s: Spec):
+        return replace(s, shape=(n,) + s.shape, axes=(axis_name,) + s.axes)
+    return _map_specs(leaf, spec)
+
+
+def param_bytes(spec: PyTree, bytes_per_el: int = 2) -> int:
+    total = 0
+
+    def leaf(_, s: Spec):
+        nonlocal total
+        total += int(np.prod(s.shape)) * bytes_per_el
+    _map_specs(leaf, spec)
+    return total
+
+
+def tree_slice(tree: PyTree, i) -> PyTree:
+    """Index the leading (layer) dim of every leaf."""
+    return _tree_map(lambda x: x[i], tree)
+
+
+def from_numpy(tree: PyTree, device: Device = "cuda") -> PyTree:
+    """A param tree of numpy arrays (a JAX-made tree through
+    ``np.asarray``) as tensors on ``device``, in the same layout and
+    dtypes. Values are copied, never reinterpreted."""
+    dev = resolve_device(device)
+    return _tree_map(
+        lambda a: torch.as_tensor(np.array(a, copy=True)).to(dev), tree)
+
+
+def to_numpy(tree: PyTree) -> PyTree:
+    """The inverse of :func:`from_numpy`: the tree as numpy arrays."""
+    return _tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.params import resolve_device
 
 BLOCK_KINDS = ("embed", "attn_block", "quantize", "mlp")
 
@@ -275,11 +276,13 @@ def fake_quant(x, kernel: str = "ref"):
 
 
 def init(spec: TowerSpec, generator: torch.Generator,
-         device: Union[str, torch.device] = "cpu") -> List[Any]:
+         device: Union[str, torch.device] = "cuda") -> List[Any]:
     """Initialize tower params: one entry per block, drawn on the CPU
     from ``generator`` (the same tree on every device) and placed on
-    ``device``. Same distributions as the JAX package's ``init``."""
-    return [_to(_BLOCK_INIT[b["kind"]](b, generator), device)
+    ``device`` (a CUDA device on a machine without one raises). Same
+    distributions as the JAX package's ``init``."""
+    dev = resolve_device(device)
+    return [_to(_BLOCK_INIT[b["kind"]](b, generator), dev)
             for b in spec.blocks]
 
 
@@ -340,13 +343,14 @@ def _to(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
 
 
-def from_numpy(params, device: Union[str, torch.device] = "cpu"
+def from_numpy(params, device: Union[str, torch.device] = "cuda"
                ) -> List[Any]:
     """A param tree of numpy arrays (a JAX-made tree through
     ``np.asarray``, or a checkpoint) as tensors on ``device``, in the
     same layout. Values are copied, never reinterpreted."""
+    dev = resolve_device(device)
     return _tree_map(
-        lambda a: torch.as_tensor(np.array(a, copy=True)).to(device),
+        lambda a: torch.as_tensor(np.array(a, copy=True)).to(dev),
         list(params))
 
 

@@ -1,5 +1,6 @@
-"""Federated serving for the PyTorch port. Unlike the JAX package's
-``repro.serve`` this imports no LLM engine: the port has none yet."""
+"""Serving for the PyTorch port: the model zoo's batched engine and the
+federated server."""
+from repro_torch.serve.engine import ServeEngine  # noqa: F401
 from repro_torch.serve.federated import (AdmissionError,  # noqa: F401
                                          FederatedServer, ServeCfg,
                                          ServeClient, ServeFrontend,

@@ -18,6 +18,7 @@ from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quantize as tq  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rwkv6_wkv as twkv  # noqa: E402
 
 ATT_CASES = [
     # b, h, kvh, s, dh, causal, window, dtype (tests/test_kernels.py)
@@ -107,13 +108,81 @@ def test_quantize_ref_bfloat16_input():
     np.testing.assert_array_equal(scale.numpy(), np.asarray(js))
 
 
+WKV_CASES = [
+    # b, h, s, dh, dtype (tests/test_kernels.py)
+    (1, 2, 64, 32, "float32"),
+    (2, 4, 128, 64, "float32"),
+    (1, 2, 128, 32, "bfloat16"),
+]
+
+
+def _wkv_inputs(b, h, s, dh, seed):
+    """r, k, v, w (b, h, s, dh) and u (h, dh) as numpy f32, drawn as the
+    JAX kernel test draws them (w = sigmoid(normal) * 0.5 + 0.45)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, h, s, dh)) for _ in range(3))
+    w = 1 / (1 + np.exp(-rng.normal(size=(b, h, s, dh)))) * 0.5 + 0.45
+    u = rng.normal(size=(h, dh)) * 0.3
+    return [a.astype(np.float32) for a in (r, k, v, w, u)]
+
+
+@pytest.mark.parametrize("b,h,s,dh,dtype", WKV_CASES)
+def test_rwkv6_ref_matches_jax(b, h, s, dh, dtype):
+    r, k, v, w, u = _wkv_inputs(b, h, s, dh, h * s)
+    (rj, rt), (kj, kt), (vj, vt), (wj, wt) = (_both(a, dtype)
+                                              for a in (r, k, v, w))
+    y, s_fin = tref.rwkv6_ref(rt, kt, vt, wt, torch.from_numpy(u))
+    assert y.dtype == s_fin.dtype == torch.float32
+    assert y.shape == (b, h, s, dh) and s_fin.shape == (b, h, dh, dh)
+    tol = 5e-2 if dtype == "bfloat16" else 5e-5
+    uj = jnp.asarray(u)
+    for ey, es in (jref.rwkv6_ref(rj, kj, vj, wj, uj),
+                   jops.rwkv6_wkv(rj, kj, vj, wj, uj, chunk=32,
+                                  interpret=True)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(ey), atol=tol,
+                                   rtol=tol)
+        np.testing.assert_allclose(s_fin.numpy(), np.asarray(es),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_ref_ragged_length_and_state(with_s0):
+    """A length no chunk divides (the Pallas kernel refuses it) and a
+    nonzero starting state, against the JAX oracle."""
+    b, h, s, dh = 2, 3, 100, 32
+    r, k, v, w, u = _wkv_inputs(b, h, s, dh, 11)
+    s0 = (np.random.default_rng(12).normal(size=(b, h, dh, dh)) * 0.5
+          ).astype(np.float32) if with_s0 else None
+    y, s_fin = tref.rwkv6_ref(
+        *map(torch.from_numpy, (r, k, v, w, u)),
+        None if s0 is None else torch.from_numpy(s0))
+    ey, es = jref.rwkv6_ref(*map(jnp.asarray, (r, k, v, w, u)),
+                            None if s0 is None else jnp.asarray(s0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ey), atol=5e-5,
+                               rtol=5e-5)
+    np.testing.assert_allclose(s_fin.numpy(), np.asarray(es), atol=5e-5,
+                               rtol=5e-5)
+
+
 @pytest.fixture
 def counters():
-    tfa.launches.reset()
-    tq.launches.reset()
+    for c in (tfa.launches, tq.launches, twkv.launches):
+        c.reset()
     yield
-    tfa.launches.reset()
-    tq.launches.reset()
+    for c in (tfa.launches, tq.launches, twkv.launches):
+        c.reset()
+
+
+def test_ops_rwkv6_wkv_dispatch_on_cpu(counters):
+    r, k, v, w, u = map(torch.from_numpy, _wkv_inputs(1, 2, 16, 32, 3))
+    exp = tref.rwkv6_ref(r, k, v, w, u)
+    for got in (tops.rwkv6_wkv(r, k, v, w, u),
+                tops.rwkv6_wkv(r, k, v, w, u, kernel="ref"),
+                twkv.rwkv6_wkv(r, k, v, w, u)):
+        assert all(torch.equal(a, b) for a, b in zip(got, exp))
+    with pytest.raises(ValueError, match="kernel='pallas'"):
+        tops.rwkv6_wkv(r, k, v, w, u, kernel="pallas")
+    assert twkv.launches.count == 0
 
 
 def test_ops_auto_takes_plain_version_on_cpu(counters):
@@ -151,7 +220,7 @@ def test_kernel_sources_build_flags():
     math (quantize needs an IEEE division to agree bit for bit)."""
     from repro_torch.kernels import _build
     names = [s.name for s in _build.sources()]
-    assert names == ["flash_attention.cu", "quantize.cu"]
+    assert names == ["flash_attention.cu", "quantize.cu", "rwkv6_wkv.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     for s in _build.sources():

@@ -97,15 +97,15 @@ def _leaves_with_paths(tree, path=()):
                                     ("mlp:hidden=16|12",)])
 def test_init_layout_matches_jax(blocks):
     spec = ttwr.resolve(blocks, 13, 8)
-    mine = ttwr.init(spec, torch.Generator().manual_seed(0))
+    mine = ttwr.init(spec, torch.Generator().manual_seed(0), "cpu")
     theirs = _jax_params(jtwr.resolve(blocks, 13, 8), 0)
     a = [(p, tuple(t.shape), t.dtype) for p, t in _leaves_with_paths(mine)]
     b = [(p, tuple(x.shape), torch.float32)
          for p, x in _leaves_with_paths(theirs)]
     assert a == b
     # the same seed gives the same tree; another seed another one
-    again = ttwr.init(spec, torch.Generator().manual_seed(0))
-    other = ttwr.init(spec, torch.Generator().manual_seed(1))
+    again = ttwr.init(spec, torch.Generator().manual_seed(0), "cpu")
+    other = ttwr.init(spec, torch.Generator().manual_seed(1), "cpu")
     assert all(torch.equal(x, y) for (_, x), (_, y) in
                zip(_leaves_with_paths(mine), _leaves_with_paths(again)))
     assert not all(torch.equal(x, y) for (_, x), (_, y) in
@@ -183,7 +183,7 @@ def test_from_numpy_roundtrip_and_cost():
 def test_kernel_pallas_on_cpu_raises():
     spec = ttwr.resolve(("embed:tokens=4,dim=16",
                          "attn_block:heads=2,kernel=pallas", "mlp"), 13, 8)
-    params = ttwr.init(spec, torch.Generator().manual_seed(0))
+    params = ttwr.init(spec, torch.Generator().manual_seed(0), "cpu")
     with torch.no_grad(), pytest.raises(ValueError,
                                         match="kernel='pallas'"):
         ttwr.apply(spec, params, torch.zeros((2, 13)))
@@ -191,7 +191,7 @@ def test_kernel_pallas_on_cpu_raises():
 
 def test_forward_through_kernel_blocks_refuses_grad():
     spec = ttwr.resolve(NARROW, 13, 8)
-    params = ttwr.init(spec, torch.Generator().manual_seed(0))
+    params = ttwr.init(spec, torch.Generator().manual_seed(0), "cpu")
     x = torch.zeros((2, 13), requires_grad=True)
     with pytest.raises(NotImplementedError, match="training slice"):
         ttwr.apply(spec, params, x)
