@@ -39,9 +39,28 @@ NVIDIA GPU.
    more under ``torch.profiler`` to print where their device time goes
    (the WKV kernel, matmuls, the rest; the top kernels) and the device's
    busy share, and times the WKV kernel as in step 5;
-7. prints all kernels in one ``kernels`` JSON line with each kernel's
-   least possible time, then ``{"ok": true, "device": {...}}`` as its
-   last line.
+7. serves ``granite-moe-3b-a800m`` from the model zoo at full width and
+   depth (32 layers, d_model 1536, 24 query and 8 KV heads of 64, 40
+   experts top-8 of width 512, vocab 49155; 3.37 B params, 13.5 GB in
+   f32, drawn on the card from a seed) after the rwkv6-7b weights are
+   freed: the grouped-expert-matmul kernel first against its plain
+   version at the path's four shapes (gate/up and down at the
+   prefill's capacity 512 and at decode's capacity 4) and at the JAX package's
+   kernel-test shapes, within 2e-4 (f32) / 5e-2 (bf16), and the
+   flash-attention kernel at the prefill shape (causal, GQA 3:1) within
+   2e-5; then ``score`` of a (4, 512) batch, which must give a finite
+   loss with exactly 96 grouped-matmul launches (3 a layer) and 32
+   flash-attention launches; the same ``score`` with group-local
+   dispatch (``moe_group_dispatch``), again 96 launches; decode-vs-
+   prefill logits over 64 tokens within 2e-3 at the capacity where no
+   assignment drops (``capacity_factor`` = 40 / 8); greedy ``generate``
+   of 16 tokens from 4 prompts of 16; prefill and decode tokens/s and
+   the same profiles as step 6 (device time of the grouped matmul, the
+   attention kernel, matmuls and the rest); and it times both kernels
+   at the path's shapes as in step 5, beside ``torch.bmm`` and SDPA;
+8. prints all kernels in one ``kernels`` JSON line with each kernel's
+   least possible time and its launches on each path, then
+   ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero; it needs the repo's
 ``src/repro_torch`` beside it and a CUDA device, and prints no result
@@ -49,6 +68,8 @@ without them. It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -83,6 +104,19 @@ WKV_CASES = [
     (1, 2, 64, 32, "float32"),
     (2, 4, 128, 64, "float32"),
     (1, 2, 128, 32, "bfloat16"),
+]
+
+# the MoE phase: granite-moe-3b-a800m at full width and depth, f32
+MOE_ARCH = "granite-moe-3b-a800m"
+GMM_CASES = [
+    # e, c, d, f, dtype name (tests/test_kernels.py), then capacities,
+    # depths and widths no tile divides
+    (4, 128, 64, 96, "float32"),
+    (8, 256, 128, 128, "float32"),
+    (2, 128, 128, 64, "bfloat16"),
+    (3, 37, 50, 33, "float32"),
+    (3, 37, 50, 33, "bfloat16"),
+    (2, 65, 24, 72, "bfloat16"),
 ]
 
 TOWER = ("embed:tokens=8,dim=64", "attn_block:heads=4", "quantize",
@@ -158,6 +192,15 @@ def graph_ms(fn, reps: int = 100, trials: int = 15) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _event_ms(graph.replay, reps, trials)
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time of a call: ``nbytes`` over the memory rate or
+    ``ops`` over the f32 rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_FLOP_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def check_kernels(torch, dev):
@@ -339,8 +382,8 @@ def plain_scores(torch, dev, cfg, master, members, results, rows):
 
 
 def time_kernels(torch, dev):
-    """Phase 5: CUDA-event times at the path's shapes (inputs hot in L2,
-    as the path's preceding matmuls leave them)."""
+    """Phase 5: the split-NN kernels timed at the path's shapes (inputs
+    hot in L2, as the path's preceding matmuls leave them)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
@@ -350,39 +393,41 @@ def time_kernels(torch, dev):
     q, k, v = (torch.randn((r, HEADS, TOKENS, DIM // HEADS),
                            generator=g).to(dev) for _ in range(3))
     x = torch.randn((TOKENS * r, DIM), generator=g).to(dev)
-    calls = {
-        "flash_attention": (
-            lambda: fa.flash_attention(q, k, v, causal=False),
-            lambda: ref.attention_ref(q, k, v, causal=False),
-            lambda: F.scaled_dot_product_attention(q, k, v)),
-        "quantize_int8": (lambda: qz.quantize_int8(x),
-                          lambda: ref.quantize_int8_ref(x), None)}
-    out = {}
-    for name, (kernel, plain, library) in calls.items():
-        # device times from graph replay; the eager time per call is
-        # kept beside them, since the host dispatch bounds it
-        out[name] = {
-            "ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
-            "library_ms": graph_ms(library) if library else None,
-            "eager_ms": eager_ms(kernel),
-            "plain_eager_ms": eager_ms(plain)}
-    att, quant = out["flash_attention"], out["quantize_int8"]
-    # least time: bytes each input read once and each output written
-    # once over the memory rate, or operations over the f32 rate
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
-    att_bytes = 2 * nbytes(q) + nbytes(k, v)
     b, h, s, dh = q.shape
-    att_flops = 4.0 * b * h * s * s * dh          # q.k and p.v
+    att = time_call(lambda: fa.flash_attention(q, k, v, causal=False),
+                    lambda: ref.attention_ref(q, k, v, causal=False),
+                    lambda: F.scaled_dot_product_attention(q, k, v),
+                    2 * nbytes(q) + nbytes(k, v),
+                    4.0 * b * h * s * s * dh)          # q.k and p.v
     qo, so = qz.quantize_int8(x)
-    quant_bytes = nbytes(x, qo, so)
-    quant_ops = 5.0 * x.numel()     # abs, max, divide, round, clamp
-    for d, by, work in ((att, att_bytes, att_flops),
-                        (quant, quant_bytes, quant_ops)):
-        t_bytes = by / HBM_BYTES_S * 1e3
-        t_ops = work / F32_FLOP_S * 1e3
-        d["bound_ms"] = max(t_bytes, t_ops)
-        d["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    quant = time_call(lambda: qz.quantize_int8(x),
+                      lambda: ref.quantize_int8_ref(x), None,
+                      nbytes(x, qo, so),
+                      5.0 * x.numel())  # abs, max, divide, round, clamp
     return att, quant
+
+
+def time_call(kernel, plain, library, nbytes: float, ops: float,
+              timing: dict | None = None,
+              plain_timing: dict | None = None) -> dict:
+    """CUDA-event times of a kernel's wrapper, its plain version and the
+    one PyTorch call that computes the same function (``library``, None
+    where there is none), all on the same inputs, and the least time of
+    ``nbytes`` and ``ops`` (``_bound``: each input read once and each
+    output written once, the operations at the f32 rate). Device times
+    come from graph replay; the eager times per call stand beside them,
+    since the host's dispatch bounds those. ``timing`` and
+    ``plain_timing`` are ``graph_ms`` / ``eager_ms`` keywords."""
+    timing = timing or {}
+    plain_timing = plain_timing or timing
+    out = {"ms": graph_ms(kernel, **timing),
+           "eager_ms": eager_ms(kernel, **timing),
+           "plain_ms": graph_ms(plain, **plain_timing),
+           "plain_eager_ms": eager_ms(plain, **plain_timing),
+           "library_ms": graph_ms(library, **timing) if library else None}
+    out.update(_bound(nbytes, ops))
+    return out
 
 
 def wkv_inputs(torch, dev, b, h, s, dh, dtype, g):
@@ -430,15 +475,10 @@ def zoo_config():
     return cfg
 
 
-def serve_zoo(torch, dev):
-    """Phase 6b: rwkv6-7b served at full width and depth through
-    ``ServeEngine``. Returns (WKV launches in the counted ``score``,
-    measured numbers)."""
-    import numpy as np
-    from repro_torch.kernels import rwkv6_wkv as wkv
+def draw_params(torch, dev, cfg):
+    """The model's f32 params, drawn on the card from seed 0; logs their
+    count and size."""
     from repro_torch.models import params as PRM, transformer as T
-    from repro_torch.serve.engine import ServeEngine
-    cfg = zoo_config()
     t0 = time.perf_counter()
     with torch.inference_mode():
         params = PRM.init_tree(T.model_spec(cfg),
@@ -447,89 +487,160 @@ def serve_zoo(torch, dev):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     # the spec's count is above the config's analytic one, which leaves
-    # out the norms and mixes and counts the gate as a LoRA, where the
-    # spec (the JAX package's) has a full projection
-    log(f"{ZOO_ARCH}: {n_params:,} params ({cfg.param_count():,} by the "
-        f"config's count) in f32, {n_params * 4 / 1e9:.2f} GB, drawn on "
-        f"the card in {time.perf_counter() - t0:.1f} s")
-    engine = ServeEngine(cfg, params, max_seq=GEN_PROMPT + GEN_NEW + 1,
-                         dtype=torch.float32, device=dev)
-    rng = np.random.default_rng(0)
-    toks = rng.integers(0, cfg.vocab, (SCORE_BATCH, SCORE_TOKENS))
-    torch.cuda.reset_peak_memory_stats()
-    engine.score(toks)                 # warm-up: cuBLAS, the library
-    torch.cuda.synchronize()
-    wkv.launches.reset()
-    t0 = time.perf_counter()
-    loss = engine.score(toks)
-    torch.cuda.synchronize()
-    score_s = time.perf_counter() - t0
-    launches = wkv.launches.count
-    if launches != cfg.n_layers:
-        raise AssertionError(f"score launched the WKV kernel {launches} "
-                             f"times, expected {cfg.n_layers}")
-    if not np.isfinite(loss):
-        raise AssertionError(f"score gave a non-finite loss {loss}")
-    prefill_tok = SCORE_BATCH * (SCORE_TOKENS - 1)
-    log(f"score of ({SCORE_BATCH}, {SCORE_TOKENS}) tokens: loss "
-        f"{loss:.6f} (ln vocab {np.log(cfg.vocab):.6f}) in "
-        f"{score_s * 1e3:.1f} ms, {launches} WKV launches")
-    log(f"prefill tokens/s: {prefill_tok / score_s:.1f}")
-    prof_prefill = profile_window(torch, lambda: engine.score(toks), score_s)
-    log("zoo profile prefill " + json.dumps(prof_prefill))
+    # out the norms (and for rwkv6-7b the mixes, and counts its gate as a
+    # LoRA where the spec, the JAX package's, has a full projection)
+    log(f"{cfg.arch_id}: {n_params:,} params ({cfg.param_count():,} by "
+        f"the config's count) in f32, {n_params * 4 / 1e9:.2f} GB, drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    return params
 
-    # decode (no WKV kernel) against prefill (the kernel) on one sequence
-    seq = torch.as_tensor(rng.integers(0, cfg.vocab, (1, CONSIST_TOKENS)),
-                          device=dev)
+
+def decode_vs_prefill(torch, dev, cfg, params, seq) -> float:
+    """Teacher-forced ``decode_step`` logits of the tokens ``seq`` (1, s)
+    against ``forward``'s, each within 2e-3; returns the largest
+    difference."""
+    from repro_torch.models import transformer as T
+    err = 0.0
     with torch.inference_mode():
         ref_logits, _ = T.forward(cfg, params, {"tokens": seq},
                                   torch.float32)
-        cache = engine.init_cache(1)
-        consist_err = 0.0
-        for i in range(CONSIST_TOKENS):
+        cache = T.init_cache(cfg, 1, seq.shape[1], torch.float32, dev)
+        for i in range(seq.shape[1]):
             logits, cache = T.decode_step(cfg, params, seq[:, i:i + 1],
                                           cache, i, None, torch.float32)
             torch.testing.assert_close(logits[:, 0], ref_logits[:, i],
                                        rtol=2e-3, atol=2e-3)
-            consist_err = max(consist_err, (logits[:, 0] - ref_logits[:, i]
-                                            ).abs().max().item())
-        del cache, ref_logits
-    log(f"decode vs prefill logits over {CONSIST_TOKENS} tokens: "
-        f"max_abs_err {consist_err:.3e} (tol 2e-3)")
+            err = max(err, (logits[:, 0] - ref_logits[:, i]
+                            ).abs().max().item())
+    return err
 
-    prompts = rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))
-    engine.generate(prompts[:, :2], 2)          # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = engine.generate(prompts, GEN_NEW)
-    gen_s = time.perf_counter() - t0
+
+def check_generated(out, prompts, vocab: int) -> None:
+    """``generate``'s output: the prompts, then GEN_NEW in-vocab tokens."""
+    import numpy as np
     if out.shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW) \
-            or not ((out >= 0) & (out < cfg.vocab)).all() \
+            or not ((out >= 0) & (out < vocab)).all() \
             or not np.array_equal(out[:, :GEN_PROMPT], prompts):
         raise AssertionError(f"generate gave {out.shape} {out[:, -4:]}")
+
+
+def serve_model(torch, dev, cfg, tag: str, kernels: dict,
+                variants: dict | None = None):
+    """Phases 6b and 7b: ``cfg`` served at full width and depth through
+    ``ServeEngine``, on f32 weights drawn on the card: ``score`` of a
+    (4, 512) batch, which must give a finite loss (router losses
+    included where the model has them); the same ``score`` through an
+    engine of each config in ``variants`` (name -> config) on the same
+    weights; decode-vs-prefill logits; greedy ``generate``; prefill and
+    decode tokens/s and their profiles. ``kernels`` maps each kernel of
+    the path to (its launch counter, its launches in a ``score``, its
+    launches in a decode step): each counted run sets every count to 0
+    just before it and must read exactly those just after. Returns (the
+    launches of each counted run, by ``{tag}_{run}``, the measured
+    numbers)."""
+    import numpy as np
+    from repro_torch.serve.engine import ServeEngine
+    params = draw_params(torch, dev, cfg)
+    steps = GEN_PROMPT + GEN_NEW - 1
+    per_score = {name: n for name, (_, n, _) in kernels.items()}
+    per_generate = {name: n * steps for name, (_, _, n) in kernels.items()}
+    launches = {}
+
+    def counted(run, fn, expected):
+        for counter, _, _ in kernels.values():
+            counter.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: c.count for name, (c, _, _) in kernels.items()}
+        launches[f"{tag}_{run}"] = got
+        if got != expected:
+            raise AssertionError(f"{cfg.arch_id} {run} launched {got}, "
+                                 f"expected {expected}")
+        return out, wall
+
+    def engine(c):
+        return ServeEngine(c, params, max_seq=GEN_PROMPT + GEN_NEW + 1,
+                           dtype=torch.float32, device=dev)
+
+    eng = engine(cfg)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (SCORE_BATCH, SCORE_TOKENS))
+    torch.cuda.reset_peak_memory_stats()
+    eng.score(toks)                    # warm-up: cuBLAS, the library
+    torch.cuda.synchronize()
+    loss, score_s = counted("score", lambda: eng.score(toks), per_score)
+    if not np.isfinite(loss):
+        raise AssertionError(f"score gave a non-finite loss {loss}")
+    prefill_tok = SCORE_BATCH * (SCORE_TOKENS - 1)
+    log(f"{cfg.arch_id} score of ({SCORE_BATCH}, {SCORE_TOKENS}) tokens: "
+        f"loss {loss:.6f} (ln vocab {np.log(cfg.vocab):.6f}) in "
+        f"{score_s * 1e3:.1f} ms; launches {launches[f'{tag}_score']}")
+    log(f"{cfg.arch_id} prefill tokens/s: {prefill_tok / score_s:.1f}")
+    prof_prefill = profile_window(torch, lambda: eng.score(toks), score_s)
+    log(f"{tag} profile prefill " + json.dumps(prof_prefill))
+    measured = {"loss": loss, "score_s": score_s,
+                "prefill_tok_s": prefill_tok / score_s}
+
+    for name, vcfg in (variants or {}).items():
+        v = engine(vcfg)
+        v_loss, v_s = counted(f"{name}_score", lambda: v.score(toks),
+                              per_score)
+        if not np.isfinite(v_loss):
+            raise AssertionError(f"{name} score gave a non-finite loss "
+                                 f"{v_loss}")
+        log(f"{cfg.arch_id} {name} score: loss {v_loss:.6f} in "
+            f"{v_s * 1e3:.1f} ms (one call, not warmed up); launches "
+            f"{launches[f'{tag}_{name}_score']}")
+        measured.update({f"{name}_loss": v_loss, f"{name}_score_s": v_s})
+        del v
+
+    # decode against prefill where no assignment drops: capacity_factor
+    # E / top_k gives every expert room for every token, at any count
+    nd = cfg
+    if cfg.moe is not None:
+        m = cfg.moe
+        nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab, (1, CONSIST_TOKENS)),
+                          device=dev)
+    consist_err = decode_vs_prefill(torch, dev, nd, params, seq)
+    at = "" if nd.moe is None else \
+        f" at capacity_factor {nd.moe.capacity_factor}"
+    log(f"{cfg.arch_id} decode vs prefill logits over {CONSIST_TOKENS} "
+        f"tokens{at}: max_abs_err {consist_err:.3e} (tol 2e-3)")
+
+    prompts = rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))
+    eng.generate(prompts[:, :2], 2)             # warm-up
+    torch.cuda.synchronize()
+    out, gen_s = counted("generate",
+                         lambda: eng.generate(prompts, GEN_NEW), per_generate)
+    check_generated(out, prompts, cfg.vocab)
     # every decode step advances the whole batch by one token: the
     # prompt's teacher-forced steps and the new tokens' (the last new
     # token needs no step of its own)
-    decode_tok = GEN_BATCH * (GEN_PROMPT + GEN_NEW - 1)
-    log(f"generate {GEN_NEW} tokens from {GEN_BATCH} prompts of "
-        f"{GEN_PROMPT}: {gen_s * 1e3:.1f} ms; first new tokens "
+    decode_tok = GEN_BATCH * steps
+    log(f"{cfg.arch_id} generate {GEN_NEW} tokens from {GEN_BATCH} prompts "
+        f"of {GEN_PROMPT}: {gen_s * 1e3:.1f} ms; launches "
+        f"{launches[f'{tag}_generate']}; first new tokens "
         f"{out[:, GEN_PROMPT:GEN_PROMPT + 4].tolist()}")
-    log(f"decode tokens/s: {decode_tok / gen_s:.1f}")
+    log(f"{cfg.arch_id} decode tokens/s: {decode_tok / gen_s:.1f}")
     prof_decode = profile_window(
-        torch, lambda: engine.generate(prompts, GEN_NEW), gen_s)
-    log("zoo profile decode " + json.dumps(prof_decode))
+        torch, lambda: eng.generate(prompts, GEN_NEW), gen_s)
+    log(f"{tag} profile decode " + json.dumps(prof_decode))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"peak device memory {peak:.2f} GiB")
-    del engine, params
+    log(f"{cfg.arch_id} peak device memory {peak:.2f} GiB")
+    del eng, params
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches, {"loss": loss, "score_s": score_s,
-                      "prefill_tok_s": prefill_tok / score_s,
-                      "consist_err": consist_err, "generate_s": gen_s,
-                      "decode_tok_s": decode_tok / gen_s,
-                      "prefill_busy_share":
-                          prof_prefill["device_busy_share"],
-                      "decode_busy_share": prof_decode["device_busy_share"],
-                      "peak_gib": peak}
+    measured.update({"consist_err": consist_err, "generate_s": gen_s,
+                     "decode_tok_s": decode_tok / gen_s,
+                     "prefill_busy_share": prof_prefill["device_busy_share"],
+                     "decode_busy_share": prof_decode["device_busy_share"],
+                     "peak_gib": peak})
+    log(f"{tag} " + json.dumps(measured))
+    return launches, measured
 
 
 def _device_us(e) -> float:
@@ -539,7 +650,8 @@ def _device_us(e) -> float:
 
 def profile_window(torch, fn, wall_s: float) -> dict:
     """Runs ``fn`` once under ``torch.profiler`` and sums its kernels'
-    device time, by kind (the WKV kernel, matmuls, the rest) and for the
+    device time, by kind (the port's WKV, grouped-matmul and attention
+    kernels, library matmuls, the rest) and for the
     six longest kernels. The busy share is that device time over
     ``wall_s``, the wall time of the same call timed without the
     profiler: the profiler slows the host's dispatch, not the kernels,
@@ -555,10 +667,13 @@ def profile_window(torch, fn, wall_s: float) -> dict:
                and "cuda" in str(e.device_type).lower()
                and _device_us(e) > 0]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    kinds = {"wkv": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {"wkv": 0.0, "gmm": 0.0, "attention": 0.0, "matmul": 0.0,
+             "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         kind = ("wkv" if "rwkv6_wkv" in name else
+                "gmm" if "moe_gmm" in name else
+                "attention" if "flash_attention" in name else
                 "matmul" if any(m in name for m in MATMUL_MARKS) else
                 "other")
         kinds[kind] += _device_us(e) / 1e3
@@ -587,14 +702,6 @@ def time_wkv(torch, dev):
                    SCORE_TOKENS - 1, cfg.rwkv.head_dim)
     g = torch.Generator().manual_seed(6)
     ins = wkv_inputs(torch, dev, b, h, s, dh, torch.float32, g)
-    kernel = lambda: wkv.rwkv6_wkv(*ins)           # noqa: E731
-    plain = lambda: ref.rwkv6_ref(*ins)            # noqa: E731
-    out = {"ms": graph_ms(kernel), "eager_ms": eager_ms(kernel),
-           # the plain version is a loop of ~3,000 small kernels a call
-           "plain_ms": graph_ms(plain, reps=2, trials=5),
-           "plain_eager_ms": eager_ms(plain, reps=2, trials=5),
-           # no PyTorch call computes the WKV recurrence
-           "library_ms": None}
     # least time: r, k, v, w read once, y and S_final written once; and
     # the least f32 work of a step of one (batch, head) pair, 5 * dh^2
     # flops (read-out r.S: dh^2 FMAs; update w*S + k v^T: a multiply
@@ -602,14 +709,130 @@ def time_wkv(torch, dev):
     nbytes = 4 * ins[0].numel() * 4 + ins[4].numel() * 4 \
         + b * h * s * dh * 4 + b * h * dh * dh * 4
     flops = 5.0 * b * h * s * dh * dh
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / F32_FLOP_S * 1e3
-    out["bound_ms"] = max(t_bytes, t_ops)
-    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out = time_call(lambda: wkv.rwkv6_wkv(*ins), lambda: ref.rwkv6_ref(*ins),
+                    None,        # no PyTorch call computes the recurrence
+                    nbytes, flops,
+                    # the plain version is a loop of ~3,000 small kernels
+                    plain_timing=dict(reps=2, trials=5))
     log(f"rwkv6_wkv at {(b, h, s, dh)} f32: {nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.2f} GFLOP; bound {out['bound_ms'] * 1e3:.1f} us "
         f"({out['bound_by']})")
     return out
+
+
+def moe_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, m.num_experts, m.top_k, m.d_expert, cfg.vocab) == \
+        (32, 1536, 24, 8, 64, 40, 8, 512, 49155), \
+        "the full granite-moe-3b-a800m config"
+    assert cfg.block_pattern == (("attn", "moe"),)
+    return cfg
+
+
+def gmm_path_shapes(cfg):
+    """(name, (e, c, d, f)) of the grouped-matmul calls on the MoE path:
+    gate/up (two launches a layer) and down (one) at the capacity of a
+    (4, 511)-token ``score`` and at that of a batch-4 decode step."""
+    from repro_torch.models import moe
+    pre = moe._capacity(SCORE_BATCH * (SCORE_TOKENS - 1), cfg)
+    dec = moe._capacity(GEN_BATCH, cfg)
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+    return [("prefill_gate_up", (e, pre, d, f)),
+            ("prefill_down", (e, pre, f, d)),
+            ("decode_gate_up", (e, dec, d, f)),
+            ("decode_down", (e, dec, f, d))]
+
+
+def moe_attention_shapes(cfg):
+    """q and k/v shapes of the MoE model's prefill self-attention."""
+    s = SCORE_TOKENS - 1
+    return ((SCORE_BATCH, cfg.n_heads, s, cfg.head_dim),
+            (SCORE_BATCH, cfg.n_kv_heads, s, cfg.head_dim))
+
+
+def check_moe_kernels(torch, dev, cfg):
+    """Phase 7a: the grouped-matmul kernel against its plain version at
+    the MoE path's shapes and the JAX kernel test's, and the attention
+    kernel at the MoE prefill's shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(8)
+    errs = {}
+    cases = [(name, shape + ("float32",))
+             for name, shape in gmm_path_shapes(cfg)]
+    for name, case in cases + [(None, c) for c in GMM_CASES]:
+        e, c, d, f, dt = case
+        dtype = getattr(torch, dt)
+        x = torch.randn((e, c, d), generator=g)
+        w = torch.randn((e, d, f), generator=g)
+        if name:
+            # the path's magnitudes: rmsnorm-ed activations, weights of
+            # std 1/sqrt(d) at most (the spec's std is smaller still)
+            w = w * d ** -0.5
+        x, w = x.to(dtype).to(dev), w.to(dtype).to(dev)
+        out = gmm.moe_gmm(x, w)
+        exp = ref.gmm_ref(x, w)
+        torch.cuda.synchronize()
+        tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                   rtol=tol)
+        err = (out.float() - exp.float()).abs().max().item()
+        log(f"moe_gmm {case}: max_abs_err {err:.3e} (atol = rtol = {tol})")
+        if name:
+            errs[name] = err
+    qs, ks = moe_attention_shapes(cfg)
+    q = torch.randn(qs, generator=g).to(dev)
+    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal=True)
+    exp = ref.attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
+    errs["attention"] = (out - exp).abs().max().item()
+    log(f"attention q {qs} k/v {ks} causal f32: max_abs_err "
+        f"{errs['attention']:.3e} (tol 2e-5)")
+    return errs
+
+
+def time_moe_kernels(torch, dev, cfg):
+    """Phase 7c: the grouped matmul at the MoE path's four shapes and
+    the attention kernel at its prefill shape, beside ``torch.bmm`` and
+    SDPA (yardsticks only: the port calls neither)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(9)
+    few = dict(reps=20, trials=10)
+    gmm_t = {}
+    for name, (e, c, d, f) in gmm_path_shapes(cfg):
+        x = torch.randn((e, c, d), generator=g).to(dev)
+        w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
+        # x and w read once, the output written once; 2 e c d f flops
+        t = time_call(lambda: gmm.moe_gmm(x, w), lambda: ref.gmm_ref(x, w),
+                      lambda: torch.bmm(x, w),
+                      (x.numel() + w.numel() + e * c * f) * 4,
+                      2.0 * e * c * d * f, few)
+        log(f"moe_gmm {name} {(e, c, d, f)} f32: {t}")
+        gmm_t[name] = t
+    qs, ks = moe_attention_shapes(cfg)
+    q = torch.randn(qs, generator=g).to(dev)
+    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    # q, k, v read once, o written once; q.k and p.v over the causal
+    # pairs only, s (s + 1) / 2 a (batch, head)
+    b, h, s, dh = qs
+    att = time_call(lambda: fa.flash_attention(q, k, v, causal=True),
+                    lambda: ref.attention_ref(q, k, v, causal=True),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True),
+                    (2 * q.numel() + k.numel() + v.numel()) * 4,
+                    4.0 * b * h * dh * s * (s + 1) / 2, few)
+    log(f"flash_attention {MOE_ARCH} prefill q {qs} k/v {ks} causal f32: "
+        f"{att}")
+    return gmm_t, att
 
 
 def main() -> int:
@@ -666,10 +889,45 @@ def main() -> int:
 
     att, quant = time_kernels(torch, dev)
 
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import rwkv6_wkv as wkv
     errs["rwkv6_wkv"] = check_wkv(torch, dev)
-    counts["rwkv6_wkv"], zoo = serve_zoo(torch, dev)
+    zoo_cfg = zoo_config()
+    # one WKV launch a layer in prefill; decode's one-step update has none
+    zoo_launches, _ = serve_model(
+        torch, dev, zoo_cfg, "rwkv6",
+        {"rwkv6_wkv": (wkv.launches, zoo_cfg.n_layers, 0)})
     wkv_t = time_wkv(torch, dev)
-    log("zoo " + json.dumps(zoo))
+
+    # the rwkv6-7b weights are freed by now
+    moe_cfg = moe_config()
+    moe_errs = check_moe_kernels(torch, dev, moe_cfg)
+    n = moe_cfg.n_layers      # every layer is (attn, moe): gate, up, down
+    moe_launches, _ = serve_model(
+        torch, dev, moe_cfg, "granite",
+        {"moe_gmm": (gmm.launches, 3 * n, 3 * n),
+         "flash_attention": (fa.launches, n, 0)},
+        {"grouped": dataclasses.replace(moe_cfg, moe_group_dispatch=True)})
+    gmm_t, moe_att = time_moe_kernels(torch, dev, moe_cfg)
+
+    # launches of each kernel on each path's counted run
+    by_path = {
+        "flash_attention": {"split_nn_serve": counts["flash_attention"]},
+        "quantize_int8": {"split_nn_serve": counts["quantize_int8"]},
+        "rwkv6_wkv": {}, "moe_gmm": {}}
+    for run, got in (zoo_launches | moe_launches).items():
+        for name, c in got.items():
+            by_path[name][run] = c
+    errs["moe_gmm"] = max(moe_errs[name] for name, _ in
+                          gmm_path_shapes(moe_cfg))
+    extra = {
+        # the attention kernel's times at the MoE prefill's shape
+        "flash_attention": {"granite_prefill": dict(
+            moe_att, max_abs_err=moe_errs["attention"])},
+        # the grouped matmul's at each of its four shapes; the top-level
+        # times are those of the prefill's gate/up
+        "moe_gmm": {"shapes": gmm_t}}
     kernels = []
     for name, src, replaces, t in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -677,14 +935,19 @@ def main() -> int:
             ("quantize_int8", "src/repro_torch/csrc/quantize.cu",
              "src/repro/kernels/quantize.py:29", quant),
             ("rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
-             "src/repro/kernels/rwkv6_wkv.py:48", wkv_t)):
+             "src/repro/kernels/rwkv6_wkv.py:48", wkv_t),
+            ("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
+             "src/repro/kernels/moe_gmm.py:39", gmm_t["prefill_gate_up"])):
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": errs[name], **t})
+                        "replaces": replaces,
+                        "launches": sum(by_path[name].values()),
+                        "launches_by_path": by_path[name],
+                        "max_abs_err": errs[name], **t,
+                        **extra.get(name, {})})
     per_round = {k: counts[k] / rounds
                  for k in ("flash_attention", "quantize_int8")}
-    log(f"rounds {rounds}; launches per round {per_round}; WKV launches "
-        f"per score {counts['rwkv6_wkv']}; total "
+    log(f"rounds {rounds}; launches per round {per_round}; zoo launches "
+        f"{zoo_launches | moe_launches}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -132,6 +132,8 @@ def library() -> ctypes.CDLL:
             lib.repro_quantize_int8.argtypes = [
                 p, p, p, ctypes.c_int64, i, i, p]
             lib.repro_quantize_int8.restype = i
+            lib.repro_moe_gmm.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.repro_moe_gmm.restype = i
             lib.repro_rwkv6_wkv.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.repro_rwkv6_wkv.restype = i

@@ -11,7 +11,8 @@ package's ``repro/kernels/ops.py``.
 
 There is no fallback: a CUDA tensor under ``auto`` or ``pallas`` gets
 the kernel, or the kernel's error when it cannot build or launch. The
-Pallas tiling knobs (``block_q``, ``block_k``, ``block_r``, ``chunk``)
+Pallas tiling knobs (``block_q``, ``block_k``, ``block_r``, ``chunk``,
+``block_c``, ``block_f``, ``block_d``)
 and ``interpret`` have no counterpart: the CUDA kernels choose their own
 tiles and take any length.
 """
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_wkv as _wkv
@@ -56,6 +58,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  scale=scale)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, *, kernel: str = "auto"
+            ) -> torch.Tensor:
+    """x: (e, c, d); w: (e, d, f) -> (e, c, f) in x's dtype, summed in
+    f32."""
+    if _use_ref(kernel, x, "moe_gmm"):
+        return ref.gmm_ref(x, w)
+    return _gmm.moe_gmm(x, w)
 
 
 def quantize_int8(x: torch.Tensor, *, kernel: str = "auto"

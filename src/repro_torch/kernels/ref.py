@@ -4,7 +4,8 @@ They define the semantics each CUDA kernel must reproduce, mirroring
 the JAX package's pure-jnp oracles (``repro/kernels/ref.py``) line for
 line: quadratic attention with the same ``-1e30`` masking, per-row
 symmetric int8 quantization with the same division and rounding, the
-RWKV-6 recurrence as a sequential loop over time steps. A
+RWKV-6 recurrence as a sequential loop over time steps, the grouped
+expert matmul as one f32 einsum. A
 kernel wrapper takes these only for a tensor that lies on the CPU;
 ``chip_smoke.py`` holds each kernel against them on the card.
 """
@@ -45,6 +46,12 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngqk,bnkd->bngqd", p, v.float())
     return o.reshape(b, h, sq, dh).to(q.dtype)
+
+
+def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul: x (e, c, d) @ w (e, d, f) -> (e, c, f), in f32,
+    cast to x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
 def quantize_int8_ref(x: torch.Tensor

@@ -1,12 +1,17 @@
 """Serving launcher CLI of the port: batched generation from a model of
 the zoo with random weights from a seed.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
-      [--reduced] [--device cpu] --batch 4 --prompt-len 16 --new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-3b-a800m [--reduced] [--device cpu] \
+      --batch 4 --prompt-len 16 --new 32
 
-``--device`` defaults to ``cuda``, where the weights are drawn on the
-card. An arch whose family is not ported yet exits with the
-``NotImplementedError`` that names its ROADMAP item.
+Ported archs: ``rwkv6-7b``, ``granite-moe-3b-a800m``, ``glm4-9b``,
+``qwen3-14b`` and ``h2o-danube-1.8b`` (at full width its head dim 80 is
+one the flash-attention kernel does not take, so on the card its
+prefill raises; decode and the reduced config run). ``--device``
+defaults to ``cuda``, where the weights are drawn on the card. An arch
+whose family is not ported yet exits with the ``NotImplementedError``
+that names its ROADMAP item.
 """
 from __future__ import annotations
 

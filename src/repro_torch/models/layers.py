@@ -8,7 +8,7 @@ activation dtype, which must be the weights' dtype (torch does not
 promote a mixed product as ``jnp.einsum`` does), and the f32 casts sit
 where the JAX package puts them.
 Without mesh rules the JAX package's ``reduce_dtype`` is ``None``, so it
-has no counterpart here. RoPE comes with the attention slice.
+has no counterpart here.
 """
 from __future__ import annotations
 
@@ -49,6 +49,32 @@ def layernorm(params, x, eps: float = 1e-5):
     var = x32.var(-1, keepdim=True, correction=0)   # jnp.var: population
     y = (x32 - mean) * torch.rsqrt(var + eps)
     return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int. The
+    split-half rotation (the first half of the head dims against the
+    second, not interleaved pairs), in f32."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)   # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (..., s, hd/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., s, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,19 @@
 """Batched serving engine of the port's model zoo: prefill scoring and
 decode, the counterpart of the JAX package's ``repro/serve/engine.py``.
 
-``generate`` fills the per-layer state with the prompt by teacher-forced
-decode steps, then samples new tokens: greedy at temperature 0, else
-from softmax(logits / T) with an explicit ``torch.Generator`` seeded by
-``seed`` (the JAX package's ``jax.random`` draws cannot be reproduced;
-greedy output is the same token for token). ``score`` runs the prefill
-forward, the path that carries the WKV kernel.
+It serves the families ``models/transformer.py`` runs: ``rwkv6-7b``,
+``granite-moe-3b-a800m``, ``glm4-9b``, ``qwen3-14b`` and
+``h2o-danube-1.8b``; any other arch raises ``NotImplementedError``.
+
+``generate`` fills the per-layer state (the KV cache, or the RWKV state)
+with the prompt by teacher-forced decode steps, then samples new tokens:
+greedy at temperature 0, else from softmax(logits / T) with an explicit
+``torch.Generator`` seeded by ``seed`` (the JAX package's ``jax.random``
+draws cannot be reproduced; greedy output is the same token for token).
+``score`` runs the prefill forward, the path that carries the
+flash-attention, grouped-expert-matmul and WKV kernels, and returns the
+loss the JAX engine returns: the mean NLL plus, for an MoE model, the
+weighted router losses.
 
 ``device`` defaults to ``"cuda"`` and raises on a machine without a GPU;
 the engine never falls back to the CPU unasked.
@@ -72,7 +79,8 @@ class ServeEngine:
 
     @torch.inference_mode()
     def score(self, tokens: np.ndarray) -> float:
-        """Mean NLL of a token batch under the model (prefill path)."""
+        """Mean NLL of a token batch under the model (prefill path),
+        plus the weighted router losses of an MoE model."""
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                device=self.device)
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

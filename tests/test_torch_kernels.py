@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quantize as tq  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -164,13 +165,67 @@ def test_rwkv6_ref_ragged_length_and_state(with_s0):
                                rtol=5e-5)
 
 
+GMM_CASES = [
+    # e, c, d, f, dtype (tests/test_kernels.py)
+    (4, 128, 64, 96, "float32"),
+    (8, 256, 128, 128, "float32"),
+    (2, 128, 128, 64, "bfloat16"),
+]
+
+
+def _gmm_inputs(e, c, d, f, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(e, c, d)).astype(np.float32),
+            rng.normal(size=(e, d, f)).astype(np.float32))
+
+
+@pytest.mark.parametrize("e,c,d,f,dtype", GMM_CASES)
+def test_gmm_ref_matches_jax(e, c, d, f, dtype):
+    x, w = _gmm_inputs(e, c, d, f, e * c + d)
+    (xj, xt), (wj, wt) = _both(x, dtype), _both(w, dtype)
+    out = tref.gmm_ref(xt, wt)
+    assert out.dtype == xt.dtype and out.shape == (e, c, f)
+    tol = 5e-2 if dtype == "bfloat16" else 2e-4
+    for expect in (jref.gmm_ref(xj, wj),
+                   jops.moe_gmm(xj, wj, block_c=64, block_f=min(128, f),
+                                block_d=min(64, d), interpret=True)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(expect, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("c", [4, 37])
+def test_gmm_ref_ragged_capacity_matches_jax(c):
+    """Capacities no Pallas block divides (the MoE decode path's is 4);
+    the CUDA kernel takes them, so the plain version is held to the JAX
+    oracle there."""
+    x, w = _gmm_inputs(3, c, 50, 33, c)
+    np.testing.assert_allclose(
+        tref.gmm_ref(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        np.asarray(jref.gmm_ref(jnp.asarray(x), jnp.asarray(w))),
+        atol=2e-4, rtol=2e-4)
+
+
 @pytest.fixture
 def counters():
-    for c in (tfa.launches, tq.launches, twkv.launches):
+    for c in (tfa.launches, tq.launches, twkv.launches, tgmm.launches):
         c.reset()
     yield
-    for c in (tfa.launches, tq.launches, twkv.launches):
+    for c in (tfa.launches, tq.launches, twkv.launches, tgmm.launches):
         c.reset()
+
+
+def test_ops_moe_gmm_dispatch_on_cpu(counters):
+    x, w = map(torch.from_numpy, _gmm_inputs(2, 5, 8, 3, 1))
+    exp = tref.gmm_ref(x, w)
+    for got in (tops.moe_gmm(x, w), tops.moe_gmm(x, w, kernel="ref"),
+                tgmm.moe_gmm(x, w)):
+        assert torch.equal(got, exp)
+    with pytest.raises(ValueError, match="kernel='pallas'"):
+        tops.moe_gmm(x, w, kernel="pallas")
+    with pytest.raises(ValueError, match="auto\\|pallas\\|ref"):
+        tops.moe_gmm(x, w, kernel="cuda")
+    assert tgmm.launches.count == 0
 
 
 def test_ops_rwkv6_wkv_dispatch_on_cpu(counters):
@@ -220,7 +275,8 @@ def test_kernel_sources_build_flags():
     math (quantize needs an IEEE division to agree bit for bit)."""
     from repro_torch.kernels import _build
     names = [s.name for s in _build.sources()]
-    assert names == ["flash_attention.cu", "quantize.cu", "rwkv6_wkv.cu"]
+    assert names == ["flash_attention.cu", "moe_gmm.cu", "quantize.cu",
+                     "rwkv6_wkv.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     for s in _build.sources():

@@ -270,7 +270,11 @@ def test_decode_matches_own_forward(model):
                                        atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", [a for a in list_archs() if a != ARCH])
+UNPORTED = ["deepseek-v2-lite-16b", "internvl2-76b", "jamba-1.5-large-398b",
+            "minicpm3-4b", "whisper-large-v3"]
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
@@ -303,6 +307,7 @@ def test_launcher_serves_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert f"{ARCH} on cpu: generated (2, 7)" in out
     monkeypatch.setattr(sys, "argv", [
-        "serve", "--arch", "qwen3-14b", "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="granite-moe slice"):
+        "serve", "--arch", "jamba-1.5-large-398b", "--reduced", "--device",
+        "cpu"])
+    with pytest.raises(NotImplementedError, match="Mamba slice"):
         tlaunch.main()
