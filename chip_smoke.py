@@ -58,7 +58,35 @@ NVIDIA GPU.
    the same profiles as step 6 (device time of the grouped matmul, the
    attention kernel, matmuls and the rest); and it times both kernels
    at the path's shapes as in step 5, beside ``torch.bmm`` and SDPA;
-8. prints all kernels in one ``kernels`` JSON line with each kernel's
+8. holds the flash-attention kernel at head dim 80 against its plain
+   version at ``h2o-danube-1.8b``'s prefill shape (q (4, 32, 511, 80),
+   k/v (4, 8, 511, 80), causal, window 4096) within 2e-5, draws the
+   full 24-layer model in f32 (1.83 B params, 7.3 GB) and runs one
+   ``score`` of a (4, 512) batch, which must give a finite loss with
+   exactly 24 attention launches (decode and the profile are left out
+   to save time), then times the kernel at that shape beside SDPA;
+9. serves one period of ``jamba-1.5-large-398b`` at full width (d_model
+   8192, d_inner 16384, d_state 16, dt_rank 512; 64 query and 8 KV
+   heads of 128, no RoPE; experts of width 24576 top-2; vocab 65536),
+   cut in depth from 72 to 8 layers (7 Mamba, 1 attention; 4 MoE, 4
+   dense FFNs) and in experts from 16 to 4, which it prints: 16.25 B
+   params, 65.0 GB in f32, drawn on the card once the other weights
+   are freed. First the selective-scan kernel against its plain
+   version at the path's shape (4, 512, 16384, n 16), within 2e-5 of
+   the output's largest magnitude (512 sequential steps of f32
+   rounding), and at the JAX package's kernel-test shapes within 2e-5
+   (f32) / 3e-2 (bf16); the grouped matmul at the path's four shapes
+   and attention at (4, 64, 512, 128) causal GQA 8:1 as in step 7.
+   Then ``score`` of a (4, 513) batch (512 tokens a row, a length the
+   JAX package's chunked scan takes), which must give a finite loss
+   with exactly 7 scan, 12 grouped-matmul and 1 attention launches;
+   decode vs prefill within 2e-3 at ``capacity_factor`` 4 / 2; greedy
+   ``generate`` (12 grouped-matmul launches a step, no scan, no
+   attention kernel); tokens/s and the profiles as in step 6, with a
+   ``scan`` kind; the scan's times (no PyTorch call computes it) and
+   the grouped matmul and attention at jamba's shapes; and the phase's
+   wall time;
+10. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time and its launches on each path, then
    ``{"ok": true, "device": {...}}`` as its last line.
 
@@ -119,6 +147,25 @@ GMM_CASES = [
     (2, 65, 24, 72, "bfloat16"),
 ]
 
+# the head-dim-80 check: h2o-danube-1.8b at full width and depth, f32
+H2O_ARCH = "h2o-danube-1.8b"
+
+# the Mamba phase: one 8-layer period of jamba-1.5-large-398b at full
+# width with 4 of its 16 experts, f32 (65.0 GB of weights on one card)
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 4
+# a (4, 513) score prefills 512 tokens a row, a length the JAX
+# package's chunked ssm_scan takes (511 is not)
+JAMBA_SCORE_TOKENS = 513
+SSM_CASES = [
+    # b, s, di, n, dtype of dt/B/C, dtype of u (tests/test_kernels.py),
+    # then a ragged length and width with u of its own dtype
+    (1, 64, 32, 8, "float32", "float32"),
+    (2, 128, 64, 16, "float32", "float32"),
+    (1, 256, 32, 4, "bfloat16", "bfloat16"),
+    (3, 37, 200, 16, "float32", "bfloat16"),
+]
+
 TOWER = ("embed:tokens=8,dim=64", "attn_block:heads=4", "quantize",
          "mlp:hidden=64")
 TOP_TOWER = ("mlp:hidden=64,final_act=0",)
@@ -130,6 +177,9 @@ ATT_CASES = [
     (2, 2, 1, 128, 128, False, 0, "float32"),
     (1, 8, 2, 512, 64, True, 128, "float32"),
     (1, 2, 2, 256, 64, True, 0, "bfloat16"),
+    # h2o-danube-1.8b's head dim of 80
+    (2, 8, 2, 96, 80, True, 64, "float32"),
+    (1, 4, 4, 33, 80, False, 0, "bfloat16"),
 ]
 
 
@@ -525,10 +575,11 @@ def check_generated(out, prompts, vocab: int) -> None:
 
 
 def serve_model(torch, dev, cfg, tag: str, kernels: dict,
-                variants: dict | None = None):
-    """Phases 6b and 7b: ``cfg`` served at full width and depth through
-    ``ServeEngine``, on f32 weights drawn on the card: ``score`` of a
-    (4, 512) batch, which must give a finite loss (router losses
+                variants: dict | None = None,
+                score_tokens: int = SCORE_TOKENS):
+    """Phases 6b, 7b and 9b: ``cfg`` served through ``ServeEngine``, on
+    f32 weights drawn on the card: ``score`` of a (4, ``score_tokens``)
+    batch, which must give a finite loss (router losses
     included where the model has them); the same ``score`` through an
     engine of each config in ``variants`` (name -> config) on the same
     weights; decode-vs-prefill logits; greedy ``generate``; prefill and
@@ -566,15 +617,15 @@ def serve_model(torch, dev, cfg, tag: str, kernels: dict,
 
     eng = engine(cfg)
     rng = np.random.default_rng(0)
-    toks = rng.integers(0, cfg.vocab, (SCORE_BATCH, SCORE_TOKENS))
+    toks = rng.integers(0, cfg.vocab, (SCORE_BATCH, score_tokens))
     torch.cuda.reset_peak_memory_stats()
     eng.score(toks)                    # warm-up: cuBLAS, the library
     torch.cuda.synchronize()
     loss, score_s = counted("score", lambda: eng.score(toks), per_score)
     if not np.isfinite(loss):
         raise AssertionError(f"score gave a non-finite loss {loss}")
-    prefill_tok = SCORE_BATCH * (SCORE_TOKENS - 1)
-    log(f"{cfg.arch_id} score of ({SCORE_BATCH}, {SCORE_TOKENS}) tokens: "
+    prefill_tok = SCORE_BATCH * (score_tokens - 1)
+    log(f"{cfg.arch_id} score of ({SCORE_BATCH}, {score_tokens}) tokens: "
         f"loss {loss:.6f} (ln vocab {np.log(cfg.vocab):.6f}) in "
         f"{score_s * 1e3:.1f} ms; launches {launches[f'{tag}_score']}")
     log(f"{cfg.arch_id} prefill tokens/s: {prefill_tok / score_s:.1f}")
@@ -650,8 +701,8 @@ def _device_us(e) -> float:
 
 def profile_window(torch, fn, wall_s: float) -> dict:
     """Runs ``fn`` once under ``torch.profiler`` and sums its kernels'
-    device time, by kind (the port's WKV, grouped-matmul and attention
-    kernels, library matmuls, the rest) and for the
+    device time, by kind (the port's WKV, selective-scan, grouped-matmul
+    and attention kernels, library matmuls, the rest) and for the
     six longest kernels. The busy share is that device time over
     ``wall_s``, the wall time of the same call timed without the
     profiler: the profiler slows the host's dispatch, not the kernels,
@@ -667,11 +718,12 @@ def profile_window(torch, fn, wall_s: float) -> dict:
                and "cuda" in str(e.device_type).lower()
                and _device_us(e) > 0]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    kinds = {"wkv": 0.0, "gmm": 0.0, "attention": 0.0, "matmul": 0.0,
-             "other": 0.0}
+    kinds = {"wkv": 0.0, "scan": 0.0, "gmm": 0.0, "attention": 0.0,
+             "matmul": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         kind = ("wkv" if "rwkv6_wkv" in name else
+                "scan" if "selective_scan" in name else
                 "gmm" if "moe_gmm" in name else
                 "attention" if "flash_attention" in name else
                 "matmul" if any(m in name for m in MATMUL_MARKS) else
@@ -732,12 +784,13 @@ def moe_config():
     return cfg
 
 
-def gmm_path_shapes(cfg):
+def gmm_path_shapes(cfg, score_tokens: int = SCORE_TOKENS):
     """(name, (e, c, d, f)) of the grouped-matmul calls on the MoE path:
     gate/up (two launches a layer) and down (one) at the capacity of a
-    (4, 511)-token ``score`` and at that of a batch-4 decode step."""
+    (4, ``score_tokens`` - 1)-token prefill and at that of a batch-4
+    decode step."""
     from repro_torch.models import moe
-    pre = moe._capacity(SCORE_BATCH * (SCORE_TOKENS - 1), cfg)
+    pre = moe._capacity(SCORE_BATCH * (score_tokens - 1), cfg)
     dec = moe._capacity(GEN_BATCH, cfg)
     e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
     return [("prefill_gate_up", (e, pre, d, f)),
@@ -746,25 +799,45 @@ def gmm_path_shapes(cfg):
             ("decode_down", (e, dec, f, d))]
 
 
-def moe_attention_shapes(cfg):
-    """q and k/v shapes of the MoE model's prefill self-attention."""
-    s = SCORE_TOKENS - 1
+def prefill_attention_shapes(cfg, score_tokens: int = SCORE_TOKENS):
+    """q and k/v shapes of the model's prefill self-attention."""
+    s = score_tokens - 1
     return ((SCORE_BATCH, cfg.n_heads, s, cfg.head_dim),
             (SCORE_BATCH, cfg.n_kv_heads, s, cfg.head_dim))
 
 
-def check_moe_kernels(torch, dev, cfg):
-    """Phase 7a: the grouped-matmul kernel against its plain version at
-    the MoE path's shapes and the JAX kernel test's, and the attention
-    kernel at the MoE prefill's shape."""
+def check_attention(torch, dev, qs, ks, window: int, g) -> float:
+    """The attention kernel against its plain version at a model's
+    prefill shape (causal, ``window`` as the model sets it), f32,
+    within 2e-5; returns the largest difference."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q = torch.randn(qs, generator=g).to(dev)
+    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    exp = ref.attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
+    err = (out - exp).abs().max().item()
+    log(f"attention q {qs} k/v {ks} causal window {window} f32: "
+        f"max_abs_err {err:.3e} (tol 2e-5)")
+    return err
+
+
+def check_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
+                      jax_cases: bool = True):
+    """Phases 7a and 9a: the grouped-matmul kernel against its plain
+    version at the MoE path's shapes (and the JAX kernel test's), and
+    the attention kernel at the model's prefill shape."""
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(8)
     errs = {}
     cases = [(name, shape + ("float32",))
-             for name, shape in gmm_path_shapes(cfg)]
-    for name, case in cases + [(None, c) for c in GMM_CASES]:
+             for name, shape in gmm_path_shapes(cfg, score_tokens)]
+    if jax_cases:
+        cases += [(None, c) for c in GMM_CASES]
+    for name, case in cases:
         e, c, d, f, dt = case
         dtype = getattr(torch, dt)
         x = torch.randn((e, c, d), generator=g)
@@ -784,55 +857,249 @@ def check_moe_kernels(torch, dev, cfg):
         log(f"moe_gmm {case}: max_abs_err {err:.3e} (atol = rtol = {tol})")
         if name:
             errs[name] = err
-    qs, ks = moe_attention_shapes(cfg)
-    q = torch.randn(qs, generator=g).to(dev)
-    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
-    out = fa.flash_attention(q, k, v, causal=True)
-    exp = ref.attention_ref(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
-    errs["attention"] = (out - exp).abs().max().item()
-    log(f"attention q {qs} k/v {ks} causal f32: max_abs_err "
-        f"{errs['attention']:.3e} (tol 2e-5)")
+        del x, w, out, exp
+    qs, ks = prefill_attention_shapes(cfg, score_tokens)
+    errs["attention"] = check_attention(torch, dev, qs, ks, 0, g)
     return errs
 
 
-def time_moe_kernels(torch, dev, cfg):
-    """Phase 7c: the grouped matmul at the MoE path's four shapes and
-    the attention kernel at its prefill shape, beside ``torch.bmm`` and
-    SDPA (yardsticks only: the port calls neither)."""
+def time_attention(torch, dev, cfg, qs, ks, window: int, g,
+                   timing: dict) -> dict:
+    """The attention kernel at a model's prefill shape (causal,
+    ``window``) beside its plain version and SDPA (a yardstick only)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q = torch.randn(qs, generator=g).to(dev)
+    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    b, h, s, dh = qs
+    if window and window < s:
+        raise ValueError("SDPA's is_causal has no window: time the "
+                         "attention kernel where the window masks nothing")
+    # q, k, v read once, o written once; q.k and p.v over the causal
+    # pairs only, s (s + 1) / 2 a (batch, head)
+    att = time_call(
+        lambda: fa.flash_attention(q, k, v, causal=True, window=window),
+        lambda: ref.attention_ref(q, k, v, causal=True, window=window),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        (2 * q.numel() + k.numel() + v.numel()) * 4,
+        4.0 * b * h * dh * s * (s + 1) / 2, timing)
+    log(f"flash_attention {cfg.arch_id} prefill q {qs} k/v {ks} causal "
+        f"f32: {att}")
+    return att
+
+
+def time_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
+                     prefill_timing: dict | None = None):
+    """Phases 7c and 9c: the grouped matmul at the MoE path's four
+    shapes and the attention kernel at its prefill shape, beside
+    ``torch.bmm`` and SDPA (yardsticks only: the port calls neither).
+    ``prefill_timing`` sets the repetitions at the prefill shapes."""
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(9)
     few = dict(reps=20, trials=10)
     gmm_t = {}
-    for name, (e, c, d, f) in gmm_path_shapes(cfg):
+    for name, (e, c, d, f) in gmm_path_shapes(cfg, score_tokens):
         x = torch.randn((e, c, d), generator=g).to(dev)
         w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
         # x and w read once, the output written once; 2 e c d f flops
         t = time_call(lambda: gmm.moe_gmm(x, w), lambda: ref.gmm_ref(x, w),
                       lambda: torch.bmm(x, w),
                       (x.numel() + w.numel() + e * c * f) * 4,
-                      2.0 * e * c * d * f, few)
+                      2.0 * e * c * d * f,
+                      (prefill_timing or few) if name.startswith("prefill")
+                      else few)
         log(f"moe_gmm {name} {(e, c, d, f)} f32: {t}")
         gmm_t[name] = t
-    qs, ks = moe_attention_shapes(cfg)
-    q = torch.randn(qs, generator=g).to(dev)
-    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
-    # q, k, v read once, o written once; q.k and p.v over the causal
-    # pairs only, s (s + 1) / 2 a (batch, head)
-    b, h, s, dh = qs
-    att = time_call(lambda: fa.flash_attention(q, k, v, causal=True),
-                    lambda: ref.attention_ref(q, k, v, causal=True),
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True, enable_gqa=True),
-                    (2 * q.numel() + k.numel() + v.numel()) * 4,
-                    4.0 * b * h * dh * s * (s + 1) / 2, few)
-    log(f"flash_attention {MOE_ARCH} prefill q {qs} k/v {ks} causal f32: "
-        f"{att}")
+        del x, w
+    qs, ks = prefill_attention_shapes(cfg, score_tokens)
+    att = time_attention(torch, dev, cfg, qs, ks, 0, g, few)
     return gmm_t, att
+
+
+def h2o_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(H2O_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.attention, cfg.window) \
+        == (24, 2560, 32, 8, 80, 6912, 32000, "swa", 4096), \
+        "the full h2o-danube-1.8b config"
+    return cfg
+
+
+def h2o_check(torch, dev):
+    """Phase 8: head dim 80 on the card. The attention kernel against
+    its plain version at h2o-danube-1.8b's prefill shape (causal,
+    window 4096), then the full 24-layer model drawn in f32 and one
+    ``score`` of a (4, 512) batch, which must give a finite loss with
+    exactly one attention launch a layer; then the kernel's times at
+    that shape. Decode and the profile are left out to save time.
+    Returns (the error, the score's launches, the times)."""
+    import numpy as np
+    from repro_torch.serve.engine import ServeEngine
+    t_phase = time.perf_counter()
+    cfg = h2o_config()
+    g = torch.Generator().manual_seed(10)
+    qs, ks = prefill_attention_shapes(cfg)
+    err = check_attention(torch, dev, qs, ks, cfg.window, g)
+    params = draw_params(torch, dev, cfg)
+    eng = ServeEngine(cfg, params, max_seq=SCORE_TOKENS, dtype=torch.float32,
+                      device=dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                             (SCORE_BATCH, SCORE_TOKENS))
+    counters = all_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    loss = eng.score(toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {name: c.count for name, c in counters.items()}
+    expected = {name: 0 for name in counters}
+    expected["flash_attention"] = cfg.n_layers
+    if got != expected:
+        raise AssertionError(f"{H2O_ARCH} score launched {got}, expected "
+                             f"{expected}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"{H2O_ARCH} score gave a non-finite loss "
+                             f"{loss}")
+    log(f"{H2O_ARCH} score of ({SCORE_BATCH}, {SCORE_TOKENS}) tokens: loss "
+        f"{loss:.6f} (ln vocab {np.log(cfg.vocab):.6f}) in {wall * 1e3:.1f} "
+        f"ms (one call, not warmed up); launches {got}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    att = time_attention(torch, dev, cfg, qs, ks, cfg.window, g,
+                         dict(reps=20, trials=10))
+    log(f"{H2O_ARCH} phase: {time.perf_counter() - t_phase:.1f} s")
+    return err, {"h2o_score": {"flash_attention": got["flash_attention"]}}, \
+        att
+
+
+def all_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import selective_scan as ssm
+    return {"flash_attention": fa.launches, "quantize_int8": qz.launches,
+            "rwkv6_wkv": wkv.launches, "moe_gmm": gmm.launches,
+            "selective_scan": ssm.launches}
+
+
+def jamba_config():
+    """One period of jamba-1.5-large-398b at full width: depth 72 -> 8
+    layers, experts 16 -> 4 (top-2 kept); every width is jamba's."""
+    from repro_torch.configs import get_config
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(
+        full, n_layers=JAMBA_LAYERS,
+        moe=dataclasses.replace(full.moe, num_experts=JAMBA_EXPERTS))
+    m, mb = cfg.moe, cfg.mamba
+    assert (full.n_layers, full.moe.num_experts) == (72, 16), \
+        "the full jamba-1.5-large-398b config"
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.rope, m.num_experts,
+            m.top_k, m.d_expert, mb.d_inner(cfg.d_model), mb.d_state,
+            mb.d_conv, mb.dt_rank) == \
+        (8, 8192, 64, 8, 128, 24576, 65536, False, 4, 2, 24576, 16384,
+         16, 4, 512), "one full-width period of jamba, 4 experts"
+    assert [mx for mx, _ in cfg.block_pattern].count("mamba") == 7
+    assert [f for _, f in cfg.block_pattern].count("moe") == 4
+    log(f"{JAMBA_ARCH}: cut to depth {cfg.n_layers} of {full.n_layers} "
+        f"layers (one period) and {m.num_experts} of "
+        f"{full.moe.num_experts} experts (top-{m.top_k} kept); every "
+        f"width as published")
+    return cfg
+
+
+def scan_inputs(torch, dev, b, s, di, n, x_dtype, u_dtype, g, dt_shift):
+    """dt, B, C, u (b, s, ...) and A (di, n) f32 on the card: dt =
+    softplus(normal + dt_shift), A = -exp(0.5 normal)."""
+    import torch.nn.functional as F
+    dt = F.softplus(torch.randn((b, s, di), generator=g) + dt_shift)
+    bm, cm = (torch.randn((b, s, n), generator=g) for _ in range(2))
+    u = torch.randn((b, s, di), generator=g)
+    a = -torch.exp(torch.randn((di, n), generator=g) * 0.5)
+    return ([t.to(x_dtype).to(dev) for t in (dt, bm, cm)]
+            + [u.to(u_dtype).to(dev), a.to(dev)])
+
+
+def scan_path_shape(cfg):
+    mb = cfg.mamba
+    return (SCORE_BATCH, JAMBA_SCORE_TOKENS - 1, mb.d_inner(cfg.d_model),
+            mb.d_state)
+
+
+def check_scan(torch, dev, cfg) -> float:
+    """Phase 9a: the selective-scan kernel against its plain version at
+    jamba's prefill shape, and at the JAX kernel test's shapes within
+    its tolerances (2e-5 f32, 3e-2 bf16). At the path's shape the
+    tolerance is relative to the output's largest magnitude: 512
+    sequential steps of f32 rounding, in another order than the plain
+    loop's, grow with the state, not with each element of y. Returns
+    the path's largest difference."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ssm
+    g = torch.Generator().manual_seed(11)
+    f32 = torch.float32
+    # the path's dt: softplus around the model's b_dt of -4.6
+    path = scan_path_shape(cfg) + ("float32", "float32")
+    err = None
+    for case in [path] + SSM_CASES:
+        b, s, di, n, xd, ud = case
+        shift = -4.6 if case is path else 0.0
+        ins = scan_inputs(torch, dev, b, s, di, n, getattr(torch, xd),
+                          getattr(torch, ud), g, shift)
+        if case is not path:        # the JAX test's dt: softplus * 0.1
+            ins[0] = (ins[0].float() * 0.1).to(ins[0].dtype)
+        y, h = ssm.selective_scan(*ins)
+        ey, eh = ref.selective_scan_ref(*ins)
+        torch.cuda.synchronize()
+        if case is path:
+            scale = max(ey.abs().max().item(), eh.abs().max().item())
+            tol = dict(atol=2e-5 * scale, rtol=2e-5)
+        else:
+            t = 3e-2 if xd == "bfloat16" or ud == "bfloat16" else 2e-5
+            tol = dict(atol=t, rtol=t)
+        assert y.dtype == h.dtype == f32
+        torch.testing.assert_close(y, ey, **tol)
+        torch.testing.assert_close(h, eh, **tol)
+        e = max((y - ey).abs().max().item(), (h - eh).abs().max().item())
+        log(f"selective_scan {case}: max_abs_err {e:.3e} ({tol})")
+        if case is path:
+            err = e
+        del ins, y, h, ey, eh
+    return err
+
+
+def time_scan(torch, dev, cfg) -> dict:
+    """Phase 9c: the selective scan at jamba's prefill shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ssm
+    b, s, di, n = scan_path_shape(cfg)
+    g = torch.Generator().manual_seed(12)
+    ins = scan_inputs(torch, dev, b, s, di, n, torch.float32, torch.float32,
+                      g, -4.6)
+    # least time: dt, B, C, u, A read once, y and h_final written once;
+    # and 7 f32 operations a state element a step (dt * A, its exp, the
+    # decay times h, du * B, the sum, h * C and its sum) plus dt * u
+    nbytes = sum(t.numel() * 4 for t in ins) + b * s * di * 4 \
+        + b * di * n * 4
+    ops = 7.0 * b * s * di * n + b * s * di
+    out = time_call(lambda: ssm.selective_scan(*ins),
+                    lambda: ref.selective_scan_ref(*ins),
+                    None,        # no PyTorch call computes the scan
+                    nbytes, ops,
+                    # the plain version is a loop of ~4,000 small kernels
+                    plain_timing=dict(reps=2, trials=5))
+    log(f"selective_scan at {(b, s, di, n)} f32: {nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP; bound {out['bound_ms'] * 1e3:.1f} us "
+        f"({out['bound_by']}); {out}")
+    return out
 
 
 def main() -> int:
@@ -892,6 +1159,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import selective_scan as ssm
     errs["rwkv6_wkv"] = check_wkv(torch, dev)
     zoo_cfg = zoo_config()
     # one WKV launch a layer in prefill; decode's one-step update has none
@@ -911,23 +1179,59 @@ def main() -> int:
         {"grouped": dataclasses.replace(moe_cfg, moe_group_dispatch=True)})
     gmm_t, moe_att = time_moe_kernels(torch, dev, moe_cfg)
 
+    # the granite-moe weights are freed by now
+    h2o_err, h2o_launches, h2o_att = h2o_check(torch, dev)
+
+    t_jamba = time.perf_counter()
+    jamba_cfg = jamba_config()
+    errs["selective_scan"] = check_scan(torch, dev, jamba_cfg)
+    jamba_errs = check_moe_kernels(torch, dev, jamba_cfg,
+                                   JAMBA_SCORE_TOKENS, jax_cases=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = jamba_cfg.block_pattern * jamba_cfg.n_repeats
+    n_mamba = sum(mx == "mamba" for mx, _ in layers)
+    n_attn = sum(mx == "attn" for mx, _ in layers)
+    n_moe = sum(f == "moe" for _, f in layers)
+    # a scan launch per Mamba layer and an attention launch per attention
+    # layer in prefill, none in decode; gate, up, down per MoE layer in
+    # both
+    jamba_launches, _ = serve_model(
+        torch, dev, jamba_cfg, "jamba",
+        {"selective_scan": (ssm.launches, n_mamba, 0),
+         "moe_gmm": (gmm.launches, 3 * n_moe, 3 * n_moe),
+         "flash_attention": (fa.launches, n_attn, 0)},
+        score_tokens=JAMBA_SCORE_TOKENS)
+    scan_t = time_scan(torch, dev, jamba_cfg)
+    jamba_gmm_t, jamba_att = time_moe_kernels(
+        torch, dev, jamba_cfg, JAMBA_SCORE_TOKENS, dict(reps=2, trials=3))
+    log(f"{JAMBA_ARCH} phase: {time.perf_counter() - t_jamba:.1f} s")
+
     # launches of each kernel on each path's counted run
     by_path = {
         "flash_attention": {"split_nn_serve": counts["flash_attention"]},
         "quantize_int8": {"split_nn_serve": counts["quantize_int8"]},
-        "rwkv6_wkv": {}, "moe_gmm": {}}
-    for run, got in (zoo_launches | moe_launches).items():
+        "rwkv6_wkv": {}, "moe_gmm": {}, "selective_scan": {}}
+    zoo_runs = zoo_launches | moe_launches | h2o_launches | jamba_launches
+    for run, got in zoo_runs.items():
         for name, c in got.items():
             by_path[name][run] = c
     errs["moe_gmm"] = max(moe_errs[name] for name, _ in
                           gmm_path_shapes(moe_cfg))
     extra = {
-        # the attention kernel's times at the MoE prefill's shape
-        "flash_attention": {"granite_prefill": dict(
-            moe_att, max_abs_err=moe_errs["attention"])},
-        # the grouped matmul's at each of its four shapes; the top-level
-        # times are those of the prefill's gate/up
-        "moe_gmm": {"shapes": gmm_t}}
+        # the attention kernel's times at the zoo's prefill shapes
+        "flash_attention": {
+            "granite_prefill": dict(moe_att,
+                                    max_abs_err=moe_errs["attention"]),
+            "h2o_prefill": dict(h2o_att, max_abs_err=h2o_err),
+            "jamba_prefill": dict(jamba_att,
+                                  max_abs_err=jamba_errs["attention"])},
+        # the grouped matmul's at each of its four shapes of each MoE
+        # model; the top-level times are those of granite's prefill
+        # gate/up
+        "moe_gmm": {"shapes": gmm_t, "jamba_shapes": {
+            name: dict(t, max_abs_err=jamba_errs[name])
+            for name, t in jamba_gmm_t.items()}}}
     kernels = []
     for name, src, replaces, t in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -937,7 +1241,9 @@ def main() -> int:
             ("rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
              "src/repro/kernels/rwkv6_wkv.py:48", wkv_t),
             ("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
-             "src/repro/kernels/moe_gmm.py:39", gmm_t["prefill_gate_up"])):
+             "src/repro/kernels/moe_gmm.py:39", gmm_t["prefill_gate_up"]),
+            ("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
+             "src/repro/kernels/selective_scan.py:51", scan_t)):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(by_path[name].values()),
@@ -947,8 +1253,9 @@ def main() -> int:
     per_round = {k: counts[k] / rounds
                  for k in ("flash_attention", "quantize_int8")}
     log(f"rounds {rounds}; launches per round {per_round}; zoo launches "
-        f"{zoo_launches | moe_launches}; total "
+        f"{zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    log(gpu_line())               # again, beside the numbers
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

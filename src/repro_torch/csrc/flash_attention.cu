@@ -16,11 +16,13 @@
 //
 // What the design does about it: it is written again from what it
 // computes, not from the Pallas grid. Blocks run over (b*h, q-tiles);
-// one query row is owned by DH/16 neighbouring lanes, each holding 16
-// dims of q and of the output accumulator in registers, so a block of
-// 128 threads packs several (batch, head) pairs when the sequence is
-// short (16 pairs of 8 rows on the path) instead of idling lanes. Each
-// block stages BK keys of k and v per (batch, head) pair in shared
+// one query row is owned by DH / DPL neighbouring lanes, a power of two,
+// each holding DPL dims of q and of the output accumulator in registers
+// (16 dims a lane; 20 at head dim 80, whose row takes 4 lanes, since 5
+// would break the xor-shuffle reduction), so a block of 128 threads
+// packs several (batch, head) pairs when the sequence is short (16
+// pairs of 8 rows on the path) instead of idling lanes. Each block
+// stages BK keys of k and v per (batch, head) pair in shared
 // memory, scores them with f32 FMAs (no TF32: the f32 tolerance is
 // 2e-5), reduces the dot product across the row's lanes with shuffles,
 // and folds the tile into the running max / denominator / accumulator.
@@ -35,7 +37,6 @@
 namespace {
 
 constexpr int kThreads = 128;   // threads per block
-constexpr int kDimsPerLane = 16;  // head dims held by one lane
 constexpr int kBK = 16;         // keys per shared-memory tile
 constexpr int kSmemFloats = 8192;  // 32 KiB: k and v tiles of all pairs
 constexpr float kNegInf = -1e30f;
@@ -50,40 +51,44 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 // One block: `pairs` consecutive (batch, head) pairs x `qt` query rows.
-template <int DH, typename T>
+// DPL: head dims held by one lane.
+template <int DH, int DPL, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        int n_pairs, int h, int kvh, int sq, int sk,
                        int causal, int window, float scale, int pairs,
                        int qt) {
-  constexpr int LANES = DH / kDimsPerLane;  // lanes per query row
+  constexpr int LANES = DH / DPL;  // lanes per query row
+  static_assert(DH % DPL == 0 && (LANES & (LANES - 1)) == 0 &&
+                    LANES <= 32,
+                "a row's lanes must be a power of two within a warp");
   __shared__ float ks[kSmemFloats / 2];
   __shared__ float vs[kSmemFloats / 2];
 
   const int tid = threadIdx.x;
   const int slot = tid / LANES;
-  const int d0 = (tid % LANES) * kDimsPerLane;
+  const int d0 = (tid % LANES) * DPL;
   const int lp = slot / qt;                       // local pair
   const int qi = blockIdx.y * qt + slot % qt;     // query position
   const int pair = blockIdx.x * pairs + lp;
   const bool active = lp < pairs && pair < n_pairs && qi < sq;
   const int group = h / kvh;
 
-  float qr[kDimsPerLane];
-  float acc[kDimsPerLane];
+  float qr[DPL];
+  float acc[DPL];
   float m = kNegInf;
   float l = 0.f;
   if (active) {
     const T* qrow = q + ((int64_t)pair * sq + qi) * DH + d0;
 #pragma unroll
-    for (int d = 0; d < kDimsPerLane; ++d) qr[d] = to_f32(qrow[d]) * scale;
+    for (int d = 0; d < DPL; ++d) qr[d] = to_f32(qrow[d]) * scale;
   } else {
 #pragma unroll
-    for (int d = 0; d < kDimsPerLane; ++d) qr[d] = 0.f;
+    for (int d = 0; d < DPL; ++d) qr[d] = 0.f;
   }
 #pragma unroll
-  for (int d = 0; d < kDimsPerLane; ++d) acc[d] = 0.f;
+  for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
 
   const int tile_elems = kBK * DH;                 // per pair
   const int n_tiles = (sk + kBK - 1) / kBK;
@@ -115,7 +120,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kBK; ++j) {
       float part = 0.f;
 #pragma unroll
-      for (int d = 0; d < kDimsPerLane; ++d)
+      for (int d = 0; d < DPL; ++d)
         part = fmaf(qr[d], kt[j * DH + d0 + d], part);
       // the row's lanes are neighbours: xor offsets stay inside them
 #pragma unroll
@@ -133,13 +138,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float alpha = expf(m - mt);
     l *= alpha;
 #pragma unroll
-    for (int d = 0; d < kDimsPerLane; ++d) acc[d] *= alpha;
+    for (int d = 0; d < DPL; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < kBK; ++j) {
       const float p = expf(s[j] - mt);
       l += p;
 #pragma unroll
-      for (int d = 0; d < kDimsPerLane; ++d)
+      for (int d = 0; d < DPL; ++d)
         acc[d] = fmaf(p, vt[j * DH + d0 + d], acc[d]);
     }
     m = mt;
@@ -150,15 +155,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l, 1e-30f);
     T* orow = o + ((int64_t)pair * sq + qi) * DH + d0;
 #pragma unroll
-    for (int d = 0; d < kDimsPerLane; ++d) store(orow + d, acc[d] / denom);
+    for (int d = 0; d < DPL; ++d) store(orow + d, acc[d] / denom);
   }
 }
 
-template <int DH, typename T>
+template <int DH, int DPL, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int h, int kvh, int sq, int sk, int causal,
                    int window, float scale, cudaStream_t stream) {
-  constexpr int LANES = DH / kDimsPerLane;
+  constexpr int LANES = DH / DPL;
   constexpr int slots = kThreads / LANES;          // query rows per block
   // pairs whose k and v tiles fit the shared buffers together
   constexpr int max_pairs = (kSmemFloats / 2) / (kBK * DH);
@@ -168,7 +173,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (pairs > max_pairs) pairs = max_pairs;
   const int n_pairs = b * h;
   dim3 grid((n_pairs + pairs - 1) / pairs, (sq + qt - 1) / qt);
-  flash_attention_kernel<DH, T><<<grid, kThreads, 0, stream>>>(
+  flash_attention_kernel<DH, DPL, T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n_pairs, h, kvh, sq,
       sk, causal, window, scale, pairs, qt);
@@ -182,17 +187,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<16, T>(q, k, v, o, b, h, kvh, sq, sk, causal, window,
-                           scale, stream);
+      return launch<16, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
+                               window, scale, stream);
     case 32:
-      return launch<32, T>(q, k, v, o, b, h, kvh, sq, sk, causal, window,
-                           scale, stream);
+      return launch<32, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
+                               window, scale, stream);
     case 64:
-      return launch<64, T>(q, k, v, o, b, h, kvh, sq, sk, causal, window,
-                           scale, stream);
+      return launch<64, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
+                               window, scale, stream);
+    case 80:
+      return launch<80, 20, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
+                               window, scale, stream);
     case 128:
-      return launch<128, T>(q, k, v, o, b, h, kvh, sq, sk, causal, window,
-                            scale, stream);
+      return launch<128, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
+                                window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

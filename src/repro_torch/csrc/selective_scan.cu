@@ -1,0 +1,240 @@
+// Mamba S6 selective scan for Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/selective_scan.py::selective_scan (the
+// Pallas TPU kernel, body `_kernel`). Same function, for every batch row
+// b and channel d of dt, u (b, s, di), B, C (b, s, n) and A (di, n),
+// from h = 0:
+//   h_t[d, k] = exp(dt_t[d] * A[d, k]) * h_{t-1}[d, k]
+//               + dt_t[d] * u_t[d] * B_t[k]
+//   y_t[d]    = sum_k h_t[d, k] * C_t[k]
+// Outputs y (b, s, di) f32 and h_final (b, di, n) f32. dt, B and C are
+// f32 or bf16 (alike), u is f32 or bf16 on its own, A is f32; all
+// arithmetic is f32, and the decay is `expf`, not `__expf`, so the
+// kernel stays within f32 rounding of its plain version.
+//
+// What bounds it on this card: each input element is read once and each
+// output written once. At jamba's prefill shape (b 4, s 512, di 16384,
+// n 16) in f32, dt, u and y are 134.2 MB each, h_final 4.2 MB, B, C and
+// A ~1.3 MB together: 407 MB, 0.121 ms at 3.35 TB/s. It also computes
+// b * s * di * n = 537 M exponentials on the special-function units
+// (16 a clock an SM, with the range reduction of an accurate expf
+// around each), which costs about as much again: the kernel cannot go
+// much under ~0.13 ms whatever its layout.
+//
+// What the design does about it: the Pallas kernel carries h in VMEM
+// across a sequential grid axis of sequence chunks; here a thread owns
+// one (batch, channel) recurrence for the whole sequence and keeps its
+// n states and its row of A in registers, so h never touches memory
+// until h_final is written. At jamba's shape that is b * di = 65,536
+// recurrences, 512 blocks of 128 threads, and each thread's n states
+// are n independent update chains a step. dt_t and u_t of neighbouring
+// channels are neighbouring addresses, so their loads and the y store
+// coalesce; each thread loads its dt and u of the next kChunk steps
+// into registers while it computes this chunk. B_t and C_t are the same
+// for every channel of a batch row: a chunk of them is staged in
+// double-buffered shared memory for the whole block and read as float4
+// broadcasts. Any s and di work (a ragged di is masked); n is a
+// template parameter (4, 8 or 16). Splitting n across lanes with a
+// shuffle-reduced y, and a chunked tensor-core form, are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;  // channels of one batch row per block
+constexpr int kChunk = 16;     // time steps staged at once
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <int N>
+struct Stage {
+  // elements of B (and of C) in one chunk, and each thread's share
+  static constexpr int kElems = kChunk * N;
+  static constexpr int kLoads = (kElems + kThreads - 1) / kThreads;
+};
+
+// This thread's dt and u of steps [t0, t0 + kChunk) and its share of the
+// chunk's B and C, into registers (steps past s are left as they were).
+template <typename TX, typename TU, int N>
+__device__ __forceinline__ void fetch(
+    const TX* __restrict__ dt, const TU* __restrict__ u,
+    const TX* __restrict__ bm, const TX* __restrict__ cm, size_t row,
+    int t0, int s, int di, int ch, bool active, float (&pdt)[kChunk],
+    float (&pu)[kChunk], float (&pb)[Stage<N>::kLoads],
+    float (&pc)[Stage<N>::kLoads]) {
+#pragma unroll
+  for (int c = 0; c < kChunk; ++c) {
+    const int t = t0 + c;
+    if (active && t < s) {
+      const size_t o = (row + t) * di + ch;
+      pdt[c] = to_f32(dt[o]);
+      pu[c] = to_f32(u[o]);
+    }
+  }
+  // B and C of a batch row's chunk are kElems consecutive elements
+  const size_t base = (row + t0) * N;
+  const int left = (s - t0) * N;
+#pragma unroll
+  for (int i = 0; i < Stage<N>::kLoads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (e < Stage<N>::kElems && e < left) {
+      pb[i] = to_f32(bm[base + e]);
+      pc[i] = to_f32(cm[base + e]);
+    }
+  }
+}
+
+template <typename TX, typename TU, int N>
+__global__ void __launch_bounds__(kThreads)
+selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
+                      const TX* __restrict__ cm, const TU* __restrict__ u,
+                      const float* __restrict__ a_mat, float* __restrict__ y,
+                      float* __restrict__ h_final, int s, int di) {
+  // [buffer][step][state]
+  __shared__ __align__(16) float sb[2][kChunk][N];
+  __shared__ __align__(16) float sc[2][kChunk][N];
+  const int ch = blockIdx.x * kThreads + threadIdx.x;
+  const bool active = ch < di;
+  const size_t row = (size_t)blockIdx.y * s;  // (batch, t = 0)
+
+  float a[N], h[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    a[k] = active ? a_mat[(size_t)ch * N + k] : 0.f;
+    h[k] = 0.f;
+  }
+
+  float pdt[kChunk], pu[kChunk], cdt[kChunk], cu[kChunk];
+  float pb[Stage<N>::kLoads], pc[Stage<N>::kLoads];
+#pragma unroll
+  for (int c = 0; c < kChunk; ++c) pdt[c] = pu[c] = 0.f;
+#pragma unroll
+  for (int i = 0; i < Stage<N>::kLoads; ++i) pb[i] = pc[i] = 0.f;
+  fetch<TX, TU, N>(dt, u, bm, cm, row, 0, s, di, ch, active, pdt, pu, pb,
+                   pc);
+  int buf = 0;
+  for (int t0 = 0; t0 < s; t0 += kChunk, buf ^= 1) {
+    // sb/sc[buf] were last read two chunks ago, before the previous
+    // chunk's barrier, so writing them now needs no barrier of its own
+#pragma unroll
+    for (int i = 0; i < Stage<N>::kLoads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (e < Stage<N>::kElems) {
+        (&sb[buf][0][0])[e] = pb[i];
+        (&sc[buf][0][0])[e] = pc[i];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      cdt[c] = pdt[c];
+      cu[c] = pu[c];
+    }
+    // the next chunk's loads are in flight while this chunk computes
+    if (t0 + kChunk < s)
+      fetch<TX, TU, N>(dt, u, bm, cm, row, t0 + kChunk, s, di, ch, active,
+                       pdt, pu, pb, pc);
+    __syncthreads();
+    const int steps = min(kChunk, s - t0);
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      if (c < steps) {
+        const float d = cdt[c];
+        const float du = d * cu[c];
+        float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll
+        for (int k = 0; k < N; k += 4) {
+          const float4 b4 = *reinterpret_cast<const float4*>(&sb[buf][c][k]);
+          const float4 c4 = *reinterpret_cast<const float4*>(&sc[buf][c][k]);
+          h[k + 0] = expf(d * a[k + 0]) * h[k + 0] + du * b4.x;
+          h[k + 1] = expf(d * a[k + 1]) * h[k + 1] + du * b4.y;
+          h[k + 2] = expf(d * a[k + 2]) * h[k + 2] + du * b4.z;
+          h[k + 3] = expf(d * a[k + 3]) * h[k + 3] + du * b4.w;
+          acc0 = fmaf(h[k + 0], c4.x, acc0);
+          acc1 = fmaf(h[k + 1], c4.y, acc1);
+          acc0 = fmaf(h[k + 2], c4.z, acc0);
+          acc1 = fmaf(h[k + 3], c4.w, acc1);
+        }
+        if (active) y[(row + t0 + c) * di + ch] = acc0 + acc1;
+      }
+    }
+  }
+  if (active) {
+    float* hf = h_final + ((size_t)blockIdx.y * di + ch) * N;
+#pragma unroll
+    for (int k = 0; k < N; k += 4)
+      *reinterpret_cast<float4*>(hf + k) =
+          make_float4(h[k], h[k + 1], h[k + 2], h[k + 3]);
+  }
+}
+
+template <typename TX, typename TU, int N>
+cudaError_t launch(const void* dt, const void* bm, const void* cm,
+                   const void* u, const void* a, void* y, void* h_final,
+                   int b, int s, int di, cudaStream_t stream) {
+  dim3 grid((di + kThreads - 1) / kThreads, b);
+  selective_scan_kernel<TX, TU, N><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TX*>(dt), static_cast<const TX*>(bm),
+      static_cast<const TX*>(cm), static_cast<const TU*>(u),
+      static_cast<const float*>(a), static_cast<float*>(y),
+      static_cast<float*>(h_final), s, di);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TU>
+cudaError_t by_state(const void* dt, const void* bm, const void* cm,
+                     const void* u, const void* a, void* y, void* h_final,
+                     int b, int s, int di, int n, cudaStream_t stream) {
+  switch (n) {
+    case 4:
+      return launch<TX, TU, 4>(dt, bm, cm, u, a, y, h_final, b, s, di,
+                               stream);
+    case 8:
+      return launch<TX, TU, 8>(dt, bm, cm, u, a, y, h_final, b, s, di,
+                               stream);
+    case 16:
+      return launch<TX, TU, 16>(dt, bm, cm, u, a, y, h_final, b, s, di,
+                                stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TX>
+cudaError_t by_u(const void* dt, const void* bm, const void* cm,
+                 const void* u, const void* a, void* y, void* h_final, int b,
+                 int s, int di, int n, int u_dtype, cudaStream_t stream) {
+  if (u_dtype == 0)
+    return by_state<TX, float>(dt, bm, cm, u, a, y, h_final, b, s, di, n,
+                               stream);
+  if (u_dtype == 1)
+    return by_state<TX, __nv_bfloat16>(dt, bm, cm, u, a, y, h_final, b, s,
+                                       di, n, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x_dtype (dt, B, C alike) and u_dtype: 0 = float32, 1 = bfloat16; A is
+// float32. dt, u (b, s, di), B, C (b, s, n), A (di, n), y (b, s, di),
+// h_final (b, di, n), all contiguous; n is 4, 8 or 16. Returns the
+// launch's cudaError_t.
+extern "C" int repro_selective_scan(const void* dt, const void* bm,
+                                    const void* cm, const void* u,
+                                    const void* a, void* y, void* h_final,
+                                    int b, int s, int di, int n, int x_dtype,
+                                    int u_dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || s <= 0 || di <= 0 || b > 65535) return cudaErrorInvalidValue;
+  if (x_dtype == 0)
+    return by_u<float>(dt, bm, cm, u, a, y, h_final, b, s, di, n, u_dtype,
+                       st);
+  if (x_dtype == 1)
+    return by_u<__nv_bfloat16>(dt, bm, cm, u, a, y, h_final, b, s, di, n,
+                               u_dtype, st);
+  return cudaErrorInvalidValue;
+}

@@ -27,7 +27,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 # no --use_fast_math: quantize_int8 needs an IEEE division to agree
 # with the reference bit for bit, attention an accurate expf, and the
 # WKV recurrence keeps denormals (fast math flushes them) as its plain
-# version does
+# version does, and the selective scan's decay needs expf, not __expf
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -137,6 +137,9 @@ def library() -> ctypes.CDLL:
             lib.repro_rwkv6_wkv.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.repro_rwkv6_wkv.restype = i
+            lib.repro_selective_scan.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.repro_selective_scan.restype = i
             _lib = lib
         return _lib
 

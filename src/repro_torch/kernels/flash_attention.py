@@ -7,7 +7,7 @@ computes the plain version (``ref.attention_ref``), and that is the only
 way the plain version is taken.
 
 Layout: q (b, h, sq, dh); k/v (b, kvh, sk, dh), contiguous, float32 or
-bfloat16; dh one of 16, 32, 64, 128. GQA by head grouping.
+bfloat16; dh one of 16, 32, 64, 80, 128. GQA by head grouping.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 launches = _build.LaunchCounter()
 

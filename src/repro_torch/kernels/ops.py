@@ -27,6 +27,7 @@ from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_wkv as _wkv
+from repro_torch.kernels import selective_scan as _ssm
 
 KERNELS = ("auto", "pallas", "ref")
 
@@ -86,3 +87,13 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _use_ref(kernel, r, "rwkv6_wkv"):
         return ref.rwkv6_ref(r, k, v, w, u)
     return _wkv.rwkv6_wkv(r, k, v, w, u)
+
+
+def selective_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                   u: torch.Tensor, a: torch.Tensor, *, kernel: str = "auto"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dt/u: (b, s, di); bmat/cmat: (b, s, n); a: (di, n). Returns
+    (y f32 (b, s, di), h_final f32 (b, di, n)), the scan from h = 0."""
+    if _use_ref(kernel, dt, "selective_scan"):
+        return ref.selective_scan_ref(dt, bmat, cmat, u, a)
+    return _ssm.selective_scan(dt, bmat, cmat, u, a)

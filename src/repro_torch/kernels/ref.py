@@ -4,8 +4,8 @@ They define the semantics each CUDA kernel must reproduce, mirroring
 the JAX package's pure-jnp oracles (``repro/kernels/ref.py``) line for
 line: quadratic attention with the same ``-1e30`` masking, per-row
 symmetric int8 quantization with the same division and rounding, the
-RWKV-6 recurrence as a sequential loop over time steps, the grouped
-expert matmul as one f32 einsum. A
+RWKV-6 recurrence and the Mamba selective scan as sequential loops over
+time steps, the grouped expert matmul as one f32 einsum. A
 kernel wrapper takes these only for a tensor that lies on the CPU;
 ``chip_smoke.py`` holds each kernel against them on the card.
 """
@@ -92,3 +92,27 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                state + u[..., :, None] * kv))
         state = wt[..., :, None] * state + kv
     return torch.stack(ys, dim=2), state
+
+
+def selective_scan_ref(dt: torch.Tensor, bmat: torch.Tensor,
+                       cmat: torch.Tensor, u: torch.Tensor, a: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential S6 scan. dt/u: (b, s, di); bmat/cmat: (b, s, n);
+    a: (di, n).
+
+    h_t = exp(dt_t * a) * h_{t-1} + dt_t * u_t * b_t;  y_t = h_t . c_t
+    Returns (y (b, s, di) fp32, h_final (b, di, n) fp32).
+    """
+    b, s, di = dt.shape
+    n = a.shape[-1]
+    dt, bmat, cmat, u = (x.float() for x in (dt, bmat, cmat, u))
+    h = (torch.zeros((b, di, n), dtype=torch.float32, device=dt.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        dt_t = dt[:, t]
+        decay = torch.exp(dt_t[..., None] * a)             # (b, di, n)
+        h = decay * h + (dt_t * u[:, t])[..., None] * bmat[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]))
+    return torch.stack(ys, dim=1), h

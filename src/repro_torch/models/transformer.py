@@ -2,12 +2,12 @@
 counterpart of the JAX package's ``repro/models/transformer.py``.
 
 This slice runs the decoder-only families whose blocks are GQA attention
-(full, sliding-window, qk-norm; RoPE) or an RWKV-6 time-mix, followed by
-a gated MLP or a mixture of experts, under rmsnorm: ``rwkv6-7b``,
-``granite-moe-3b-a800m``, ``glm4-9b``, ``qwen3-14b`` and
-``h2o-danube-1.8b``. MLA, the Mamba mixer, the encoder and the modality
-prefixes raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+(full, sliding-window, qk-norm; RoPE or none), an RWKV-6 time-mix or a
+Mamba (S6) mixer, followed by a gated MLP or a mixture of experts, under
+rmsnorm: ``rwkv6-7b``, ``granite-moe-3b-a800m``, ``glm4-9b``,
+``qwen3-14b``, ``h2o-danube-1.8b`` and the hybrid
+``jamba-1.5-large-398b``. MLA, the encoder and the modality prefixes
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Layer stacks keep the JAX package's *stacked* layout (every leaf of
 ``params["blocks"]["pos<i>"]`` has a leading ``n_repeats`` dim), so one
@@ -26,11 +26,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, moe, params as P
+from repro_torch.models import attention, layers, mamba, moe, params as P
 from repro_torch.models import rwkv
 
-# ROADMAP Queue 1 items that port what this slice does not run
-_MAMBA = "ROADMAP Queue 1 item 4 (the Mamba slice)"
+# the ROADMAP Queue 1 item that ports what this slice does not run
 _ZOO = "ROADMAP Queue 1 item 11 (the rest of the model zoo)"
 _AUX = ("load_balance", "router_z")
 
@@ -43,8 +42,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
 def _check_block(cfg: ModelConfig, mixer: str) -> None:
     if mixer == "attn" and cfg.attention == "mla":
         raise _unported(f"{cfg.arch_id}: the MLA mixer", _ZOO)
-    if mixer == "mamba":
-        raise _unported(f"{cfg.arch_id}: the Mamba mixer", _MAMBA)
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -63,11 +60,15 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+_MIXER_SPECS = {"attn": attention.attention_spec,
+                "mamba": mamba.mamba_spec,
+                "rwkv": rwkv.rwkv_spec}
+
+
 def block_spec(cfg: ModelConfig, mixer: str, ffn: str):
     _check_block(cfg, mixer)
     return {"norm1": layers.rmsnorm_spec(cfg.d_model),
-            "mixer": (attention.attention_spec(cfg) if mixer == "attn"
-                      else rwkv.rwkv_spec(cfg)),
+            "mixer": _MIXER_SPECS[mixer](cfg),
             "norm2": layers.rmsnorm_spec(cfg.d_model),
             "ffn": (moe.moe_spec(cfg) if ffn == "moe"
                     else layers.gated_mlp_spec(cfg.d_model, cfg.d_ff))}
@@ -108,6 +109,8 @@ def _apply_block(cfg: ModelConfig, mixer: str, ffn: str, p, x,
     if mixer == "attn":
         h = attention.self_attention(cfg, p["mixer"], h,
                                      positions=positions)
+    elif mixer == "mamba":
+        h = mamba.mamba_mixer(cfg, p["mixer"], h)
     else:
         h = rwkv.rwkv_mixer(cfg, p["mixer"], h)
     x = x + h
@@ -189,15 +192,18 @@ def _block_cache(cfg: ModelConfig, mixer: str, batch: int, max_seq: int,
                  dtype: torch.dtype, device):
     if mixer == "attn":
         return attention.init_kv_cache(cfg, batch, max_seq, dtype, device)
+    if mixer == "mamba":
+        return mamba.init_mamba_cache(cfg, batch, dtype, device)
     return rwkv.init_rwkv_cache(cfg, batch, dtype, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device="cuda"):
     """Per-layer decode state: a KV cache of ``max_seq`` slots (an SWA
-    ring of at most ``window``) for attention, the RWKV state (which does
-    not grow with the sequence) for RWKV. Stacked blocks get the
-    per-layer cache repeated along a leading ``n_repeats`` dim."""
+    ring of at most ``window``) for attention, the RWKV state or the
+    Mamba state and conv tail (which do not grow with the sequence) for
+    RWKV and Mamba. Stacked blocks get the per-layer cache repeated
+    along a leading ``n_repeats`` dim."""
     check_ported(cfg)
     dev = P.resolve_device(device)
     cache: Dict[str, Any] = {
@@ -219,6 +225,8 @@ def _decode_block(cfg: ModelConfig, mixer: str, ffn: str, p, x, cache,
     if mixer == "attn":
         h, cache = attention.decode_attention(cfg, p["mixer"], h, cache,
                                               index)
+    elif mixer == "mamba":
+        h, cache = mamba.mamba_decode(cfg, p["mixer"], h, cache)
     else:
         h, cache = rwkv.rwkv_decode(cfg, p["mixer"], h, cache)
     x = x + h
@@ -231,8 +239,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
                 dtype: torch.dtype = torch.bfloat16
                 ) -> Tuple[torch.Tensor, Any]:
     """token: (b, 1) int; index: tokens so far (the KV cache's write
-    slot and the RoPE position; the RWKV state does not use it);
-    ``memory`` is the encoder's, which no ported family has.
+    slot and the RoPE position; the RWKV and Mamba states do not use
+    it); ``memory`` is the encoder's, which no ported family has.
 
     Returns (logits (b, 1, vocab), new_cache); ``cache`` is not
     changed."""

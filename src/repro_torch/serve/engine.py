@@ -2,16 +2,20 @@
 decode, the counterpart of the JAX package's ``repro/serve/engine.py``.
 
 It serves the families ``models/transformer.py`` runs: ``rwkv6-7b``,
-``granite-moe-3b-a800m``, ``glm4-9b``, ``qwen3-14b`` and
-``h2o-danube-1.8b``; any other arch raises ``NotImplementedError``.
+``granite-moe-3b-a800m``, ``glm4-9b``, ``qwen3-14b``, ``h2o-danube-1.8b``
+and ``jamba-1.5-large-398b``; any other arch raises
+``NotImplementedError``.
 
-``generate`` fills the per-layer state (the KV cache, or the RWKV state)
+``generate`` fills the per-layer state (the KV cache, the RWKV state or
+the Mamba state)
 with the prompt by teacher-forced decode steps, then samples new tokens:
 greedy at temperature 0, else from softmax(logits / T) with an explicit
 ``torch.Generator`` seeded by ``seed`` (the JAX package's ``jax.random``
 draws cannot be reproduced; greedy output is the same token for token).
 ``score`` runs the prefill forward, the path that carries the
-flash-attention, grouped-expert-matmul and WKV kernels, and returns the
+flash-attention, grouped-expert-matmul, WKV and selective-scan kernels
+(a Mamba model's sequence length must be one the JAX package's chunked
+scan takes: a multiple of 128, or at most 128), and returns the
 loss the JAX engine returns: the mean NLL plus, for an MoE model, the
 weighted router losses.
 

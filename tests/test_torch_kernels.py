@@ -30,6 +30,8 @@ ATT_CASES = [
     (1, 2, 2, 256, 64, True, 0, "bfloat16"),
     # the split-NN tower's call, rows cut from 512 to 4
     (4, 4, 4, 8, 16, False, 0, "float32"),
+    # h2o-danube-1.8b's head dim of 80 (causal GQA 4:1, a window)
+    (2, 8, 2, 96, 80, True, 64, "float32"),
 ]
 
 
@@ -272,11 +274,12 @@ def test_ops_pallas_on_cpu_raises(counters):
 
 def test_kernel_sources_build_flags():
     """The build compiles every csrc source for sm_90a without fast
-    math (quantize needs an IEEE division to agree bit for bit)."""
+    math (quantize needs an IEEE division to agree bit for bit, the
+    selective scan an accurate expf)."""
     from repro_torch.kernels import _build
     names = [s.name for s in _build.sources()]
     assert names == ["flash_attention.cu", "moe_gmm.cu", "quantize.cu",
-                     "rwkv6_wkv.cu"]
+                     "rwkv6_wkv.cu", "selective_scan.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     for s in _build.sources():

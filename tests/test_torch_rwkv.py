@@ -270,8 +270,8 @@ def test_decode_matches_own_forward(model):
                                        atol=2e-3)
 
 
-UNPORTED = ["deepseek-v2-lite-16b", "internvl2-76b", "jamba-1.5-large-398b",
-            "minicpm3-4b", "whisper-large-v3"]
+UNPORTED = ["deepseek-v2-lite-16b", "internvl2-76b", "minicpm3-4b",
+            "whisper-large-v3"]
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
@@ -307,7 +307,7 @@ def test_launcher_serves_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert f"{ARCH} on cpu: generated (2, 7)" in out
     monkeypatch.setattr(sys, "argv", [
-        "serve", "--arch", "jamba-1.5-large-398b", "--reduced", "--device",
+        "serve", "--arch", "deepseek-v2-lite-16b", "--reduced", "--device",
         "cpu"])
-    with pytest.raises(NotImplementedError, match="Mamba slice"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tlaunch.main()
