@@ -10,7 +10,18 @@ NVIDIA GPU.
 3. holds each kernel against its plain PyTorch version on the card, at
    the split-NN path's shapes (R = 512 rows a round) and at the JAX
    package's kernel-test shapes: attention within 2e-5 (f32) / 2e-2
-   (bf16), int8 quantization exactly;
+   (bf16), int8 quantization exactly; and at the edges of the two
+   tensor-core kernels: attention at sq / sk of 1, 17, 64, 511 and 513,
+   causal and not, windows ending inside a key tile, sq != sk down to
+   rows that see no key, f32 and bf16; the grouped matmul at capacities
+   1, 4, 16 and 17 with d and f that are not multiples of 8, and with d
+   split across blocks, within 2e-4 (f32) / 5e-2 (bf16). Each check
+   names the kernel variant it ran (``simt`` / ``mma_3xtf32`` /
+   ``mma_bf16``; ``stream`` / ``mma_*``); attention at sq = sk = 4096
+   (head dim 128 causal, head dim 80 with a window of 4096, q at its
+   spread and at 3x it) within 2e-5; and a NaN in q or in x (0 / 0 on
+   the card, 0x7FFFFFFF, 0xFFFFFFFF) must come out NaN exactly where
+   the plain version's does, in every variant;
 4. serves the paper's vfl-recsys workload at its published scale
    (190,439 users, a 1,345-feature master silo with 19 items, a
    381-feature member silo on 60% of the users) with the benchmarked
@@ -74,8 +85,9 @@ NVIDIA GPU.
    are freed. First the selective-scan kernel against its plain
    version at the path's shape (4, 512, 16384, n 16), within 2e-5 of
    the output's largest magnitude (512 sequential steps of f32
-   rounding), and at the JAX package's kernel-test shapes within 2e-5
-   (f32) / 3e-2 (bf16); the grouped matmul at the path's four shapes
+   rounding), and at the JAX package's kernel-test shapes and state
+   dims 1, 5, 32 and 100 (no config's) within 2e-5 (f32) / 3e-2
+   (bf16); the grouped matmul at the path's four shapes
    and attention at (4, 64, 512, 128) causal GQA 8:1 as in step 7.
    Then ``score`` of a (4, 513) batch (512 tokens a row, a length the
    JAX package's chunked scan takes), which must give a finite loss
@@ -87,7 +99,11 @@ NVIDIA GPU.
    the grouped matmul and attention at jamba's shapes; and the phase's
    wall time;
 10. prints all kernels in one ``kernels`` JSON line with each kernel's
-   least possible time and its launches on each path, then
+   least possible time (bytes over the memory rate, or operations over
+   the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
+   on the tensor cores in 3xTF32, 989 for bf16 on them, 67 for f32
+   FMAs), the variant each
+   path's shape ran and its launches on each path, then
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero; it needs the repo's
@@ -114,10 +130,15 @@ ROUNDS_ROWS = 512
 HEADS, TOKENS, DIM = 4, 8, 64
 CALLERS, QUERIES, QUERY_ROWS = 16, 8, 64
 
-# H100 SXM peaks (NVIDIA's data sheet): device memory rate, and the
-# float32 rate outside the tensor cores (both kernels use no MMA)
+# H100 SXM peaks (NVIDIA's data sheet): device memory rate; the float32
+# rate outside the tensor cores (the WKV, scan and quantize kernels, and
+# the FMA variants of attention and the grouped matmul); the tensor
+# cores' f32-accurate rate in 3xTF32, three TF32 passes of 495 TFLOP/s;
+# their bf16 rate
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32X3_FLOP_S = 495e12 / 3
+BF16_FLOP_S = 989e12
 
 # the model-zoo phase: rwkv6-7b at full width and depth, f32
 ZOO_ARCH = "rwkv6-7b"
@@ -164,6 +185,12 @@ SSM_CASES = [
     (2, 128, 64, 16, "float32", "float32"),
     (1, 256, 32, 4, "bfloat16", "bfloat16"),
     (3, 37, 200, 16, "float32", "bfloat16"),
+    # state dims of no config: masked registers (1, 5, 32) and the
+    # looped wide path (100)
+    (2, 37, 200, 1, "float32", "float32"),
+    (2, 37, 200, 5, "float32", "float32"),
+    (2, 37, 200, 32, "float32", "float32"),
+    (2, 37, 72, 100, "float32", "float32"),
 ]
 
 TOWER = ("embed:tokens=8,dim=64", "attn_block:heads=4", "quantize",
@@ -180,6 +207,46 @@ ATT_CASES = [
     # h2o-danube-1.8b's head dim of 80
     (2, 8, 2, 96, 80, True, 64, "float32"),
     (1, 4, 4, 33, 80, False, 0, "bfloat16"),
+]
+# the attention kernel's edges: lengths around its 16-row SIMT / 64-row
+# tensor-core switch and its 64-key tiles, causal or not, in f32 and
+# bf16; windows that end inside a key tile; sq != sk, down to rows that
+# see no key at all (a window shorter than sq - sk)
+ATT_EDGE_CASES = [
+    (1, 4, 2, s, s, 64, causal, 0, dt)
+    for s in (1, 17, 64, 511, 513) for causal in (True, False)
+    for dt in ("float32", "bfloat16")] + [
+    # b, h, kvh, sq, sk, dh, causal, window, dtype
+    (1, 4, 2, 511, 511, 80, True, 100, "float32"),
+    (1, 4, 2, 511, 511, 80, False, 100, "float32"),
+    (1, 4, 1, 513, 513, 128, True, 100, "bfloat16"),
+    (2, 2, 2, 513, 513, 128, True, 0, "float32"),
+    (1, 4, 2, 17, 513, 128, True, 0, "float32"),
+    (1, 4, 2, 513, 17, 64, False, 8, "float32"),
+    (1, 2, 2, 300, 200, 32, True, 37, "bfloat16"),
+    (1, 2, 1, 100, 100, 16, True, 0, "float32"),
+]
+# long rows, as h2o-danube's window of 4096 and jamba's and granite's
+# contexts give them: 3 sk / 8 tensor-core sums a row in f32; q at 3x
+# its spread peaks the softmax, so the output is of v's size, where the
+# tensor cores' truncating sums would show most
+ATT_LONG_CASES = [
+    # b, h, kvh, s, dh, window, q scale; causal, f32
+    (1, 2, 1, 4096, 128, 0, 1.0),
+    (1, 2, 1, 4096, 128, 0, 3.0),
+    (1, 2, 1, 4096, 80, 4096, 1.0),
+    (1, 2, 1, 4096, 80, 4096, 3.0),
+]
+# the grouped matmul's edges: capacities around its stream (c <= 16) /
+# tensor-core switch; d and f that are not multiples of 8 (f32 copies
+# 16-byte chunks where they are multiples of 4, bf16 falls back to plain
+# loads); d long enough to be split across blocks
+GMM_EDGE_CASES = [
+    (3, c, d, f, dt) for c in (1, 4, 16, 17) for d, f in ((50, 33),
+                                                          (1000, 36))
+    for dt in ("float32", "bfloat16")] + [
+    (2, 4, 4096, 96, "float32"),
+    (2, 300, 200, 300, "float32"),
 ]
 
 
@@ -244,13 +311,24 @@ def graph_ms(fn, reps: int = 100, trials: int = 15) -> float:
     return _event_ms(graph.replay, reps, trials)
 
 
-def _bound(nbytes: float, ops: float) -> dict:
+def _bound(nbytes: float, ops: float, rate: float = F32_FLOP_S) -> dict:
     """The least time of a call: ``nbytes`` over the memory rate or
-    ``ops`` over the f32 rate, whichever is longer."""
+    ``ops`` over ``rate``, the peak of the arithmetic route the function
+    can take (f32 FMAs, 3xTF32 or bf16 tensor cores), whichever is
+    longer."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / F32_FLOP_S * 1e3
+    t_ops = ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "op_rate_tflop_s": rate / 1e12}
+
+
+def route_rate(variant: str) -> float:
+    """The peak of the arithmetic route a kernel variant takes (the
+    wrappers' ``variant``): the tensor cores in 3xTF32 or bf16, else f32
+    FMAs."""
+    return {"mma_3xtf32": TF32X3_FLOP_S,
+            "mma_bf16": BF16_FLOP_S}.get(variant, F32_FLOP_S)
 
 
 def check_kernels(torch, dev):
@@ -276,9 +354,40 @@ def check_kernels(torch, dev):
         torch.testing.assert_close(out.float(), exp.float(), atol=tol,
                                    rtol=tol)
         err = (out.float() - exp.float()).abs().max().item()
-        log(f"attention {case}: max_abs_err {err:.3e} (tol {tol})")
+        log(f"attention {case}: max_abs_err {err:.3e} (tol {tol}) "
+            f"{fa.variant(q, k, v)}")
         if case is path_case:
             errs["flash_attention"] = err
+    for case in ATT_EDGE_CASES:
+        b, h, kvh, sq, sk, dh, causal, window, dt = case
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, h, sq, dh), generator=g).to(dtype).to(dev)
+        k, v = (torch.randn((b, kvh, sk, dh), generator=g).to(dtype).to(dev)
+                for _ in range(2))
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        exp = ref.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                   rtol=tol)
+        err = (out.float() - exp.float()).abs().max().item()
+        log(f"attention edge {case}: max_abs_err {err:.3e} (tol {tol}) "
+            f"{fa.variant(q, k, v)}")
+    for case in ATT_LONG_CASES:
+        b, h, kvh, s, dh, window, q_scale = case
+        q = (torch.randn((b, h, s, dh), generator=g) * q_scale).to(dev)
+        k, v = (torch.randn((b, kvh, s, dh), generator=g).to(dev)
+                for _ in range(2))
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        exp = ref.attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
+        err = (out - exp).abs().max().item()
+        log(f"attention long {case}: max_abs_err {err:.3e} (tol 2e-5) "
+            f"{fa.variant(q, k, v)}")
+        del q, k, v, out, exp
+    check_gmm_edges(torch, dev, g)
+    check_nan(torch, dev, g)
     for rows, d, dt in [(TOKENS * r, DIM, "float32"), (300, 64, "float32"),
                         (7, 1000, "float32"), (513, 96, "bfloat16")]:
         x = torch.randn((rows, d), generator=g)
@@ -299,6 +408,74 @@ def check_kernels(torch, dev):
             errs["quantize_int8"] = float(
                 (q1.float() - q2.float()).abs().max().item())
     return errs
+
+
+def check_gmm_edges(torch, dev, g) -> None:
+    """The grouped matmul against its plain version at its edge shapes,
+    within 2e-4 (f32) / 5e-2 (bf16)."""
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    for case in GMM_EDGE_CASES:
+        e, c, d, f, dt = case
+        dtype = getattr(torch, dt)
+        x = torch.randn((e, c, d), generator=g).to(dtype).to(dev)
+        w = torch.randn((e, d, f), generator=g).to(dtype).to(dev)
+        out = gmm.moe_gmm(x, w)
+        exp = ref.gmm_ref(x, w)
+        torch.cuda.synchronize()
+        tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                   rtol=tol)
+        err = (out.float() - exp.float()).abs().max().item()
+        log(f"moe_gmm edge {case}: max_abs_err {err:.3e} (atol = rtol = "
+            f"{tol}) {gmm.variant(x, w)}")
+
+
+def check_nan(torch, dev, g) -> None:
+    """A NaN in an operand comes out NaN wherever the plain version's
+    does, in every variant of attention (NaN in q) and of the grouped
+    matmul (NaN in x): the NaN of 0 / 0 computed on the card, GPU
+    arithmetic's canonical 0x7FFFFFFF and its negative 0xFFFFFFFF. The
+    rest of the output agrees within the usual tolerances."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    zero = torch.zeros(1, device=dev)
+    bits = torch.tensor([0x7FFFFFFF, -1], dtype=torch.int32, device=dev)
+    nans = torch.cat([zero / zero, bits.view(torch.float32)])
+    for s in (8, 100):                   # SIMT, tensor cores
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            q = torch.randn((1, 4, s, 64), generator=g).to(dev)
+            q[0, 0, 3, 5], q[0, 1, s - 1, 0], q[0, 3, 0, 63] = nans
+            q = q.to(dtype)
+            k, v = (torch.randn((1, 2, s, 64), generator=g).to(dtype)
+                    .to(dev) for _ in range(2))
+            out = fa.flash_attention(q, k, v, causal=True)
+            exp = ref.attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+            torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                       rtol=tol, equal_nan=True)
+            log(f"attention NaN in q (1, 4, {s}, 64) {dt}: "
+                f"{int(exp.isnan().any(-1).sum())} NaN rows, as the "
+                f"plain version's {fa.variant(q, k, v)}")
+    for c in (4, 64):                    # stream, tensor cores
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            x = torch.randn((3, c, 96), generator=g).to(dev)
+            x[0, 1, 7], x[1, c - 1, 95], x[2, 0, 0] = nans
+            x = x.to(dtype)
+            w = torch.randn((3, 96, 72), generator=g).to(dtype).to(dev)
+            out = gmm.moe_gmm(x, w)
+            exp = ref.gmm_ref(x, w)
+            torch.cuda.synchronize()
+            tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+            torch.testing.assert_close(out.float(), exp.float(), atol=tol,
+                                       rtol=tol, equal_nan=True)
+            log(f"moe_gmm NaN in x (3, {c}, 96) {dt}: "
+                f"{int(exp.isnan().any(-1).sum())} NaN rows, as the "
+                f"plain version's {gmm.variant(x, w)}")
 
 
 def make_slice():
@@ -445,11 +622,14 @@ def time_kernels(torch, dev):
     x = torch.randn((TOKENS * r, DIM), generator=g).to(dev)
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     b, h, s, dh = q.shape
+    variant = fa.variant(q, k, v)
     att = time_call(lambda: fa.flash_attention(q, k, v, causal=False),
                     lambda: ref.attention_ref(q, k, v, causal=False),
                     lambda: F.scaled_dot_product_attention(q, k, v),
                     2 * nbytes(q) + nbytes(k, v),
-                    4.0 * b * h * s * s * dh)          # q.k and p.v
+                    4.0 * b * h * s * s * dh,          # q.k and p.v
+                    rate=route_rate(variant))
+    att["variant"] = variant
     qo, so = qz.quantize_int8(x)
     quant = time_call(lambda: qz.quantize_int8(x),
                       lambda: ref.quantize_int8_ref(x), None,
@@ -460,12 +640,13 @@ def time_kernels(torch, dev):
 
 def time_call(kernel, plain, library, nbytes: float, ops: float,
               timing: dict | None = None,
-              plain_timing: dict | None = None) -> dict:
+              plain_timing: dict | None = None,
+              rate: float = F32_FLOP_S) -> dict:
     """CUDA-event times of a kernel's wrapper, its plain version and the
     one PyTorch call that computes the same function (``library``, None
     where there is none), all on the same inputs, and the least time of
     ``nbytes`` and ``ops`` (``_bound``: each input read once and each
-    output written once, the operations at the f32 rate). Device times
+    output written once, the operations at ``rate``). Device times
     come from graph replay; the eager times per call stand beside them,
     since the host's dispatch bounds those. ``timing`` and
     ``plain_timing`` are ``graph_ms`` / ``eager_ms`` keywords."""
@@ -476,7 +657,7 @@ def time_call(kernel, plain, library, nbytes: float, ops: float,
            "plain_ms": graph_ms(plain, **plain_timing),
            "plain_eager_ms": eager_ms(plain, **plain_timing),
            "library_ms": graph_ms(library, **timing) if library else None}
-    out.update(_bound(nbytes, ops))
+    out.update(_bound(nbytes, ops, rate))
     return out
 
 
@@ -724,8 +905,8 @@ def profile_window(torch, fn, wall_s: float) -> dict:
         name = e.key.lower()
         kind = ("wkv" if "rwkv6_wkv" in name else
                 "scan" if "selective_scan" in name else
-                "gmm" if "moe_gmm" in name else
-                "attention" if "flash_attention" in name else
+                "gmm" if "gmm_" in name else
+                "attention" if "attention_" in name else
                 "matmul" if any(m in name for m in MATMUL_MARKS) else
                 "other")
         kinds[kind] += _device_us(e) / 1e3
@@ -878,13 +1059,16 @@ def time_attention(torch, dev, cfg, qs, ks, window: int, g,
                          "attention kernel where the window masks nothing")
     # q, k, v read once, o written once; q.k and p.v over the causal
     # pairs only, s (s + 1) / 2 a (batch, head)
+    variant = fa.variant(q, k, v)
     att = time_call(
         lambda: fa.flash_attention(q, k, v, causal=True, window=window),
         lambda: ref.attention_ref(q, k, v, causal=True, window=window),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                enable_gqa=True),
         (2 * q.numel() + k.numel() + v.numel()) * 4,
-        4.0 * b * h * dh * s * (s + 1) / 2, timing)
+        4.0 * b * h * dh * s * (s + 1) / 2, timing,
+        rate=route_rate(variant))
+    att["variant"] = variant
     log(f"flash_attention {cfg.arch_id} prefill q {qs} k/v {ks} causal "
         f"f32: {att}")
     return att
@@ -905,12 +1089,14 @@ def time_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
         x = torch.randn((e, c, d), generator=g).to(dev)
         w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
         # x and w read once, the output written once; 2 e c d f flops
+        variant = gmm.variant(x, w)
         t = time_call(lambda: gmm.moe_gmm(x, w), lambda: ref.gmm_ref(x, w),
                       lambda: torch.bmm(x, w),
                       (x.numel() + w.numel() + e * c * f) * 4,
                       2.0 * e * c * d * f,
                       (prefill_timing or few) if name.startswith("prefill")
-                      else few)
+                      else few, rate=route_rate(variant))
+        t["variant"] = variant
         log(f"moe_gmm {name} {(e, c, d, f)} f32: {t}")
         gmm_t[name] = t
         del x, w

@@ -51,6 +51,7 @@ from repro_torch.comm.schema import Field, TypedChannel
 from repro_torch.core.protocols.base import (VFLConfig, batch_bounds,
                                              batch_order, master_match,
                                              member_match)
+from repro_torch.models.params import resolve_device
 
 # ctrl/phase ops
 PHASE_SHUTDOWN = 0
@@ -182,14 +183,14 @@ class VFLProtocol:
     supports_pipeline: bool = False
 
     def __init__(self, cfg: VFLConfig, ch: TypedChannel, role: str,
-                 device: Any = "cpu"):
+                 device: Any = "cuda"):
         self.cfg = cfg
         self.ch = ch
         self.role = role
-        # where this agent keeps its tensors (a torch.device or its
-        # name); VFLJob checks that a CUDA device exists before any
-        # agent starts
-        self.device = device
+        # where this agent keeps its tensors: the card unless the caller
+        # asks for the CPU; a CUDA device this machine lacks raises here,
+        # as it does in VFLJob
+        self.device = resolve_device(device)
         self.data: Any = None          # MasterData / MemberData / None
         self.order: Optional[List[str]] = None
         # True while running under a checkpoint restore: setup() hooks

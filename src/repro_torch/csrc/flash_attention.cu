@@ -9,56 +9,88 @@
 // the denominator clamped at 1e-30, GQA through kv head `ih / group`,
 // output cast to q's dtype.
 //
-// What bounds it on this card: on the split-NN tower's path the call is
-// q, k, v of (R, 4, 8, 16) f32, non-causal: 4 MiB moved for 8.4 MFLOP at
-// R = 512, so memory, and below that launch latency, bound it; the
-// matrix units have nothing to chew on (an 8x8 score tile per head).
+// What bounds it on this card: at the zoo's prefill shapes the products
+// q.k and p.v. jamba's (4, 64, 512, 128) causal call is 17.2 GFLOP over
+// the causal pairs against 84 MB: operations bound it, at 0.104 ms on
+// the tensor cores in 3xTF32 (495 / 3 TFLOP/s). On the split-NN tower's
+// path, q, k, v of (R, 4, 8, 16) f32, non-causal: 4 MiB moved for 8.4
+// MFLOP at R = 512, so memory, and below that launch latency, bound it.
 //
-// What the design does about it: it is written again from what it
-// computes, not from the Pallas grid. Blocks run over (b*h, q-tiles);
-// one query row is owned by DH / DPL neighbouring lanes, a power of two,
-// each holding DPL dims of q and of the output accumulator in registers
-// (16 dims a lane; 20 at head dim 80, whose row takes 4 lanes, since 5
-// would break the xor-shuffle reduction), so a block of 128 threads
-// packs several (batch, head) pairs when the sequence is short (16
-// pairs of 8 rows on the path) instead of idling lanes. Each block
-// stages BK keys of k and v per (batch, head) pair in shared
-// memory, scores them with f32 FMAs (no TF32: the f32 tolerance is
-// 2e-5), reduces the dot product across the row's lanes with shuffles,
-// and folds the tile into the running max / denominator / accumulator.
-// Key positions past sk are masked here (-inf, weight exactly 0), so no
-// length has to divide a tile. Tensor-core (wgmma) and TMA versions are
-// later work.
+// What the design does about it, two kernels chosen by shape:
+//
+// * sq > 16 (every prefill): `attention_mma_kernel`. A block of 4 warps
+//   owns one (batch, head) and a 64-row query tile, 16 rows a warp;
+//   query tiles are launched last tile first, so the long causal tiles
+//   do not leave a tail. The key loop runs only over the key tiles that
+//   some row of the query tile can see: it stops at the diagonal tile
+//   when causal and starts at the first tile inside the window, and
+//   only tiles that are not wholly visible apply the mask (tiles wholly
+//   masked would add exp(-1e30 - m) = 0 exactly, so skipping them
+//   changes nothing; where a row sees no key at all, which a window
+//   shorter than sq - sk allows, the block walks every tile so that the
+//   row averages v as the reference does). Q's tile is staged once; K
+//   and V tiles of BK keys x dh go through a double-buffered `cp.async`
+//   ring in dynamic shared memory, rows padded by 16 bytes so that the
+//   fragment loads are free of bank conflicts. Both products run on
+//   `mma.sync` (`mma_tf32.cuh`): f32 as m16n8k8 TF32 with the 3xTF32
+//   split (f32 accuracy, which one TF32 pass would not give), bf16 as
+//   m16n8k16. The online softmax (running max, denominator, rescale of
+//   the accumulator) works on the accumulator fragments in registers; a
+//   row's max takes two shuffles within the quad that holds it, its
+//   denominator is summed per lane and reduced once at the end. p.v
+//   takes P straight from the score fragments: in f32 the key order of
+//   each 8-key step is permuted alike in P and V (A's column t is key
+//   2t, column t + 4 key 2t + 1), in bf16 the m16n8k16 layouts already
+//   agree. In f32 each key tile's p.v goes into a fresh fragment added
+//   to the accumulator in f32, since the tensor cores truncate their
+//   sums (a long row would otherwise pile up 3 sk / 8 truncations). The
+//   f32 path scales q before the split, as the contract says;
+//   the bf16 path scales the f32 scores (q.k of bf16 values is exact in
+//   f32, so this is q * scale in f32 up to rounding, where scaling q
+//   first would round it to bf16). BK is 64 keys, 32 for f32 at dh 128
+//   (two blocks an SM either way).
+// * sq <= 16 (split-NN's 8 tokens) or an operand not 16-byte aligned:
+//   `attention_simt_kernel`, f32 FMAs. One query row is owned by
+//   DH / DPL neighbouring lanes, a power of two, each holding DPL dims
+//   of q and of the output accumulator in registers, so a block of 128
+//   threads packs several (batch, head) pairs when the sequence is short
+//   (16 pairs of 8 rows on the path) instead of idling lanes. It stages
+//   BK keys of k and v per pair in shared memory, BK = 8 where sk <= 8
+//   (split-NN's 8 keys fill it) and 16 otherwise, reduces the dot
+//   product across the row's lanes with shuffles and folds the tile into
+//   the running max / denominator / accumulator. A 64-row MMA tile would
+//   compute 8x the rows there.
+//
+// Key positions past sk are masked in both (-inf, weight exactly 0; the
+// MMA kernel's copies zero-fill their k and v), so no length has to
+// divide a tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;   // threads per block
-constexpr int kBK = 16;         // keys per shared-memory tile
-constexpr int kSmemFloats = 8192;  // 32 KiB: k and v tiles of all pairs
+using mma::store;
+using mma::to_f32;
+
+constexpr int kThreads = 128;      // threads per block, both kernels
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+// ------------------------------------------------------------ SIMT path
+constexpr int kSmemFloats = 8192;  // 32 KiB: k and v tiles of all pairs
 
 // One block: `pairs` consecutive (batch, head) pairs x `qt` query rows.
-// DPL: head dims held by one lane.
-template <int DH, int DPL, typename T>
+// DPL: head dims held by one lane; BK: keys a shared-memory tile.
+template <int DH, int DPL, int BK, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       int n_pairs, int h, int kvh, int sq, int sk,
-                       int causal, int window, float scale, int pairs,
-                       int qt) {
+attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      int n_pairs, int h, int kvh, int sq, int sk,
+                      int causal, int window, float scale, int pairs,
+                      int qt) {
   constexpr int LANES = DH / DPL;  // lanes per query row
   static_assert(DH % DPL == 0 && (LANES & (LANES - 1)) == 0 &&
                     LANES <= 32,
@@ -90,10 +122,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
 
-  const int tile_elems = kBK * DH;                 // per pair
-  const int n_tiles = (sk + kBK - 1) / kBK;
+  const int tile_elems = BK * DH;                  // per pair
+  const int n_tiles = (sk + BK - 1) / BK;
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
+    const int k0 = t * BK;
     // stage this key tile of every pair of the block (zeros past sk)
     for (int e = tid; e < pairs * tile_elems; e += kThreads) {
       const int p = e / tile_elems;
@@ -115,9 +147,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const float* kt = ks + (active ? lp : 0) * tile_elems;
     const float* vt = vs + (active ? lp : 0) * tile_elems;
-    float s[kBK];
+    float s[BK];
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int d = 0; d < DPL; ++d)
@@ -134,13 +166,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     float mt = m;
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) mt = fmaxf(mt, s[j]);
+    for (int j = 0; j < BK; ++j) mt = fmaxf(mt, s[j]);
     const float alpha = expf(m - mt);
     l *= alpha;
 #pragma unroll
     for (int d = 0; d < DPL; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       const float p = expf(s[j] - mt);
       l += p;
 #pragma unroll
@@ -159,25 +191,336 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DH, int DPL, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int h, int kvh, int sq, int sk, int causal,
-                   int window, float scale, cudaStream_t stream) {
+template <int DH, int DPL, int BK, typename T>
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
+                        void* o, int b, int h, int kvh, int sq, int sk,
+                        int causal, int window, float scale,
+                        cudaStream_t stream) {
   constexpr int LANES = DH / DPL;
   constexpr int slots = kThreads / LANES;          // query rows per block
   // pairs whose k and v tiles fit the shared buffers together
-  constexpr int max_pairs = (kSmemFloats / 2) / (kBK * DH);
+  constexpr int max_pairs = (kSmemFloats / 2) / (BK * DH);
   int qt = 1;
   while (qt < sq && qt < slots) qt *= 2;
   int pairs = slots / qt;
   if (pairs > max_pairs) pairs = max_pairs;
   const int n_pairs = b * h;
   dim3 grid((n_pairs + pairs - 1) / pairs, (sq + qt - 1) / qt);
-  flash_attention_kernel<DH, DPL, T><<<grid, kThreads, 0, stream>>>(
+  attention_simt_kernel<DH, DPL, BK, T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n_pairs, h, kvh, sq,
       sk, causal, window, scale, pairs, qt);
   return cudaGetLastError();
+}
+
+template <int DH, int DPL, typename T>
+cudaError_t simt(const void* q, const void* k, const void* v, void* o,
+                 int b, int h, int kvh, int sq, int sk, int causal,
+                 int window, float scale, cudaStream_t stream) {
+  if (sk <= 8)
+    return launch_simt<DH, DPL, 8, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
+                                      window, scale, stream);
+  return launch_simt<DH, DPL, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
+                                     window, scale, stream);
+}
+
+// ------------------------------------------------------- tensor-core path
+template <int DH, typename T>
+struct MmaTile {
+  static constexpr int kBQ = 64;  // query rows a block, 16 a warp
+  static constexpr int kBK = (sizeof(T) == 4 && DH > 80) ? 32 : 64;
+  static constexpr int kLd = DH + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kSmemBytes =
+      (kBQ + 4 * kBK) * kLd * static_cast<int>(sizeof(T));
+  static_assert(DH % 16 == 0 || (DH % 8 == 0 && sizeof(T) == 4),
+                "head dim must be whole k-steps");
+};
+
+// s (16 x 8 NT per warp) = q (16 rows at q_s) . k (8 NT keys at k_s)^T
+template <int DH, int NT, int LD>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const float* q_s,
+                                       const float* k_s, int g, int t,
+                                       float scale) {
+#pragma unroll
+  for (int kk = 0; kk < DH; kk += 8) {
+    float a[4];
+    mma::load_a_tf32(a, q_s + kk, LD, g, t, scale);  // q scaled in f32
+    const mma::Split<4> as = mma::split(a);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float b[2];
+      mma::load_b_tf32_nk(b, k_s + j * 8 * LD + kk, LD, g, t);
+      mma::mma_3xtf32(s[j], as, mma::split(b));
+    }
+  }
+}
+
+template <int DH, int NT, int LD>
+__device__ __forceinline__ void scores(float (&s)[NT][4],
+                                       const __nv_bfloat16* q_s,
+                                       const __nv_bfloat16* k_s, int g,
+                                       int t, float scale) {
+#pragma unroll
+  for (int kk = 0; kk < DH; kk += 16) {
+    uint32_t a[4];
+    mma::load_a_bf16(a, q_s + kk, LD, g, t);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t b[2];
+      mma::load_b_bf16_nk(b, k_s + j * 8 * LD + kk, LD, g, t);
+      mma::mma_bf16(s[j], a, b);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+}
+
+// acc (16 x DH per warp) += p (16 x 8 NT keys) . v (8 NT keys at v_s).
+// The tensor cores round each sum they return toward zero, so the
+// tile's products go into a fresh fragment for every 8 dims of the
+// output, added to acc in f32 (to nearest): the truncation then grows
+// with a tile's 3 NT sums, not with all 3 sk / 8 of the row (at sk 4096,
+// 1,536 sums into one accumulator put a peaked softmax's output 2x past
+// 2e-5 in the CPU emulation of tests/test_torch_tf32x3.py).
+template <int DT, int NT, int LD>
+__device__ __forceinline__ void accumulate(float (&acc)[DT][4],
+                                           const float (&p)[NT][4],
+                                           const float* v_s, int g, int t) {
+  // A's column t is key 8j + 2t and its column t + 4 key 8j + 2t + 1:
+  // the score fragment's own layout, so no shuffle; V's B rows follow
+  mma::Split<4> ps[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+    ps[j] = mma::split(a);
+  }
+  const float* vr = v_s + 2 * t * LD + g;
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* vj = vr + 8 * j * LD + 8 * n;
+      const float b[2] = {vj[0], vj[LD]};
+      mma::mma_3xtf32(part, ps[j], mma::split(b));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+// bf16: the output's rounding to bf16 (2^-9) dwarfs the truncation, so
+// the products go straight into acc
+template <int DT, int NT, int LD>
+__device__ __forceinline__ void accumulate(float (&acc)[DT][4],
+                                           const float (&p)[NT][4],
+                                           const __nv_bfloat16* v_s, int g,
+                                           int t) {
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    const uint32_t a[4] = {mma::pack_bf16(p[2 * j][0], p[2 * j][1]),
+                           mma::pack_bf16(p[2 * j][2], p[2 * j][3]),
+                           mma::pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                           mma::pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      uint32_t b[2];
+      mma::load_b_bf16_kn(b, v_s + 16 * j * LD + 8 * n, LD, g, t);
+      mma::mma_bf16(acc[n], a, b);
+    }
+  }
+}
+
+// `rows` rows of dh elements from row `row0` of src into a padded
+// shared tile, zero-filled from row `limit` on
+template <int DH, int LD, typename T>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
+                                      int row0, int rows, int limit) {
+  constexpr int V = 16 / sizeof(T);  // elements a 16-byte chunk
+  constexpr int CPR = DH / V;        // chunks a row
+  for (int i = threadIdx.x; i < rows * CPR; i += kThreads) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * V;
+    const bool in = row0 + r < limit;
+    mma::cp_async16(dst + r * LD + c,
+                    in ? src + (int64_t)(row0 + r) * DH + c : src, in);
+  }
+}
+
+// grid: (b * h, query tiles); blockIdx.y = 0 is the last query tile
+template <int DH, typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o, int h,
+                     int kvh, int sq, int sk, int causal, int window,
+                     float scale) {
+  using Tile = MmaTile<DH, T>;
+  constexpr int BQ = Tile::kBQ, BK = Tile::kBK, LD = Tile::kLd;
+  constexpr int NT = BK / 8;   // 8-key column tiles of the scores
+  constexpr int DT = DH / 8;   // 8-dim column tiles of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);   // [BQ][LD]
+  T* ks = qs + BQ * LD;                 // [2][BK][LD]
+  T* vs = ks + 2 * BK * LD;             // [2][BK][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int pair = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = pair / h;
+  const int kh = (pair % h) / (h / kvh);
+  const T* qg = q + (int64_t)pair * sq * DH;
+  const int64_t kv_off = ((int64_t)b * kvh + kh) * sk * DH;
+  const T* kg = k + kv_off;
+  const T* vg = v + kv_off;
+
+  // the keys some row of [q0, q_last] can see: [lo, hi)
+  const int q_last = min(q0 + BQ, sq) - 1;
+  int lo = window ? max(0, q0 - window + 1) : 0;
+  int hi = causal ? min(sk, q_last + 1) : sk;
+  if (window && max(0, q_last - window + 1) >= hi) {
+    lo = 0;   // the last row sees no key: walk them all, as the
+    hi = sk;  // reference's softmax over -1e30 everywhere does
+  }
+  const int t_lo = lo / BK, t_hi = (hi + BK - 1) / BK;
+
+  stage<DH, LD>(qs, qg, q0, BQ, sq);
+  stage<DH, LD>(ks, kg, t_lo * BK, BK, sk);
+  stage<DH, LD>(vs, vg, t_lo * BK, BK, sk);
+  mma::cp_async_commit();
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // rows g and g + 8 of the warp
+  float l[2] = {0.f, 0.f};          // this lane's share of each sum
+  const int wrow = warp * 16;
+  const int row_g = q0 + wrow + g;
+
+  for (int kt = t_lo; kt < t_hi; ++kt) {
+    const int buf = (kt - t_lo) & 1;
+    const int k0 = kt * BK;
+    // the other buffer was last read before the previous iteration's
+    // closing barrier, so the next tile may land in it now
+    if (kt + 1 < t_hi) {
+      stage<DH, LD>(ks + (buf ^ 1) * BK * LD, kg, k0 + BK, BK, sk);
+      stage<DH, LD>(vs + (buf ^ 1) * BK * LD, vg, k0 + BK, BK, sk);
+    }
+    mma::cp_async_commit();  // an empty group on the last tile
+    mma::cp_async_wait<1>();  // this tile's copies (and q's) have landed
+    __syncthreads();
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    scores<DH, NT, LD>(s, qs + wrow * LD, ks + buf * BK * LD, g, t, scale);
+
+    // the mask, where some key of the tile is hidden from some row
+    const bool whole = k0 + BK <= sk && (!causal || k0 + BK - 1 <= q0) &&
+                       (!window || q_last - k0 < window);
+    if (!whole) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const int qi = row_g + (e >> 1) * 8;
+          if (kp >= sk)
+            s[j][e] = -INFINITY;
+          else if ((causal && kp > qi) || (window && qi - kp >= window))
+            s[j][e] = kNegInf;
+        }
+    }
+
+    // online softmax on the fragments: row r's values are s[j][2r..2r+1]
+    // of the four lanes of a quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mt = m[r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mt = fmaxf(mt, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float alpha = expf(m[r] - mt);
+      m[r] = mt;
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][2 * r] = expf(s[j][2 * r] - mt);
+        s[j][2 * r + 1] = expf(s[j][2 * r + 1] - mt);
+        l[r] += s[j][2 * r] + s[j][2 * r + 1];
+      }
+    }
+    accumulate<DT, NT, LD>(acc, s, vs + buf * BK * LD, g, t);
+    __syncthreads();
+  }
+
+  T* og = o + (int64_t)pair * sq * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int qi = row_g + 8 * r;
+    if (qi < sq) {
+      T* orow = og + (int64_t)qi * DH + 2 * t;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        mma::store2(orow + 8 * n, acc[n][2 * r] * inv,
+                    acc[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int DH, typename T>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int b, int h, int kvh, int sq, int sk, int causal,
+                       int window, float scale, cudaStream_t stream) {
+  using Tile = MmaTile<DH, T>;
+  static bool done[64] = {};
+  cudaError_t err = mma::allow_smem(attention_mma_kernel<DH, T>,
+                                    Tile::kSmemBytes, done);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (sq + Tile::kBQ - 1) / Tile::kBQ;
+  if (q_tiles > 65535) return cudaErrorInvalidValue;
+  dim3 grid(b * h, q_tiles);
+  attention_mma_kernel<DH, T><<<grid, kThreads, Tile::kSmemBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), h, kvh, sq, sk, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
+// 0 = SIMT, 1 = tensor cores (3xTF32 for f32, bf16 MMA for bf16)
+int variant(const void* q, const void* k, const void* v, int sq) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(v) % 16 == 0);
+  return sq > 16 && aligned ? 1 : 0;
+}
+
+template <int DH, int DPL, typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int b, int h, int kvh, int sq, int sk, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  if (variant(q, k, v, sq))
+    return launch_mma<DH, T>(q, k, v, o, b, h, kvh, sq, sk, causal, window,
+                             scale, stream);
+  return simt<DH, DPL, T>(q, k, v, o, b, h, kvh, sq, sk, causal, window,
+                          scale, stream);
 }
 
 template <typename T>
@@ -224,4 +567,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return dispatch<__nv_bfloat16>(q, k, v, o, b, h, kvh, sq, sk, dh,
                                    causal, window, scale, st);
   return cudaErrorInvalidValue;
+}
+
+// The kernel a call with these operands runs: 0 = SIMT (sq <= 16, or an
+// operand not 16-byte aligned), 1 = tensor cores.
+extern "C" int repro_flash_attention_variant(const void* q, const void* k,
+                                             const void* v, int sq) {
+  return variant(q, k, v, sq);
 }

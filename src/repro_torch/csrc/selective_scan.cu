@@ -33,9 +33,15 @@
 // into registers while it computes this chunk. B_t and C_t are the same
 // for every channel of a batch row: a chunk of them is staged in
 // double-buffered shared memory for the whole block and read as float4
-// broadcasts. Any s and di work (a ragged di is masked); n is a
-// template parameter (4, 8 or 16). Splitting n across lanes with a
-// shuffle-reduced y, and a chunked tensor-core form, are later work.
+// broadcasts. Any s and di work (a ragged di is masked). Any n >= 1
+// works, as the Pallas kernel's does: n of 4, 8 or 16 (every config of
+// the repo) is a template parameter, N = n; any other n up to 64 runs
+// the same kernel at N = 32 or 64 with the states past n masked (their
+// A, B and C are zero, so they stay 0 and add nothing to y); above 64
+// a thread walks its n states in a loop, keeping them in h_final's row
+// (global memory, cached in L1/L2) instead of registers. Splitting n
+// across lanes with a shuffle-reduced y, and a chunked tensor-core
+// form, are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,11 +66,13 @@ struct Stage {
 
 // This thread's dt and u of steps [t0, t0 + kChunk) and its share of the
 // chunk's B and C, into registers (steps past s are left as they were).
+// n is the state dim of B and C (N, or less where the tail is masked).
 template <typename TX, typename TU, int N>
 __device__ __forceinline__ void fetch(
     const TX* __restrict__ dt, const TU* __restrict__ u,
     const TX* __restrict__ bm, const TX* __restrict__ cm, size_t row,
-    int t0, int s, int di, int ch, bool active, float (&pdt)[kChunk],
+    int t0, int s, int di, int n, int ch, bool active,
+    float (&pdt)[kChunk],
     float (&pu)[kChunk], float (&pb)[Stage<N>::kLoads],
     float (&pc)[Stage<N>::kLoads]) {
 #pragma unroll
@@ -76,36 +84,48 @@ __device__ __forceinline__ void fetch(
       pu[c] = to_f32(u[o]);
     }
   }
-  // B and C of a batch row's chunk are kElems consecutive elements
-  const size_t base = (row + t0) * N;
-  const int left = (s - t0) * N;
+  // B and C of a batch row's chunk are kChunk * n consecutive elements
+  const size_t base = (row + t0) * n;
+  const int left = (s - t0) * n;
 #pragma unroll
   for (int i = 0; i < Stage<N>::kLoads; ++i) {
     const int e = threadIdx.x + i * kThreads;
-    if (e < Stage<N>::kElems && e < left) {
+    if (e < kChunk * n && e < left) {
       pb[i] = to_f32(bm[base + e]);
       pc[i] = to_f32(cm[base + e]);
     }
   }
 }
 
-template <typename TX, typename TU, int N>
+// EXACT: n == N. Otherwise n < N and the states n..N-1 are masked: their
+// A, B and C are zero, so they stay 0 and add nothing to y.
+template <typename TX, typename TU, int N, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
                       const TX* __restrict__ cm, const TU* __restrict__ u,
                       const float* __restrict__ a_mat, float* __restrict__ y,
-                      float* __restrict__ h_final, int s, int di) {
+                      float* __restrict__ h_final, int s, int di,
+                      int n_arg) {
   // [buffer][step][state]
   __shared__ __align__(16) float sb[2][kChunk][N];
   __shared__ __align__(16) float sc[2][kChunk][N];
+  const int n = EXACT ? N : n_arg;
   const int ch = blockIdx.x * kThreads + threadIdx.x;
   const bool active = ch < di;
   const size_t row = (size_t)blockIdx.y * s;  // (batch, t = 0)
 
+  if (!EXACT) {
+    // the masked states' B and C: zero once, never written again
+    for (int e = threadIdx.x; e < 2 * kChunk * N; e += kThreads) {
+      (&sb[0][0][0])[e] = 0.f;
+      (&sc[0][0][0])[e] = 0.f;
+    }
+    __syncthreads();  // before any thread stages a chunk over the zeros
+  }
   float a[N], h[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    a[k] = active ? a_mat[(size_t)ch * N + k] : 0.f;
+    a[k] = active && k < n ? a_mat[(size_t)ch * n + k] : 0.f;
     h[k] = 0.f;
   }
 
@@ -115,8 +135,8 @@ selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
   for (int c = 0; c < kChunk; ++c) pdt[c] = pu[c] = 0.f;
 #pragma unroll
   for (int i = 0; i < Stage<N>::kLoads; ++i) pb[i] = pc[i] = 0.f;
-  fetch<TX, TU, N>(dt, u, bm, cm, row, 0, s, di, ch, active, pdt, pu, pb,
-                   pc);
+  fetch<TX, TU, N>(dt, u, bm, cm, row, 0, s, di, n, ch, active, pdt, pu,
+                   pb, pc);
   int buf = 0;
   for (int t0 = 0; t0 < s; t0 += kChunk, buf ^= 1) {
     // sb/sc[buf] were last read two chunks ago, before the previous
@@ -124,9 +144,12 @@ selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
 #pragma unroll
     for (int i = 0; i < Stage<N>::kLoads; ++i) {
       const int e = threadIdx.x + i * kThreads;
-      if (e < Stage<N>::kElems) {
+      if (EXACT && e < Stage<N>::kElems) {
         (&sb[buf][0][0])[e] = pb[i];
         (&sc[buf][0][0])[e] = pc[i];
+      } else if (!EXACT && e < kChunk * n) {
+        sb[buf][e / n][e % n] = pb[i];
+        sc[buf][e / n][e % n] = pc[i];
       }
     }
 #pragma unroll
@@ -136,8 +159,8 @@ selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
     }
     // the next chunk's loads are in flight while this chunk computes
     if (t0 + kChunk < s)
-      fetch<TX, TU, N>(dt, u, bm, cm, row, t0 + kChunk, s, di, ch, active,
-                       pdt, pu, pb, pc);
+      fetch<TX, TU, N>(dt, u, bm, cm, row, t0 + kChunk, s, di, n, ch,
+                       active, pdt, pu, pb, pc);
     __syncthreads();
     const int steps = min(kChunk, s - t0);
 #pragma unroll
@@ -164,24 +187,68 @@ selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
     }
   }
   if (active) {
-    float* hf = h_final + ((size_t)blockIdx.y * di + ch) * N;
+    float* hf = h_final + ((size_t)blockIdx.y * di + ch) * n;
+    if (EXACT) {
 #pragma unroll
-    for (int k = 0; k < N; k += 4)
-      *reinterpret_cast<float4*>(hf + k) =
-          make_float4(h[k], h[k + 1], h[k + 2], h[k + 3]);
+      for (int k = 0; k < N; k += 4)
+        *reinterpret_cast<float4*>(hf + k) =
+            make_float4(h[k], h[k + 1], h[k + 2], h[k + 3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        if (k < n) hf[k] = h[k];
+    }
   }
 }
 
-template <typename TX, typename TU, int N>
+// n above 64: one thread a (batch, channel) recurrence as above, its n
+// states in its row of h_final (global memory; L1 and L2 hold them) and
+// B_t, C_t read from global memory (the same for every thread of a
+// batch row, so cached). Same arithmetic, state by state in order.
+template <typename TX, typename TU>
+__global__ void __launch_bounds__(kThreads)
+selective_scan_wide_kernel(const TX* __restrict__ dt,
+                           const TX* __restrict__ bm,
+                           const TX* __restrict__ cm,
+                           const TU* __restrict__ u,
+                           const float* __restrict__ a_mat,
+                           float* __restrict__ y, float* __restrict__ h_final,
+                           int s, int di, int n) {
+  const int ch = blockIdx.x * kThreads + threadIdx.x;
+  if (ch >= di) return;
+  const size_t row = (size_t)blockIdx.y * s;
+  float* h = h_final + ((size_t)blockIdx.y * di + ch) * n;
+  const float* a = a_mat + (size_t)ch * n;
+  for (int k = 0; k < n; ++k) h[k] = 0.f;
+  for (int t = 0; t < s; ++t) {
+    const size_t o = (row + t) * di + ch;
+    const float d = to_f32(dt[o]);
+    const float du = d * to_f32(u[o]);
+    const TX* bt = bm + (row + t) * n;
+    const TX* ct = cm + (row + t) * n;
+    float acc0 = 0.f, acc1 = 0.f;
+    for (int k = 0; k < n; ++k) {
+      const float hk = expf(d * a[k]) * h[k] + du * to_f32(bt[k]);
+      h[k] = hk;
+      if (k & 1)
+        acc1 = fmaf(hk, to_f32(ct[k]), acc1);
+      else
+        acc0 = fmaf(hk, to_f32(ct[k]), acc0);
+    }
+    y[o] = acc0 + acc1;
+  }
+}
+
+template <typename TX, typename TU, int N, bool EXACT>
 cudaError_t launch(const void* dt, const void* bm, const void* cm,
                    const void* u, const void* a, void* y, void* h_final,
-                   int b, int s, int di, cudaStream_t stream) {
+                   int b, int s, int di, int n, cudaStream_t stream) {
   dim3 grid((di + kThreads - 1) / kThreads, b);
-  selective_scan_kernel<TX, TU, N><<<grid, kThreads, 0, stream>>>(
+  selective_scan_kernel<TX, TU, N, EXACT><<<grid, kThreads, 0, stream>>>(
       static_cast<const TX*>(dt), static_cast<const TX*>(bm),
       static_cast<const TX*>(cm), static_cast<const TU*>(u),
       static_cast<const float*>(a), static_cast<float*>(y),
-      static_cast<float*>(h_final), s, di);
+      static_cast<float*>(h_final), s, di, n);
   return cudaGetLastError();
 }
 
@@ -191,17 +258,30 @@ cudaError_t by_state(const void* dt, const void* bm, const void* cm,
                      int b, int s, int di, int n, cudaStream_t stream) {
   switch (n) {
     case 4:
-      return launch<TX, TU, 4>(dt, bm, cm, u, a, y, h_final, b, s, di,
-                               stream);
+      return launch<TX, TU, 4, true>(dt, bm, cm, u, a, y, h_final, b, s, di,
+                                     n, stream);
     case 8:
-      return launch<TX, TU, 8>(dt, bm, cm, u, a, y, h_final, b, s, di,
-                               stream);
+      return launch<TX, TU, 8, true>(dt, bm, cm, u, a, y, h_final, b, s, di,
+                                     n, stream);
     case 16:
-      return launch<TX, TU, 16>(dt, bm, cm, u, a, y, h_final, b, s, di,
-                                stream);
+      return launch<TX, TU, 16, true>(dt, bm, cm, u, a, y, h_final, b, s,
+                                      di, n, stream);
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  if (n <= 32)
+    return launch<TX, TU, 32, false>(dt, bm, cm, u, a, y, h_final, b, s, di,
+                                     n, stream);
+  if (n <= 64)
+    return launch<TX, TU, 64, false>(dt, bm, cm, u, a, y, h_final, b, s, di,
+                                     n, stream);
+  dim3 grid((di + kThreads - 1) / kThreads, b);
+  selective_scan_wide_kernel<TX, TU><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TX*>(dt), static_cast<const TX*>(bm),
+      static_cast<const TX*>(cm), static_cast<const TU*>(u),
+      static_cast<const float*>(a), static_cast<float*>(y),
+      static_cast<float*>(h_final), s, di, n);
+  return cudaGetLastError();
 }
 
 template <typename TX>
@@ -221,15 +301,16 @@ cudaError_t by_u(const void* dt, const void* bm, const void* cm,
 
 // x_dtype (dt, B, C alike) and u_dtype: 0 = float32, 1 = bfloat16; A is
 // float32. dt, u (b, s, di), B, C (b, s, n), A (di, n), y (b, s, di),
-// h_final (b, di, n), all contiguous; n is 4, 8 or 16. Returns the
-// launch's cudaError_t.
+// h_final (b, di, n), all contiguous; any n >= 1. Returns the launch's
+// cudaError_t.
 extern "C" int repro_selective_scan(const void* dt, const void* bm,
                                     const void* cm, const void* u,
                                     const void* a, void* y, void* h_final,
                                     int b, int s, int di, int n, int x_dtype,
                                     int u_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || s <= 0 || di <= 0 || b > 65535) return cudaErrorInvalidValue;
+  if (b <= 0 || s <= 0 || di <= 0 || n <= 0 || b > 65535)
+    return cudaErrorInvalidValue;
   if (x_dtype == 0)
     return by_u<float>(dt, bm, cm, u, a, y, h_final, b, s, di, n, u_dtype,
                        st);

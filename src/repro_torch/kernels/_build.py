@@ -5,7 +5,8 @@ started together, for ``sm_90a`` with a plain C interface, and the
 objects are linked into one shared library loaded with ``ctypes``. This
 takes seconds, where a build against PyTorch's headers takes minutes.
 The library goes to ``build/repro_torch/<hash>/`` under the checkout,
-keyed on a hash of the sources and flags, so a changed source rebuilds
+keyed on a hash of the sources, the headers they include (``*.cuh``)
+and the flags, so a changed source or header rebuilds
 and an unchanged one loads what is there. The build runs at first use,
 never at import; a failed build raises.
 """
@@ -58,7 +59,13 @@ class LaunchCounter:
 
 
 def sources() -> List[Path]:
+    """The sources compiled, one object each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def inputs(csrc: Path = CSRC) -> List[Path]:
+    """Every file the build reads: the sources and their headers."""
+    return sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -84,7 +91,7 @@ def build() -> Path:
     """Compile the kernels if this exact source set has no library yet;
     return the library's path."""
     srcs = sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
+    out_dir = BUILD_ROOT / _digest(inputs())
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -132,8 +139,14 @@ def library() -> ctypes.CDLL:
             lib.repro_quantize_int8.argtypes = [
                 p, p, p, ctypes.c_int64, i, i, p]
             lib.repro_quantize_int8.restype = i
-            lib.repro_moe_gmm.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.repro_flash_attention_variant.argtypes = [p, p, p, i]
+            lib.repro_flash_attention_variant.restype = i
+            lib.repro_moe_gmm.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.repro_moe_gmm.restype = i
+            lib.repro_moe_gmm_plan.argtypes = [
+                i, i, i, i, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int)]
+            lib.repro_moe_gmm_plan.restype = i
             lib.repro_rwkv6_wkv.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.repro_rwkv6_wkv.restype = i

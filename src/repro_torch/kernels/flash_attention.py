@@ -7,7 +7,10 @@ computes the plain version (``ref.attention_ref``), and that is the only
 way the plain version is taken.
 
 Layout: q (b, h, sq, dh); k/v (b, kvh, sk, dh), contiguous, float32 or
-bfloat16; dh one of 16, 32, 64, 80, 128. GQA by head grouping.
+bfloat16; dh one of 16, 32, 64, 80, 128. GQA by head grouping. The
+kernel runs its products on the tensor cores (3xTF32 for f32) where
+sq > 16, and on f32 FMAs for short queries (the split-NN tower's 8
+tokens).
 """
 from __future__ import annotations
 
@@ -46,6 +49,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "flash_attention")
     launches.add()
     return o
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel a call on these CUDA tensors runs, as the .cu
+    dispatches it: "simt", or "mma_3xtf32" / "mma_bf16"."""
+    _check(q, k, v)
+    mma = _build.library().repro_flash_attention_variant(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.shape[2])
+    if not mma:
+        return "simt"
+    return "mma_3xtf32" if q.dtype == torch.float32 else "mma_bf16"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -8,9 +8,16 @@ the plain version is taken.
 
 Layout: x (e, c, d) and w (e, d, f), contiguous, both float32 or both
 bfloat16; out (e, c, f) in x's dtype. Any c, d and f: no tile has to
-divide them (the Pallas kernel's blocks did).
+divide them (the Pallas kernel's blocks did). The kernel streams the
+weights at a capacity of 16 or less (decode), cutting d across blocks
+where the experts' column strips are too few to fill the card (the
+parts go to a scratch buffer allocated here and are added in a fixed
+order), and runs 3xTF32 (f32) or bf16 tensor-core tiles above it.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Tuple
 
 import torch
 
@@ -32,12 +39,41 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
+        _, _, splits = _plan(lib, e, c, d, f)
+        # the d split's parts, added by the kernel's second pass
+        ws = torch.empty(splits * e * c * f, dtype=torch.float32,
+                         device=x.device) if splits > 1 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                None if ws is None else ws.data_ptr(),
                                 e, c, d, f, DTYPES[x.dtype], stream)
     _build.check(err, "moe_gmm")
     launches.add()
     return out
+
+
+def _plan(lib, e: int, c: int, d: int, f: int) -> Tuple[int, int, int]:
+    """(kernel, strip, splits) of a call on the current device: kernel 0
+    streams the weights in strips of ``strip`` columns, cutting d into
+    ``splits`` blocks (1: no second pass); 1 runs tensor-core tiles."""
+    strip, splits = ctypes.c_int(0), ctypes.c_int(1)
+    kernel = lib.repro_moe_gmm_plan(e, c, d, f, ctypes.byref(strip),
+                                    ctypes.byref(splits))
+    return kernel, strip.value, splits.value
+
+
+def variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which kernel a call on these CUDA tensors runs, as the .cu
+    dispatches it: "stream" (its strip width and d split) or "mma"
+    (3xTF32 for f32, bf16)."""
+    _check(x, w)
+    e, c, d = x.shape
+    with torch.cuda.device(x.device):
+        kernel, strip, splits = _plan(_build.library(), e, c, d, w.shape[2])
+    if kernel == 0:
+        return f"stream {strip} cols" + (f", d split {splits}"
+                                         if splits > 1 else "")
+    return "mma_3xtf32" if x.dtype == torch.float32 else "mma_bf16"
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:

@@ -9,8 +9,10 @@ only way the plain version is taken.
 Layout: dt, u (b, s, di); B, C (b, s, n); A (di, n) float32; all
 contiguous. dt, B and C are all float32 or all bfloat16, u is float32 or
 bfloat16 on its own (the Mamba mixer passes f32 dt/B/C and u in the
-activation dtype); n is 4, 8 or 16 (the Pallas kernel takes any n). The
-scan starts from h = 0, as the Pallas kernel's does; any s and di work.
+activation dtype); any state dim n >= 1, as the Pallas kernel takes
+(4, 8 and 16 have registers of their own, other n up to 64 run masked,
+wider ones loop). The scan starts from h = 0, as the Pallas kernel's
+does; any s and di work.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import selective_scan_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-STATE_DIMS = (4, 8, 16)
 
 launches = _build.LaunchCounter()
 
@@ -73,12 +74,9 @@ def _check(dt, bmat, cmat, u, a) -> None:
             raise ValueError(f"selective_scan: need {name} {dtype} {shape} "
                              f"on {dt.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if n not in STATE_DIMS:
-        raise ValueError(f"selective_scan: state dim {n} not in "
-                         f"{STATE_DIMS}")
-    if b == 0 or s == 0 or di == 0:
-        raise ValueError("selective_scan: empty batch, sequence or "
-                         "channels")
+    if b == 0 or s == 0 or di == 0 or n == 0:
+        raise ValueError("selective_scan: empty batch, sequence, "
+                         "channels or state")
     for name, t in (("dt", dt), ("B", bmat), ("C", cmat), ("u", u),
                     ("a", a)):
         if not t.is_contiguous():

@@ -286,3 +286,42 @@ def test_kernel_sources_build_flags():
         text = s.read_text()
         assert "Replaces: src/repro/kernels/" in text
         assert 'extern "C"' in text
+
+
+def test_build_hash_covers_headers(tmp_path):
+    """The build's key changes with a header's bytes, not only with a
+    source's: an edit to ``mma_tf32.cuh`` must not reuse a library built
+    from the old one. Checked on copies of the sources."""
+    import shutil
+    from repro_torch.kernels import _build
+    names = [p.name for p in _build.inputs()]
+    assert "mma_tf32.cuh" in names
+    assert [p.name for p in _build.sources()] == [
+        n for n in names if n.endswith(".cu")]
+    for p in _build.inputs():
+        shutil.copy(p, tmp_path / p.name)
+    before = _build._digest(_build.inputs(tmp_path))
+    assert before == _build._digest(_build.inputs())
+    header = tmp_path / "mma_tf32.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert _build._digest(_build.inputs(tmp_path)) != before
+    source = tmp_path / "moe_gmm.cu"
+    header.write_bytes((_build.CSRC / "mma_tf32.cuh").read_bytes())
+    assert _build._digest(_build.inputs(tmp_path)) == before
+    source.write_bytes(source.read_bytes() + b" ")
+    assert _build._digest(_build.inputs(tmp_path)) != before
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "moe_gmm"])
+def test_variant_refuses_cpu_tensors(kernel):
+    """``variant`` names the CUDA kernel a call would run; on CPU tensors
+    it raises (the wrapper's checks run before the library is loaded),
+    as the kernel itself would."""
+    if kernel == "flash_attention":
+        args = (torch.zeros((1, 2, 4, 16)),) * 3
+        fn = tfa.variant
+    else:
+        args = (torch.zeros((2, 3, 8)), torch.zeros((2, 8, 5)))
+        fn = tgmm.variant
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fn(*args)

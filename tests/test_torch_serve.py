@@ -163,6 +163,22 @@ def test_cuda_device_without_gpu_raises():
         VFLJob(tbase.VFLConfig(**kw), master, members)
 
 
+def test_protocol_defaults_to_cuda():
+    """A protocol built directly, not through VFLJob, runs on the card
+    unless it is asked for the CPU: without a GPU its default raises."""
+    kw, _, _ = _case()
+    cfg = tbase.VFLConfig(**kw)
+    bus = ThreadBus(["master", "member0"])
+    ch = TypedChannel(bus.communicator("master"))
+    cpu = SplitNNProtocol(cfg, ch, "master", device="cpu")
+    assert cpu.device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert SplitNNProtocol(cfg, ch, "master").device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SplitNNProtocol(cfg, ch, "master")
+
+
 def test_training_is_refused_until_its_slice():
     kw, master, members = _case()
     # a short comm timeout lets the member's thread give up soon after
