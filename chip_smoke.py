@@ -3,6 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab build/parent   # two builds, in turns
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` for
@@ -15,13 +16,17 @@ NVIDIA GPU.
    causal and not, windows ending inside a key tile, sq != sk down to
    rows that see no key, f32 and bf16; the grouped matmul at capacities
    1, 4, 16 and 17 with d and f that are not multiples of 8, and with d
-   split across blocks, within 2e-4 (f32) / 5e-2 (bf16). Each check
-   names the kernel variant it ran (``simt`` / ``mma_3xtf32`` /
-   ``mma_bf16``; ``stream`` / ``mma_*``); attention at sq = sk = 4096
-   (head dim 128 causal, head dim 80 with a window of 4096, q at its
-   spread and at 3x it) within 2e-5; and a NaN in q or in x (0 / 0 on
-   the card, 0x7FFFFFFF, 0xFFFFFFFF) must come out NaN exactly where
-   the plain version's does, in every variant;
+   split across blocks, within 2e-4 (f32) / 5e-2 (bf16); attention at
+   head dims of no compiled width (5, 8, 12, 24, 48, 192, 300),
+   bidirectional and causal, f32 and bf16, at sq = sk of 8 and 100.
+   Each check names the kernel variant it ran (``simt`` /
+   ``mma_3xtf32`` / ``mma_bf16``; ``stream`` / ``mma_*``); attention at
+   sq = sk = 4096 (head dim 128 causal, head dim 80 with a window of
+   4096, q at its spread and at 3x it) within 2e-5; a NaN in q or in x
+   (0 / 0 on the card, 0x7FFFFFFF, 0xFFFFFFFF) must come out NaN
+   exactly where the plain version's does, in every variant; and an
+   inf in x or in w of the grouped matmul must give the plain version's
+   +-inf and NaN at the same places, in every variant;
 4. serves the paper's vfl-recsys workload at its published scale
    (190,439 users, a 1,345-feature master silo with 19 items, a
    381-feature member silo on 60% of the users) with the benchmarked
@@ -33,6 +38,9 @@ NVIDIA GPU.
    master's bottom tower and the member's), a lone query must be
    bit-identical to offline ``predict`` of its rows, and the served
    scores must agree with the same model run on the plain versions;
+   then a tower of the DSL's defaults (``embed``, ``attn_block``:
+   head dim 8) in both parties: ``predict`` of 64 rows, two launches of
+   each kernel, scores within 5e-3 of the plain versions;
 5. times each kernel, its plain version and, for attention,
    ``scaled_dot_product_attention`` (a yardstick only: the port never
    calls it) with CUDA events at the path's shapes;
@@ -40,9 +48,10 @@ NVIDIA GPU.
    layers, d_model 4096, 8.9 B params, 35.5 GB in f32, random weights
    drawn on the card from a seed) through ``ServeEngine``: the WKV
    kernel first against its plain version at the prefill shape
-   (4, 64, 511, 64) and at the JAX package's kernel-test shapes, within
-   5e-5 (f32) / 5e-2 (bf16); then ``score`` of a (4, 512) token batch, which must launch
-   the WKV kernel once per layer (32 times) and give a finite loss;
+   (4, 64, 511, 64), at the JAX package's kernel-test shapes and at
+   head dims 16, 48, 5, 128 and 130, within 5e-5 (f32) / 5e-2 (bf16);
+   then ``score`` of a (4, 512) token batch, which must launch the WKV
+   kernel once per layer (32 times) and give a finite loss;
    teacher-forced ``decode_step`` logits of one 64-token sequence (a path
    with no WKV kernel) against ``forward`` logits within 2e-3; greedy
    ``generate`` of 16 tokens from 4 prompts of 16; it prints the prefill
@@ -95,9 +104,11 @@ NVIDIA GPU.
    decode vs prefill within 2e-3 at ``capacity_factor`` 4 / 2; greedy
    ``generate`` (12 grouped-matmul launches a step, no scan, no
    attention kernel); tokens/s and the profiles as in step 6, with a
-   ``scan`` kind; the scan's times (no PyTorch call computes it) and
-   the grouped matmul and attention at jamba's shapes; and the phase's
-   wall time;
+   ``scan`` kind; the scan's times (no PyTorch call computes it) beside
+   its byte bound and its special-function floor (b s di n ``ex2`` at 16
+   a clock on each of 132 SMs, at the SM clock ``nvidia-smi`` reads),
+   and the grouped matmul and attention at jamba's shapes; and the
+   phase's wall time;
 10. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time (bytes over the memory rate, or operations over
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
@@ -105,6 +116,12 @@ NVIDIA GPU.
    FMAs), the variant each
    path's shape ran and its launches on each path, then
    ``{"ok": true, "device": {...}}`` as its last line.
+
+With ``--ab PARENT`` it runs only a comparison: the WKV and scan
+kernels at their path shapes and the rwkv6-7b and jamba prefill
+``score``, with the kernels built from ``PARENT`` (another checkout,
+unpacked with ``git archive`` under the ignored ``build/``) and from
+this checkout in turns (parent, this, this, parent), in one process.
 
 Any failure raises and the script exits non-zero; it needs the repo's
 ``src/repro_torch`` beside it and a CUDA device, and prints no result
@@ -153,6 +170,14 @@ WKV_CASES = [
     (1, 2, 64, 32, "float32"),
     (2, 4, 128, 64, "float32"),
     (1, 2, 128, 32, "bfloat16"),
+    # head dims of no config: 16 in the width of 32, 48 and 5 in that
+    # of 64 (f32 and bf16), 128 and 130 in the plain kernel
+    (1, 2, 64, 16, "float32"),
+    (1, 2, 100, 48, "float32"),
+    (1, 2, 64, 48, "bfloat16"),
+    (1, 2, 40, 128, "float32"),
+    (1, 1, 37, 5, "float32"),
+    (1, 1, 20, 130, "float32"),
 ]
 
 # the MoE phase: granite-moe-3b-a800m at full width and depth, f32
@@ -196,6 +221,8 @@ SSM_CASES = [
 TOWER = ("embed:tokens=8,dim=64", "attn_block:heads=4", "quantize",
          "mlp:hidden=64")
 TOP_TOWER = ("mlp:hidden=64,final_act=0",)
+# the tower DSL's defaults: embed dim 32 and 4 heads, head dim 8
+DEFAULT_TOWER = ("embed", "attn_block", "quantize", "mlp")
 
 ATT_CASES = [
     # b, h, kvh, s, dh, causal, window, dtype name (tests/test_kernels.py)
@@ -225,7 +252,15 @@ ATT_EDGE_CASES = [
     (1, 4, 2, 513, 17, 64, False, 8, "float32"),
     (1, 2, 2, 300, 200, 32, True, 37, "bfloat16"),
     (1, 2, 1, 100, 100, 16, True, 0, "float32"),
-]
+] + [
+    # head dims of no compiled width: in the next wider one (8 the DSL's
+    # default tower's, 24, 48; 5 and 12 staged element by element), and
+    # above 128 on the SIMT kernel (192 MLA's qk, 300 in the width of
+    # 512); bidirectional and causal, f32 and bf16, SIMT and tensor-core
+    # lengths
+    (1, 4, 2, s, s, dh, causal, 0, dt)
+    for dh in (5, 8, 12, 24, 48, 192, 300) for s in (8, 100)
+    for causal in (False, True) for dt in ("float32", "bfloat16")]
 # long rows, as h2o-danube's window of 4096 and jamba's and granite's
 # contexts give them: 3 sk / 8 tensor-core sums a row in f32; q at 3x
 # its spread peaks the softmax, so the output is of v's size, where the
@@ -388,6 +423,7 @@ def check_kernels(torch, dev):
         del q, k, v, out, exp
     check_gmm_edges(torch, dev, g)
     check_nan(torch, dev, g)
+    check_inf(torch, dev, g)
     for rows, d, dt in [(TOKENS * r, DIM, "float32"), (300, 64, "float32"),
                         (7, 1000, "float32"), (513, 96, "bfloat16")]:
         x = torch.randn((rows, d), generator=g)
@@ -476,6 +512,50 @@ def check_nan(torch, dev, g) -> None:
             log(f"moe_gmm NaN in x (3, {c}, 96) {dt}: "
                 f"{int(exp.isnan().any(-1).sum())} NaN rows, as the "
                 f"plain version's {gmm.variant(x, w)}")
+
+
+def check_inf(torch, dev, g) -> None:
+    """An inf in x or in w of the grouped matmul gives the plain
+    version's output: the same +-inf (and NaN, where an inf meets a
+    zero or an inf of the other sign) at the same places, in every
+    variant (stream and tensor cores, f32 and bf16); the rest within
+    2e-4 (f32) / 5e-2 (bf16)."""
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    inf = float("inf")
+    for c in (4, 64):                    # stream, tensor cores
+        for dt in ("float32", "bfloat16"):
+            for side in ("x", "w"):
+                dtype = getattr(torch, dt)
+                x = torch.randn((3, c, 96), generator=g)
+                w = torch.randn((3, 96, 72), generator=g)
+                if side == "x":
+                    x[0, 1, 7], x[1, c - 1, 95], x[2, 0, 0] = inf, -inf, inf
+                    x[2, 0, 1] = -inf            # inf + -inf: NaN
+                else:
+                    w[0, 7, 5], w[1, 95, 71], w[2, 0, 0] = inf, -inf, -inf
+                    w[2, 1, 0] = inf
+                x, w = x.to(dtype).to(dev), w.to(dtype).to(dev)
+                out = gmm.moe_gmm(x, w).float()
+                exp = ref.gmm_ref(x, w).float()
+                torch.cuda.synchronize()
+                where = exp.isinf()
+                if not (torch.equal(out.isnan(), exp.isnan())
+                        and torch.equal(out.isinf(), where)
+                        and torch.equal(out[where], exp[where])):
+                    raise AssertionError(
+                        f"moe_gmm inf in {side} (3, {c}, 96) {dt}: "
+                        f"{int(out.isnan().sum())} NaN and "
+                        f"{int(out.isinf().sum())} inf, the plain "
+                        f"version {int(exp.isnan().sum())} and "
+                        f"{int(where.sum())} ({gmm.variant(x, w)})")
+                fin = exp.isfinite()
+                tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+                torch.testing.assert_close(out[fin], exp[fin], atol=tol,
+                                           rtol=tol)
+                log(f"moe_gmm inf in {side} (3, {c}, 96) {dt}: "
+                    f"{int(where.sum())} inf and {int(exp.isnan().sum())} "
+                    f"NaN, as the plain version's {gmm.variant(x, w)}")
 
 
 def make_slice():
@@ -606,6 +686,47 @@ def plain_scores(torch, dev, cfg, master, members, results, rows):
         out = twr.apply(top, twr.from_numpy(results["master"]["top"], dev),
                         u)
     return out.cpu().numpy().astype(np.float64)
+
+
+def default_tower_check(torch, dev, cfg, master, members) -> float:
+    """Phase 4b: a tower built from the DSL's defaults (embed dim 32,
+    attn_block of 4 heads: head dim 8) in both parties, on the card:
+    ``predict`` of 64 matched rows in one federated round, which must
+    launch each kernel twice (the master's bottom tower and the
+    member's) and give finite scores within 5e-3 of the same weights on
+    the plain versions. Returns the largest difference."""
+    import numpy as np
+    from repro_torch.core.party import VFLJob
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
+    dcfg = dataclasses.replace(cfg, tower=DEFAULT_TOWER)
+    n = len(set(master.ids) & set(members[0].ids))
+    rows = np.random.default_rng(9).choice(n, QUERY_ROWS, replace=False)
+    job = VFLJob(dcfg, master, members, mode="thread", device=dev)
+    job.predict(rows=rows[:2], batch_size=2)         # warm-up
+    sync(torch, dev)
+    fa.launches.reset()
+    qz.launches.reset()
+    scores = job.predict(rows=rows, batch_size=len(rows))
+    sync(torch, dev)
+    got = {"flash_attention": fa.launches.count,
+           "quantize_int8": qz.launches.count}
+    results = job.shutdown()
+    if got != {"flash_attention": 2, "quantize_int8": 2}:
+        raise AssertionError(f"default tower predict launched {got}, "
+                             f"expected 2 of each")
+    items = master.y.shape[1]
+    if scores.shape != (QUERY_ROWS, items) or not np.isfinite(scores).all():
+        raise AssertionError(f"default tower scores {scores.shape}")
+    plain = plain_scores(torch, dev, dcfg, master, members, results, rows)
+    err = float(np.abs(scores - plain).max())
+    log(f"default DSL tower {DEFAULT_TOWER} (head dim 8): predict of "
+        f"{QUERY_ROWS} rows launched {got}; vs plain versions max_abs_err "
+        f"{err:.3e} (tol 5e-3)")
+    if not err <= 5e-3:
+        raise AssertionError("default tower scores disagree with the "
+                             "plain versions")
+    return err
 
 
 def time_kernels(torch, dev):
@@ -1262,8 +1383,25 @@ def check_scan(torch, dev, cfg) -> float:
     return err
 
 
+def sm_clock_mhz() -> tuple:
+    """The SM clock now and its maximum, MHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    now, top = out.stdout.strip().splitlines()[0].split(",")
+    return float(now), float(top)
+
+
+# exponentials a clock an SM on the special-function units, and the SMs
+SFU_EX2_PER_CLK, SMS = 16, 132
+
+
 def time_scan(torch, dev, cfg) -> dict:
-    """Phase 9c: the selective scan at jamba's prefill shape."""
+    """Phase 9c: the selective scan at jamba's prefill shape, with its
+    special-function floor: b s di n exponentials at 16 a clock on each
+    of 132 SMs, at the SM clock ``nvidia-smi`` reads after the timing
+    (and at the card's maximum clock)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import selective_scan as ssm
     b, s, di, n = scan_path_shape(cfg)
@@ -1282,9 +1420,101 @@ def time_scan(torch, dev, cfg) -> dict:
                     nbytes, ops,
                     # the plain version is a loop of ~4,000 small kernels
                     plain_timing=dict(reps=2, trials=5))
+    clock, top = sm_clock_mhz()
+    ex2 = b * s * di * n / (SFU_EX2_PER_CLK * SMS)   # clocks
+    out.update(sm_clock_mhz=clock, sm_clock_max_mhz=top,
+               ex2_floor_ms=ex2 / (clock * 1e6) * 1e3,
+               ex2_floor_at_max_clock_ms=ex2 / (top * 1e6) * 1e3)
     log(f"selective_scan at {(b, s, di, n)} f32: {nbytes / 1e6:.1f} MB, "
         f"{ops / 1e9:.2f} GFLOP; bound {out['bound_ms'] * 1e3:.1f} us "
-        f"({out['bound_by']}); {out}")
+        f"({out['bound_by']}); ex2 floor {out['ex2_floor_ms'] * 1e3:.1f} us "
+        f"at {clock:.0f} MHz ({out['ex2_floor_at_max_clock_ms'] * 1e3:.1f} "
+        f"at {top:.0f}); {out}")
+    return out
+
+
+def ab_compare(torch, dev, parent: Path) -> dict:
+    """``--ab PARENT``: the kernels built from ``PARENT/src/repro_torch/
+    csrc`` (another checkout, unpacked under ``build/``) against this
+    checkout's, in one process on one card, in turns: parent, this,
+    this, parent. Per turn: the WKV kernel at rwkv6-7b's prefill shape,
+    the scan at jamba's, attention at jamba's and the grouped matmul at
+    granite's prefill gate/up (device times, graph replay), and the
+    prefill ``score`` of rwkv6-7b (4, 512) and of the jamba period (4,
+    513) (the median wall time of 3 calls). Only the library the
+    wrappers launch from changes between turns; the model code and the
+    weights are this checkout's."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import selective_scan as ssm
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    libs = {"parent": _build.load(_build.build(
+        parent / "src" / "repro_torch" / "csrc")),
+        "this": _build.library()}
+    log(f"ab: built both libraries in {time.perf_counter() - t0:.1f} s")
+    turns = ["parent", "this", "this", "parent"]
+    out = {name: {} for name in libs}
+
+    def record(name, key, value):
+        out[name].setdefault(key, []).append(value)
+
+    g = torch.Generator().manual_seed(13)
+    zoo_cfg, jamba_cfg = zoo_config(), jamba_config()
+    h, dh = zoo_cfg.d_model // zoo_cfg.rwkv.head_dim, zoo_cfg.rwkv.head_dim
+    w_ins = wkv_inputs(torch, dev, SCORE_BATCH, h, SCORE_TOKENS - 1, dh,
+                       torch.float32, g)
+    s_ins = scan_inputs(torch, dev, *scan_path_shape(jamba_cfg),
+                        torch.float32, torch.float32, g, -4.6)
+    qs, ks = prefill_attention_shapes(jamba_cfg, JAMBA_SCORE_TOKENS)
+    q = torch.randn(qs, generator=g).to(dev)
+    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    (_, (e, c, d, f)), = gmm_path_shapes(moe_config())[:1]
+    x = torch.randn((e, c, d), generator=g).to(dev)
+    w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
+    for name in turns:
+        _build.use(libs[name])
+        record(name, "wkv_ms", graph_ms(lambda: wkv.rwkv6_wkv(*w_ins)))
+        record(name, "scan_ms", graph_ms(
+            lambda: ssm.selective_scan(*s_ins), reps=20, trials=10))
+        record(name, "attention_jamba_ms", graph_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True), reps=20,
+            trials=10))
+        record(name, "gmm_granite_gate_up_ms", graph_ms(
+            lambda: gmm.moe_gmm(x, w), reps=20, trials=10))
+    del w_ins, s_ins, q, k, v, x, w
+    for tag, cfg, tokens in (("rwkv6", zoo_cfg, SCORE_TOKENS),
+                             ("jamba", jamba_cfg, JAMBA_SCORE_TOKENS)):
+        params = draw_params(torch, dev, cfg)
+        eng = ServeEngine(cfg, params, max_seq=tokens, dtype=torch.float32,
+                          device=dev)
+        toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                 (SCORE_BATCH, tokens))
+        for name in libs:                       # warm-up with each
+            _build.use(libs[name])
+            eng.score(toks)
+        for name in turns:
+            _build.use(libs[name])
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = eng.score(toks)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            record(name, f"{tag}_score_ms", wall * 1e3)
+            record(name, f"{tag}_prefill_tok_s",
+                   SCORE_BATCH * (tokens - 1) / wall)
+            record(name, f"{tag}_loss", loss)
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    _build.use(libs["this"])
+    log("ab " + json.dumps(out))
     return out
 
 
@@ -1311,6 +1541,10 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        ab_compare(torch, dev, Path(sys.argv[2]).resolve())
+        log(gpu_line())
+        return 0
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -1339,6 +1573,7 @@ def main() -> int:
     if not e2e_err <= 5e-3:
         raise AssertionError("served scores disagree with the plain "
                              "versions")
+    default_tower_check(torch, dev, cfg, master, members)
 
     att, quant = time_kernels(torch, dev)
 

@@ -64,6 +64,18 @@
 // Key positions past sk are masked in both (-inf, weight exactly 0; the
 // MMA kernel's copies zero-fill their k and v), so no length has to
 // divide a tile.
+//
+// Any head dim 1 <= dh <= 512 runs, as the Pallas kernel takes any: the
+// widths 16, 32, 64, 80 and 128 are compiled for both kernels, and any
+// other dh up to 128 runs in the next wider one with its q, k and v
+// columns past dh loaded as zero (they add nothing to q.k or p.v; the
+// wrapper's scale is the real dh's) and its output columns past dh not
+// stored. Rows whose bytes are not a multiple of 16 (dh 8 in bf16 is,
+// dh 6 in f32 is not) are staged element by element instead of by
+// `cp.async`. dh above 128 (MLA's qk head dim of 192) takes the SIMT
+// kernel at 192, 256 or 512: the tensor-core kernel keeps the whole
+// 16 x dh output block of a warp in registers, 242 of them at 128 in
+// f32 already, and would spill there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,13 +96,15 @@ constexpr int kSmemFloats = 8192;  // 32 KiB: k and v tiles of all pairs
 
 // One block: `pairs` consecutive (batch, head) pairs x `qt` query rows.
 // DPL: head dims held by one lane; BK: keys a shared-memory tile.
-template <int DH, int DPL, int BK, typename T>
+// EXACT: dh == DH; otherwise the dims past dh are masked.
+template <int DH, int DPL, int BK, bool EXACT, typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       int n_pairs, int h, int kvh, int sq, int sk,
-                      int causal, int window, float scale, int pairs,
-                      int qt) {
+                      int dh_arg, int causal, int window, float scale,
+                      int pairs, int qt) {
+  const int dh = EXACT ? DH : dh_arg;
   constexpr int LANES = DH / DPL;  // lanes per query row
   static_assert(DH % DPL == 0 && (LANES & (LANES - 1)) == 0 &&
                     LANES <= 32,
@@ -112,9 +126,10 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = kNegInf;
   float l = 0.f;
   if (active) {
-    const T* qrow = q + ((int64_t)pair * sq + qi) * DH + d0;
+    const T* qrow = q + ((int64_t)pair * sq + qi) * dh + d0;
 #pragma unroll
-    for (int d = 0; d < DPL; ++d) qr[d] = to_f32(qrow[d]) * scale;
+    for (int d = 0; d < DPL; ++d)
+      qr[d] = d0 + d < dh ? to_f32(qrow[d]) * scale : 0.f;
   } else {
 #pragma unroll
     for (int d = 0; d < DPL; ++d) qr[d] = 0.f;
@@ -133,10 +148,10 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = e % DH;
       const int gp = blockIdx.x * pairs + p;
       float kv = 0.f, vv = 0.f;
-      if (gp < n_pairs && k0 + j < sk) {
+      if (gp < n_pairs && k0 + j < sk && d < dh) {
         const int b = gp / h;
         const int kh = (gp % h) / group;
-        const int64_t off = (((int64_t)b * kvh + kh) * sk + k0 + j) * DH + d;
+        const int64_t off = (((int64_t)b * kvh + kh) * sk + k0 + j) * dh + d;
         kv = to_f32(k[off]);
         vv = to_f32(v[off]);
       }
@@ -185,16 +200,17 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (active) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + ((int64_t)pair * sq + qi) * DH + d0;
+    T* orow = o + ((int64_t)pair * sq + qi) * dh + d0;
 #pragma unroll
-    for (int d = 0; d < DPL; ++d) store(orow + d, acc[d] / denom);
+    for (int d = 0; d < DPL; ++d)
+      if (d0 + d < dh) store(orow + d, acc[d] / denom);
   }
 }
 
-template <int DH, int DPL, int BK, typename T>
+template <int DH, int DPL, int BK, bool EXACT, typename T>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         void* o, int b, int h, int kvh, int sq, int sk,
-                        int causal, int window, float scale,
+                        int dh, int causal, int window, float scale,
                         cudaStream_t stream) {
   constexpr int LANES = DH / DPL;
   constexpr int slots = kThreads / LANES;          // query rows per block
@@ -206,22 +222,32 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   if (pairs > max_pairs) pairs = max_pairs;
   const int n_pairs = b * h;
   dim3 grid((n_pairs + pairs - 1) / pairs, (sq + qt - 1) / qt);
-  attention_simt_kernel<DH, DPL, BK, T><<<grid, kThreads, 0, stream>>>(
+  attention_simt_kernel<DH, DPL, BK, EXACT, T>
+      <<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n_pairs, h, kvh, sq,
-      sk, causal, window, scale, pairs, qt);
+      sk, dh, causal, window, scale, pairs, qt);
   return cudaGetLastError();
 }
 
-template <int DH, int DPL, typename T>
+template <int DH, int DPL, bool EXACT, typename T>
 cudaError_t simt(const void* q, const void* k, const void* v, void* o,
-                 int b, int h, int kvh, int sq, int sk, int causal,
+                 int b, int h, int kvh, int sq, int sk, int dh, int causal,
                  int window, float scale, cudaStream_t stream) {
-  if (sk <= 8)
-    return launch_simt<DH, DPL, 8, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
-                                      window, scale, stream);
-  return launch_simt<DH, DPL, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
-                                     window, scale, stream);
+  // a 16-key tile of one pair must fit its half of the shared buffers
+  if constexpr (16 * DH > kSmemFloats / 2) {
+    return launch_simt<DH, DPL, 8, EXACT, T>(q, k, v, o, b, h, kvh, sq, sk,
+                                             dh, causal, window, scale,
+                                             stream);
+  } else {
+    if (sk <= 8)
+      return launch_simt<DH, DPL, 8, EXACT, T>(q, k, v, o, b, h, kvh, sq,
+                                               sk, dh, causal, window,
+                                               scale, stream);
+    return launch_simt<DH, DPL, 16, EXACT, T>(q, k, v, o, b, h, kvh, sq,
+                                              sk, dh, causal, window, scale,
+                                              stream);
+  }
 }
 
 // ------------------------------------------------------- tensor-core path
@@ -334,28 +360,45 @@ __device__ __forceinline__ void accumulate(float (&acc)[DT][4],
 }
 
 // `rows` rows of dh elements from row `row0` of src into a padded
-// shared tile, zero-filled from row `limit` on
+// shared tile of DH columns, zero-filled from row `limit` on and from
+// column dh on. Rows whose bytes are a multiple of 16 go by `cp.async`
+// (dh a multiple of 16 bytes' elements keeps every row 16-byte
+// aligned); others element by element, synchronously.
 template <int DH, int LD, typename T>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
-                                      int row0, int rows, int limit) {
+                                      int row0, int rows, int limit,
+                                      int dh) {
   constexpr int V = 16 / sizeof(T);  // elements a 16-byte chunk
   constexpr int CPR = DH / V;        // chunks a row
-  for (int i = threadIdx.x; i < rows * CPR; i += kThreads) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * V;
-    const bool in = row0 + r < limit;
-    mma::cp_async16(dst + r * LD + c,
-                    in ? src + (int64_t)(row0 + r) * DH + c : src, in);
+  if (dh % V == 0) {
+    for (int i = threadIdx.x; i < rows * CPR; i += kThreads) {
+      const int r = i / CPR;
+      const int c = (i % CPR) * V;
+      const bool in = row0 + r < limit && c < dh;
+      mma::cp_async16(dst + r * LD + c,
+                      in ? src + (int64_t)(row0 + r) * dh + c : src, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DH; i += kThreads) {
+      const int r = i / DH;
+      const int c = i % DH;
+      if (row0 + r < limit && c < dh)
+        dst[r * LD + c] = src[(int64_t)(row0 + r) * dh + c];
+      else
+        store(dst + r * LD + c, 0.f);
+    }
   }
 }
 
-// grid: (b * h, query tiles); blockIdx.y = 0 is the last query tile
-template <int DH, typename T>
+// grid: (b * h, query tiles); blockIdx.y = 0 is the last query tile.
+// EXACT: dh == DH; otherwise the dims past dh are masked.
+template <int DH, bool EXACT, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int h,
-                     int kvh, int sq, int sk, int causal, int window,
-                     float scale) {
+                     int kvh, int sq, int sk, int dh_arg, int causal,
+                     int window, float scale) {
+  const int dh = EXACT ? DH : dh_arg;
   using Tile = MmaTile<DH, T>;
   constexpr int BQ = Tile::kBQ, BK = Tile::kBK, LD = Tile::kLd;
   constexpr int NT = BK / 8;   // 8-key column tiles of the scores
@@ -371,8 +414,8 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int b = pair / h;
   const int kh = (pair % h) / (h / kvh);
-  const T* qg = q + (int64_t)pair * sq * DH;
-  const int64_t kv_off = ((int64_t)b * kvh + kh) * sk * DH;
+  const T* qg = q + (int64_t)pair * sq * dh;
+  const int64_t kv_off = ((int64_t)b * kvh + kh) * sk * dh;
   const T* kg = k + kv_off;
   const T* vg = v + kv_off;
 
@@ -386,9 +429,9 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int t_lo = lo / BK, t_hi = (hi + BK - 1) / BK;
 
-  stage<DH, LD>(qs, qg, q0, BQ, sq);
-  stage<DH, LD>(ks, kg, t_lo * BK, BK, sk);
-  stage<DH, LD>(vs, vg, t_lo * BK, BK, sk);
+  stage<DH, LD>(qs, qg, q0, BQ, sq, dh);
+  stage<DH, LD>(ks, kg, t_lo * BK, BK, sk, dh);
+  stage<DH, LD>(vs, vg, t_lo * BK, BK, sk, dh);
   mma::cp_async_commit();
 
   float acc[DT][4];
@@ -407,8 +450,8 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // the other buffer was last read before the previous iteration's
     // closing barrier, so the next tile may land in it now
     if (kt + 1 < t_hi) {
-      stage<DH, LD>(ks + (buf ^ 1) * BK * LD, kg, k0 + BK, BK, sk);
-      stage<DH, LD>(vs + (buf ^ 1) * BK * LD, vg, k0 + BK, BK, sk);
+      stage<DH, LD>(ks + (buf ^ 1) * BK * LD, kg, k0 + BK, BK, sk, dh);
+      stage<DH, LD>(vs + (buf ^ 1) * BK * LD, vg, k0 + BK, BK, sk, dh);
     }
     mma::cp_async_commit();  // an empty group on the last tile
     mma::cp_async_wait<1>();  // this tile's copies (and q's) have landed
@@ -467,7 +510,7 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  T* og = o + (int64_t)pair * sq * DH;
+  T* og = o + (int64_t)pair * sq * dh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float sum = l[r];
@@ -476,77 +519,92 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int qi = row_g + 8 * r;
     if (qi < sq) {
-      T* orow = og + (int64_t)qi * DH + 2 * t;
+      T* orow = og + (int64_t)qi * dh + 2 * t;
 #pragma unroll
-      for (int n = 0; n < DT; ++n)
-        mma::store2(orow + 8 * n, acc[n][2 * r] * inv,
-                    acc[n][2 * r + 1] * inv);
+      for (int n = 0; n < DT; ++n) {
+        const float x0 = acc[n][2 * r] * inv, x1 = acc[n][2 * r + 1] * inv;
+        const int col = 8 * n + 2 * t;
+        if (dh == DH || (dh % 2 == 0 && col + 1 < dh)) {
+          mma::store2(orow + 8 * n, x0, x1);  // an even dh keeps pairs
+        } else {                              // aligned
+          if (col < dh) store(orow + 8 * n, x0);
+          if (col + 1 < dh) store(orow + 8 * n + 1, x1);
+        }
+      }
     }
   }
 }
 
-template <int DH, typename T>
+template <int DH, bool EXACT, typename T>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int b, int h, int kvh, int sq, int sk, int causal,
-                       int window, float scale, cudaStream_t stream) {
+                       int b, int h, int kvh, int sq, int sk, int dh,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
   using Tile = MmaTile<DH, T>;
   static bool done[64] = {};
-  cudaError_t err = mma::allow_smem(attention_mma_kernel<DH, T>,
+  cudaError_t err = mma::allow_smem(attention_mma_kernel<DH, EXACT, T>,
                                     Tile::kSmemBytes, done);
   if (err != cudaSuccess) return err;
   const int q_tiles = (sq + Tile::kBQ - 1) / Tile::kBQ;
   if (q_tiles > 65535) return cudaErrorInvalidValue;
   dim3 grid(b * h, q_tiles);
-  attention_mma_kernel<DH, T><<<grid, kThreads, Tile::kSmemBytes, stream>>>(
+  attention_mma_kernel<DH, EXACT, T>
+      <<<grid, kThreads, Tile::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, kvh, sq, sk, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), h, kvh, sq, sk, dh,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
+// the widest head dim of the tensor-core kernel; wider heads take the
+// SIMT kernel (its accumulator at 192 or 256 would not fit registers)
+constexpr int kMaxMmaDh = 128;
+constexpr int kMaxDh = 512;
+
 // 0 = SIMT, 1 = tensor cores (3xTF32 for f32, bf16 MMA for bf16)
-int variant(const void* q, const void* k, const void* v, int sq) {
+int variant(const void* q, const void* k, const void* v, int sq, int dh) {
   const bool aligned = (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(v) % 16 == 0);
-  return sq > 16 && aligned ? 1 : 0;
+  return sq > 16 && dh <= kMaxMmaDh && aligned ? 1 : 0;
 }
 
-template <int DH, int DPL, typename T>
+template <int DH, int DPL, bool EXACT, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int h, int kvh, int sq, int sk, int causal,
+                   int b, int h, int kvh, int sq, int sk, int dh, int causal,
                    int window, float scale, cudaStream_t stream) {
-  if (variant(q, k, v, sq))
-    return launch_mma<DH, T>(q, k, v, o, b, h, kvh, sq, sk, causal, window,
-                             scale, stream);
-  return simt<DH, DPL, T>(q, k, v, o, b, h, kvh, sq, sk, causal, window,
-                          scale, stream);
+  if constexpr (DH <= kMaxMmaDh) {
+    if (variant(q, k, v, sq, dh))
+      return launch_mma<DH, EXACT, T>(q, k, v, o, b, h, kvh, sq, sk, dh,
+                                      causal, window, scale, stream);
+  }
+  return simt<DH, DPL, EXACT, T>(q, k, v, o, b, h, kvh, sq, sk, dh, causal,
+                                 window, scale, stream);
 }
 
+// Each dh runs in the narrowest compiled width DH >= dh, its columns
+// past dh zero (so they add nothing to q.k or p.v) and never stored.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int b, int h, int kvh, int sq, int sk, int dh,
                      int causal, int window, float scale,
                      cudaStream_t stream) {
-  switch (dh) {
-    case 16:
-      return launch<16, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
-                               window, scale, stream);
-    case 32:
-      return launch<32, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
-                               window, scale, stream);
-    case 64:
-      return launch<64, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
-                               window, scale, stream);
-    case 80:
-      return launch<80, 20, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
-                               window, scale, stream);
-    case 128:
-      return launch<128, 16, T>(q, k, v, o, b, h, kvh, sq, sk, causal,
-                                window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define REPRO_ATT(DH, DPL, EXACT)                                          \
+  return launch<DH, DPL, EXACT, T>(q, k, v, o, b, h, kvh, sq, sk, dh,      \
+                                   causal, window, scale, stream)
+#define REPRO_ATT_WIDTH(DH, DPL)                                           \
+  if (dh == DH) REPRO_ATT(DH, DPL, true);                                  \
+  if (dh < DH) REPRO_ATT(DH, DPL, false)
+  REPRO_ATT_WIDTH(16, 16);
+  REPRO_ATT_WIDTH(32, 16);
+  REPRO_ATT_WIDTH(64, 16);
+  REPRO_ATT_WIDTH(80, 20);
+  REPRO_ATT_WIDTH(128, 16);
+  if (dh <= 192) REPRO_ATT(192, 12, false);
+  if (dh <= 256) REPRO_ATT(256, 16, false);
+  REPRO_ATT(kMaxDh, 32, false);
+#undef REPRO_ATT_WIDTH
+#undef REPRO_ATT
 }
 
 }  // namespace
@@ -558,7 +616,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int dtype, int causal, int window,
                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh || sq <= 0 || sk <= 0)
+  if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh || sq <= 0 || sk <= 0 ||
+      dh <= 0 || dh > kMaxDh)
     return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, b, h, kvh, sq, sk, dh, causal,
@@ -569,9 +628,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// The kernel a call with these operands runs: 0 = SIMT (sq <= 16, or an
-// operand not 16-byte aligned), 1 = tensor cores.
+// The kernel a call with these operands runs: 0 = SIMT (sq <= 16, dh
+// above 128, or an operand not 16-byte aligned), 1 = tensor cores.
 extern "C" int repro_flash_attention_variant(const void* q, const void* k,
-                                             const void* v, int sq) {
-  return variant(q, k, v, sq);
+                                             const void* v, int sq,
+                                             int dh) {
+  return variant(q, k, v, sq, dh);
 }

@@ -36,32 +36,37 @@
 namespace mma {
 
 // ---------------------------------------------------------------- split
-// cvt.rna.tf32.f32: round to nearest, ties away from zero, at the 13
-// low mantissa bits. Done as an integer add and mask, which gives the
-// instruction's bits for every finite x (a carry into the exponent is
-// the right result, and turns the largest values into inf as the
-// instruction does) and measured cheaper than `cvt` on the card in both
-// kernels' inner loops. inf stays inf under the add and mask; a NaN
-// would not (the carry out of a full mantissa, as in the canonical NaN
-// 0x7FFFFFFF that GPU arithmetic makes, runs into the sign bit and
-// leaves -0), so a NaN becomes the canonical NaN, whose top mantissa
-// bits the tensor cores read as NaN.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return isnan(x) ? 0x7FFFFFFFu
-                  : (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = big + small + (what lies below TF32's reach twice over). small
-// skips the NaN test: x - big is NaN only where x is NaN or inf, and
-// then small comes out -0 while big carries x on. So a NaN operand
-// gives NaN, as the plain product does; an inf operand gives NaN or inf
-// (inf times the other operand's small part, often 0, is NaN) where the
-// plain product gives inf: not finite either way.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = to_tf32(x);
-  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) &
-          0xFFFFE000u;
+// x = big + small + (what lies below TF32's reach twice over), both
+// rounded as cvt.rna.tf32.f32 rounds: to nearest, ties away from zero,
+// at the 13 low mantissa bits. Done as an integer add and mask, which
+// gives the instruction's bits for every finite x below the values that
+// round up to inf, and measured cheaper than `cvt` on the card in both
+// kernels' inner loops.
+//
+// A NaN would not survive the add and mask (the carry out of a full
+// mantissa, as in GPU arithmetic's canonical NaN 0x7FFFFFFF, runs into
+// the sign bit and leaves -0): a NaN x gets the canonical NaN as big,
+// whose top mantissa bits the tensor cores read as NaN, and small comes
+// out -0 (x - big is NaN, which the rounding leaves as -0).
+//
+// kInfSafe (the grouped matmul) also gives the plain product's +-inf
+// for an inf operand. An inf big would meet small_b = 0, common for
+// values exact in TF32, as inf * 0 = NaN; so an inf x gets big = the
+// largest finite TF32 of its sign (0x7F7FE000) and small = inf - big,
+// the inf, and a finite x within half a TF32 ulp of FLT_MAX, which would
+// round to inf, gets that big and small = x - big, finite. A product's
+// three passes then carry the inf in small_a * big_b (inf of the right
+// sign, or NaN where b is 0, as inf * 0 is), while big_a * big_b and
+// big_a * small_b are finite or an inf of the same sign. Only where the
+// other operand is above ~2^12 in magnitude can big_a * small_b
+// overflow with small_b's own sign and meet the inf as a NaN. These
+// values take a second step that runs only when some lane of the warp
+// holds one (a vote on the fragment), cheaper on the card than a clamp
+// on every element (PERF.md). Attention leaves it out: a vote on its
+// two-element fragments measured far slower, and an inf in q or k can
+// then give a NaN where `attention_ref` gives +-inf.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 template <int N>
@@ -70,11 +75,36 @@ struct Split {
   uint32_t small[N];
 };
 
-template <int N>
+template <bool kInfSafe = false, int N>
 __device__ __forceinline__ Split<N> split(const float (&x)[N]) {
   Split<N> s;
+  if (!kInfSafe) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) split(x[i], s.big[i], s.small[i]);
+    for (int i = 0; i < N; ++i) {
+      s.big[i] = isnan(x[i]) ? 0x7FFFFFFFu : round_tf32(x[i]);
+      s.small[i] = round_tf32(x[i] - __uint_as_float(s.big[i]));
+    }
+    return s;
+  }
+  // the smallest magnitude that rounds up to inf
+  const float kRoundsToInf = __uint_as_float(0x7F7FF000u);
+  bool special = false;  // NaN, inf, or rounds to inf
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s.big[i] = round_tf32(x[i]);
+    special |= !(fabsf(x[i]) < kRoundsToInf);
+  }
+  if (__any_sync(0xffffffffu, special)) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (!(fabsf(x[i]) < kRoundsToInf))
+        s.big[i] = isnan(x[i]) ? 0x7FFFFFFFu
+                               : (__float_as_uint(x[i]) & 0x80000000u) |
+                                     0x7F7FE000u;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    s.small[i] = round_tf32(x[i] - __uint_as_float(s.big[i]));
   return s;
 }
 

@@ -258,13 +258,13 @@ __device__ __forceinline__ void mma_step(float (&acc)[4][4][4],
   for (int n = 0; n < 4; ++n) {
     float bv[2];
     mma::load_b_tf32_kn(bv, bs + 8 * n, LDB, g, t);
-    b[n] = mma::split(bv);
+    b[n] = mma::split<true>(bv);
   }
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     float av[4];
     mma::load_a_tf32(av, as + 16 * m * LDA, LDA, g, t);
-    const mma::Split<4> a = mma::split(av);
+    const mma::Split<4> a = mma::split<true>(av);
 #pragma unroll
     for (int n = 0; n < 4; ++n) mma::mma_3xtf32(acc[m][n], a, b[n]);
   }

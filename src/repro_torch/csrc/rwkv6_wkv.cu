@@ -7,50 +7,72 @@
 //   S[j,i] = w_t[j] * S[j,i] + k_t[j] * v_t[i]
 // Outputs y (b, h, s, dh) f32 and S_final (b, h, dh, dh) f32 in the
 // [key_dim j, val_dim i] layout of src/repro/models/rwkv.py. Inputs are
-// f32 or bf16 (all four alike), u is f32, all arithmetic is f32.
+// f32 or bf16 (all four alike), u is f32, all arithmetic is f32. Any
+// head dim dh >= 1 and any length s >= 1.
 //
 // What bounds it on this card: each input element is read once and each
-// output written once, about 5 * dh flops per element of r (the dh x dh
-// state update and read-out per step), so at dh = 64 the function sits
-// near the balance point of 3.35 TB/s against 67 TFLOP/s f32 (bound by
-// bytes at the rwkv6-7b prefill shape). The recurrence is sequential in
-// time, so the real limit of this simple design is latency: one
-// (batch, head) pair per block walks its s steps one after another.
+// output written once; at rwkv6-7b's prefill shape (4, 64, 511, 64) in
+// f32 that is 171.6 MB, 0.0512 ms at 3.35 TB/s, against 2.68 GFLOP of
+// state update and read-out, 0.040 ms at 67 TFLOP/s of f32 FMAs: bytes
+// bound it on paper. In practice the recurrence is sequential in time
+// and a step's work (dh^2 terms of a pair) is small; this kernel runs
+// at ~3x the byte bound. What holds it there is not known (it was
+// timed without hardware counters): more warps did not lower it, and
+// the compiler's schedule of a step's loop changed it more than the
+// loop's instruction count did (below).
 //
-// What the design does about it: one block of dh threads per
-// (batch, head) pair; thread i keeps the value column S[:, i] in
-// registers for the whole sequence, so the state never touches memory
-// until S_final is written. Time steps are staged kChunk at a time in
-// double-buffered shared memory: each thread loads its element of the
-// next chunk's r, k, v, w into registers while the block computes the
-// current chunk, so one __syncthreads and one round of global-load
-// latency serve kChunk steps. The inner loop reads r, k, w, u as float4
-// broadcasts from shared memory and splits the read-out sum over four
-// accumulators to shorten the FMA dependency chain. Any length works:
-// the Pallas chunk has no counterpart here and no chunk has to divide s.
-// Packing several pairs per block, a chunked tensor-core form and TMA
-// are for later.
+// What the design does: one block of dh threads per (batch, head) pair;
+// thread i keeps the value column S[:, i] in registers for the whole
+// sequence, so the state never touches memory until S_final is written.
+// Time steps are staged kChunk at a time in double-buffered shared
+// memory: each thread loads its element of the next chunk's r, k, v, w
+// into registers while the block computes the current chunk, so one
+// __syncthreads and one round of global-load latency serve kChunk
+// steps. The inner loop reads r, k, w, u as float4 broadcasts from
+// shared memory and splits the read-out sum over four accumulators to
+// shorten the FMA dependency chain. Any length works: no chunk has to
+// divide s. Any dh: 32 and 64 are compiled; any dh up to 64 runs in
+// the next wider one, the rows and columns past dh loaded as zero (so
+// those states stay 0 and add nothing) and never stored; dh above 64
+// takes a plain kernel, a thread a value column, its state column in
+// S_final's rows (global memory, cached).
+//
+// Redesigns measured on the card and dropped, none faster than this
+// design at rwkv6's shape (PERF.md): the bonus as a scalar a step
+// (beta_t = sum_j r_j u_j k_j, 3 instructions a term instead of 4),
+// with beta from a pass a chunk or from a shuffle tree where a chunk is
+// staged, the read-out in 4, 8 or 16 accumulators (the same 3-term loop
+// ran as fast as this one or far slower with the accumulator count
+// alone: the compiler's schedule, not the instruction count, set its
+// time); each column's rows split over neighbouring lanes with a
+// shuffle tree a step; groups of rows a thread in separate warps (4x
+// the warps) with the partial read-outs added a chunk later, by the
+// compute warps or by a helper warp; several columns a thread. More
+// warps did not make it faster. Not tried: a chunked tensor-core form.
+// The bound is bytes, so tensor cores cannot lower it, and a chunk's
+// cumulative decay products underflow f32 (0.45^64 is ~1e-22).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kChunk = 8;  // time steps staged in shared memory at once
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Loads this thread's element of steps [t0, t0 + kChunk) of the four
-// inputs into registers (steps past s are left as they were).
-template <typename T, int DH>
+constexpr int kChunk = 8;  // time steps staged in shared memory at once
+
+// Loads this thread's element (column i of the pair's rows) of steps
+// [t0, t0 + kChunk) of the four inputs into registers: 0 past dh, steps
+// past s left as they were.
+template <typename T>
 __device__ __forceinline__ void fetch(const T* __restrict__ r,
                                       const T* __restrict__ k,
                                       const T* __restrict__ v,
                                       const T* __restrict__ w, size_t base,
-                                      int t0, int s, int i,
+                                      int t0, int s, int dh, int i,
                                       float (&pr)[kChunk],
                                       float (&pk)[kChunk],
                                       float (&pv)[kChunk],
@@ -58,8 +80,8 @@ __device__ __forceinline__ void fetch(const T* __restrict__ r,
 #pragma unroll
   for (int c = 0; c < kChunk; ++c) {
     const int t = t0 + c;
-    if (t < s) {
-      const size_t o = base + (size_t)t * DH + i;
+    if (t < s && i < dh) {
+      const size_t o = base + (size_t)t * dh + i;
       pr[c] = to_f32(r[o]);
       pk[c] = to_f32(k[o]);
       pv[c] = to_f32(v[o]);
@@ -77,26 +99,35 @@ __device__ __forceinline__ void wkv_term(float& st, float rj, float kj,
   st = fmaf(wj, st, kv);
 }
 
-template <typename T, int DH>
+// grid: (b * h); a block of DH threads a (batch, head) pair, thread i
+// the value column S[:, i]. EXACT: dh == DH, every stride and bound a
+// constant; otherwise dh < DH and the rows and columns past dh are
+// masked.
+template <typename T, int DH, bool EXACT>
 __global__ void __launch_bounds__(DH)
 rwkv6_wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ w,
                  const float* __restrict__ u, float* __restrict__ y,
-                 float* __restrict__ s_final, int h, int s) {
+                 float* __restrict__ s_final, int h, int s, int dh_arg) {
+  const int dh = EXACT ? DH : dh_arg;
   // [buffer][r, k, v, w][step][channel]
   __shared__ __align__(16) float stage[2][4][kChunk][DH];
   __shared__ __align__(16) float su[DH];
   const int i = threadIdx.x;
   const int bh = blockIdx.x;
-  const size_t base = (size_t)bh * s * DH;
-  su[i] = u[(size_t)(bh % h) * DH + i];
+  const size_t base = (size_t)bh * s * dh;
+  su[i] = i < dh ? u[(size_t)(bh % h) * dh + i] : 0.f;
 
   float state[DH];  // S[:, i], the value column this thread owns
 #pragma unroll
   for (int j = 0; j < DH; ++j) state[j] = 0.f;
 
   float pr[kChunk], pk[kChunk], pv[kChunk], pw[kChunk];
-  fetch<T, DH>(r, k, v, w, base, 0, s, i, pr, pk, pv, pw);
+  if (!EXACT) {  // the columns past dh stage zeros
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) pr[c] = pk[c] = pv[c] = pw[c] = 0.f;
+  }
+  fetch<T>(r, k, v, w, base, 0, s, dh, i, pr, pk, pv, pw);
   int buf = 0;
   for (int t0 = 0; t0 < s; t0 += kChunk, buf ^= 1) {
     // stage[buf] was last read two chunks ago, before the previous
@@ -109,7 +140,7 @@ rwkv6_wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
       stage[buf][3][c][i] = pw[c];
     }
     // the next chunk's loads are in flight while this chunk computes
-    fetch<T, DH>(r, k, v, w, base, t0 + kChunk, s, i, pr, pk, pv, pw);
+    fetch<T>(r, k, v, w, base, t0 + kChunk, s, dh, i, pr, pk, pv, pw);
     __syncthreads();
     const int n = min(kChunk, s - t0);
 #pragma unroll 1
@@ -130,23 +161,59 @@ rwkv6_wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
         wkv_term(state[j + 2], r4.z, k4.z, w4.z, u4.z, vi, acc2);
         wkv_term(state[j + 3], r4.w, k4.w, w4.w, u4.w, vi, acc3);
       }
-      y[base + (size_t)(t0 + c) * DH + i] = (acc0 + acc1) + (acc2 + acc3);
+      if (i < dh)
+        y[base + (size_t)(t0 + c) * dh + i] = (acc0 + acc1) + (acc2 + acc3);
     }
   }
-  float* sf = s_final + (size_t)bh * DH * DH;
+  if (i < dh) {
+    float* sf = s_final + (size_t)bh * dh * dh;
 #pragma unroll
-  for (int j = 0; j < DH; ++j) sf[j * DH + i] = state[j];
+    for (int j = 0; j < DH; ++j)
+      if (j < dh) sf[(size_t)j * dh + i] = state[j];
+  }
 }
 
-template <typename T, int DH>
+// dh above 64: a thread a value column i, its state column S[:, i] in
+// S_final's rows (global memory; L1 and L2 hold it), r, k, w read from
+// global memory (the same for every thread of the pair, so cached). The
+// same arithmetic as above, beta summed by the thread in row order.
+template <typename T>
+__global__ void __launch_bounds__(128)
+rwkv6_wkv_wide_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ w,
+                      const float* __restrict__ u, float* __restrict__ y,
+                      float* __restrict__ s_final, int h, int s, int dh) {
+  const int i = blockIdx.x * 128 + threadIdx.x;
+  const int pair = blockIdx.y;
+  if (i >= dh) return;
+  const size_t base = (size_t)pair * s * dh;
+  float* sc = s_final + (size_t)pair * dh * dh + i;  // S[j, i] at sc[j dh]
+  const float* uh = u + (size_t)(pair % h) * dh;
+  for (int j = 0; j < dh; ++j) sc[(size_t)j * dh] = 0.f;
+  for (int t = 0; t < s; ++t) {
+    const size_t o = base + (size_t)t * dh;
+    const float vi = to_f32(v[o + i]);
+    float acc = 0.f, bt = 0.f;
+    for (int j = 0; j < dh; ++j) {
+      const float rj = to_f32(r[o + j]), kj = to_f32(k[o + j]);
+      const float sji = sc[(size_t)j * dh];
+      acc = fmaf(rj, sji, acc);
+      bt = fmaf(rj * uh[j], kj, bt);
+      sc[(size_t)j * dh] = fmaf(to_f32(w[o + j]), sji, kj * vi);
+    }
+    y[o + i] = fmaf(bt, vi, acc);
+  }
+}
+
+template <typename T, int DH, bool EXACT>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* w, const void* u, void* y, void* s_final,
-                   int b, int h, int s, cudaStream_t stream) {
-  rwkv6_wkv_kernel<T, DH><<<(unsigned)(b * h), DH, 0, stream>>>(
+                   int b, int h, int s, int dh, cudaStream_t stream) {
+  rwkv6_wkv_kernel<T, DH, EXACT><<<(unsigned)(b * h), DH, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const float*>(u), static_cast<float*>(y),
-      static_cast<float*>(s_final), h, s);
+      static_cast<float*>(s_final), h, s, dh);
   return cudaGetLastError();
 }
 
@@ -155,22 +222,38 @@ cudaError_t dispatch(const void* r, const void* k, const void* v,
                      const void* w, const void* u, void* y, void* s_final,
                      int b, int h, int s, int dh, cudaStream_t stream) {
   if (dh == 32)
-    return launch<T, 32>(r, k, v, w, u, y, s_final, b, h, s, stream);
+    return launch<T, 32, true>(r, k, v, w, u, y, s_final, b, h, s, dh,
+                               stream);
   if (dh == 64)
-    return launch<T, 64>(r, k, v, w, u, y, s_final, b, h, s, stream);
-  return cudaErrorInvalidValue;
+    return launch<T, 64, true>(r, k, v, w, u, y, s_final, b, h, s, dh,
+                               stream);
+  if (dh < 32)
+    return launch<T, 32, false>(r, k, v, w, u, y, s_final, b, h, s, dh,
+                                stream);
+  if (dh < 64)
+    return launch<T, 64, false>(r, k, v, w, u, y, s_final, b, h, s, dh,
+                                stream);
+  if ((int64_t)b * h > 65535) return cudaErrorInvalidValue;
+  dim3 grid((dh + 127) / 128, b * h);
+  rwkv6_wkv_wide_kernel<T><<<grid, 128, 0, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(w),
+      static_cast<const float*>(u), static_cast<float*>(y),
+      static_cast<float*>(s_final), h, s, dh);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w alike; u is float32).
-// dh: 32 or 64. Returns the launch's cudaError_t.
+// Any dh >= 1. Returns the launch's cudaError_t.
 extern "C" int repro_rwkv6_wkv(const void* r, const void* k, const void* v,
                                const void* w, const void* u, void* y,
                                void* s_final, int b, int h, int s, int dh,
                                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || h <= 0 || s <= 0 || (int64_t)b * h > 0x7fffffffLL)
+  if (b <= 0 || h <= 0 || s <= 0 || dh <= 0 ||
+      (int64_t)b * h > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(r, k, v, w, u, y, s_final, b, h, s, dh, st);

@@ -9,28 +9,46 @@
 //   y_t[d]    = sum_k h_t[d, k] * C_t[k]
 // Outputs y (b, s, di) f32 and h_final (b, di, n) f32. dt, B and C are
 // f32 or bf16 (alike), u is f32 or bf16 on its own, A is f32; all
-// arithmetic is f32, and the decay is `expf`, not `__expf`, so the
-// kernel stays within f32 rounding of its plain version.
+// arithmetic is f32. The decay is exp2 of dt * A * log2(e): each thread
+// keeps its row of A pre-scaled by log2(e) in registers, and a decay is
+// one multiply and one `ex2.approx.ftz.f32` on the special-function
+// unit (relative error ~2 ulp), where the first design's accurate
+// `expf` spent ~10 FMA-pipe instructions around its `ex2`. A decay
+// below 2^-126 is flushed to 0 (it would scale h by less than 1e-38);
+// the form that keeps subnormals wraps each `ex2` in a test and two
+// multiplies, and measured slower on the card.
+// The argument is rounded twice (A * log2 e, then dt times it) instead
+// of once: at jamba's dt the decay moves by a few f32 ulps a step, and
+// tests/test_torch_recurrence_order.py holds that model, +-2 ulp in the
+// worst direction over 512 steps, within the path's 2e-5 of the output's
+// largest magnitude against a float64 recurrence.
 //
 // What bounds it on this card: each input element is read once and each
 // output written once. At jamba's prefill shape (b 4, s 512, di 16384,
 // n 16) in f32, dt, u and y are 134.2 MB each, h_final 4.2 MB, B, C and
 // A ~1.3 MB together: 407 MB, 0.121 ms at 3.35 TB/s. It also computes
-// b * s * di * n = 537 M exponentials on the special-function units
-// (16 a clock an SM, with the range reduction of an accurate expf
-// around each), which costs about as much again: the kernel cannot go
-// much under ~0.13 ms whatever its layout.
+// b * s * di * n = 537 M exponentials on the special-function units, 16
+// a clock an SM: 254 k clocks over 132 SMs, ~0.13 ms at 1.98 GHz and
+// ~0.145 ms at 1.755. That floor, not the bytes, binds once the
+// exponential is one `ex2`: the kernel cannot go under it without
+// taking exponentials off that unit. Measured, it runs above both
+// floors; moving a share of the exponentials to a polynomial on the FMA
+// pipes, splitting n over two lanes, 64 or 256 threads a block and
+// 8-step chunks all measured slower or no faster on the card, so the
+// limit is neither the special-function unit alone nor occupancy.
 //
 // What the design does about it: the Pallas kernel carries h in VMEM
 // across a sequential grid axis of sequence chunks; here a thread owns
 // one (batch, channel) recurrence for the whole sequence and keeps its
 // n states and its row of A in registers, so h never touches memory
 // until h_final is written. At jamba's shape that is b * di = 65,536
-// recurrences, 512 blocks of 128 threads, and each thread's n states
-// are n independent update chains a step. dt_t and u_t of neighbouring
-// channels are neighbouring addresses, so their loads and the y store
-// coalesce; each thread loads its dt and u of the next kChunk steps
-// into registers while it computes this chunk. B_t and C_t are the same
+// recurrences, 512 blocks of 128 threads (~15.5 warps an SM), and each
+// thread's n states are n independent update chains a step, enough
+// work in flight to cover the latency of each. dt_t and u_t of
+// neighbouring channels are neighbouring addresses, so their loads and
+// the y store coalesce; each thread loads its dt and u of the next
+// kChunk steps into registers while it computes this chunk, and takes
+// dt * u once a step for all n states. B_t and C_t are the same
 // for every channel of a batch row: a chunk of them is staged in
 // double-buffered shared memory for the whole block and read as float4
 // broadcasts. Any s and di work (a ragged di is masked). Any n >= 1
@@ -39,9 +57,9 @@
 // the same kernel at N = 32 or 64 with the states past n masked (their
 // A, B and C are zero, so they stay 0 and add nothing to y); above 64
 // a thread walks its n states in a loop, keeping them in h_final's row
-// (global memory, cached in L1/L2) instead of registers. Splitting n
-// across lanes with a shuffle-reduced y, and a chunked tensor-core
-// form, are later work.
+// (global memory, cached in L1/L2) instead of registers. A chunked
+// tensor-core form would not lower the floor: its decays are the same
+// exponentials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,6 +69,15 @@ namespace {
 
 constexpr int kThreads = 128;  // channels of one batch row per block
 constexpr int kChunk = 16;     // time steps staged at once
+constexpr float kLog2e = 1.44269504088896341f;
+
+// 2^x on the special-function unit (~2 ulp), a result below 2^-126
+// flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -122,10 +149,10 @@ selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
     }
     __syncthreads();  // before any thread stages a chunk over the zeros
   }
-  float a[N], h[N];
+  float a2[N], h[N];  // A[ch, k] * log2(e), and the states
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    a[k] = active && k < n ? a_mat[(size_t)ch * n + k] : 0.f;
+    a2[k] = active && k < n ? a_mat[(size_t)ch * n + k] * kLog2e : 0.f;
     h[k] = 0.f;
   }
 
@@ -173,10 +200,10 @@ selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
         for (int k = 0; k < N; k += 4) {
           const float4 b4 = *reinterpret_cast<const float4*>(&sb[buf][c][k]);
           const float4 c4 = *reinterpret_cast<const float4*>(&sc[buf][c][k]);
-          h[k + 0] = expf(d * a[k + 0]) * h[k + 0] + du * b4.x;
-          h[k + 1] = expf(d * a[k + 1]) * h[k + 1] + du * b4.y;
-          h[k + 2] = expf(d * a[k + 2]) * h[k + 2] + du * b4.z;
-          h[k + 3] = expf(d * a[k + 3]) * h[k + 3] + du * b4.w;
+          h[k + 0] = ex2(d * a2[k + 0]) * h[k + 0] + du * b4.x;
+          h[k + 1] = ex2(d * a2[k + 1]) * h[k + 1] + du * b4.y;
+          h[k + 2] = ex2(d * a2[k + 2]) * h[k + 2] + du * b4.z;
+          h[k + 3] = ex2(d * a2[k + 3]) * h[k + 3] + du * b4.w;
           acc0 = fmaf(h[k + 0], c4.x, acc0);
           acc1 = fmaf(h[k + 1], c4.y, acc1);
           acc0 = fmaf(h[k + 2], c4.z, acc0);
@@ -228,7 +255,8 @@ selective_scan_wide_kernel(const TX* __restrict__ dt,
     const TX* ct = cm + (row + t) * n;
     float acc0 = 0.f, acc1 = 0.f;
     for (int k = 0; k < n; ++k) {
-      const float hk = expf(d * a[k]) * h[k] + du * to_f32(bt[k]);
+      const float hk =
+          ex2(d * (a[k] * kLog2e)) * h[k] + du * to_f32(bt[k]);
       h[k] = hk;
       if (k & 1)
         acc1 = fmaf(hk, to_f32(ct[k]), acc1);

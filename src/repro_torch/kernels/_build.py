@@ -28,7 +28,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 # no --use_fast_math: quantize_int8 needs an IEEE division to agree
 # with the reference bit for bit, attention an accurate expf, and the
 # WKV recurrence keeps denormals (fast math flushes them) as its plain
-# version does, and the selective scan's decay needs expf, not __expf
+# version does; the selective scan asks for its one approximate
+# instruction, `ex2.approx.ftz.f32`, by name
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -87,11 +88,12 @@ def _digest(srcs: List[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels if this exact source set has no library yet;
-    return the library's path."""
-    srcs = sources()
-    out_dir = BUILD_ROOT / _digest(inputs())
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernels of ``csrc`` (the package's own by default) if
+    this exact source set has no library yet; return the library's
+    path."""
+    srcs = sorted(csrc.glob("*.cu"))
+    out_dir = BUILD_ROOT / _digest(inputs(csrc))
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -131,30 +133,45 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.repro_flash_attention.argtypes = [
-                p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
-            lib.repro_flash_attention.restype = i
-            lib.repro_quantize_int8.argtypes = [
-                p, p, p, ctypes.c_int64, i, i, p]
-            lib.repro_quantize_int8.restype = i
-            lib.repro_flash_attention_variant.argtypes = [p, p, p, i]
-            lib.repro_flash_attention_variant.restype = i
-            lib.repro_moe_gmm.argtypes = [p, p, p, p, i, i, i, i, i, p]
-            lib.repro_moe_gmm.restype = i
-            lib.repro_moe_gmm_plan.argtypes = [
-                i, i, i, i, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int)]
-            lib.repro_moe_gmm_plan.restype = i
-            lib.repro_rwkv6_wkv.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, p]
-            lib.repro_rwkv6_wkv.restype = i
-            lib.repro_selective_scan.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-            lib.repro_selective_scan.restype = i
-            _lib = lib
+            _lib = load(build())
         return _lib
+
+
+def use(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Make ``lib`` the library every wrapper launches from (a library
+    ``load``-ed from other sources, to time two builds of the kernels in
+    one process); returns the one it replaces."""
+    global _lib
+    with _lock:
+        old, _lib = _lib, lib
+        return old
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library, loaded, with its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.repro_flash_attention.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+    lib.repro_flash_attention.restype = i
+    lib.repro_quantize_int8.argtypes = [
+        p, p, p, ctypes.c_int64, i, i, p]
+    lib.repro_quantize_int8.restype = i
+    lib.repro_flash_attention_variant.argtypes = [p, p, p, i, i]
+    lib.repro_flash_attention_variant.restype = i
+    lib.repro_moe_gmm.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.repro_moe_gmm.restype = i
+    lib.repro_moe_gmm_plan.argtypes = [
+        i, i, i, i, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.repro_moe_gmm_plan.restype = i
+    lib.repro_rwkv6_wkv.argtypes = [
+        p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.repro_rwkv6_wkv.restype = i
+    lib.repro_selective_scan.argtypes = [
+        p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_selective_scan.restype = i
+    return lib
 
 
 def check(err: int, what: str) -> None:

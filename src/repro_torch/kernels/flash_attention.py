@@ -7,10 +7,12 @@ computes the plain version (``ref.attention_ref``), and that is the only
 way the plain version is taken.
 
 Layout: q (b, h, sq, dh); k/v (b, kvh, sk, dh), contiguous, float32 or
-bfloat16; dh one of 16, 32, 64, 80, 128. GQA by head grouping. The
-kernel runs its products on the tensor cores (3xTF32 for f32) where
-sq > 16, and on f32 FMAs for short queries (the split-NN tower's 8
-tokens).
+bfloat16; any head dim 1 <= dh <= 512 (16, 32, 64, 80 and 128 are
+compiled, other dims run in the next wider width with the extra
+columns zero). GQA by head grouping. The kernel runs its products on
+the tensor cores (3xTF32 for f32) where sq > 16 and dh <= 128, and on
+f32 FMAs for short queries (the split-NN tower's 8 tokens) and wider
+heads.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128)
+MAX_HEAD_DIM = 512
 
 launches = _build.LaunchCounter()
 
@@ -56,7 +58,7 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     dispatches it: "simt", or "mma_3xtf32" / "mma_bf16"."""
     _check(q, k, v)
     mma = _build.library().repro_flash_attention_variant(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.shape[2])
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.shape[2], q.shape[3])
     if not mma:
         return "simt"
     return "mma_3xtf32" if q.dtype == torch.float32 else "mma_bf16"
@@ -85,11 +87,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[0] != b or k.shape[3] != dh or h % k.shape[1]:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
-    if q.shape[2] == 0 or k.shape[2] == 0 or b == 0:
-        raise ValueError("flash_attention: empty sequence or batch")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {dh} above "
+                         f"{MAX_HEAD_DIM}")
+    if q.shape[2] == 0 or k.shape[2] == 0 or b == 0 or dh == 0:
+        raise ValueError("flash_attention: empty sequence, batch or head")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")

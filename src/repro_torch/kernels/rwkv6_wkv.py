@@ -6,8 +6,10 @@ computes the plain version (``ref.rwkv6_ref``), and that is the only way
 the plain version is taken.
 
 Layout: r, k, v, w (b, h, s, dh), contiguous, all float32 or all
-bfloat16; u (h, dh) float32; dh 32 or 64. The recurrence starts from
-S = 0, as the Pallas kernel's does.
+bfloat16; u (h, dh) float32; any head dim dh >= 1 (32 and 64 are
+compiled, narrower dims run in the next wider width with the extra rows
+and columns zero, wider heads in a plain kernel). The
+recurrence starts from S = 0, as the Pallas kernel's does.
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rwkv6_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64)
 
 launches = _build.LaunchCounter()
 
@@ -70,10 +71,9 @@ def _check(r, k, v, w, u) -> None:
         raise ValueError(f"rwkv6_wkv: need u float32 {(h, dh)} on "
                          f"{r.device}, got {u.dtype} {tuple(u.shape)} on "
                          f"{u.device}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_wkv: head dim {dh} not in {HEAD_DIMS}")
-    if b == 0 or h == 0 or s == 0:
-        raise ValueError("rwkv6_wkv: empty batch, heads or sequence")
+    if b == 0 or h == 0 or s == 0 or dh == 0:
+        raise ValueError("rwkv6_wkv: empty batch, heads, sequence or head "
+                         "dim")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
         if not t.is_contiguous():
             raise ValueError(f"rwkv6_wkv: {name} is not contiguous")

@@ -274,8 +274,8 @@ def test_ops_pallas_on_cpu_raises(counters):
 
 def test_kernel_sources_build_flags():
     """The build compiles every csrc source for sm_90a without fast
-    math (quantize needs an IEEE division to agree bit for bit, the
-    selective scan an accurate expf)."""
+    math (quantize needs an IEEE division to agree bit for bit, the WKV
+    recurrence keeps denormals as its plain version does)."""
     from repro_torch.kernels import _build
     names = [s.name for s in _build.sources()]
     assert names == ["flash_attention.cu", "moe_gmm.cu", "quantize.cu",

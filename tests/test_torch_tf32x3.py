@@ -43,9 +43,25 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), nan, _round(x))
 
 
+# the largest f32 that does not round up to inf as TF32
+_BELOW_INF = torch.tensor(0x7F7FEFFF, dtype=torch.int32).view(torch.float32)
+
+
 def split(x: torch.Tensor):
-    """big and small as the kernels split: small skips the NaN test
-    (x - big is NaN only where x is NaN or inf)."""
+    """big and small as the grouped matmul splits (``split<true>``): big
+    from x clamped below the values that round to inf (an inf x gets the
+    largest finite TF32 as big and inf as small; a NaN the canonical
+    NaN), small skipping the NaN test (x - big is NaN only where x is
+    NaN). Attention's split (``split<false>``) is the same for finite x
+    below FLT_MAX's last half TF32 ulp."""
+    big = tf32(torch.clamp(x, -_BELOW_INF, _BELOW_INF))
+    big = torch.where(torch.isnan(x), tf32(x), big)
+    return big, _round(x - big)
+
+
+def split_unclamped(x: torch.Tensor):
+    """Attention's split (``split<false>``): an inf x gives big = inf,
+    small = -0."""
     big = tf32(x)
     return big, _round(x - big)
 
@@ -64,7 +80,7 @@ def mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def dot(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-        passes: int = 3) -> torch.Tensor:
+        passes: int = 3, splitter=split) -> torch.Tensor:
     """c + a @ b through one accumulator, 8-deep k-steps of ``mma``: the
     3xTF32 split (the small terms first), or one TF32 pass."""
     for k0 in range(0, a.shape[1], 8):
@@ -72,8 +88,8 @@ def dot(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         if passes == 1:
             c = mma(c, tf32(ak), tf32(bk))
             continue
-        ab, as_ = split(ak)
-        bb, bs = split(bk)
+        ab, as_ = splitter(ak)
+        bb, bs = splitter(bk)
         c = mma(mma(mma(c, as_, bb), ab, bs), ab, bb)
     return c
 
@@ -164,6 +180,34 @@ def test_tf32_keeps_nan_and_inf():
     a[0, 3] = x[0]
     b = torch.randn((8, 2), generator=torch.Generator().manual_seed(0))
     assert torch.isnan(dot(torch.zeros((1, 2)), a, b)).all()
+
+
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_split_carries_inf_and_values_near_max(side):
+    """An inf operand, of either sign, times finite ones gives the +-inf
+    of the plain f32 product, not NaN; and so does an inf beside a finite
+    x within half a TF32 ulp of FLT_MAX, whose own products stay finite
+    and agree. The split without the clamp turns them into NaN."""
+    g = np.random.default_rng(7)
+    a = torch.from_numpy(g.standard_normal((6, 16), np.float32))
+    b = torch.from_numpy(g.uniform(-1, 1, (16, 5)).astype(np.float32))
+    near_max = torch.tensor([0x7F7FFFFF, 0x7F7FF800],
+                            dtype=torch.int32).view(torch.float32)
+    a[0, 3], a[1, 12], a[2, 0], a[3, 9] = (torch.inf, -torch.inf,
+                                           near_max[0], -near_max[1])
+    a[4, 5], a[4, 6] = torch.inf, near_max[1]
+    if side == "b":          # the same values as the second operand
+        a, b = b.T.contiguous(), a.T.contiguous()
+    want = a @ b
+    assert torch.isinf(want).any() and torch.isfinite(want).any()
+    got = dot(torch.zeros_like(want), a, b)
+    assert not torch.isnan(got).any()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=2e-5, atol=2e-5)
+    old = dot(torch.zeros_like(want), a, b, splitter=split_unclamped)
+    assert torch.isnan(old).any()
 
 
 def test_split_keeps_22_bits():
