@@ -3,7 +3,6 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab build/parent   # two builds, in turns
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` for
@@ -49,7 +48,8 @@ NVIDIA GPU.
    drawn on the card from a seed) through ``ServeEngine``: the WKV
    kernel first against its plain version at the prefill shape
    (4, 64, 511, 64), at the JAX package's kernel-test shapes and at
-   head dims 16, 48, 5, 128 and 130, within 5e-5 (f32) / 5e-2 (bf16);
+   head dims 16, 48, 5, 128 and 130 (and 65 over 65,537 heads), within
+   5e-5 (f32) / 5e-2 (bf16);
    then ``score`` of a (4, 512) token batch, which must launch the WKV
    kernel once per layer (32 times) and give a finite loss;
    teacher-forced ``decode_step`` logits of one 64-token sequence (a path
@@ -117,12 +117,6 @@ NVIDIA GPU.
    path's shape ran and its launches on each path, then
    ``{"ok": true, "device": {...}}`` as its last line.
 
-With ``--ab PARENT`` it runs only a comparison: the WKV and scan
-kernels at their path shapes and the rwkv6-7b and jamba prefill
-``score``, with the kernels built from ``PARENT`` (another checkout,
-unpacked with ``git archive`` under the ignored ``build/``) and from
-this checkout in turns (parent, this, this, parent), in one process.
-
 Any failure raises and the script exits non-zero; it needs the repo's
 ``src/repro_torch`` beside it and a CUDA device, and prints no result
 without them. It imports nothing of JAX or of the JAX package.
@@ -178,6 +172,8 @@ WKV_CASES = [
     (1, 2, 40, 128, "float32"),
     (1, 1, 37, 5, "float32"),
     (1, 1, 20, 130, "float32"),
+    # more (batch, head) pairs than a grid's y dimension takes (65535)
+    (1, 65537, 1, 65, "float32"),
 ]
 
 # the MoE phase: granite-moe-3b-a800m at full width and depth, f32
@@ -1433,91 +1429,6 @@ def time_scan(torch, dev, cfg) -> dict:
     return out
 
 
-def ab_compare(torch, dev, parent: Path) -> dict:
-    """``--ab PARENT``: the kernels built from ``PARENT/src/repro_torch/
-    csrc`` (another checkout, unpacked under ``build/``) against this
-    checkout's, in one process on one card, in turns: parent, this,
-    this, parent. Per turn: the WKV kernel at rwkv6-7b's prefill shape,
-    the scan at jamba's, attention at jamba's and the grouped matmul at
-    granite's prefill gate/up (device times, graph replay), and the
-    prefill ``score`` of rwkv6-7b (4, 512) and of the jamba period (4,
-    513) (the median wall time of 3 calls). Only the library the
-    wrappers launch from changes between turns; the model code and the
-    weights are this checkout's."""
-    import numpy as np
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gmm as gmm
-    from repro_torch.kernels import rwkv6_wkv as wkv
-    from repro_torch.kernels import selective_scan as ssm
-    from repro_torch.serve.engine import ServeEngine
-    t0 = time.perf_counter()
-    libs = {"parent": _build.load(_build.build(
-        parent / "src" / "repro_torch" / "csrc")),
-        "this": _build.library()}
-    log(f"ab: built both libraries in {time.perf_counter() - t0:.1f} s")
-    turns = ["parent", "this", "this", "parent"]
-    out = {name: {} for name in libs}
-
-    def record(name, key, value):
-        out[name].setdefault(key, []).append(value)
-
-    g = torch.Generator().manual_seed(13)
-    zoo_cfg, jamba_cfg = zoo_config(), jamba_config()
-    h, dh = zoo_cfg.d_model // zoo_cfg.rwkv.head_dim, zoo_cfg.rwkv.head_dim
-    w_ins = wkv_inputs(torch, dev, SCORE_BATCH, h, SCORE_TOKENS - 1, dh,
-                       torch.float32, g)
-    s_ins = scan_inputs(torch, dev, *scan_path_shape(jamba_cfg),
-                        torch.float32, torch.float32, g, -4.6)
-    qs, ks = prefill_attention_shapes(jamba_cfg, JAMBA_SCORE_TOKENS)
-    q = torch.randn(qs, generator=g).to(dev)
-    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
-    (_, (e, c, d, f)), = gmm_path_shapes(moe_config())[:1]
-    x = torch.randn((e, c, d), generator=g).to(dev)
-    w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
-    for name in turns:
-        _build.use(libs[name])
-        record(name, "wkv_ms", graph_ms(lambda: wkv.rwkv6_wkv(*w_ins)))
-        record(name, "scan_ms", graph_ms(
-            lambda: ssm.selective_scan(*s_ins), reps=20, trials=10))
-        record(name, "attention_jamba_ms", graph_ms(
-            lambda: fa.flash_attention(q, k, v, causal=True), reps=20,
-            trials=10))
-        record(name, "gmm_granite_gate_up_ms", graph_ms(
-            lambda: gmm.moe_gmm(x, w), reps=20, trials=10))
-    del w_ins, s_ins, q, k, v, x, w
-    for tag, cfg, tokens in (("rwkv6", zoo_cfg, SCORE_TOKENS),
-                             ("jamba", jamba_cfg, JAMBA_SCORE_TOKENS)):
-        params = draw_params(torch, dev, cfg)
-        eng = ServeEngine(cfg, params, max_seq=tokens, dtype=torch.float32,
-                          device=dev)
-        toks = np.random.default_rng(0).integers(0, cfg.vocab,
-                                                 (SCORE_BATCH, tokens))
-        for name in libs:                       # warm-up with each
-            _build.use(libs[name])
-            eng.score(toks)
-        for name in turns:
-            _build.use(libs[name])
-            walls = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                loss = eng.score(toks)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            wall = statistics.median(walls)
-            record(name, f"{tag}_score_ms", wall * 1e3)
-            record(name, f"{tag}_prefill_tok_s",
-                   SCORE_BATCH * (tokens - 1) / wall)
-            record(name, f"{tag}_loss", loss)
-        del eng, params
-        gc.collect()
-        torch.cuda.empty_cache()
-    _build.use(libs["this"])
-    log("ab " + json.dumps(out))
-    return out
-
-
 def main() -> int:
     try:
         import torch
@@ -1541,10 +1452,6 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
-        ab_compare(torch, dev, Path(sys.argv[2]).resolve())
-        log(gpu_line())
-        return 0
 
     t0 = time.perf_counter()
     lib = _build.build()

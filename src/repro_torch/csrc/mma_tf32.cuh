@@ -59,14 +59,21 @@ namespace mma {
 // sign, or NaN where b is 0, as inf * 0 is), while big_a * big_b and
 // big_a * small_b are finite or an inf of the same sign. Only where the
 // other operand is above ~2^12 in magnitude can big_a * small_b
-// overflow with small_b's own sign and meet the inf as a NaN. These
-// values take a second step that runs only when some lane of the warp
-// holds one (a vote on the fragment), cheaper on the card than a clamp
-// on every element (PERF.md). Attention leaves it out: a vote on its
-// two-element fragments measured far slower, and an inf in q or k can
-// then give a NaN where `attention_ref` gives +-inf.
+// overflow with small_b's own sign and meet the inf as a NaN. The
+// grouped matmul splits with `split_finite`, which notes such a value,
+// and takes a stage again with this split only where a warp's
+// fragments held one. Attention keeps the NaN-only split: an
+// inf in q or k gives an inf score, which `attention_ref` turns into a
+// NaN too (inf - inf in the softmax), and an inf in v can give a NaN
+// where `attention_ref` gives +-inf.
 __device__ __forceinline__ uint32_t round_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// The smallest magnitude that rounds up to inf in TF32; NaN, inf and
+// everything from here up need `split<true>`.
+__device__ __forceinline__ float rounds_to_inf() {
+  return __uint_as_float(0x7F7FF000u);
 }
 
 template <int N>
@@ -78,33 +85,29 @@ struct Split {
 template <bool kInfSafe = false, int N>
 __device__ __forceinline__ Split<N> split(const float (&x)[N]) {
   Split<N> s;
-  if (!kInfSafe) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      s.big[i] = isnan(x[i]) ? 0x7FFFFFFFu : round_tf32(x[i]);
-      s.small[i] = round_tf32(x[i] - __uint_as_float(s.big[i]));
-    }
-    return s;
-  }
-  // the smallest magnitude that rounds up to inf
-  const float kRoundsToInf = __uint_as_float(0x7F7FF000u);
-  bool special = false;  // NaN, inf, or rounds to inf
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    s.big[i] = round_tf32(x[i]);
-    special |= !(fabsf(x[i]) < kRoundsToInf);
-  }
-  if (__any_sync(0xffffffffu, special)) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (!(fabsf(x[i]) < kRoundsToInf))
-        s.big[i] = isnan(x[i]) ? 0x7FFFFFFFu
-                               : (__float_as_uint(x[i]) & 0x80000000u) |
-                                     0x7F7FE000u;
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i)
+    s.big[i] = isnan(x[i]) ? 0x7FFFFFFFu : round_tf32(x[i]);
+    if (kInfSafe && isinf(__uint_as_float(s.big[i])))
+      s.big[i] = (__float_as_uint(x[i]) & 0x80000000u) | 0x7F7FE000u;
     s.small[i] = round_tf32(x[i] - __uint_as_float(s.big[i]));
+  }
+  return s;
+}
+
+// The split of finite values below `rounds_to_inf()`; sets `special`
+// where some x is not one (a NaN, an inf, or a value that rounds to
+// inf), whose split the caller then takes again with `split<true>`.
+template <int N>
+__device__ __forceinline__ Split<N> split_finite(const float (&x)[N],
+                                                 bool& special) {
+  Split<N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    special |= !(fabsf(x[i]) < rounds_to_inf());
+    s.big[i] = round_tf32(x[i]);
+    s.small[i] = round_tf32(x[i] - __uint_as_float(s.big[i]));
+  }
   return s;
 }
 

@@ -248,32 +248,37 @@ struct MmaTile {
       kStages * kStageElems * static_cast<int>(sizeof(T));
 };
 
-// one 8-deep (f32) or 16-deep (bf16) step of the warp's 64 x 32 piece
+// one 8-deep (f32) or 16-deep (bf16) step of the warp's 64 x 32 piece.
+// f32: SAFE takes the inf-safe split; otherwise the split of finite
+// values, which sets `special` where an element needed the other
+template <bool SAFE>
 __device__ __forceinline__ void mma_step(float (&acc)[4][4][4],
                                          const float* as, const float* bs,
-                                         int g, int t) {
+                                         int g, int t, bool& special) {
   constexpr int LDA = MmaTile<float>::kLdA, LDB = MmaTile<float>::kLdB;
   mma::Split<2> b[4];
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     float bv[2];
     mma::load_b_tf32_kn(bv, bs + 8 * n, LDB, g, t);
-    b[n] = mma::split<true>(bv);
+    b[n] = SAFE ? mma::split<true>(bv) : mma::split_finite(bv, special);
   }
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     float av[4];
     mma::load_a_tf32(av, as + 16 * m * LDA, LDA, g, t);
-    const mma::Split<4> a = mma::split<true>(av);
+    const mma::Split<4> a =
+        SAFE ? mma::split<true>(av) : mma::split_finite(av, special);
 #pragma unroll
     for (int n = 0; n < 4; ++n) mma::mma_3xtf32(acc[m][n], a, b[n]);
   }
 }
 
+template <bool SAFE>
 __device__ __forceinline__ void mma_step(float (&acc)[4][4][4],
                                          const __nv_bfloat16* as,
                                          const __nv_bfloat16* bs, int g,
-                                         int t) {
+                                         int t, bool&) {
   constexpr int LDA = MmaTile<__nv_bfloat16>::kLdA;
   constexpr int LDB = MmaTile<__nv_bfloat16>::kLdB;
   uint32_t b[4][2];
@@ -349,10 +354,26 @@ gmm_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[m][n][q] = 0.f;
+    bool special = false;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += KSTEP)
-      mma_step(part, a + (64 * wm) * LDA + kk, b + kk * LDB + 32 * wn, g,
-               t);
+      mma_step<false>(part, a + (64 * wm) * LDA + kk, b + kk * LDB + 32 * wn,
+                      g, t, special);
+    // f32: a NaN, an inf or a value that rounds to inf among the warp's
+    // fragments of the stage (rare): the stage again, with the inf-safe
+    // split, its products into a fresh partial sum
+    if (sizeof(T) == 4 && __any_sync(0xffffffffu, special)) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[m][n][q] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += KSTEP)
+        mma_step<true>(part, a + (64 * wm) * LDA + kk,
+                       b + kk * LDB + 32 * wn, g, t, special);
+    }
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll

@@ -14,43 +14,46 @@
 // output written once; at rwkv6-7b's prefill shape (4, 64, 511, 64) in
 // f32 that is 171.6 MB, 0.0512 ms at 3.35 TB/s, against 2.68 GFLOP of
 // state update and read-out, 0.040 ms at 67 TFLOP/s of f32 FMAs: bytes
-// bound it on paper. In practice the recurrence is sequential in time
-// and a step's work (dh^2 terms of a pair) is small; this kernel runs
-// at ~3x the byte bound. What holds it there is not known (it was
-// timed without hardware counters): more warps did not lower it, and
-// the compiler's schedule of a step's loop changed it more than the
-// loop's instruction count did (below).
+// bound it on paper. The recurrence is sequential in time, so a step's
+// dh^2 terms of a pair are all the parallel work there is: at that shape
+// 256 pairs, two an SM. Each term needs r_j, k_j and w_j of its key row;
+// the first design (PR 12: a thread a value column, every row) read
+// those three, and u_j, from shared memory for every term (one 16-byte
+// broadcast a term), which held it at ~3x the byte bound.
 //
-// What the design does: one block of dh threads per (batch, head) pair;
-// thread i keeps the value column S[:, i] in registers for the whole
-// sequence, so the state never touches memory until S_final is written.
+// What the design does: a thread owns a tile of the state, JT key rows
+// by CT value columns, in registers for the whole sequence, so each row
+// value it loads serves CT terms and each column value JT terms. The
+// RG = dh / JT threads that share a column block sit in neighbouring
+// lanes and add their partial read-outs with a shuffle tree a step (the
+// compiler interleaves the shuffles with the state updates). The bonus
+// is a scalar a step: y_t[i] = sum_j r_j S[j,i] + beta_t v_t[i] with
+// beta_t = sum_j r_j u_j k_j, each thread adding its rows' part of beta
+// to its partial read-out before the tree, so a term costs three
+// instructions (k_j v_i, the read-out FMA, the decay FMA), not four.
 // Time steps are staged kChunk at a time in double-buffered shared
-// memory: each thread loads its element of the next chunk's r, k, v, w
-// into registers while the block computes the current chunk, so one
-// __syncthreads and one round of global-load latency serve kChunk
-// steps. The inner loop reads r, k, w, u as float4 broadcasts from
-// shared memory and splits the read-out sum over four accumulators to
-// shorten the FMA dependency chain. Any length works: no chunk has to
-// divide s. Any dh: 32 and 64 are compiled; any dh up to 64 runs in
-// the next wider one, the rows and columns past dh loaded as zero (so
-// those states stay 0 and add nothing) and never stored; dh above 64
-// takes a plain kernel, a thread a value column, its state column in
-// S_final's rows (global memory, cached).
+// memory (each row group's JT values padded so the row groups' 16-byte
+// loads fall in different banks); each thread loads its share of the
+// next chunk into registers while the block computes the current one.
+// At dh 64 the tile is 8 x 4 (8 lanes a column block, 128 threads a
+// pair): a step is ~150 instructions a warp, and with 8 warps an SM
+// (two a scheduler) the steps run at ~2/3 of the issue rate; the kernel
+// is at ~2.3x the byte bound, held by issue and the stalls two warps a
+// scheduler cannot cover. Other tiles (16 x 4, 8 x 8, 4 x 4, 16 x 2),
+// partial read-outs summed a chunk later in shared memory instead of
+// the tree, the next step's loads issued a step ahead, and other chunk
+// lengths all measured slower (PERF.md).
 //
-// Redesigns measured on the card and dropped, none faster than this
-// design at rwkv6's shape (PERF.md): the bonus as a scalar a step
-// (beta_t = sum_j r_j u_j k_j, 3 instructions a term instead of 4),
-// with beta from a pass a chunk or from a shuffle tree where a chunk is
-// staged, the read-out in 4, 8 or 16 accumulators (the same 3-term loop
-// ran as fast as this one or far slower with the accumulator count
-// alone: the compiler's schedule, not the instruction count, set its
-// time); each column's rows split over neighbouring lanes with a
-// shuffle tree a step; groups of rows a thread in separate warps (4x
-// the warps) with the partial read-outs added a chunk later, by the
-// compute warps or by a helper warp; several columns a thread. More
-// warps did not make it faster. Not tried: a chunked tensor-core form.
-// The bound is bytes, so tensor cores cannot lower it, and a chunk's
-// cumulative decay products underflow f32 (0.45^64 is ~1e-22).
+// Any length works: no chunk has to divide s. Any dh: 32 and 64 are
+// compiled; any dh up to 64 runs in the next wider one, the rows and
+// columns past dh loaded as zero (so those states stay 0 and add
+// nothing) and never stored; dh above 64 takes a plain kernel, a thread
+// a value column, its state column in S_final's rows (global memory,
+// cached).
+//
+// Not done: a chunked tensor-core form. The bound is bytes, so tensor
+// cores cannot lower it, and a chunk's cumulative decay products
+// underflow f32 (0.45^64 is ~1e-22).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,112 +67,214 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 
 constexpr int kChunk = 8;  // time steps staged in shared memory at once
 
-// Loads this thread's element (column i of the pair's rows) of steps
-// [t0, t0 + kChunk) of the four inputs into registers: 0 past dh, steps
-// past s left as they were.
-template <typename T>
-__device__ __forceinline__ void fetch(const T* __restrict__ r,
-                                      const T* __restrict__ k,
-                                      const T* __restrict__ v,
-                                      const T* __restrict__ w, size_t base,
-                                      int t0, int s, int dh, int i,
-                                      float (&pr)[kChunk],
-                                      float (&pk)[kChunk],
-                                      float (&pv)[kChunk],
-                                      float (&pw)[kChunk]) {
+// component i (known at compile time) of a float4
+__device__ __forceinline__ float part(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+// The state tile a thread owns at a compiled width DH: kRG row groups
+// (the lanes of a column block), kCT value columns.
+template <int DH>
+struct Tile;
+template <>
+struct Tile<32> {
+  static constexpr int kRG = 4, kCT = 4;
+};
+template <>
+struct Tile<64> {
+  static constexpr int kRG = 8, kCT = 4;
+};
+
+// Adds the N partial sums `v` of this lane over the lanes that differ in
+// bits OFF, OFF / 2, ..., 1 of g (a butterfly; N <= 2 OFF): while N > 1
+// each level keeps half the values (the upper half where the lane's bit
+// is set) and adds the partner's, so the lane ends with one whole sum in
+// v[0] (which of its N: `first_sum`).
+template <int N, int OFF>
+__device__ __forceinline__ void reduce_rows(float* v, int g) {
+  if constexpr (OFF > 0) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = (g & OFF) != 0;
 #pragma unroll
-  for (int c = 0; c < kChunk; ++c) {
-    const int t = t0 + c;
-    if (t < s && i < dh) {
-      const size_t o = base + (size_t)t * dh + i;
-      pr[c] = to_f32(r[o]);
-      pk[c] = to_f32(k[o]);
-      pv[c] = to_f32(v[o]);
-      pw[c] = to_f32(w[o]);
+      for (int q = 0; q < H; ++q) {
+        const float send = up ? v[q] : v[q + H];
+        const float keep = up ? v[q + H] : v[q];
+        v[q] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      reduce_rows<H, OFF / 2>(v, g);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
+      reduce_rows<1, OFF / 2>(v, g);
     }
   }
 }
 
-// One (j, i) term of a step: read-out with the bonus, then the decay.
-__device__ __forceinline__ void wkv_term(float& st, float rj, float kj,
-                                         float wj, float uj, float vi,
-                                         float& acc) {
-  const float kv = kj * vi;
-  acc = fmaf(rj, fmaf(uj, kv, st), acc);
-  st = fmaf(wj, st, kv);
+// Which of its N sums `reduce_rows<N, RG / 2>` leaves in lane g.
+template <int N, int RG>
+__device__ __forceinline__ int first_sum(int g) {
+  int col = 0;
+#pragma unroll
+  for (int off = RG / 2, half = N / 2; off > 0 && half > 0;
+       off /= 2, half /= 2)
+    if (g & off) col += half;
+  return col;
 }
 
-// grid: (b * h); a block of DH threads a (batch, head) pair, thread i
-// the value column S[:, i]. EXACT: dh == DH, every stride and bound a
-// constant; otherwise dh < DH and the rows and columns past dh are
-// masked.
+// grid: (b * h); a block of NT = RG * DH / CT threads a (batch, head)
+// pair. Thread (g, cg) = (tid % RG, tid / RG) owns S[j, i] for the key
+// rows j in [g JT, (g + 1) JT) and the value columns i in
+// [cg CT, (cg + 1) CT). Rows and columns past dh are zero and never
+// stored. EXACT: dh == DH, every stride and bound a constant (measured
+// 7% faster at rwkv6's shape than the same kernel with dh at run time).
 template <typename T, int DH, bool EXACT>
-__global__ void __launch_bounds__(DH)
+__global__ void __launch_bounds__(Tile<DH>::kRG * DH / Tile<DH>::kCT)
 rwkv6_wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ w,
                  const float* __restrict__ u, float* __restrict__ y,
                  float* __restrict__ s_final, int h, int s, int dh_arg) {
   const int dh = EXACT ? DH : dh_arg;
-  // [buffer][r, k, v, w][step][channel]
-  __shared__ __align__(16) float stage[2][4][kChunk][DH];
-  __shared__ __align__(16) float su[DH];
-  const int i = threadIdx.x;
-  const int bh = blockIdx.x;
-  const size_t base = (size_t)bh * s * dh;
-  su[i] = i < dh ? u[(size_t)(bh % h) * dh + i] : 0.f;
+  constexpr int RG = Tile<DH>::kRG, CT = Tile<DH>::kCT;
+  constexpr int JT = DH / RG;       // key rows a thread
+  constexpr int NT = RG * DH / CT;  // threads a pair
+  constexpr int LDG = JT + 4;       // a row group's values, padded
+  constexpr int RKW = RG * LDG;     // one step of r, k or w
+  constexpr int STEP = 3 * RKW + DH;  // r, k, w, then v
+  constexpr int SPQ = NT / DH;      // steps one staging pass covers
+  constexpr int PER = kChunk / SPQ;  // staging passes a chunk
+  constexpr int NQ = 3 * JT / 4 + CT / 4;  // float4 a thread reads a step
+  static_assert(DH % RG == 0 && JT % 4 == 0 && CT % 4 == 0 &&
+                    DH % CT == 0 && CT <= RG && NT % 32 == 0 &&
+                    NT % DH == 0 &&
+                    kChunk % SPQ == 0 && (RG & (RG - 1)) == 0 &&
+                    (CT & (CT - 1)) == 0,
+                "tile shape");
+  __shared__ __align__(16) float stage[2][kChunk][STEP];
 
-  float state[DH];  // S[:, i], the value column this thread owns
-#pragma unroll
-  for (int j = 0; j < DH; ++j) state[j] = 0.f;
+  const int tid = threadIdx.x;
+  const int g = tid % RG, cg = tid / RG;
+  const int pair = blockIdx.x;
+  const size_t base = (size_t)pair * s * dh;
 
-  float pr[kChunk], pk[kChunk], pv[kChunk], pw[kChunk];
-  if (!EXACT) {  // the columns past dh stage zeros
+  float uu[JT];
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) pr[c] = pk[c] = pv[c] = pw[c] = 0.f;
+  for (int jj = 0; jj < JT; ++jj) {
+    const int j = g * JT + jj;
+    uu[jj] = j < dh ? u[(size_t)(pair % h) * dh + j] : 0.f;
   }
-  fetch<T>(r, k, v, w, base, 0, s, dh, i, pr, pk, pv, pw);
+  float st[JT][CT];
+#pragma unroll
+  for (int jj = 0; jj < JT; ++jj)
+#pragma unroll
+    for (int c = 0; c < CT; ++c) st[jj][c] = 0.f;
+
+  // Staging: this thread loads channel j of steps tq, tq + SPQ, .. of a
+  // chunk (coalesced: the pair's steps are contiguous rows of dh), and
+  // stores it at `at` in a staged step's r, k and w and at j in its v.
+  const int j = tid % DH, tq = tid / DH;
+  const int at = (j / JT) * LDG + j % JT;
+  const size_t first = base + (size_t)tq * dh + j;
+  const size_t pass = (size_t)SPQ * dh;  // elements between passes
+  float pre[4][PER];
+  auto fetch = [&](int t0) {
+    const size_t o = first + (size_t)t0 * dh;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const bool in = j < dh && t0 + tq + SPQ * q < s;
+      const size_t oq = o + q * pass;
+      pre[0][q] = in ? to_f32(r[oq]) : 0.f;
+      pre[1][q] = in ? to_f32(k[oq]) : 0.f;
+      pre[2][q] = in ? to_f32(w[oq]) : 0.f;
+      pre[3][q] = in ? to_f32(v[oq]) : 0.f;
+    }
+  };
+  // a step's values for this thread: r, k and w of its rows, v of its
+  // columns
+  auto load_step = [&](float4 (&x)[NQ], const float* sp) {
+#pragma unroll
+    for (int q = 0; q < JT / 4; ++q) {
+      x[q] = *reinterpret_cast<const float4*>(sp + g * LDG + 4 * q);
+      x[JT / 4 + q] =
+          *reinterpret_cast<const float4*>(sp + RKW + g * LDG + 4 * q);
+      x[JT / 2 + q] =
+          *reinterpret_cast<const float4*>(sp + 2 * RKW + g * LDG + 4 * q);
+    }
+#pragma unroll
+    for (int q = 0; q < CT / 4; ++q)
+      x[3 * JT / 4 + q] =
+          *reinterpret_cast<const float4*>(sp + 3 * RKW + cg * CT + 4 * q);
+  };
+  const int col = cg * CT + first_sum<CT, RG>(g);
+  // the lanes that differ in g's low bits, below the levels that halved
+  // the sums, hold the same sum: the one with them 0 writes it
+  const bool writer = col < dh && (g & (RG / CT - 1)) == 0;
+  // one step: the read-out of this thread's rows and columns plus its
+  // part of the bonus, summed over the row groups, and the state update
+  auto step = [&](const float4 (&x)[NQ], int t) {
+    float rr[JT], kk[JT], ww[JT], vv[CT];
+#pragma unroll
+    for (int jj = 0; jj < JT; ++jj) {
+      rr[jj] = part(x[jj / 4], jj % 4);
+      kk[jj] = part(x[JT / 4 + jj / 4], jj % 4);
+      ww[jj] = part(x[JT / 2 + jj / 4], jj % 4);
+    }
+#pragma unroll
+    for (int ci = 0; ci < CT; ++ci)
+      vv[ci] = part(x[3 * JT / 4 + ci / 4], ci % 4);
+    float acc[CT];
+#pragma unroll
+    for (int ci = 0; ci < CT; ++ci) acc[ci] = 0.f;
+    float beta = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < JT; ++jj) {
+      beta = fmaf(rr[jj] * uu[jj], kk[jj], beta);
+#pragma unroll
+      for (int ci = 0; ci < CT; ++ci) {
+        float& sji = st[jj][ci];
+        const float kv = kk[jj] * vv[ci];
+        acc[ci] = fmaf(rr[jj], sji, acc[ci]);
+        sji = fmaf(ww[jj], sji, kv);
+      }
+    }
+#pragma unroll
+    for (int ci = 0; ci < CT; ++ci) acc[ci] = fmaf(beta, vv[ci], acc[ci]);
+    reduce_rows<CT, RG / 2>(acc, g);
+    if (writer) y[base + (size_t)t * dh + col] = acc[0];
+  };
+
+  fetch(0);
   int buf = 0;
   for (int t0 = 0; t0 < s; t0 += kChunk, buf ^= 1) {
     // stage[buf] was last read two chunks ago, before the previous
     // chunk's barrier, so writing it now needs no barrier of its own
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      stage[buf][0][c][i] = pr[c];
-      stage[buf][1][c][i] = pk[c];
-      stage[buf][2][c][i] = pv[c];
-      stage[buf][3][c][i] = pw[c];
+    for (int q = 0; q < PER; ++q) {
+      float* sp = stage[buf][tq + SPQ * q];
+      sp[at] = pre[0][q];
+      sp[RKW + at] = pre[1][q];
+      sp[2 * RKW + at] = pre[2][q];
+      sp[3 * RKW + j] = pre[3][q];
     }
     // the next chunk's loads are in flight while this chunk computes
-    fetch<T>(r, k, v, w, base, t0 + kChunk, s, dh, i, pr, pk, pv, pw);
+    fetch(t0 + kChunk);
     __syncthreads();
     const int n = min(kChunk, s - t0);
 #pragma unroll 1
     for (int c = 0; c < n; ++c) {
-      const float* sr = stage[buf][0][c];
-      const float* sk = stage[buf][1][c];
-      const float* sw = stage[buf][3][c];
-      const float vi = stage[buf][2][c][i];
-      float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
-#pragma unroll
-      for (int j = 0; j < DH; j += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(sr + j);
-        const float4 k4 = *reinterpret_cast<const float4*>(sk + j);
-        const float4 w4 = *reinterpret_cast<const float4*>(sw + j);
-        const float4 u4 = *reinterpret_cast<const float4*>(su + j);
-        wkv_term(state[j + 0], r4.x, k4.x, w4.x, u4.x, vi, acc0);
-        wkv_term(state[j + 1], r4.y, k4.y, w4.y, u4.y, vi, acc1);
-        wkv_term(state[j + 2], r4.z, k4.z, w4.z, u4.z, vi, acc2);
-        wkv_term(state[j + 3], r4.w, k4.w, w4.w, u4.w, vi, acc3);
-      }
-      if (i < dh)
-        y[base + (size_t)(t0 + c) * dh + i] = (acc0 + acc1) + (acc2 + acc3);
+      float4 x[NQ];
+      load_step(x, stage[buf][c]);
+      step(x, t0 + c);
     }
   }
-  if (i < dh) {
-    float* sf = s_final + (size_t)bh * dh * dh;
+  float* sf = s_final + (size_t)pair * dh * dh;
 #pragma unroll
-    for (int j = 0; j < DH; ++j)
-      if (j < dh) sf[(size_t)j * dh + i] = state[j];
+  for (int jj = 0; jj < JT; ++jj) {
+    const int jr = g * JT + jj;
+#pragma unroll
+    for (int ci = 0; ci < CT; ++ci) {
+      const int i = cg * CT + ci;
+      if (jr < dh && i < dh) sf[(size_t)jr * dh + i] = st[jj][ci];
+    }
   }
 }
 
@@ -183,8 +288,8 @@ rwkv6_wkv_wide_kernel(const T* __restrict__ r, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ w,
                       const float* __restrict__ u, float* __restrict__ y,
                       float* __restrict__ s_final, int h, int s, int dh) {
-  const int i = blockIdx.x * 128 + threadIdx.x;
-  const int pair = blockIdx.y;
+  const int i = blockIdx.y * 128 + threadIdx.x;
+  const int pair = blockIdx.x;
   if (i >= dh) return;
   const size_t base = (size_t)pair * s * dh;
   float* sc = s_final + (size_t)pair * dh * dh + i;  // S[j, i] at sc[j dh]
@@ -209,7 +314,9 @@ template <typename T, int DH, bool EXACT>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* w, const void* u, void* y, void* s_final,
                    int b, int h, int s, int dh, cudaStream_t stream) {
-  rwkv6_wkv_kernel<T, DH, EXACT><<<(unsigned)(b * h), DH, 0, stream>>>(
+  constexpr int threads = Tile<DH>::kRG * DH / Tile<DH>::kCT;
+  rwkv6_wkv_kernel<T, DH, EXACT>
+      <<<(unsigned)(b * h), threads, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const float*>(u), static_cast<float*>(y),
@@ -233,8 +340,8 @@ cudaError_t dispatch(const void* r, const void* k, const void* v,
   if (dh < 64)
     return launch<T, 64, false>(r, k, v, w, u, y, s_final, b, h, s, dh,
                                 stream);
-  if ((int64_t)b * h > 65535) return cudaErrorInvalidValue;
-  dim3 grid((dh + 127) / 128, b * h);
+  // pairs on grid.x (up to 2^31 - 1), column blocks on grid.y
+  dim3 grid(b * h, (dh + 127) / 128);
   rwkv6_wkv_wide_kernel<T><<<grid, 128, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w),

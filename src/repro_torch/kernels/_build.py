@@ -88,12 +88,11 @@ def _digest(srcs: List[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def build(csrc: Path = CSRC) -> Path:
-    """Compile the kernels of ``csrc`` (the package's own by default) if
-    this exact source set has no library yet; return the library's
-    path."""
-    srcs = sorted(csrc.glob("*.cu"))
-    out_dir = BUILD_ROOT / _digest(inputs(csrc))
+def build() -> Path:
+    """Compile the kernels if this exact source set has no library yet;
+    return the library's path."""
+    srcs = sources()
+    out_dir = BUILD_ROOT / _digest(inputs())
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -135,16 +134,6 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             _lib = load(build())
         return _lib
-
-
-def use(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Make ``lib`` the library every wrapper launches from (a library
-    ``load``-ed from other sources, to time two builds of the kernels in
-    one process); returns the one it replaces."""
-    global _lib
-    with _lock:
-        old, _lib = _lib, lib
-        return old
 
 
 def load(path: Path) -> ctypes.CDLL:

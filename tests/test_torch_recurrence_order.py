@@ -2,10 +2,12 @@
 CPU in their own order, against the JAX package's oracles and a float64
 recurrence.
 
-* ``csrc/rwkv6_wkv.cu`` sums each value column's read-out, bonus
-  included, over the key rows in four accumulators (rows j % 4), and
-  runs head dims up to 64 in the width of 32 or 64 with zero rows and
-  columns.
+* ``csrc/rwkv6_wkv.cu`` splits each value column's key rows over RG
+  row groups (neighbouring lanes): each sums its rows' read-out in row
+  order, then adds its part of the bonus as a scalar a step (beta =
+  sum_j r_j u_j k_j, times v_i), and a butterfly of shuffles adds the
+  RG partial sums; head dims up to 64 run in the width of 32 or 64 with
+  zero rows and columns.
 * ``csrc/selective_scan.cu`` takes the decay as ``ex2.approx.ftz`` of
   round(dt * round(A * log2 e)), whose result may be up to ~2 ulp off
   (and is 0 below 2^-126);
@@ -28,7 +30,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 
-WKV_WIDTHS = (32, 64)   # compiled widths (csrc/rwkv6_wkv.cu `dispatch`)
+# compiled widths and their row groups (csrc/rwkv6_wkv.cu `Tile`)
+WKV_ROW_GROUPS = {32: 4, 64: 8}
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -39,7 +42,9 @@ def wkv_kernel_order(r, k, v, w, u):
     """y (b, h, s, dh) and S_final (b, h, dh, dh) as the WKV kernel sums
     them, in f32, from f32 tensors r, k, v, w (b, h, s, dh), u (h, dh)."""
     b, h, s, dh = r.shape
-    width = min(d for d in WKV_WIDTHS if d >= dh)
+    width = min(d for d in WKV_ROW_GROUPS if d >= dh)
+    groups = WKV_ROW_GROUPS[width]
+    rows = width // groups                          # key rows a lane
     pad = width - dh
     r, k, v, w = (torch.nn.functional.pad(x, (0, pad)) for x in (r, k, v, w))
     u = torch.nn.functional.pad(u, (0, pad))
@@ -48,15 +53,20 @@ def wkv_kernel_order(r, k, v, w, u):
     for t in range(s):
         rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t]
         kv = kt[..., :, None] * vt[..., None, :]      # (b, h, j, i)
-        # the read-out with the bonus: four accumulators over the rows
-        # j % 4, in order
-        acc = torch.zeros((b, h, 4, width))
-        for j in range(width):
-            bonus = _fma(u[None, :, j, None], kv[:, :, j], state[:, :, j])
-            acc[:, :, j % 4] = _fma(rt[..., j, None], bonus,
-                                    acc[:, :, j % 4])
-        ys.append((acc[:, :, 0] + acc[:, :, 1])
-                  + (acc[:, :, 2] + acc[:, :, 3]))
+        # each row group g sums rows g * rows + jj in order, jj = 0, 1, ..
+        acc = torch.zeros((b, h, groups, width))
+        beta = torch.zeros((b, h, groups))
+        for jj in range(rows):
+            js = torch.arange(groups) * rows + jj
+            acc = _fma(rt[..., js, None], state[:, :, js], acc)
+            beta = _fma(rt[..., js] * u[None, :, js], kt[..., js], beta)
+        acc = _fma(beta[..., None], vt[:, :, None, :], acc)
+        # the shuffle butterfly: lanes g and g ^ off add, off = groups/2..1
+        off = groups // 2
+        while off:
+            acc = acc + acc[:, :, torch.arange(groups) ^ off]
+            off //= 2
+        ys.append(acc[:, :, 0])
         state = _fma(wt[..., :, None], state, kv)
     y = torch.stack(ys, dim=2)
     return y[..., :dh], state[:, :, :dh, :dh]

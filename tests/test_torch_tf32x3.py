@@ -48,7 +48,9 @@ _BELOW_INF = torch.tensor(0x7F7FEFFF, dtype=torch.int32).view(torch.float32)
 
 
 def split(x: torch.Tensor):
-    """big and small as the grouped matmul splits (``split<true>``): big
+    """big and small as the grouped matmul splits (``split_finite``, and
+    ``split<true>`` for a stage that holds a NaN, an inf or a value that
+    rounds to inf; the two agree on every other x): big
     from x clamped below the values that round to inf (an inf x gets the
     largest finite TF32 as big and inf as small; a NaN the canonical
     NaN), small skipping the NaN test (x - big is NaN only where x is
