@@ -23,9 +23,15 @@ NVIDIA GPU.
    sq = sk = 4096 (head dim 128 causal, head dim 80 with a window of
    4096, q at its spread and at 3x it) within 2e-5; a NaN in q or in x
    (0 / 0 on the card, 0x7FFFFFFF, 0xFFFFFFFF) must come out NaN
-   exactly where the plain version's does, in every variant; and an
+   exactly where the plain version's does, in every variant; an
    inf in x or in w of the grouped matmul must give the plain version's
-   +-inf and NaN at the same places, in every variant;
+   +-inf and NaN at the same places, in every variant, and so must an
+   inf in v of attention's tensor-core variant at granite's prefill
+   shape (bidirectional; causal, with v's non-finite values in the keys
+   a query tile skips taken as 0, the elements where that differs from
+   the plain version counted); int8 quantization bit for bit at the
+   path's (4096, 64), at (1,048,576, 64), at widths of the vector and
+   the scalar variant and on a misaligned view;
 4. serves the paper's vfl-recsys workload at its published scale
    (190,439 users, a 1,345-feature master silo with 19 items, a
    381-feature member silo on 60% of the users) with the benchmarked
@@ -39,10 +45,19 @@ NVIDIA GPU.
    scores must agree with the same model run on the plain versions;
    then a tower of the DSL's defaults (``embed``, ``attn_block``:
    head dim 8) in both parties: ``predict`` of 64 rows, two launches of
-   each kernel, scores within 5e-3 of the plain versions;
+   each kernel, scores within 5e-3 of the plain versions (and, after
+   step 9, trains the demo tower through ``VFLJob.fit``: one epoch at
+   pipeline depth 1 and one at depth 2, lr 0.3, exactly 3 launches of
+   each kernel a round, finite and falling losses, rounds/s and epoch
+   wall time, the device's busy share over a profiled epoch, the first
+   16 losses within rtol 1e-3 of the same job on the plain versions,
+   and the device time of attention's backward, the plain version's
+   VJP);
 5. times each kernel, its plain version and, for attention,
    ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it) with CUDA events at the path's shapes;
+   calls it) with CUDA events at the path's shapes; quantize also at
+   (1,048,576, 64), with its launch floor at both shapes (an empty
+   kernel on its grid, a copy of the same bytes);
 6. serves ``rwkv6-7b`` from the model zoo at full width and depth (32
    layers, d_model 4096, 8.9 B params, 35.5 GB in f32, random weights
    drawn on the card from a seed) through ``ServeEngine``: the WKV
@@ -114,7 +129,8 @@ NVIDIA GPU.
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
    on the tensor cores in 3xTF32, 989 for bf16 on them, 67 for f32
    FMAs), the variant each
-   path's shape ran and its launches on each path, then
+   path's shape ran, its launches on each path and a training round,
+   then
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero; it needs the repo's
@@ -213,6 +229,24 @@ SSM_CASES = [
     (2, 37, 200, 32, "float32", "float32"),
     (2, 37, 72, 100, "float32", "float32"),
 ]
+
+# quantize_int8: the path's (8R, 64), a shape where bytes dominate (256
+# MiB in, past the 50 MB L2), widths of whole 16-byte chunks (the vector
+# variant) and not (the scalar one), bf16, and a view 4 bytes into its
+# storage (the scalar variant at the path's width)
+QUANT_LARGE_ROWS = 1 << 20
+QUANT_CASES = [
+    # rows, d, dtype name, offset of x into its storage in elements
+    (TOKENS * ROUNDS_ROWS, DIM, "float32", 0),
+    (QUANT_LARGE_ROWS, DIM, "float32", 0), (300, 64, "float32", 0),
+    (7, 1000, "float32", 0), (513, 96, "bfloat16", 0),
+    (5, 36, "bfloat16", 0), (4096, 66, "float32", 0),
+    (33, 520, "float32", 0), (TOKENS * ROUNDS_ROWS, DIM, "float32", 1)]
+
+# training: the demo's split-NN learning rate (examples/vfl_recsys_demo.py)
+# and the rounds held against the plain versions
+TRAIN_LR = 0.3
+TRAIN_CHECK_ROUNDS = 16
 
 TOWER = ("embed:tokens=8,dim=64", "attn_block:heads=4", "quantize",
          "mlp:hidden=64")
@@ -420,25 +454,28 @@ def check_kernels(torch, dev):
     check_gmm_edges(torch, dev, g)
     check_nan(torch, dev, g)
     check_inf(torch, dev, g)
-    for rows, d, dt in [(TOKENS * r, DIM, "float32"), (300, 64, "float32"),
-                        (7, 1000, "float32"), (513, 96, "bfloat16")]:
-        x = torch.randn((rows, d), generator=g)
-        x[0] = 0.0                                 # an all-zero row
-        x[1, :4] = torch.tensor([0.5, 1.5, 2.5, 127.0])   # exact ties
-        x = x.to(getattr(torch, dt)).to(dev)
+    errs["attention_inf_in_v"] = check_inf_attention(torch, dev, g)
+    for rows, d, dt, offset in QUANT_CASES:
+        flat = torch.randn((offset + rows * d,), generator=g)
+        rows_of = flat[offset:].view(rows, d)
+        rows_of[0] = 0.0                           # an all-zero row
+        rows_of[1, :4] = torch.tensor([0.5, 1.5, 2.5, 127.0])  # exact ties
+        x = flat.to(getattr(torch, dt)).to(dev)[offset:].view(rows, d)
         q1, s1 = qz.quantize_int8(x)
         q2, s2 = ref.quantize_int8_ref(x)
         torch.cuda.synchronize()
         if not (torch.equal(q1, q2) and torch.equal(s1, s2)):
             raise AssertionError(
-                f"quantize_int8 ({rows}, {d}) {dt}: "
+                f"quantize_int8 ({rows}, {d}) {dt} {qz.variant(x)}: "
                 f"{int((q1 != q2).sum())} codes and "
                 f"{int((s1 != s2).sum())} scales differ from the plain "
                 f"version")
-        log(f"quantize_int8 ({rows}, {d}) {dt}: exact")
-        if rows == TOKENS * r:
+        log(f"quantize_int8 ({rows}, {d}) {dt} offset {offset}: exact "
+            f"({qz.variant(x)})")
+        if (rows, d, offset) == (TOKENS * r, DIM, 0):
             errs["quantize_int8"] = float(
                 (q1.float() - q2.float()).abs().max().item())
+        del flat, x, q1, s1, q2, s2
     return errs
 
 
@@ -552,6 +589,77 @@ def check_inf(torch, dev, g) -> None:
                 log(f"moe_gmm inf in {side} (3, {c}, 96) {dt}: "
                     f"{int(where.sum())} inf and {int(exp.isnan().sum())} "
                     f"NaN, as the plain version's {gmm.variant(x, w)}")
+
+
+def inf_attention_inputs(torch, dev, g):
+    """q, k, v at granite's prefill shape with specials in v: +inf and
+    -inf in two columns of one (batch, kv head), +inf and -inf in one
+    column of another (their sum NaN), and a finite value within half a
+    TF32 ulp of FLT_MAX at a key that holds a row's top weight (its p is
+    exactly 1)."""
+    qs, ks = (4, 24, 511, 64), (4, 8, 511, 64)
+    q = torch.randn(qs, generator=g)
+    k, v = (torch.randn(ks, generator=g) for _ in range(2))
+    s = ks[2]
+    v[0, 0, 3, 5], v[0, 0, s - 1, 7] = float("inf"), -float("inf")
+    v[1, 7, s // 2, 63], v[1, 7, s // 3, 63] = float("inf"), -float("inf")
+    k[0, 0, 10] = q[0, 0, 20] * 4.0      # row 20's top weight at key 10
+    v[0, 0, 10, 0] = torch.tensor([0x7F7FFFFF], dtype=torch.int32).view(
+        torch.float32)[0]
+    return q.to(dev), k.to(dev), v.to(dev)
+
+
+def check_inf_attention(torch, dev, g) -> dict:
+    """An inf in v through attention's tensor-core variant at granite's
+    prefill shape, against ``attention_ref`` on the card: the same +-inf
+    and NaN at the same places, the rest within 2e-5 (relative, for the
+    values near FLT_MAX). Bidirectional, every row sees every key. Causal,
+    a query tile skips the key tiles past its diagonal, where the plain
+    version's p = 0 meets an inf as 0 * inf = NaN; so the causal output
+    is held to ``attention_ref`` with v's non-finite values in each
+    tile's skipped keys taken as 0, and the elements where that differs
+    from ``attention_ref`` itself (NaN there, finite here) are counted
+    (ROADMAP Queue 3). Returns the counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v = inf_attention_inputs(torch, dev, g)
+    counts = {}
+    for causal in (False, True):
+        out = fa.flash_attention(q, k, v, causal=causal)
+        exp = ref.attention_ref(q, k, v, causal=causal)
+        held = exp
+        if causal:
+            bq = 64                      # the kernel's query tile
+            held = exp.clone()
+            for t0 in range(0, q.shape[2], bq):
+                vt = v.clone()
+                tail = vt[:, :, t0 + bq:]
+                tail[~tail.isfinite()] = 0.0
+                held[:, :, t0:t0 + bq] = ref.attention_ref(
+                    q, k, vt, causal=True)[:, :, t0:t0 + bq]
+        torch.cuda.synchronize()
+        where = held.isinf()
+        if not (torch.equal(out.isnan(), held.isnan())
+                and torch.equal(out.isinf(), where)
+                and torch.equal(out[where], held[where])):
+            raise AssertionError(
+                f"attention inf in v causal={causal}: {int(out.isnan().sum())}"
+                f" NaN and {int(out.isinf().sum())} inf, expected "
+                f"{int(held.isnan().sum())} and {int(where.sum())} "
+                f"({fa.variant(q, k, v)})")
+        fin = held.isfinite()
+        torch.testing.assert_close(out[fin], held[fin], atol=2e-5, rtol=2e-5)
+        skipped = int((exp.isnan() & held.isfinite()).sum())
+        counts[f"causal={causal}"] = {
+            "inf": int(where.sum()), "nan": int(held.isnan().sum()),
+            "nan_in_ref_from_skipped_keys": skipped}
+        log(f"attention inf in v q (4, 24, 511, 64) causal={causal}: "
+            f"{int(where.sum())} inf and {int(held.isnan().sum())} NaN as "
+            f"the plain version's; {skipped} elements the plain version "
+            f"makes NaN from keys their row cannot see "
+            f"{fa.variant(q, k, v)}")
+        del out, exp, held
+    return counts
 
 
 def make_slice():
@@ -684,6 +792,150 @@ def plain_scores(torch, dev, cfg, master, members, results, rows):
     return out.cpu().numpy().astype(np.float64)
 
 
+def train_slice(torch, dev, cfg, master, members):
+    """Phase 4c: split-NN training on the demo at its published scale,
+    through ``VFLJob.fit`` in thread mode, at pipeline depth 1 and 2:
+    one epoch each (every matched row once, in batches of 512), which
+    must launch each kernel exactly 3 times a round (the forward of the
+    master's bottom tower, the member's send, the member's VJP recomputed
+    at its current params), with finite losses whose last 16 average
+    below the first 16. At depth 1 the same epoch twice more, timed and
+    under ``torch.profiler`` (the device's busy share). Then
+    the first 16 rounds again with every block on its plain version
+    (``kernel=ref``) on the card: the losses within rtol 1e-3 of the
+    kernels'. The attention kernel differs from the plain version by
+    ~1e-6 and the quantize kernel is exact on equal inputs, so losses
+    agree to ~1e-6 until a quantize input within that of a .5 tie takes
+    a code one step apart, which moves a round's loss by ~1e-5; 1e-3
+    leaves room for several over 16 rounds of SGD. Returns (the launches
+    of each counted fit, the measured numbers)."""
+    import numpy as np
+    from repro_torch.core.party import VFLJob
+    from repro_torch.core.protocols.driver import StopAtStep
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
+    counters = {"flash_attention": fa.launches, "quantize_int8": qz.launches}
+    measured, launches = {}, {}
+    check = None
+
+    def counted_fit(job, tag):
+        """The job's fit, timed until the master's last round; the
+        launches read once the job is shut down, past the member's last
+        VJP."""
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        fit = job.fit()
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        job.shutdown()
+        sync(torch, dev)
+        got = {name: c.count for name, c in counters.items()}
+        launches[tag] = got
+        return fit["history"], wall, got
+
+    for depth in (1, 2):
+        tcfg = dataclasses.replace(cfg, epochs=1, lr=TRAIN_LR,
+                                   pipeline_depth=depth)
+        job = VFLJob(tcfg, master, members, mode="thread", device=dev)
+        hist, wall, got = counted_fit(job, f"split_nn_train_d{depth}")
+        rounds = len(hist)
+        if got != {name: 3 * rounds for name in counters}:
+            raise AssertionError(f"training at depth {depth} launched {got} "
+                                 f"in {rounds} rounds, expected 3 a round")
+        losses = np.array([h["loss"] for h in hist])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"depth {depth}: non-finite losses")
+        head, tail = losses[:16].mean(), losses[-16:].mean()
+        if not tail < head:
+            raise AssertionError(f"depth {depth}: loss did not fall "
+                                 f"({head:.6f} -> {tail:.6f})")
+        # from round 16 on: past the parties' threads' first cuBLAS calls
+        # and allocations
+        steady = (rounds - 17) / (hist[-1]["wall_s"] - hist[16]["wall_s"])
+        m = {"rounds": rounds, "epoch_s": wall, "rounds_per_s": rounds / wall,
+             "steady_rounds_per_s": steady, "loss_first": float(losses[0]),
+             "loss_last": float(losses[-1]), "loss_first16_mean": float(head),
+             "loss_last16_mean": float(tail),
+             "launches_per_round": {k: v / rounds for k, v in got.items()}}
+        if depth == 1:
+            check = losses[:TRAIN_CHECK_ROUNDS]
+            # the same epoch again, now that the process has run one (the
+            # parties' first cuBLAS calls, autograd's first backward),
+            # then once more under the profiler, against that wall time
+            job = VFLJob(tcfg, master, members, mode="thread", device=dev)
+            t0 = time.perf_counter()
+            job.fit()
+            sync(torch, dev)
+            m["warm_epoch_s"] = time.perf_counter() - t0
+            job.shutdown()
+            job = VFLJob(tcfg, master, members, mode="thread", device=dev)
+            m["profile"] = profile_window(torch, job.fit, m["warm_epoch_s"])
+            job.shutdown()
+        measured[f"depth{depth}"] = m
+        log(f"split-NN training depth {depth}: {rounds} rounds in {wall:.3f} "
+            f"s ({rounds / wall:.1f} rounds/s, {steady:.1f} from round 16); "
+            f"loss {losses[0]:.6f} -> {losses[-1]:.6f} (first 16 "
+            f"{head:.6f}, last 16 {tail:.6f}); launches {got}")
+        if depth == 1:
+            log("split-NN training profile " + json.dumps(m["profile"]))
+
+    ref_cfg = dataclasses.replace(
+        cfg, epochs=1, lr=TRAIN_LR, pipeline_depth=1,
+        tower=tuple(b if b.startswith(("embed", "mlp"))
+                    else b + ("," if ":" in b else ":") + "kernel=ref"
+                    for b in cfg.tower))
+    job = VFLJob(ref_cfg, master, members, mode="thread", device=dev,
+                 callbacks=[StopAtStep(TRAIN_CHECK_ROUNDS)])
+    hist, _, got = counted_fit(job, "split_nn_train_plain")
+    if got != {name: 0 for name in counters}:
+        raise AssertionError(f"the plain-version fit launched {got}")
+    plain = np.array([h["loss"] for h in hist])
+    rel = float(np.max(np.abs(check - plain) / np.abs(plain)))
+    measured["plain_versions_loss_rel_err"] = rel
+    log(f"split-NN training: the first {TRAIN_CHECK_ROUNDS} losses against "
+        f"the plain versions on the card: max rel err {rel:.3e} (tol 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError("training losses disagree with the plain "
+                             "versions")
+    measured["attention_backward_ms"] = attention_backward_ms(torch, dev)
+    log("split-NN training " + json.dumps(measured))
+    del launches["split_nn_train_plain"]
+    return launches, measured
+
+
+def attention_backward_ms(torch, dev) -> float:
+    """Device time of one backward of the tower's attention at the
+    path's shape, (512, 4, 8, 16) f32: the plain attention's VJP
+    (``models/tower.py``), summed over its kernels under
+    ``torch.profiler``, a mean over 20 calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(13)
+    shape = (ROUNDS_ROWS, HEADS, TOKENS, DIM // HEADS)
+    q, k, v = (torch.randn(shape, generator=g).to(dev).requires_grad_()
+               for _ in range(3))
+    grad = torch.randn(shape, generator=g).to(dev)
+
+    def backward():
+        out = ref.attention_ref(q, k, v, causal=False)
+        return torch.autograd.grad(out, (q, k, v), grad)
+
+    for _ in range(3):
+        backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            backward()
+        torch.cuda.synchronize()
+    # the forward recomputed inside the backward is part of its cost
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if e.device_type is not None
+                and "cuda" in str(e.device_type).lower())
+    return total / 1e3 / 20
+
+
 def default_tower_check(torch, dev, cfg, master, members) -> float:
     """Phase 4b: a tower built from the DSL's defaults (embed dim 32,
     attn_block of 4 heads: head dim 8) in both parties, on the card:
@@ -752,7 +1004,43 @@ def time_kernels(torch, dev):
                       lambda: ref.quantize_int8_ref(x), None,
                       nbytes(x, qo, so),
                       5.0 * x.numel())  # abs, max, divide, round, clamp
+    quant["variant"] = qz.variant(x)
+    quant["floor"] = quantize_floor(torch, x)
+    # where bytes dominate: 256 MiB in, past the L2
+    big = torch.randn((QUANT_LARGE_ROWS, DIM), device=dev,
+                      generator=torch.Generator(dev).manual_seed(4))
+    qb, sb = qz.quantize_int8(big)
+    few = dict(reps=20, trials=10)
+    large = {"shape": list(big.shape), "variant": qz.variant(big),
+             "ms": graph_ms(lambda: qz.quantize_int8(big), **few),
+             "plain_ms": graph_ms(lambda: ref.quantize_int8_ref(big),
+                                  reps=2, trials=3),
+             "floor": quantize_floor(torch, big, few)}
+    large.update(_bound(nbytes(big, qb, sb), 5.0 * big.numel()))
+    large["byte_rate_share"] = large["bound_ms"] / large["ms"]
+    quant["large"] = large
+    log(f"quantize_int8 at {tuple(x.shape)}: {quant}")
+    del big, qb, sb
     return att, quant
+
+
+def quantize_floor(torch, x, timing: dict | None = None) -> dict:
+    """What bounds the quantize kernel's vector variant from below at
+    x's shape (f32): an empty kernel on its grid, and a copy of the same
+    bytes (x read, a byte an element written) with its loads, stores and
+    grid (``repro_quantize_int8_floor``), each timed as ``graph_ms``."""
+    from repro_torch.kernels import _build
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+
+    def launch(kind):
+        err = _build.library().repro_quantize_int8_floor(
+            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], kind,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "quantize_int8 floor")
+
+    timing = timing or {}
+    return {"empty_ms": graph_ms(lambda: launch(0), **timing),
+            "copy_ms": graph_ms(lambda: launch(1), **timing)}
 
 
 def time_call(kernel, plain, library, nbytes: float, ops: float,
@@ -1017,13 +1305,14 @@ def profile_window(torch, fn, wall_s: float) -> dict:
                and _device_us(e) > 0]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
     kinds = {"wkv": 0.0, "scan": 0.0, "gmm": 0.0, "attention": 0.0,
-             "matmul": 0.0, "other": 0.0}
+             "quantize": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         kind = ("wkv" if "rwkv6_wkv" in name else
                 "scan" if "selective_scan" in name else
                 "gmm" if "gmm_" in name else
                 "attention" if "attention_" in name else
+                "quantize" if "quantize_" in name else
                 "matmul" if any(m in name for m in MATMUL_MARKS) else
                 "other")
         kinds[kind] += _device_us(e) / 1e3
@@ -1535,11 +1824,17 @@ def main() -> int:
         torch, dev, jamba_cfg, JAMBA_SCORE_TOKENS, dict(reps=2, trials=3))
     log(f"{JAMBA_ARCH} phase: {time.perf_counter() - t_jamba:.1f} s")
 
+    # last, so that its profiler session comes after every zoo timing
+    train_launches, train = train_slice(torch, dev, cfg, master, members)
+
     # launches of each kernel on each path's counted run
     by_path = {
         "flash_attention": {"split_nn_serve": counts["flash_attention"]},
         "quantize_int8": {"split_nn_serve": counts["quantize_int8"]},
         "rwkv6_wkv": {}, "moe_gmm": {}, "selective_scan": {}}
+    for run, got in train_launches.items():
+        for name, c in got.items():
+            by_path[name][run] = c
     zoo_runs = zoo_launches | moe_launches | h2o_launches | jamba_launches
     for run, got in zoo_runs.items():
         for name, c in got.items():
@@ -1549,6 +1844,9 @@ def main() -> int:
     extra = {
         # the attention kernel's times at the zoo's prefill shapes
         "flash_attention": {
+            "inf_in_v_granite": errs["attention_inf_in_v"],
+            # the plain attention's VJP, two a training round
+            "train_backward_ms": train["attention_backward_ms"],
             "granite_prefill": dict(moe_att,
                                     max_abs_err=moe_errs["attention"]),
             "h2o_prefill": dict(h2o_att, max_abs_err=h2o_err),
@@ -1572,17 +1870,22 @@ def main() -> int:
              "src/repro/kernels/moe_gmm.py:39", gmm_t["prefill_gate_up"]),
             ("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
              "src/repro/kernels/selective_scan.py:51", scan_t)):
+        per_train_round = {
+            f"depth{d}": train[f"depth{d}"]["launches_per_round"].get(name, 0)
+            for d in (1, 2)}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(by_path[name].values()),
                         "launches_by_path": by_path[name],
+                        "launches_per_train_round": per_train_round,
                         "max_abs_err": errs[name], **t,
                         **extra.get(name, {})})
     per_round = {k: counts[k] / rounds
                  for k in ("flash_attention", "quantize_int8")}
-    log(f"rounds {rounds}; launches per round {per_round}; zoo launches "
-        f"{zoo_runs}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"rounds {rounds}; launches per round {per_round}; training "
+        f"rounds/s {train['depth1']['rounds_per_s']:.1f} (depth 1), "
+        f"{train['depth2']['rounds_per_s']:.1f} (depth 2); zoo launches "
+        f"{zoo_runs}; total {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -408,9 +408,7 @@ def run_vfl(cfg: VFLConfig, master_data: MasterData,
             device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """One-shot job (matching + training + teardown) in the given mode.
 
-    Compatibility wrapper over :class:`VFLJob`; training arrives with
-    the port's next slice, so today a split-NN ``run_vfl`` raises the
-    protocol's ``NotImplementedError`` from its first round."""
+    Compatibility wrapper over :class:`VFLJob`."""
     job = VFLJob(cfg, master_data, member_datas, mode=mode,
                  callbacks=callbacks, resume_dir=resume_dir,
                  pipeline_depth=pipeline_depth, comm_cfg=comm_cfg,

@@ -1,10 +1,20 @@
-"""Split-learning VFL protocol of the PyTorch port: the serving half.
+"""Split-learning VFL protocol of the PyTorch port.
 
 Members own bottom towers over their feature slices; the master owns
-the top model and labels. Predict is the forward half federated end to
-end: members answer feature-slice queries with bottom activations, the
-master sums them with its own bottom activation and runs the top model
-— nobody ever holds another silo's features or parameters.
+the top model and labels. Per training round:
+
+1. members send bottom activations u_p = f_p(X_p),
+2. the master sums u = u_master + sum_p u_p, runs the top model and the
+   multi-label BCE loss,
+3. the master backprops, takes a plain SGD step on its top and bottom
+   models and returns du_p to each member (the only gradient signal
+   that crosses the boundary),
+4. members apply their bottom VJP locally.
+
+Predict is the forward half federated end to end: members answer
+feature-slice queries with bottom activations, the master sums them
+with its own bottom activation and runs the top model — nobody ever
+holds another silo's features or parameters.
 
 Models come from the port's tower factory (``repro_torch.models.tower``)
 with the same specs, param layouts and checkpoint trees as the JAX
@@ -14,8 +24,9 @@ matched feature rows as one tensor on its ``device`` and gathers query
 rows there; tensors become numpy at every channel send and every return
 to the driver.
 
-Training (the master step, the member VJP and its pipelined stages)
-comes with the next slice of the port; its hooks raise until then.
+The math is the JAX package's step for step: autograd of the same loss
+over the same trees, ``p - lr * g`` in float32, and the member's VJP
+recomputed at its current params when its gradient arrives.
 """
 from __future__ import annotations
 
@@ -41,9 +52,63 @@ schema.message("splitnn/du", {"du": Field("float32", 2)}, stepped=True,
 schema.message("splitnn/pred_u", {"u": Field("float32", 2)}, stepped=True,
                doc="bottom activations for a predict query")
 
-_TRAINING = ("split-NN training is not ported yet: the master step, the "
-             "member VJP and the pipelined member stages come with the "
-             "next slice of repro_torch")
+
+def _bce(logits, y):
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-logits.abs())))
+
+
+def _grads(out, tree, extra, grad_out=None):
+    """d out / d (tree's tensors, then ``extra``), with the tree's
+    tensors made leaves that require grad; zeros for a tensor ``out``
+    does not reach, as JAX's gradients have."""
+    params = [t.detach().requires_grad_() for t in twr.leaves(tree)]
+    live = twr.with_leaves(tree, params)
+    with torch.enable_grad():
+        y = out(live)
+        gs = torch.autograd.grad(y, params + list(extra), grad_out,
+                                 allow_unused=True)
+    gs = [torch.zeros_like(t) if g is None else g
+          for t, g in zip(params + list(extra), gs)]
+    return y, gs
+
+
+def _sgd(tree, grads, lr: float):
+    with torch.no_grad():
+        return twr.with_leaves(tree, [p - lr * g for p, g in
+                                      zip(twr.leaves(tree), grads)])
+
+
+def master_step(bspec: twr.TowerSpec, tspec: twr.TowerSpec, top, bottom,
+                u_members, x, y, lr: float):
+    """The master's round, the JAX package's ``_make_master_step``:
+    the BCE loss of the top model on its own bottom activations plus the
+    members' ``u_members``, its gradients over the top params, the
+    bottom params and each member's activations, and a plain SGD step
+    ``p - lr * g`` (``lr`` a float32 value). Returns (loss, new top, new
+    bottom, du per member)."""
+    u_members = [u.detach().requires_grad_() for u in u_members]
+
+    def loss_of(trees):
+        u = twr.apply(bspec, trees[1], x)
+        for um in u_members:
+            u = u + um
+        return _bce(twr.apply(tspec, trees[0], u), y)
+
+    loss, grads = _grads(loss_of, [top, bottom], u_members)
+    n_top, n_bottom = len(twr.leaves(top)), len(twr.leaves(bottom))
+    return (loss.detach(), _sgd(top, grads[:n_top], lr),
+            _sgd(bottom, grads[n_top:n_top + n_bottom], lr),
+            grads[n_top + n_bottom:])
+
+
+def member_step(spec: twr.TowerSpec, params, x, du, lr: float):
+    """A member's backward, the JAX package's ``_make_member_fns``
+    ``bwd``: the VJP of its bottom tower at ``params`` on ``x`` against
+    ``du``, and an SGD step. Returns the new params."""
+    _, grads = _grads(lambda trees: twr.apply(spec, trees[0], x), [params],
+                      [], du)
+    return _sgd(params, grads, lr)
 
 
 def bottom_spec(cfg, in_dim: int) -> twr.TowerSpec:
@@ -78,6 +143,8 @@ class SplitNNProtocol(VFLProtocol):
 
     def setup(self) -> None:
         cfg, d, dev = self.cfg, self.data, self.device
+        # the JAX package's float32 learning rate
+        self.lr = float(np.float32(cfg.lr))
         if cfg.tower_shard > 1:
             raise NotImplementedError("tower_shard > 1 is not ported yet")
         if cfg.secure_agg:
@@ -129,15 +196,47 @@ class SplitNNProtocol(VFLProtocol):
         return {"flops_per_step": flops, "bytes_per_step": float(wire),
                 "params_bytes": float(pbytes)}
 
-    # -- training: the next slice -------------------------------------------
+    # -- training ------------------------------------------------------------
     def on_batch_master(self, rows, step) -> float:
-        raise NotImplementedError(_TRAINING)
+        ch = self.ch
+        msgs = ch.gather(ch.members, "splitnn/u")
+        # fit_rows: a stale substitution (down/straggling peer) may
+        # carry a different tail-batch row count than this round
+        u_members = [torch.as_tensor(base.fit_rows(m.tensor("u"), len(rows)),
+                                     dtype=torch.float32).to(self.device)
+                     for m in msgs]
+        idx = self._index(rows)
+        loss, self.top, self.bottom, du = master_step(
+            self._bspec, self._tspec, self.top, self.bottom, u_members,
+            self.x[idx], self.y[idx], self.lr)
+        for mname, g in zip(ch.members, du):
+            # isend: the per-member gradient writes overlap each other
+            # and the next round's activation gather
+            ch.isend(mname, "splitnn/du", {"du": g.cpu().numpy()})
+        return float(loss)
 
+    @torch.no_grad()
     def member_stage_send(self, rows, step):
-        raise NotImplementedError(_TRAINING)
+        """Bottom forward + activation isend; the batch slice is the ctx
+        the deferred backward stage reuses (its VJP must see the inputs
+        this forward actually saw). No autograd graph is kept: at
+        pipeline depth >= 2 the params move on before the gradient
+        arrives, and the VJP is taken at the params of that moment, as
+        the JAX package takes it."""
+        xb = self._rows(rows)
+        u = twr.apply(self._spec, self.params, xb).cpu().numpy()
+        if self.cfg.noise_sigma > 0:
+            # noising defense (docs/privacy.md): the member perturbs
+            # its outgoing embedding, so neither the master nor a wire
+            # adversary ever sees the clean activations
+            u = u + base.defense_noise(self.cfg, u, step, self.role)
+        self.ch.isend("master", "splitnn/u", {"u": u})
+        return xb
 
     def member_stage_recv(self, rows, step, xb) -> None:
-        raise NotImplementedError(_TRAINING)
+        du = torch.as_tensor(self.ch.recv("master", "splitnn/du").tensor("du"),
+                             dtype=torch.float32).to(self.device)
+        self.params = member_step(self._spec, self.params, xb, du, self.lr)
 
     # -- predict/serve -------------------------------------------------------
     @torch.no_grad()

@@ -26,7 +26,9 @@
 //   when causal and starts at the first tile inside the window, and
 //   only tiles that are not wholly visible apply the mask (tiles wholly
 //   masked would add exp(-1e30 - m) = 0 exactly, so skipping them
-//   changes nothing; where a row sees no key at all, which a window
+//   changes nothing where v is finite; an inf or NaN of v in a skipped
+//   tile would give the reference's 0 * inf = NaN there, which this
+//   kernel does not; where a row sees no key at all, which a window
 //   shorter than sq - sk allows, the block walks every tile so that the
 //   row averages v as the reference does). Q's tile is staged once; K
 //   and V tiles of BK keys x dh go through a double-buffered `cp.async`
@@ -43,7 +45,10 @@
 //   2t, column t + 4 key 2t + 1), in bf16 the m16n8k16 layouts already
 //   agree. In f32 each key tile's p.v goes into a fresh fragment added
 //   to the accumulator in f32, since the tensor cores truncate their
-//   sums (a long row would otherwise pile up 3 sk / 8 truncations). The
+//   sums (a long row would otherwise pile up 3 sk / 8 truncations); a
+//   block whose output holds a NaN or an inf runs its key loop again
+//   with the inf-safe split of P and V, so that an inf in v gives the
+//   reference's +-inf and not the NaN-only split's NaN. The
 //   f32 path scales q before the split, as the contract says;
 //   the bf16 path scales the f32 scores (q.k of bf16 values is exact in
 //   f32, so this is q * scale in f32 up to rounding, where scaling q
@@ -80,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_tf32.cuh"
 
@@ -309,8 +316,10 @@ __device__ __forceinline__ void scores(float (&s)[NT][4],
 // output, added to acc in f32 (to nearest): the truncation then grows
 // with a tile's 3 NT sums, not with all 3 sk / 8 of the row (at sk 4096,
 // 1,536 sums into one accumulator put a peaked softmax's output 2x past
-// 2e-5 in the CPU emulation of tests/test_torch_tf32x3.py).
-template <int DT, int NT, int LD>
+// 2e-5 in the CPU emulation of tests/test_torch_tf32x3.py). SAFE splits
+// P and V with the inf-safe `split<true>` (the key loop's second pass,
+// see the kernel), otherwise with the NaN-only split.
+template <bool SAFE, int DT, int NT, int LD>
 __device__ __forceinline__ void accumulate(float (&acc)[DT][4],
                                            const float (&p)[NT][4],
                                            const float* v_s, int g, int t) {
@@ -320,7 +329,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[DT][4],
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
-    ps[j] = mma::split(a);
+    ps[j] = mma::split<SAFE>(a);
   }
   const float* vr = v_s + 2 * t * LD + g;
 #pragma unroll
@@ -330,7 +339,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[DT][4],
     for (int j = 0; j < NT; ++j) {
       const float* vj = vr + 8 * j * LD + 8 * n;
       const float b[2] = {vj[0], vj[LD]};
-      mma::mma_3xtf32(part, ps[j], mma::split(b));
+      mma::mma_3xtf32(part, ps[j], mma::split<SAFE>(b));
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
@@ -339,7 +348,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[DT][4],
 
 // bf16: the output's rounding to bf16 (2^-9) dwarfs the truncation, so
 // the products go straight into acc
-template <int DT, int NT, int LD>
+template <bool SAFE, int DT, int NT, int LD>
 __device__ __forceinline__ void accumulate(float (&acc)[DT][4],
                                            const float (&p)[NT][4],
                                            const __nv_bfloat16* v_s, int g,
@@ -430,84 +439,110 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_lo = lo / BK, t_hi = (hi + BK - 1) / BK;
 
   stage<DH, LD>(qs, qg, q0, BQ, sq, dh);
-  stage<DH, LD>(ks, kg, t_lo * BK, BK, sk, dh);
-  stage<DH, LD>(vs, vg, t_lo * BK, BK, sk, dh);
   mma::cp_async_commit();
 
   float acc[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};  // rows g and g + 8 of the warp
-  float l[2] = {0.f, 0.f};          // this lane's share of each sum
+  float m[2];  // rows g and g + 8 of the warp
+  float l[2];  // this lane's share of each sum
   const int wrow = warp * 16;
   const int row_g = q0 + wrow + g;
 
-  for (int kt = t_lo; kt < t_hi; ++kt) {
-    const int buf = (kt - t_lo) & 1;
-    const int k0 = kt * BK;
-    // the other buffer was last read before the previous iteration's
-    // closing barrier, so the next tile may land in it now
-    if (kt + 1 < t_hi) {
-      stage<DH, LD>(ks + (buf ^ 1) * BK * LD, kg, k0 + BK, BK, sk, dh);
-      stage<DH, LD>(vs + (buf ^ 1) * BK * LD, vg, k0 + BK, BK, sk, dh);
-    }
-    mma::cp_async_commit();  // an empty group on the last tile
-    mma::cp_async_wait<1>();  // this tile's copies (and q's) have landed
-    __syncthreads();
-
-    float s[NT][4];
+  // The key loop, from the first tile; SAFE takes p.v with the inf-safe
+  // split. It ends on a barrier, so a second pass may restage K and V.
+  auto key_loop = [&](auto safe) {
+    constexpr bool SAFE = decltype(safe)::value;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int n = 0; n < DT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    scores<DH, NT, LD>(s, qs + wrow * LD, ks + buf * BK * LD, g, t, scale);
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+    stage<DH, LD>(ks, kg, t_lo * BK, BK, sk, dh);
+    stage<DH, LD>(vs, vg, t_lo * BK, BK, sk, dh);
+    mma::cp_async_commit();
+    for (int kt = t_lo; kt < t_hi; ++kt) {
+      const int buf = (kt - t_lo) & 1;
+      const int k0 = kt * BK;
+      // the other buffer was last read before the previous iteration's
+      // closing barrier, so the next tile may land in it now
+      if (kt + 1 < t_hi) {
+        stage<DH, LD>(ks + (buf ^ 1) * BK * LD, kg, k0 + BK, BK, sk, dh);
+        stage<DH, LD>(vs + (buf ^ 1) * BK * LD, vg, k0 + BK, BK, sk, dh);
+      }
+      mma::cp_async_commit();  // an empty group on the last tile
+      mma::cp_async_wait<1>();  // this tile's copies (and q's) have landed
+      __syncthreads();
 
-    // the mask, where some key of the tile is hidden from some row
-    const bool whole = k0 + BK <= sk && (!causal || k0 + BK - 1 <= q0) &&
-                       (!window || q_last - k0 < window);
-    if (!whole) {
+      float s[NT][4];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kp = k0 + 8 * j + 2 * t + (e & 1);
-          const int qi = row_g + (e >> 1) * 8;
-          if (kp >= sk)
-            s[j][e] = -INFINITY;
-          else if ((causal && kp > qi) || (window && qi - kp >= window))
-            s[j][e] = kNegInf;
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      scores<DH, NT, LD>(s, qs + wrow * LD, ks + buf * BK * LD, g, t,
+                         scale);
+
+      // the mask, where some key of the tile is hidden from some row
+      const bool whole = k0 + BK <= sk && (!causal || k0 + BK - 1 <= q0) &&
+                         (!window || q_last - k0 < window);
+      if (!whole) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = k0 + 8 * j + 2 * t + (e & 1);
+            const int qi = row_g + (e >> 1) * 8;
+            if (kp >= sk)
+              s[j][e] = -INFINITY;
+            else if ((causal && kp > qi) || (window && qi - kp >= window))
+              s[j][e] = kNegInf;
+          }
+      }
+
+      // online softmax on the fragments: row r's values are s[j][2r..2r+1]
+      // of the four lanes of a quad
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = m[r];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mt = fmaxf(mt, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float alpha = expf(m[r] - mt);
+        m[r] = mt;
+        l[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          acc[n][2 * r] *= alpha;
+          acc[n][2 * r + 1] *= alpha;
         }
-    }
-
-    // online softmax on the fragments: row r's values are s[j][2r..2r+1]
-    // of the four lanes of a quad
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mt = m[r];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mt = fmaxf(mt, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float alpha = expf(m[r] - mt);
-      m[r] = mt;
-      l[r] *= alpha;
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
+        for (int j = 0; j < NT; ++j) {
+          s[j][2 * r] = expf(s[j][2 * r] - mt);
+          s[j][2 * r + 1] = expf(s[j][2 * r + 1] - mt);
+          l[r] += s[j][2 * r] + s[j][2 * r + 1];
+        }
       }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        s[j][2 * r] = expf(s[j][2 * r] - mt);
-        s[j][2 * r + 1] = expf(s[j][2 * r + 1] - mt);
-        l[r] += s[j][2 * r] + s[j][2 * r + 1];
-      }
+      accumulate<SAFE, DT, NT, LD>(acc, s, vs + buf * BK * LD, g, t);
+      __syncthreads();
     }
-    accumulate<DT, NT, LD>(acc, s, vs + buf * BK * LD, g, t);
-    __syncthreads();
+  };
+  key_loop(std::false_type{});
+  // f32: an inf in v (or a value that rounds to inf in TF32) makes the
+  // NaN-only split's p.v NaN where the reference gives +-inf (inf * 0 in
+  // big_p * small_v), and leaves a non-finite output in those rows
+  // either way, as does any NaN or inf the reference also gives. A block
+  // holding one takes the key loop again with the inf-safe split: the
+  // grouped matmul's scheme, which redoes a stage at a time, here with
+  // the whole loop as the stage, since a vote a fragment inside the loop
+  // measured 13-18% slower at the zoo's prefill shapes (PERF.md).
+  if constexpr (sizeof(T) == 4) {
+    bool special = false;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) special |= !isfinite(acc[n][e]);
+    if (__syncthreads_or(special)) key_loop(std::true_type{});
   }
 
   T* og = o + (int64_t)pair * sq * dh;

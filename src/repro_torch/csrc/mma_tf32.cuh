@@ -54,7 +54,10 @@ namespace mma {
 // values exact in TF32, as inf * 0 = NaN; so an inf x gets big = the
 // largest finite TF32 of its sign (0x7F7FE000) and small = inf - big,
 // the inf, and a finite x within half a TF32 ulp of FLT_MAX, which would
-// round to inf, gets that big and small = x - big, finite. A product's
+// round to inf, gets that big and small = x - big truncated to TF32,
+// finite: rounded, it can come out 2^117, and big + small = 2^128, which
+// the tensor cores return as inf where the other operand is 1 (measured
+// on the card; attention's top weight is exactly 1). A product's
 // three passes then carry the inf in small_a * big_b (inf of the right
 // sign, or NaN where b is 0, as inf * 0 is), while big_a * big_b and
 // big_a * small_b are finite or an inf of the same sign. Only where the
@@ -62,10 +65,12 @@ namespace mma {
 // overflow with small_b's own sign and meet the inf as a NaN. The
 // grouped matmul splits with `split_finite`, which notes such a value,
 // and takes a stage again with this split only where a warp's
-// fragments held one. Attention keeps the NaN-only split: an
-// inf in q or k gives an inf score, which `attention_ref` turns into a
-// NaN too (inf - inf in the softmax), and an inf in v can give a NaN
-// where `attention_ref` gives +-inf.
+// fragments held one. Attention splits with the NaN-only split and
+// takes a block's whole key loop again with this split for p.v where
+// the block's output holds a non-finite value; its q.k keeps the
+// NaN-only split: an inf in q or k makes an infinite score, which
+// `attention_ref` turns into a NaN too where it is +inf (inf - inf in
+// the softmax).
 __device__ __forceinline__ uint32_t round_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
@@ -88,9 +93,10 @@ __device__ __forceinline__ Split<N> split(const float (&x)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     s.big[i] = isnan(x[i]) ? 0x7FFFFFFFu : round_tf32(x[i]);
-    if (kInfSafe && isinf(__uint_as_float(s.big[i])))
-      s.big[i] = (__float_as_uint(x[i]) & 0x80000000u) | 0x7F7FE000u;
-    s.small[i] = round_tf32(x[i] - __uint_as_float(s.big[i]));
+    const bool clamp = kInfSafe && isinf(__uint_as_float(s.big[i]));
+    if (clamp) s.big[i] = (__float_as_uint(x[i]) & 0x80000000u) | 0x7F7FE000u;
+    const float rest = x[i] - __uint_as_float(s.big[i]);
+    s.small[i] = clamp ? __float_as_uint(rest) & 0xFFFFE000u : round_tf32(rest);
   }
   return s;
 }

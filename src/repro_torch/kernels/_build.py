@@ -146,6 +146,11 @@ def load(path: Path) -> ctypes.CDLL:
     lib.repro_quantize_int8.argtypes = [
         p, p, p, ctypes.c_int64, i, i, p]
     lib.repro_quantize_int8.restype = i
+    lib.repro_quantize_int8_variant.argtypes = [p, i, i]
+    lib.repro_quantize_int8_variant.restype = i
+    lib.repro_quantize_int8_floor.argtypes = [
+        p, p, ctypes.c_int64, i, i, p]
+    lib.repro_quantize_int8_floor.restype = i
     lib.repro_flash_attention_variant.argtypes = [p, p, p, i, i]
     lib.repro_flash_attention_variant.restype = i
     lib.repro_moe_gmm.argtypes = [p, p, p, p, i, i, i, i, i, p]

@@ -4,7 +4,9 @@
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 computes the plain version (``ref.quantize_int8_ref``), and that is the
-only way the plain version is taken.
+only way the plain version is taken. A row of whole 16-byte chunks
+on a 16-byte aligned tensor runs the vector variant, any other the
+scalar one (``variant``).
 """
 from __future__ import annotations
 
@@ -24,18 +26,7 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (rows, d) -> (q int8 (rows, d), scale f32 (rows,))."""
     if x.device.type == "cpu":
         return quantize_int8_ref(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_int8: tensor on {x.device}; the "
-                         f"kernel takes CUDA tensors (CPU ones take the "
-                         f"plain version)")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"quantize_int8: dtype {x.dtype} not in "
-                         f"{sorted(map(str, DTYPES))}")
-    if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
-        raise ValueError(f"quantize_int8: need a non-empty (rows, d) "
-                         f"tensor, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("quantize_int8: x is not contiguous")
+    _check(x)
     rows, d = x.shape
     q = torch.empty((rows, d), dtype=torch.int8, device=x.device)
     scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
@@ -48,3 +39,28 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _build.check(err, "quantize_int8")
     launches.add()
     return q, scale
+
+
+def variant(x: torch.Tensor) -> str:
+    """Which kernel a call on this CUDA tensor runs, as the .cu
+    dispatches it: "vector" (16-byte loads, a row over a lane group) or
+    "scalar" (a warp a row)."""
+    _check(x)
+    v = _build.library().repro_quantize_int8_variant(
+        x.data_ptr(), x.shape[1], DTYPES[x.dtype])
+    return "vector" if v == 1 else "scalar"
+
+
+def _check(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_int8: tensor on {x.device}; the "
+                         f"kernel takes CUDA tensors (CPU ones take the "
+                         f"plain version)")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"quantize_int8: dtype {x.dtype} not in "
+                         f"{sorted(map(str, DTYPES))}")
+    if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
+        raise ValueError(f"quantize_int8: need a non-empty (rows, d) "
+                         f"tensor, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("quantize_int8: x is not contiguous")

@@ -16,10 +16,11 @@ into that layout, so one checkpoint drives either package.
 explicit ``device``. ``apply`` is the forward pass: ``attn_block`` runs
 the hand-written flash-attention kernel and ``quantize`` the
 hand-written int8 kernel on a CUDA tensor, their plain versions on a
-CPU tensor (``kernel=auto|pallas|ref``, see ``kernels/ops.py``). The
-backward passes (the reference VJP of attention, the straight-through
-quantizer) come with the training slice of the port; until then a
-forward whose inputs require grad through a kernel block raises.
+CPU tensor (``kernel=auto|pallas|ref``, see ``kernels/ops.py``). Both
+are ``torch.autograd.Function``s with the JAX package's ``custom_vjp``
+contracts: attention's backward is the VJP of the plain attention
+recomputed from the saved q, k, v (the JAX package has no backward
+kernel either), the quantizer's is the identity (straight-through).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from typing import Any, Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.params import resolve_device
 
 BLOCK_KINDS = ("embed", "attn_block", "quantize", "mlp")
@@ -241,33 +242,56 @@ def legacy_dims_tower(dims: Sequence[int],
 
 
 # ---------------------------------------------------------------------------
-# kernels: hand-written CUDA forward, plain PyTorch version on the CPU
+# kernels: hand-written CUDA forward, plain PyTorch version on the CPU;
+# the backward passes of the JAX package's custom_vjp rules
 # ---------------------------------------------------------------------------
 
 
-def _forward_only(kind: str, *xs: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        raise NotImplementedError(
-            f"{kind}: the port's tower has no backward yet (the "
-            f"reference VJP and the straight-through quantizer come "
-            f"with its training slice); run it under torch.no_grad()")
+class _Attention(torch.autograd.Function):
+    """Bidirectional attention through ``ops.flash_attention``; its
+    backward is the plain attention's VJP at the saved inputs, as the
+    JAX package's ``_attention_bwd`` (``attention_ref`` under
+    ``jax.vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kernel):
+        ctx.save_for_backward(q, k, v)
+        return ops.flash_attention(q, k, v, causal=False, kernel=kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.attention_ref(q, k, v, causal=False)
+        return (*torch.autograd.grad(out, (q, k, v), g), None)
 
 
 def _attention(q, k, v, kernel: str = "ref"):
     """Bidirectional multi-head attention, (b, h, s, dh) layout."""
-    _forward_only("attn_block", q, k, v)
-    return ops.flash_attention(q, k, v, causal=False, kernel=kernel)
+    return _Attention.apply(q, k, v, kernel)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Per-row int8 quantize then dequantize; the gradient passes
+    straight through."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        shape = x.shape
+        q, scale = ops.quantize_int8(x.reshape(-1, shape[-1]).contiguous(),
+                                     kernel=kernel)
+        return (q.float() * scale[:, None]).to(x.dtype).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def fake_quant(x, kernel: str = "ref"):
-    """Int8 fake-quantization (per-row symmetric) on the wire codec's
-    grid: quantize, then dequantize."""
-    _forward_only("quantize", x)
-    shape = x.shape
-    q, scale = ops.quantize_int8(x.reshape(-1, shape[-1]).contiguous(),
-                                 kernel=kernel)
-    y = (q.float() * scale[:, None]).to(x.dtype)
-    return y.reshape(shape)
+    """Straight-through int8 fake-quantization (per-row symmetric) on
+    the wire codec's grid: quantize, then dequantize; identity
+    backward."""
+    return _FakeQuant.apply(x, kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -331,16 +355,24 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _leaves(tree) -> List[Any]:
+def leaves(tree) -> List[Any]:
+    """The tree's tensors, in the order :func:`with_leaves` takes."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
+        return [x for v in tree.values() for x in leaves(v)]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
+        return [x for v in tree for x in leaves(v)]
     return [tree]
 
 
 def _to(tree, device):
     return _tree_map(lambda t: t.to(device), tree)
+
+
+def with_leaves(tree, values: Sequence[torch.Tensor]) -> List[Any]:
+    """The tree with its tensors replaced by ``values``, in
+    :func:`leaves`' order."""
+    it = iter(values)
+    return _tree_map(lambda _: next(it), list(tree))
 
 
 def from_numpy(params, device: Union[str, torch.device] = "cuda"
@@ -459,4 +491,4 @@ def tower_flops(spec: TowerSpec, batch: int) -> float:
 
 
 def params_bytes(params) -> int:
-    return int(sum(x.numel() * x.element_size() for x in _leaves(params)))
+    return int(sum(x.numel() * x.element_size() for x in leaves(params)))

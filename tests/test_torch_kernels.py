@@ -312,7 +312,8 @@ def test_build_hash_covers_headers(tmp_path):
     assert _build._digest(_build.inputs(tmp_path)) != before
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "moe_gmm"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "moe_gmm",
+                                    "quantize_int8"])
 def test_variant_refuses_cpu_tensors(kernel):
     """``variant`` names the CUDA kernel a call would run; on CPU tensors
     it raises (the wrapper's checks run before the library is loaded),
@@ -320,8 +321,11 @@ def test_variant_refuses_cpu_tensors(kernel):
     if kernel == "flash_attention":
         args = (torch.zeros((1, 2, 4, 16)),) * 3
         fn = tfa.variant
-    else:
+    elif kernel == "moe_gmm":
         args = (torch.zeros((2, 3, 8)), torch.zeros((2, 8, 5)))
         fn = tgmm.variant
+    else:
+        args = (torch.zeros((4, 64)),)
+        fn = tq.variant
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn(*args)

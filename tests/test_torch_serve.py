@@ -179,17 +179,6 @@ def test_protocol_defaults_to_cuda():
         SplitNNProtocol(cfg, ch, "master")
 
 
-def test_training_is_refused_until_its_slice():
-    kw, master, members = _case()
-    # a short comm timeout lets the member's thread give up soon after
-    # the master's refusal
-    job = VFLJob(tbase.VFLConfig(**kw), master, members, device="cpu",
-                 comm_timeout=5.0)
-    with pytest.raises(RuntimeError, match="agent") as err:
-        job.fit(timeout=60)
-    assert "not ported yet" in repr(err.value.__cause__)
-
-
 def test_psi_matches_jax():
     """The port's DH-PSI (with its own copy of the primality test) works
     in the same group as the JAX package's."""

@@ -47,18 +47,33 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 _BELOW_INF = torch.tensor(0x7F7FEFFF, dtype=torch.int32).view(torch.float32)
 
 
-def split(x: torch.Tensor):
-    """big and small as the grouped matmul splits (``split_finite``, and
-    ``split<true>`` for a stage that holds a NaN, an inf or a value that
-    rounds to inf; the two agree on every other x): big
-    from x clamped below the values that round to inf (an inf x gets the
-    largest finite TF32 as big and inf as small; a NaN the canonical
-    NaN), small skipping the NaN test (x - big is NaN only where x is
-    NaN). Attention's split (``split<false>``) is the same for finite x
-    below FLT_MAX's last half TF32 ulp."""
+def _truncate(x: torch.Tensor) -> torch.Tensor:
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor, truncate: bool = True):
+    """big and small as the grouped matmul and attention's p.v split
+    (``split_finite``, and ``split<true>`` for a stage that holds a NaN,
+    an inf or a value that rounds to inf; the two agree on every other
+    x): big from x clamped below the values that round to inf (an inf x
+    gets the largest finite TF32 as big and inf as small; a NaN the
+    canonical NaN), small skipping the NaN test (x - big is NaN only
+    where x is NaN), and truncated, not rounded, for a clamped x
+    (``truncate=False``: rounded, as before; big + small can then reach
+    2^128). Attention's q.k split (``split<false>``) is the same for
+    finite x below FLT_MAX's last half TF32 ulp."""
     big = tf32(torch.clamp(x, -_BELOW_INF, _BELOW_INF))
     big = torch.where(torch.isnan(x), tf32(x), big)
-    return big, _round(x - big)
+    rest = x - big
+    clamped = torch.isinf(tf32(x)) & ~torch.isnan(x)
+    if truncate:
+        return big, torch.where(clamped, _truncate(rest), _round(rest))
+    return big, _round(rest)
+
+
+def split_rounded(x: torch.Tensor):
+    """The clamped split with a clamped x's small part rounded."""
+    return split(x, truncate=False)
 
 
 def split_unclamped(x: torch.Tensor):
@@ -69,9 +84,10 @@ def split_unclamped(x: torch.Tensor):
 
 
 def _toward_zero(d: torch.Tensor) -> torch.Tensor:
-    """f64 -> f32 rounded toward zero."""
+    """f64 -> f32 rounded toward zero; a sum past FLT_MAX comes out inf,
+    as the card's tensor cores return it."""
     y = d.to(torch.float32)
-    over = y.double().abs() > d.abs()
+    over = (y.double().abs() > d.abs()) & torch.isfinite(y)
     return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
 
 
@@ -111,21 +127,25 @@ def gmm(x: torch.Tensor, w: torch.Tensor, stage: int | None = STAGE,
     return total
 
 
-def attention(q, k, v, causal=True, window=0, q0=0, fresh=True, passes=3):
+def attention(q, k, v, causal=True, window=0, q0=0, fresh=True, passes=3,
+              pv_split=split):
     """``attention_mma_kernel`` on rows q0.. of one head: q (sq, dh)
     scaled in f32 before the split, key tiles of BK (32 for dh 128, else
     64) with scores fresh for each, masked scores at -1e30 (-inf past
     sk), the online softmax, each tile's p.v in a fresh fragment added
     in f32 (``fresh=False``: into the output's accumulator itself),
-    divided by the clamped sum at the end. Every tile is walked: a tile
-    the kernel skips adds exactly 0."""
+    divided by the clamped sum at the end; q.k with the NaN-only split,
+    p.v with ``pv_split`` (the kernel's second pass, the one whose output
+    an inf in v reaches). Every tile is walked: a tile the kernel skips
+    adds exactly 0 where v is finite."""
     sq, dh = q.shape
     sk = k.shape[0]
     bk = 32 if dh > 80 else 64
     pad = -sk % bk
     k = torch.cat([k, torch.zeros((pad, dh))])
     v = torch.cat([v, torch.zeros((pad, dh))])
-    s_all = dot(torch.zeros((sq, sk + pad)), q * dh ** -0.5, k.T, passes)
+    s_all = dot(torch.zeros((sq, sk + pad)), q * dh ** -0.5, k.T, passes,
+                split_unclamped)
     qi = torch.arange(q0, q0 + sq)[:, None]
     ki = torch.arange(sk + pad)[None, :]
     keep = torch.ones_like(s_all, dtype=torch.bool)
@@ -147,9 +167,10 @@ def attention(q, k, v, causal=True, window=0, q0=0, fresh=True, passes=3):
         l = l * alpha + p.sum(dim=1, keepdim=True)
         acc = acc * alpha
         if fresh:
-            acc = acc + dot(torch.zeros_like(acc), p, v[k0:k0 + bk], passes)
+            acc = acc + dot(torch.zeros_like(acc), p, v[k0:k0 + bk], passes,
+                            pv_split)
         else:
-            acc = dot(acc, p, v[k0:k0 + bk], passes)
+            acc = dot(acc, p, v[k0:k0 + bk], passes, pv_split)
     return acc / torch.clamp(l, min=1e-30)
 
 
@@ -210,6 +231,45 @@ def test_split_carries_inf_and_values_near_max(side):
     torch.testing.assert_close(got[fin], want[fin], rtol=2e-5, atol=2e-5)
     old = dot(torch.zeros_like(want), a, b, splitter=split_unclamped)
     assert torch.isnan(old).any()
+
+
+def _same_specials(got, want):
+    """NaN and +-inf at the same places, and the rest within 2e-5."""
+    if not (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.isinf(), want.isinf())
+            and torch.equal(got[want.isinf()], want[want.isinf()])):
+        return False
+    fin = want.isfinite()
+    return torch.allclose(got[fin], want[fin], rtol=2e-5, atol=2e-5)
+
+
+def test_attention_pv_carries_inf_in_v():
+    """An inf in v gives ``attention_ref``'s +-inf (and its NaN, where an
+    inf meets one of the other sign) through the clamped split of p.v,
+    and a finite v within half a TF32 ulp of FLT_MAX stays finite where
+    its key holds the row's top weight, exactly 1; the NaN-only split
+    gives NaN for the infs, and the clamped split with a rounded small
+    part overflows to inf at that weight (as the card showed)."""
+    g = np.random.default_rng(11)
+    sq, dh = 96, 64
+    q = torch.from_numpy(g.standard_normal((sq, dh), np.float32))
+    k, v = (torch.from_numpy(g.standard_normal((sq, dh), np.float32))
+            for _ in range(2))
+    k[10] = q[0] * 4.0          # key 10: row 0's top weight, p = 1
+    near = torch.tensor([0x7F7FFFFF], dtype=torch.int32).view(torch.float32)
+    v[10, 0] = near[0]
+    v[3, 5], v[70, 7] = torch.inf, -torch.inf
+    v[40, 9], v[80, 9] = torch.inf, -torch.inf       # inf - inf: NaN
+    want = ref.attention_ref(q[None, None], k[None, None], v[None, None],
+                             causal=False)[0, 0]
+    assert torch.isinf(want).any() and torch.isnan(want).any()
+    assert torch.isfinite(want[:, 0]).all()
+    got = attention(q, k, v, causal=False)
+    assert _same_specials(got, want)
+    assert not _same_specials(
+        attention(q, k, v, causal=False, pv_split=split_unclamped), want)
+    rounded = attention(q, k, v, causal=False, pv_split=split_rounded)
+    assert torch.isinf(rounded[0, 0]) and not _same_specials(rounded, want)
 
 
 def test_split_keeps_22_bits():

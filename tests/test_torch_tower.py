@@ -187,11 +187,3 @@ def test_kernel_pallas_on_cpu_raises():
     with torch.no_grad(), pytest.raises(ValueError,
                                         match="kernel='pallas'"):
         ttwr.apply(spec, params, torch.zeros((2, 13)))
-
-
-def test_forward_through_kernel_blocks_refuses_grad():
-    spec = ttwr.resolve(NARROW, 13, 8)
-    params = ttwr.init(spec, torch.Generator().manual_seed(0), "cpu")
-    x = torch.zeros((2, 13), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ttwr.apply(spec, params, x)
