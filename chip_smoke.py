@@ -6,7 +6,10 @@ NVIDIA GPU.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` for
-   ``sm_90a`` and turns TF32 off for matmuls and convolutions;
+   ``sm_90a`` from three spawned processes at once, as the agents of a
+   process-mode job meet them (on a cold ``build/`` exactly one must
+   compile, the build's file lock holding the others until they load
+   its library), and turns TF32 off for matmuls and convolutions;
 3. holds each kernel against its plain PyTorch version on the card, at
    the split-NN path's shapes (R = 512 rows a round) and at the JAX
    package's kernel-test shapes: attention within 2e-5 (f32) / 2e-2
@@ -27,10 +30,10 @@ NVIDIA GPU.
    inf in x or in w of the grouped matmul must give the plain version's
    +-inf and NaN at the same places, in every variant, and so must an
    inf in v of attention's tensor-core variant at granite's prefill
-   shape (bidirectional; causal, with v's non-finite values in the keys
-   a query tile skips taken as 0, the elements where that differs from
-   the plain version counted); int8 quantization bit for bit at the
-   path's (4096, 64), at (1,048,576, 64), at widths of the vector and
+   shape, bidirectional and causal (where a query tile skips the key
+   tiles past its diagonal and the kernel's fix-up gives the NaN the
+   plain version's 0 * inf makes there); int8 quantization bit for bit
+   at the path's (4096, 64), at (1,048,576, 64), at widths of the vector and
    the scalar variant and on a misaligned view;
 4. serves the paper's vfl-recsys workload at its published scale
    (190,439 users, a 1,345-feature master silo with 19 items, a
@@ -52,7 +55,15 @@ NVIDIA GPU.
    wall time, the device's busy share over a profiled epoch, the first
    16 losses within rtol 1e-3 of the same job on the plain versions,
    and the device time of attention's backward, the plain version's
-   VJP);
+   VJP; then the other execution modes: ``socket_proc``, every party
+   its own OS process and CUDA context over localhost TCP, one epoch at
+   depth 1 and 2 with each worker's launches counted by a driver
+   callback (1 of each kernel a round in the master, 2 in the member)
+   and the depth-1 losses within rtol 1e-6 of thread mode's, 16 rounds
+   each of ``process`` at depth 2 and ``socket`` and ``grpc`` at depth 1
+   against thread mode's losses at the same tolerance, and secure
+   aggregation over the member's silo split in two: 16 rounds and two
+   masked predicts within 1e-3 of the same weights predicted unmasked);
 5. times each kernel, its plain version and, for attention,
    ``scaled_dot_product_attention`` (a yardstick only: the port never
    calls it) with CUDA events at the path's shapes; quantize also at
@@ -142,6 +153,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -359,21 +371,10 @@ def eager_ms(fn, reps: int = 200, trials: int = 15) -> float:
 def graph_ms(fn, reps: int = 100, trials: int = 15) -> float:
     """Median over ``trials`` of the mean device time of ``reps`` calls
     captured in one CUDA graph and replayed, from CUDA events: the
-    kernels' own time, without the host's dispatch."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    return _event_ms(graph.replay, reps, trials)
+    kernels' own time, without the host's dispatch (the port's
+    ``launch.attention_turns.graph_ms``)."""
+    from repro_torch.launch.attention_turns import graph_ms as replayed
+    return replayed(fn, reps, trials)
 
 
 def _bound(nbytes: float, ops: float, rate: float = F32_FLOP_S) -> dict:
@@ -394,6 +395,59 @@ def route_rate(variant: str) -> float:
     FMAs."""
     return {"mma_3xtf32": TF32X3_FLOP_S,
             "mma_bf16": BF16_FLOP_S}.get(variant, F32_FLOP_S)
+
+
+def _build_in_worker(marks: str) -> None:
+    """In a spawned process: ``_build.build()``, leaving a file in
+    ``marks`` for each compile this process runs itself."""
+    from repro_torch.kernels import _build
+    compile_ = _build._compile
+
+    def noted(*args):
+        Path(marks, str(os.getpid())).write_text("")
+        compile_(*args)
+
+    _build._compile = noted
+    _build.build()
+
+
+def build_kernels(workers: int = 3) -> dict:
+    """Phase 2: the kernels built from ``src/repro_torch/csrc`` at first
+    use, as the agents of a process-mode job meet them: ``workers``
+    spawned processes call ``_build.build()`` at once. On a cold
+    ``build/`` the build's file lock lets exactly one of them run nvcc,
+    and the others load its library; on a warm one none compiles."""
+    import multiprocessing as mp
+    import tempfile
+    from repro_torch.kernels import _build
+    lib = (_build.BUILD_ROOT / _build._digest(_build.inputs())
+           / _build.LIB_NAME)
+    cold = not lib.exists()
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as marks:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_build_in_worker, args=(marks,))
+                 for _ in range(workers)]
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(900)
+        codes = [pr.exitcode for pr in procs]
+        compiles = len(os.listdir(marks))
+    if codes != [0] * workers:
+        raise RuntimeError(f"a build process failed: exit codes {codes}")
+    if compiles != int(cold):
+        raise AssertionError(f"{compiles} of {workers} processes compiled "
+                             f"on a {'cold' if cold else 'warm'} build/")
+    _build.library()
+    out = {"cold": cold, "processes": workers, "compiles": compiles,
+           "seconds": time.perf_counter() - t0}
+    log(f"built {lib.relative_to(ROOT)} from "
+        f"{[s.name for s in _build.sources()]}: {workers} processes at "
+        f"once on a {'cold' if cold else 'warm'} build/, {compiles} "
+        f"compiled, in {out['seconds']:.1f} s")
+    return out
 
 
 def check_kernels(torch, dev):
@@ -611,15 +665,14 @@ def inf_attention_inputs(torch, dev, g):
 
 def check_inf_attention(torch, dev, g) -> dict:
     """An inf in v through attention's tensor-core variant at granite's
-    prefill shape, against ``attention_ref`` on the card: the same +-inf
-    and NaN at the same places, the rest within 2e-5 (relative, for the
-    values near FLT_MAX). Bidirectional, every row sees every key. Causal,
-    a query tile skips the key tiles past its diagonal, where the plain
-    version's p = 0 meets an inf as 0 * inf = NaN; so the causal output
-    is held to ``attention_ref`` with v's non-finite values in each
-    tile's skipped keys taken as 0, and the elements where that differs
-    from ``attention_ref`` itself (NaN there, finite here) are counted
-    (ROADMAP Queue 3). Returns the counts."""
+    prefill shape, against ``attention_ref`` on the card, bidirectional
+    and causal: the same +-inf and NaN at the same places, the rest
+    within 2e-5 (relative, for the values near FLT_MAX). Causal, a query
+    tile skips the key tiles past its diagonal, where the plain version's
+    p = 0 meets an inf as 0 * inf = NaN; the kernel's fix-up stores NaN
+    in those tiles' non-finite columns of the query tiles that skipped
+    them, so the causal output is held to ``attention_ref`` itself. Returns the
+    counts."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q, k, v = inf_attention_inputs(torch, dev, g)
@@ -627,38 +680,24 @@ def check_inf_attention(torch, dev, g) -> dict:
     for causal in (False, True):
         out = fa.flash_attention(q, k, v, causal=causal)
         exp = ref.attention_ref(q, k, v, causal=causal)
-        held = exp
-        if causal:
-            bq = 64                      # the kernel's query tile
-            held = exp.clone()
-            for t0 in range(0, q.shape[2], bq):
-                vt = v.clone()
-                tail = vt[:, :, t0 + bq:]
-                tail[~tail.isfinite()] = 0.0
-                held[:, :, t0:t0 + bq] = ref.attention_ref(
-                    q, k, vt, causal=True)[:, :, t0:t0 + bq]
         torch.cuda.synchronize()
-        where = held.isinf()
-        if not (torch.equal(out.isnan(), held.isnan())
+        where = exp.isinf()
+        if not (torch.equal(out.isnan(), exp.isnan())
                 and torch.equal(out.isinf(), where)
-                and torch.equal(out[where], held[where])):
+                and torch.equal(out[where], exp[where])):
             raise AssertionError(
                 f"attention inf in v causal={causal}: {int(out.isnan().sum())}"
                 f" NaN and {int(out.isinf().sum())} inf, expected "
-                f"{int(held.isnan().sum())} and {int(where.sum())} "
+                f"{int(exp.isnan().sum())} and {int(where.sum())} "
                 f"({fa.variant(q, k, v)})")
-        fin = held.isfinite()
-        torch.testing.assert_close(out[fin], held[fin], atol=2e-5, rtol=2e-5)
-        skipped = int((exp.isnan() & held.isfinite()).sum())
-        counts[f"causal={causal}"] = {
-            "inf": int(where.sum()), "nan": int(held.isnan().sum()),
-            "nan_in_ref_from_skipped_keys": skipped}
+        fin = exp.isfinite()
+        torch.testing.assert_close(out[fin], exp[fin], atol=2e-5, rtol=2e-5)
+        counts[f"causal={causal}"] = {"inf": int(where.sum()),
+                                      "nan": int(exp.isnan().sum())}
         log(f"attention inf in v q (4, 24, 511, 64) causal={causal}: "
-            f"{int(where.sum())} inf and {int(held.isnan().sum())} NaN as "
-            f"the plain version's; {skipped} elements the plain version "
-            f"makes NaN from keys their row cannot see "
-            f"{fa.variant(q, k, v)}")
-        del out, exp, held
+            f"{int(where.sum())} inf and {int(exp.isnan().sum())} NaN as "
+            f"the plain version's {fa.variant(q, k, v)}")
+        del out, exp
     return counts
 
 
@@ -808,14 +847,15 @@ def train_slice(torch, dev, cfg, master, members):
     agree to ~1e-6 until a quantize input within that of a .5 tie takes
     a code one step apart, which moves a round's loss by ~1e-5; 1e-3
     leaves room for several over 16 rounds of SGD. Returns (the launches
-    of each counted fit, the measured numbers)."""
+    of each counted fit, the measured numbers, the loss histories of the
+    counted fits at depth 1 and 2)."""
     import numpy as np
     from repro_torch.core.party import VFLJob
     from repro_torch.core.protocols.driver import StopAtStep
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     counters = {"flash_attention": fa.launches, "quantize_int8": qz.launches}
-    measured, launches = {}, {}
+    measured, launches, all_losses = {}, {}, {}
     check = None
 
     def counted_fit(job, tag):
@@ -844,6 +884,7 @@ def train_slice(torch, dev, cfg, master, members):
             raise AssertionError(f"training at depth {depth} launched {got} "
                                  f"in {rounds} rounds, expected 3 a round")
         losses = np.array([h["loss"] for h in hist])
+        all_losses[depth] = losses
         if not np.isfinite(losses).all():
             raise AssertionError(f"depth {depth}: non-finite losses")
         head, tail = losses[:16].mean(), losses[-16:].mean()
@@ -854,6 +895,9 @@ def train_slice(torch, dev, cfg, master, members):
         # and allocations
         steady = (rounds - 17) / (hist[-1]["wall_s"] - hist[16]["wall_s"])
         m = {"rounds": rounds, "epoch_s": wall, "rounds_per_s": rounds / wall,
+             # the master's clock from the fit's start to its last round,
+             # as the process-mode phase reads it
+             "epoch_s_by_history": hist[-1]["wall_s"],
              "steady_rounds_per_s": steady, "loss_first": float(losses[0]),
              "loss_last": float(losses[-1]), "loss_first16_mean": float(head),
              "loss_last16_mean": float(tail),
@@ -901,6 +945,194 @@ def train_slice(torch, dev, cfg, master, members):
     measured["attention_backward_ms"] = attention_backward_ms(torch, dev)
     log("split-NN training " + json.dumps(measured))
     del launches["split_nn_train_plain"]
+    return launches, measured, all_losses
+
+
+class WorkerLaunches:
+    """A driver callback (the hooks of ``core.protocols.driver.Callback``)
+    that counts each agent's own kernel launches over its fit: it zeroes
+    the counters as the fit starts and writes them, with the agent's
+    rounds, to ``<out>/<role>.json`` as it ends. In the process modes
+    every agent is its own process with its own counters, so the parent
+    reads the files once the job is shut down. A member's fit ends after
+    its last VJP."""
+
+    def __init__(self, out: str):
+        self.out = out
+
+    def on_fit_start(self, driver) -> None:
+        for c in _split_nn_counters().values():
+            c.reset()
+
+    def on_epoch_start(self, driver, epoch) -> None:
+        pass
+
+    def on_batch_end(self, driver, step, epoch, loss) -> None:
+        pass
+
+    def on_epoch_end(self, driver, epoch) -> None:
+        pass
+
+    def on_fit_end(self, driver) -> None:
+        got = {name: c.count for name, c in _split_nn_counters().items()}
+        Path(self.out, f"{driver.role}.json").write_text(json.dumps(got))
+
+
+def _split_nn_counters() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
+    return {"flash_attention": fa.launches, "quantize_int8": qz.launches}
+
+
+def _two_members(members):
+    """The demo member's silo split in two by columns (the first half
+    and the rest, every row in both), as ``data/vertical.py`` cuts one
+    dataset into silos."""
+    import numpy as np
+    from repro_torch.core.protocols.base import MemberData
+    from repro_torch.data.vertical import vertical_partition
+    m = members[0]
+    d = m.x.shape[1]
+    first, rest = vertical_partition(
+        m.ids, m.x, np.zeros((len(m.ids), 1)), widths=[d - d // 2],
+        shuffle_members=False)
+    return [MemberData(first.ids, first.x), rest[0]]
+
+
+def demo_modes(torch, dev, cfg, master, members, thread_losses):
+    """Phase 4d: the paper's demo at its published scale in the other
+    execution modes, on the card. ``socket_proc`` (every party its own
+    OS process and CUDA context, over localhost TCP) trains one epoch at
+    depth 1 and at depth 2: epoch wall time and rounds/s (all rounds,
+    and from round 16) from the master's round clock, each worker's
+    launches through ``WorkerLaunches`` (the master's bottom forward, 1 a
+    round; the member's send and VJP, 2 a round), and the depth-1 losses
+    within rtol 1e-6 of the thread mode's (``thread_losses``, from phase
+    4c). Then 16 rounds each of ``process`` at depth 2 and ``socket`` and
+    ``grpc`` (threads) at depth 1, whose losses must match the thread
+    mode's at the same depth and tolerance. Then secure aggregation: the
+    member's silo split in two, 16 rounds of ``secure_agg`` (finite,
+    falling losses) and two predicts of 512 rows, each within the JAX
+    package's own 1e-3 (``tests/test_lifecycle_api.py``) of the same
+    trained weights predicted without masks. Returns (launches by run,
+    the measured numbers)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.core.party import VFLJob
+    from repro_torch.core.protocols.driver import Checkpointer, StopAtStep
+    t_phase = time.perf_counter()
+    measured, launches = {}, {}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+
+    def check_losses(tag, got, want):
+        n = len(got)
+        rel = float(np.max(np.abs(got - want[:n]) / np.abs(want[:n])))
+        same = bool(np.array_equal(got, want[:n]))
+        log(f"{tag}: {n} losses against thread mode's: max rel err "
+            f"{rel:.3e} (tol 1e-6), bit-identical {same}")
+        if not rel <= 1e-6:
+            raise AssertionError(f"{tag}: losses disagree with thread mode")
+        return {"max_rel_err_vs_thread": rel, "bit_identical": same}
+
+    for depth in (1, 2):
+        tcfg = dataclasses.replace(cfg, epochs=1, lr=TRAIN_LR,
+                                   pipeline_depth=depth)
+        with tempfile.TemporaryDirectory(dir=scratch) as out:
+            t0 = time.perf_counter()
+            job = VFLJob(tcfg, master, members, mode="socket_proc",
+                         device=dev, callbacks=[WorkerLaunches(out)])
+            hist = job.fit()["history"]
+            fit_s = time.perf_counter() - t0
+            job.shutdown()
+            per_worker = {role: json.loads(Path(out, f"{role}.json")
+                                           .read_text())
+                          for role in ("master", "member0")}
+        rounds = len(hist)
+        want = {"master": rounds, "member0": 2 * rounds}
+        for role, got in per_worker.items():
+            if got != {name: want[role] for name in got}:
+                raise AssertionError(
+                    f"socket_proc depth {depth}: {role} launched {got} in "
+                    f"{rounds} rounds, expected {want[role]} of each")
+        total = {name: sum(w[name] for w in per_worker.values())
+                 for name in per_worker["master"]}
+        launches[f"split_nn_train_socket_proc_d{depth}"] = total
+        losses = np.array([h["loss"] for h in hist])
+        if not np.isfinite(losses).all() \
+                or not losses[-16:].mean() < losses[:16].mean():
+            raise AssertionError(f"socket_proc depth {depth}: losses "
+                                 f"not finite and falling")
+        epoch = hist[-1]["wall_s"]
+        steady = (rounds - 17) / (hist[-1]["wall_s"] - hist[16]["wall_s"])
+        m = {"rounds": rounds, "epoch_s": epoch, "rounds_per_s":
+             rounds / epoch, "steady_rounds_per_s": steady,
+             "fit_call_s_with_worker_start": fit_s,
+             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+             "launches_per_round_by_worker": {
+                 role: {k: v / rounds for k, v in got.items()}
+                 for role, got in per_worker.items()}}
+        if depth == 1:
+            m.update(check_losses("socket_proc depth 1", losses,
+                                  thread_losses[1]))
+        measured[f"socket_proc_d{depth}"] = m
+        log(f"split-NN training socket_proc depth {depth}: {rounds} rounds "
+            f"in {epoch:.3f} s ({rounds / epoch:.1f} rounds/s, "
+            f"{steady:.1f} from round 16; the fit call with the workers' "
+            f"start {fit_s:.1f} s); loss {losses[0]:.6f} -> "
+            f"{losses[-1]:.6f}; launches by worker {per_worker}")
+
+    for mode, depth in (("process", 2), ("socket", 1), ("grpc", 1)):
+        tcfg = dataclasses.replace(cfg, epochs=1, lr=TRAIN_LR,
+                                   pipeline_depth=depth)
+        job = VFLJob(tcfg, master, members, mode=mode, device=dev,
+                     callbacks=[StopAtStep(TRAIN_CHECK_ROUNDS)])
+        hist = job.fit()["history"]
+        job.shutdown()
+        losses = np.array([h["loss"] for h in hist])
+        # at depth 2 the round in flight when the stop comes runs too
+        if not TRAIN_CHECK_ROUNDS <= len(losses) <= TRAIN_CHECK_ROUNDS + 1:
+            raise AssertionError(f"{mode}: {len(losses)} rounds")
+        measured[f"{mode}_d{depth}"] = check_losses(
+            f"{mode} depth {depth}", losses, thread_losses[depth])
+
+    # secure aggregation over two members
+    two = _two_members(members)
+    scfg = dataclasses.replace(cfg, epochs=1, lr=TRAIN_LR, secure_agg=True)
+    rows = np.arange(ROUNDS_ROWS)
+    with tempfile.TemporaryDirectory(dir=scratch) as ckpt:
+        job = VFLJob(scfg, master, two, mode="thread", device=dev,
+                     callbacks=[StopAtStep(TRAIN_CHECK_ROUNDS),
+                                Checkpointer(ckpt, TRAIN_CHECK_ROUNDS)])
+        hist = job.fit()["history"]
+        masked = [job.predict(rows=rows, batch_size=len(rows))
+                  for _ in range(2)]
+        job.shutdown()
+        plain_job = VFLJob(dataclasses.replace(scfg, secure_agg=False),
+                           master, two, mode="thread", device=dev,
+                           resume_dir=ckpt)
+        plain = plain_job.predict(rows=rows, batch_size=len(rows))
+        plain_job.shutdown()
+    losses = np.array([h["loss"] for h in hist])
+    if len(losses) != TRAIN_CHECK_ROUNDS or not np.isfinite(losses).all() \
+            or not losses[-4:].mean() < losses[:4].mean():
+        raise AssertionError(f"secure_agg: losses {losses}")
+    errs = []
+    for s in masked:
+        if s.shape != plain.shape or not np.isfinite(s).all():
+            raise AssertionError(f"secure_agg predict {s.shape}")
+        np.testing.assert_allclose(s, plain, rtol=1e-3, atol=1e-3)
+        errs.append(float(np.abs(s - plain).max()))
+    measured["secure_agg"] = {
+        "members": [m.x.shape[1] for m in two], "rounds": len(losses),
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "predict_max_abs_err_vs_unmasked": errs}
+    log(f"secure_agg over members of {[m.x.shape[1] for m in two]} "
+        f"features: {len(losses)} rounds, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; two masked predicts of {len(rows)} rows against "
+        f"the unmasked: max abs err {errs} (tol 1e-3)")
+    measured["phase_s"] = time.perf_counter() - t_phase
+    log("split-NN modes " + json.dumps(measured))
     return launches, measured
 
 
@@ -1311,7 +1543,8 @@ def profile_window(torch, fn, wall_s: float) -> dict:
         kind = ("wkv" if "rwkv6_wkv" in name else
                 "scan" if "selective_scan" in name else
                 "gmm" if "gmm_" in name else
-                "attention" if "attention_" in name else
+                "attention" if "attention_" in name
+                or "hidden_keys" in name else
                 "quantize" if "quantize_" in name else
                 "matmul" if any(m in name for m in MATMUL_MARKS) else
                 "other")
@@ -1457,6 +1690,7 @@ def time_attention(torch, dev, cfg, qs, ks, window: int, g,
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.launch.attention_turns import kernel_us
     q = torch.randn(qs, generator=g).to(dev)
     k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
     b, h, s, dh = qs
@@ -1475,6 +1709,10 @@ def time_attention(torch, dev, cfg, qs, ks, window: int, g,
         4.0 * b * h * dh * s * (s + 1) / 2, timing,
         rate=route_rate(variant))
     att["variant"] = variant
+    # device time a call of each kernel it launches: the attention
+    # kernel and its hidden-key fix-up apart
+    att["kernel_us"] = kernel_us(
+        lambda: fa.flash_attention(q, k, v, causal=True, window=window))
     log(f"flash_attention {cfg.arch_id} prefill q {qs} k/v {ks} causal "
         f"f32: {att}")
     return att
@@ -1732,7 +1970,6 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import _build
     t_start = time.perf_counter()
     log(gpu_line())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1742,12 +1979,7 @@ def main() -> int:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
-    log(f"built {lib.relative_to(ROOT)} from "
-        f"{[s.name for s in _build.sources()]} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    build = build_kernels()
 
     errs = check_kernels(torch, dev)
 
@@ -1825,14 +2057,19 @@ def main() -> int:
     log(f"{JAMBA_ARCH} phase: {time.perf_counter() - t_jamba:.1f} s")
 
     # last, so that its profiler session comes after every zoo timing
-    train_launches, train = train_slice(torch, dev, cfg, master, members)
+    train_launches, train, thread_losses = train_slice(torch, dev, cfg,
+                                                       master, members)
+    # every party its own process, the other transports, secure
+    # aggregation
+    mode_launches, modes = demo_modes(torch, dev, cfg, master, members,
+                                      thread_losses)
 
     # launches of each kernel on each path's counted run
     by_path = {
         "flash_attention": {"split_nn_serve": counts["flash_attention"]},
         "quantize_int8": {"split_nn_serve": counts["quantize_int8"]},
         "rwkv6_wkv": {}, "moe_gmm": {}, "selective_scan": {}}
-    for run, got in train_launches.items():
+    for run, got in (train_launches | mode_launches).items():
         for name, c in got.items():
             by_path[name][run] = c
     zoo_runs = zoo_launches | moe_launches | h2o_launches | jamba_launches
@@ -1884,8 +2121,11 @@ def main() -> int:
                  for k in ("flash_attention", "quantize_int8")}
     log(f"rounds {rounds}; launches per round {per_round}; training "
         f"rounds/s {train['depth1']['rounds_per_s']:.1f} (depth 1), "
-        f"{train['depth2']['rounds_per_s']:.1f} (depth 2); zoo launches "
-        f"{zoo_runs}; total {time.perf_counter() - t_start:.1f} s")
+        f"{train['depth2']['rounds_per_s']:.1f} (depth 2); socket_proc "
+        f"{modes['socket_proc_d1']['rounds_per_s']:.1f} (depth 1), "
+        f"{modes['socket_proc_d2']['rounds_per_s']:.1f} (depth 2); build "
+        f"{build}; zoo launches {zoo_runs}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Agent lifecycle runtime of the PyTorch port: role objects, the
-:class:`VFLJob` entry point and the thread execution mode.
+:class:`VFLJob` entry point and the execution-mode plumbing.
 
 The counterpart of the JAX package's ``repro/core/party.py``. Every
 agent runs one :class:`~repro_torch.core.protocols.driver.VFLProtocol`
@@ -16,12 +16,18 @@ Driver`; a protocol is resolved by ``cfg.protocol`` name::
 ``"cuda"``, and a CUDA device on a machine without one raises: the job
 never carries on on the CPU unasked. Tests pass ``device="cpu"``.
 
-This slice ports the ``"thread"`` mode (in-process queues) and the
-split-NN protocol's serving path; the socket, grpc and process modes and
-the other protocols come with later slices.
+Every agent runs in one of six execution modes, with identical
+protocol code: "thread" (in-process queues), "socket" and "grpc" (each
+agent a thread over localhost TCP, with length-prefix or HTTP/2-like
+gRPC framing), and "process", "socket_proc" and "grpc_proc" (each agent
+its own OS process, over multiprocessing queues or TCP). A process-mode
+agent is started with the *spawn* method, so it builds its own CUDA
+context on the card; its data, results and errors cross the process
+boundary as numpy arrays and plain Python, never as CUDA tensors.
 """
 from __future__ import annotations
 
+import multiprocessing as mp
 import queue
 import threading
 import time
@@ -31,8 +37,10 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import torch
 
 from repro_torch.comm.base import CommCfg, PartyCommunicator
+from repro_torch.comm.grpc import GrpcCommunicator
 from repro_torch.comm.local import ThreadBus
 from repro_torch.comm.schema import TypedChannel
+from repro_torch.comm.sock import SocketCommunicator, local_addresses
 from repro_torch.core.protocols import PROTOCOLS, VFLConfig  # noqa: F401
 from repro_torch.core.protocols.base import (MasterData, MemberData,
                                              resolve_protocol)
@@ -40,10 +48,13 @@ from repro_torch.core.protocols.driver import (Callback, Driver,
                                                load_checkpoint)
 from repro_torch.models.params import resolve_device
 
-# ensure the ported protocols register
+# ensure built-in protocols register
+from repro_torch.core.protocols import linreg as _linreg  # noqa: F401
+from repro_torch.core.protocols import logreg as _logreg  # noqa: F401
 from repro_torch.core.protocols import split_nn as _split_nn  # noqa: F401
+from repro_torch.core.protocols import secure_agg as _sec_agg  # noqa: F401
 
-MODES = ("thread",)
+MODES = ("thread", "socket", "grpc", "process", "socket_proc", "grpc_proc")
 
 
 def world_for(cfg: VFLConfig, n_members: int) -> List[str]:
@@ -68,7 +79,7 @@ def _force_comm_timeout(cfg: CommCfg, timeout: float) -> CommCfg:
 
 
 def _wrap_exc(e: BaseException) -> RuntimeError:
-    """Stand-in carrying the agent's traceback text."""
+    """Picklable stand-in carrying the agent's traceback text."""
     tb = "".join(traceback.format_exception(type(e), e, e.__traceback__))
     return RuntimeError(f"{type(e).__name__}: {e}\n"
                         f"--- remote traceback ---\n{tb}")
@@ -212,6 +223,44 @@ def _agent_entry(role: str, comm: PartyCommunicator, cfg: VFLConfig,
             comm.close()
 
 
+def _mp_entry(role, transport, world, cfg, data, q, device: str,
+              callbacks=None, resume_dir=None, cmd_q=None, res_q=None,
+              comm_cfg=None):
+    # module-level for picklability (spawn). ``transport`` selects the
+    # wire: ("bus", mp queue boxes), ("sock", address map) or
+    # ("grpc", address map) — the address-map kinds run every agent as
+    # its own OS process talking TCP, the paper's distributed
+    # deployment (and the shape where pipelined rounds overlap with
+    # real parallelism, GIL-free). ``device`` arrives as a string and is
+    # resolved here, so a worker without the card raises as a thread
+    # agent does; each worker makes its own CUDA context.
+    kind, arg = transport
+    tkw = {} if comm_cfg is None else {"comm_cfg": comm_cfg}
+    if kind == "bus":
+        from repro_torch.comm.process import ProcessBus, ProcessCommunicator
+        bus = ProcessBus.__new__(ProcessBus)
+        bus.world = world
+        bus.boxes = arg
+        comm = ProcessCommunicator(role, bus, **tkw)
+    elif kind == "sock":
+        comm = SocketCommunicator(role, arg, **tkw)
+    elif kind == "grpc":
+        comm = GrpcCommunicator(role, arg, **tkw)
+    else:
+        raise ValueError(f"unknown transport {kind!r}")
+    out: Dict[str, Any] = {}
+    try:
+        _agent_entry(role, comm, cfg, data, out, resolve_device(device),
+                     callbacks, resume_dir, cmd_q, res_q)
+    except BaseException as e:
+        # the error must reach the parent's queue BEFORE this process
+        # dies — otherwise run_vfl blocks its full timeout and reports
+        # queue.Empty instead of the real traceback
+        q.put((role, {"error": _wrap_exc(e)}))
+        raise
+    q.put((role, out[role]))
+
+
 # ---------------------------------------------------------------------------
 # the job
 # ---------------------------------------------------------------------------
@@ -221,8 +270,10 @@ class VFLJob:
     """A live VFL federation with a phase API.
 
     Starts every agent for ``cfg.protocol`` in the requested execution
-    mode and keeps them alive between calls, so inference reuses the
-    loaded state. ``callbacks`` run on every role. ``resume_dir``
+    mode (:data:`MODES`) and keeps them alive between calls, so inference
+    reuses the loaded state. ``callbacks`` run on every role; in the
+    process modes they are pickled into the workers, so their in-memory
+    state does not flow back. ``resume_dir``
     restores a :class:`~repro_torch.core.protocols.driver.Checkpointer`
     cut — one written by this package or by the JAX package, whose
     checkpoints hold the same numpy trees.
@@ -251,8 +302,7 @@ class VFLJob:
         :func:`resolve_device`)."""
         import dataclasses
         if mode not in MODES:
-            raise ValueError(f"mode {mode!r} is not ported yet "
-                             f"(repro_torch runs {MODES})")
+            raise ValueError(f"unknown mode {mode!r} (one of {MODES})")
         dev = resolve_device(device)
         if pipeline_depth is not None:
             cfg = dataclasses.replace(cfg, pipeline_depth=pipeline_depth)
@@ -276,21 +326,65 @@ class VFLJob:
         self._failed: Optional[BaseException] = None
         self._closed = False
         self._threads: List[threading.Thread] = []
-        self._cmd_q: Any = queue.Queue()
-        self._res_q: Any = queue.Queue()
-        bus = ThreadBus(self.world)
-        comms = {w: bus.communicator(w, **ckw) for w in self.world}
-        for w in self.world:
-            is_m = w == "master"
-            t = threading.Thread(
-                target=_agent_entry,
-                args=(w, comms[w], cfg, datas[w], self._results, dev,
-                      list(callbacks), resume_dir,
-                      self._cmd_q if is_m else None,
-                      self._res_q if is_m else None),
-                daemon=True)
-            self._threads.append(t)
-            t.start()
+        self._procs: Dict[str, mp.process.BaseProcess] = {}
+        self._q = None                      # process-mode exit results
+
+        if mode in ("thread", "socket", "grpc"):
+            self._cmd_q: Any = queue.Queue()
+            self._res_q: Any = queue.Queue()
+            if mode == "thread":
+                bus = ThreadBus(self.world)
+                comms = {w: bus.communicator(w, **ckw) for w in self.world}
+            else:
+                tcls = SocketCommunicator if mode == "socket" \
+                    else GrpcCommunicator
+                addrs = local_addresses(self.world)
+                comms = {w: tcls(w, addrs, **ckw) for w in self.world}
+            for w in self.world:
+                is_m = w == "master"
+                t = threading.Thread(
+                    target=_agent_entry,
+                    args=(w, comms[w], cfg, datas[w], self._results, dev,
+                          list(callbacks), resume_dir,
+                          self._cmd_q if is_m else None,
+                          self._res_q if is_m else None),
+                    daemon=True)
+                self._threads.append(t)
+                t.start()
+        else:
+            # spawn, never fork: a forked child of a parent that has used
+            # CUDA cannot use it, and each worker builds its own context
+            ctx = mp.get_context("spawn")
+            if mode == "process":
+                from repro_torch.comm.process import ProcessBus
+                # the bus must outlive __init__: Process.start() drops
+                # its args reference, and a GC'd mp.Queue unlinks its
+                # named semaphores before slow-importing children
+                # rebuild them
+                self._bus = bus = ProcessBus(self.world, ctx)
+                transport = ("bus", bus.boxes)
+            else:
+                # one OS process per agent over real TCP — the paper's
+                # distributed deployment on one host; control replies
+                # still ride mp queues
+                kind = "sock" if mode == "socket_proc" else "grpc"
+                transport = (kind, local_addresses(self.world))
+            self._q = ctx.Queue()
+            self._cmd_q = ctx.Queue()
+            self._res_q = ctx.Queue()
+            for w in self.world:
+                is_m = w == "master"
+                p = ctx.Process(
+                    target=_mp_entry,
+                    args=(w, transport, self.world, cfg, datas[w],
+                          self._q, str(dev), list(callbacks), resume_dir,
+                          self._cmd_q if is_m else None,
+                          self._res_q if is_m else None, comm_cfg))
+                # daemonized: an abandoned job (no shutdown) must not
+                # block interpreter exit on multiprocessing's atexit join
+                p.daemon = True
+                self._procs[w] = p
+                p.start()
 
     # -- phase API -----------------------------------------------------------
     # ``timeout`` bounds how long the job waits for the master's reply;
@@ -370,24 +464,61 @@ class VFLJob:
                 if err is not None:
                     self._fail(*err)
                 if time.monotonic() > deadline:
-                    self._closed = True
+                    self._abort()
                     raise TimeoutError("master agent did not reply")
 
     def _peek_agent_error(self):
+        if self._q is not None:           # process mode: drain exits
+            while True:
+                try:
+                    role, res = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                self._results[role] = res
         for role, res in list(self._results.items()):
             if isinstance(res, dict) and isinstance(res.get("error"),
                                                     BaseException):
                 return role, res["error"]
+        # a worker that died before it could even post (e.g. killed, or
+        # crashed during interpreter spawn) would otherwise stall the
+        # job until the comm timeout
+        for role, p in self._procs.items():
+            if role not in self._results and p.exitcode not in (None, 0):
+                return role, RuntimeError(
+                    f"agent process died with exit code {p.exitcode} "
+                    f"before reporting a result")
         return None
 
     def _fail(self, role: str, err: BaseException):
         self._failed = err
-        self._closed = True
+        self._abort()
         raise RuntimeError(f"agent {role} failed") from err
 
+    def _abort(self) -> None:
+        self._closed = True
+        for p in self._procs.values():
+            if p.is_alive():
+                p.terminate()
+        for p in self._procs.values():
+            p.join(timeout=10)
+
     def _finish(self, timeout: float) -> Dict[str, Any]:
-        for t in self._threads:
-            t.join(timeout=timeout)
+        if self._procs:
+            deadline = time.monotonic() + timeout
+            while len(self._results) < len(self.world) \
+                    and time.monotonic() < deadline:
+                try:
+                    role, res = self._q.get(timeout=1.0)
+                    self._results[role] = res
+                except queue.Empty:
+                    if not any(p.is_alive()
+                               for p in self._procs.values()):
+                        break
+            for p in self._procs.values():
+                p.join(timeout=60)
+        else:
+            for t in self._threads:
+                t.join(timeout=timeout)
         for role, res in self._results.items():
             if isinstance(res, dict) and isinstance(res.get("error"),
                                                     BaseException):

@@ -147,8 +147,6 @@ class SplitNNProtocol(VFLProtocol):
         self.lr = float(np.float32(cfg.lr))
         if cfg.tower_shard > 1:
             raise NotImplementedError("tower_shard > 1 is not ported yet")
-        if cfg.secure_agg:
-            raise NotImplementedError("secure_agg is not ported yet")
         self.x = torch.as_tensor(
             base._select(d.ids, self.order, d.x), dtype=torch.float32
         ).to(dev)
@@ -167,6 +165,20 @@ class SplitNNProtocol(VFLProtocol):
             self._spec = bottom_spec(cfg, self.x.shape[1])
             self.params = twr.init(self._spec,
                                    init_generator(cfg.seed, midx), dev)
+            self.masker = None
+            # mask-stream namespace for predict queries: every member
+            # sees the same EVAL round sequence, so a shared counter
+            # keeps pairwise masks aligned without colliding with
+            # training-step masks
+            self._pred_step = 1 << 20
+            if cfg.secure_agg:
+                if cfg.compress:
+                    raise ValueError("secure_agg masks do not survive "
+                                     "independent quantization; choose one")
+                from repro_torch.core.secure_agg_protocol import \
+                    PairwiseMasker
+                self.masker = PairwiseMasker(self.ch.comm, self.role,
+                                             self.ch.members)
 
     def _index(self, rows) -> torch.Tensor:
         return torch.as_tensor(np.asarray(rows, np.int64),
@@ -230,6 +242,10 @@ class SplitNNProtocol(VFLProtocol):
             # its outgoing embedding, so neither the master nor a wire
             # adversary ever sees the clean activations
             u = u + base.defense_noise(self.cfg, u, step, self.role)
+        if self.masker is not None:
+            # pairwise masks on the numpy activations on the wire; they
+            # cancel in the master's sum
+            u = u + self.masker.mask(step, u.shape)
         self.ch.isend("master", "splitnn/u", {"u": u})
         return xb
 
@@ -252,11 +268,18 @@ class SplitNNProtocol(VFLProtocol):
 
     @torch.no_grad()
     def predict_embed(self, rows) -> np.ndarray:
-        # pure bottom-model forward: cacheable per row
+        # pure bottom-model forward: cacheable per row (no masking —
+        # masks are per-query and applied in send_embed)
         return twr.apply(self._spec, self.params,
                          self._rows(rows)).cpu().numpy()
 
     def send_embed(self, u, rows) -> None:
+        if self.masker is not None:
+            # predict queries get the same pairwise masking as training
+            # rounds — the master only ever sees the aggregate
+            u = np.asarray(u + self.masker.mask(self._pred_step, u.shape),
+                           np.float32)
+            self._pred_step += 1
         self.ch.send("master", "splitnn/pred_u", {"u": np.asarray(u)})
 
     def evaluate_master(self, scores, rows) -> Dict[str, float]:

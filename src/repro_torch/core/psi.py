@@ -29,38 +29,10 @@ P_HEX = (
 )
 
 
-_SMALL_PRIMES = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47]
-
-
-def _is_probable_prime(n: int, rounds: int = 24) -> bool:
-    # Miller-Rabin, the same test the JAX package's HE layer runs
-    # (repro/core/he/paillier.py); the port has no HE layer yet
-    if n < 2:
-        return False
-    for p in _SMALL_PRIMES:
-        if n % p == 0:
-            return n == p
-    d, r = n - 1, 0
-    while d % 2 == 0:
-        d //= 2
-        r += 1
-    for _ in range(rounds):
-        a = secrets.randbelow(n - 3) + 2
-        x = pow(a, d, n)
-        if x in (1, n - 1):
-            continue
-        for _ in range(r - 1):
-            x = pow(x, 2, n)
-            if x == n - 1:
-                break
-        else:
-            return False
-    return True
-
-
 def _safe_prime() -> int:
     # deterministic search from a fixed seed value for reproducibility
     q = int(P_HEX, 16) | 1
+    from repro_torch.core.he import _is_probable_prime
     while True:
         if _is_probable_prime(q) and _is_probable_prime(2 * q + 1):
             return 2 * q + 1

@@ -26,14 +26,26 @@
 //   when causal and starts at the first tile inside the window, and
 //   only tiles that are not wholly visible apply the mask (tiles wholly
 //   masked would add exp(-1e30 - m) = 0 exactly, so skipping them
-//   changes nothing where v is finite; an inf or NaN of v in a skipped
-//   tile would give the reference's 0 * inf = NaN there, which this
-//   kernel does not; where a row sees no key at all, which a window
-//   shorter than sq - sk allows, the block walks every tile so that the
-//   row averages v as the reference does). Q's tile is staged once; K
-//   and V tiles of BK keys x dh go through a double-buffered `cp.async`
-//   ring in dynamic shared memory, rows padded by 16 bytes so that the
-//   fragment loads are free of bank conflicts. Both products run on
+//   changes nothing where v is finite; where a row sees no key at all,
+//   which a window shorter than sq - sk allows, the block walks every
+//   tile so that the row averages v as the reference does). The
+//   reference multiplies a masked key's weight 0 by its v, so an inf or
+//   a NaN of v at a key that no row of a query tile sees makes that
+//   column NaN in every row of the tile; the key loop gives that for
+//   the masked keys of the tiles it walks, and a fix-up kernel
+//   (`hidden_keys_kernel`, one block a (batch, kv head, key tile), v
+//   read once: 4.2 MB at granite's prefill) gives it for the tiles a
+//   query tile skips. It scans its tile for a non-finite v, and where
+//   it finds one it stores NaN in those columns of every query tile
+//   that skipped the tile. It is launched as this kernel's programmatic
+//   dependent (`griddepcontrol`): this kernel lets it start once all its
+//   blocks run, so the scan runs in the last wave's idle SMs, and a
+//   fix-up block waits for this kernel's grid to finish before it
+//   writes, or exits, so that its stores land after the tile's own.
+//   Q's tile is staged once; K and V tiles of BK keys x dh go through a
+//   double-buffered `cp.async` ring in dynamic shared memory, rows
+//   padded by 16 bytes so that the fragment loads are free of bank
+//   conflicts. Both products run on
 //   `mma.sync` (`mma_tf32.cuh`): f32 as m16n8k8 TF32 with the 3xTF32
 //   split (f32 accuracy, which one TF32 pass would not give), bf16 as
 //   m16n8k16. The online softmax (running max, denominator, rescale of
@@ -399,6 +411,25 @@ __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
   }
 }
 
+// The key tiles [t_lo, t_hi) of BK keys that the query tile starting at
+// row q0 walks: those some row of it can see.
+__host__ __device__ __forceinline__ void key_tiles(int q0, int bq, int sq,
+                                                   int sk, int causal,
+                                                   int window, int bk,
+                                                   int& t_lo, int& t_hi) {
+  // plain comparisons: this runs on the host too
+  const int q_last = (q0 + bq < sq ? q0 + bq : sq) - 1;
+  int lo = window && q0 - window + 1 > 0 ? q0 - window + 1 : 0;
+  int hi = causal && q_last + 1 < sk ? q_last + 1 : sk;
+  const int last_lo = q_last - window + 1 > 0 ? q_last - window + 1 : 0;
+  if (window && last_lo >= hi) {
+    lo = 0;   // the last row sees no key: walk them all, as the
+    hi = sk;  // reference's softmax over -1e30 everywhere does
+  }
+  t_lo = lo / bk;
+  t_hi = (hi + bk - 1) / bk;
+}
+
 // grid: (b * h, query tiles); blockIdx.y = 0 is the last query tile.
 // EXACT: dh == DH; otherwise the dims past dh are masked.
 template <int DH, bool EXACT, typename T>
@@ -407,6 +438,9 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int h,
                      int kvh, int sq, int sk, int dh_arg, int causal,
                      int window, float scale) {
+  // a fix-up kernel launched after this one (its programmatic dependent)
+  // may start once every block of this grid has reached here
+  asm volatile("griddepcontrol.launch_dependents;");
   const int dh = EXACT ? DH : dh_arg;
   using Tile = MmaTile<DH, T>;
   constexpr int BQ = Tile::kBQ, BK = Tile::kBK, LD = Tile::kLd;
@@ -428,15 +462,10 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kg = k + kv_off;
   const T* vg = v + kv_off;
 
-  // the keys some row of [q0, q_last] can see: [lo, hi)
+  // the key tiles some row of [q0, q_last] can see
   const int q_last = min(q0 + BQ, sq) - 1;
-  int lo = window ? max(0, q0 - window + 1) : 0;
-  int hi = causal ? min(sk, q_last + 1) : sk;
-  if (window && max(0, q_last - window + 1) >= hi) {
-    lo = 0;   // the last row sees no key: walk them all, as the
-    hi = sk;  // reference's softmax over -1e30 everywhere does
-  }
-  const int t_lo = lo / BK, t_hi = (hi + BK - 1) / BK;
+  int t_lo, t_hi;
+  key_tiles(q0, BQ, sq, sk, causal, window, BK, t_lo, t_hi);
 
   stage<DH, LD>(qs, qg, q0, BQ, sq, dh);
   mma::cp_async_commit();
@@ -570,17 +599,110 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Non-zero where an element of a 32-bit word of v is an inf or a NaN
+// (every exponent bit set): one element of f32, two of bf16.
+__device__ __forceinline__ uint32_t nonfinite_bits(uint32_t w, float*) {
+  return (w & 0x7F800000u) == 0x7F800000u;
+}
+__device__ __forceinline__ uint32_t nonfinite_bits(uint32_t w,
+                                                   __nv_bfloat16*) {
+  return ((w & 0x7F80u) == 0x7F80u) |
+         (((w & 0x7F800000u) == 0x7F800000u) << 1);
+}
+
+// Words of a key tile's column mask (dh <= 128) and 16-byte loads a
+// thread of the fix-up kernel issues at most: a tile of 64 keys x 80
+// dims in f32, the largest, is 1,280 words over 128 threads.
+constexpr int kMaskWords = 4;
+constexpr int kMaxLoads = 10;
+
+// The fix-up of a causal or windowed tensor-core call, the attention
+// kernel's programmatic dependent. grid: (b * kvh, key tiles of BK). A
+// block reads its key tile of v once (rows are contiguous, so as one run
+// of 16-byte words where rows are whole words: dh a multiple of 4 in
+// f32, of 8 in bf16; else element by element), each thread issuing all
+// its loads before it looks at any, since memory bounds the scan. Where
+// the tile holds an inf or a NaN, the block reads it again for the
+// columns, waits for the attention kernel's grid, and stores NaN in
+// those columns of every query tile of BQ rows that skipped the tile, in
+// each head of the kv group. Every block waits for that grid before it
+// ends, so that this kernel ends after the attention kernel.
+template <int BQ, int BK, typename T>
+__global__ void __launch_bounds__(kThreads)
+hidden_keys_kernel(const T* __restrict__ v, T* __restrict__ o, int h,
+                   int kvh, int sq, int sk, int dh, int causal,
+                   int window) {
+  __shared__ uint32_t words[kMaskWords];
+  if (threadIdx.x < kMaskWords) words[threadIdx.x] = 0;
+  const int kt = blockIdx.y;
+  const int k0 = kt * BK;
+  const int n = min(BK, sk - k0) * dh;  // the tile's elements
+  const T* src = v + ((int64_t)blockIdx.x * sk + k0) * dh;
+  constexpr int V = 16 / sizeof(T);    // elements a 16-byte word
+  uint32_t any = 0;
+  if (dh % V == 0) {
+    uint4 raw[kMaxLoads];
+#pragma unroll
+    for (int j = 0; j < kMaxLoads; ++j) {
+      const int e = (j * kThreads + threadIdx.x) * V;
+      raw[j] = e < n ? *reinterpret_cast<const uint4*>(src + e)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxLoads; ++j)
+      any |= nonfinite_bits(raw[j].x, static_cast<T*>(nullptr)) |
+             nonfinite_bits(raw[j].y, static_cast<T*>(nullptr)) |
+             nonfinite_bits(raw[j].z, static_cast<T*>(nullptr)) |
+             nonfinite_bits(raw[j].w, static_cast<T*>(nullptr));
+  } else {
+    for (int e = threadIdx.x; e < n; e += kThreads)
+      any |= !isfinite(to_f32(src[e]));
+  }
+  const bool found = __syncthreads_or(any);
+  if (found) {
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      if (!isfinite(to_f32(src[e]))) {
+        const int c = e % dh;
+        atomicOr(&words[c / 32], 1u << (c % 32));
+      }
+    }
+  }
+  // the attention kernel's grid has finished and its stores are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (!found) return;
+  __syncthreads();
+  const float nan = __int_as_float(0x7fc00000);
+  const int b = blockIdx.x / kvh, kh = blockIdx.x % kvh;
+  const int group = h / kvh;
+  for (int q0 = 0; q0 < sq; q0 += BQ) {
+    int t_lo, t_hi;
+    key_tiles(q0, BQ, sq, sk, causal, window, BK, t_lo, t_hi);
+    if (kt >= t_lo && kt < t_hi) continue;  // the query tile walked it
+    const int rows = min(BQ, sq - q0);
+    for (int i = threadIdx.x; i < group * rows * dh; i += kThreads) {
+      const int c = i % dh;
+      if (!((words[c / 32] >> (c % 32)) & 1u)) continue;
+      const int head = kh * group + i / (rows * dh);
+      const int r = q0 + (i / dh) % rows;
+      store(o + (((int64_t)b * h + head) * sq + r) * dh + c, nan);
+    }
+  }
+}
+
 template <int DH, bool EXACT, typename T>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int b, int h, int kvh, int sq, int sk, int dh,
                        int causal, int window, float scale,
                        cudaStream_t stream) {
   using Tile = MmaTile<DH, T>;
+  constexpr int BQ = Tile::kBQ, BK = Tile::kBK;
+  static_assert(BK * DH * sizeof(T) <= 16 * kThreads * kMaxLoads,
+                "the fix-up's loads must cover a key tile");
   static bool done[64] = {};
   cudaError_t err = mma::allow_smem(attention_mma_kernel<DH, EXACT, T>,
                                     Tile::kSmemBytes, done);
   if (err != cudaSuccess) return err;
-  const int q_tiles = (sq + Tile::kBQ - 1) / Tile::kBQ;
+  const int q_tiles = (sq + BQ - 1) / BQ;
   if (q_tiles > 65535) return cudaErrorInvalidValue;
   dim3 grid(b * h, q_tiles);
   attention_mma_kernel<DH, EXACT, T>
@@ -588,7 +710,29 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), h, kvh, sq, sk, dh,
       causal, window, scale);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the fix-up runs only where some query tile skips a key tile
+  const int k_tiles = (sk + BK - 1) / BK;
+  bool skips = false;
+  for (int i = 0; i < q_tiles && !skips; ++i) {
+    int t_lo, t_hi;
+    key_tiles(i * BQ, BQ, sq, sk, causal, window, BK, t_lo, t_hi);
+    skips = t_lo > 0 || t_hi < k_tiles;
+  }
+  if (!skips) return cudaSuccess;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * kvh, k_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, hidden_keys_kernel<BQ, BK, T>,
+                            static_cast<const T*>(v), static_cast<T*>(o), h,
+                            kvh, sq, sk, dh, causal, window);
 }
 
 // the widest head dim of the tensor-core kernel; wider heads take the

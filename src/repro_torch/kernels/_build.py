@@ -8,11 +8,15 @@ The library goes to ``build/repro_torch/<hash>/`` under the checkout,
 keyed on a hash of the sources, the headers they include (``*.cuh``)
 and the flags, so a changed source or header rebuilds
 and an unchanged one loads what is there. The build runs at first use,
-never at import; a failed build raises.
+never at import; a failed build raises. Processes that start on a cold
+build directory together (the agents of a process-mode federation) take
+an advisory file lock around the check and the compile: the first
+builds, the others wait and load its library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -98,6 +102,14 @@ def build() -> Path:
         return lib
     nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_ROOT / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released when closed
+        if not lib.exists():                 # another process built it
+            _compile(nvcc, srcs, lib)
+    return lib
+
+
+def _compile(nvcc: str, srcs: List[Path], lib: Path) -> None:
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         procs = []
         for s in srcs:
@@ -121,10 +133,10 @@ def build() -> Path:
         if res.returncode != 0:
             raise RuntimeError(f"link failed: {' '.join(link)}\n"
                                f"{res.stdout}")
-        out_dir.mkdir(parents=True, exist_ok=True)
-        # atomic: a concurrent builder sees no library or a whole one
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        # atomic: a reader that takes no lock sees no library or a whole
+        # one
         os.replace(tmp_lib, lib)
-    return lib
 
 
 def library() -> ctypes.CDLL:

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: every module of ``repro_torch`` imports
 and its tower runs on the CPU with ``jax`` and the JAX package blocked,
-and no source of the port (nor ``chip_smoke.py``) imports either."""
+so do the agents a process-mode job spawns, and no source of the port
+(nor ``chip_smoke.py``) imports either."""
 import ast
+import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -70,3 +73,60 @@ def test_no_jax_or_repro_imports(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+_BLOCKED_WORKERS = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import json, pathlib
+import numpy as np
+from repro_torch.core.party import VFLJob
+from repro_torch.core.protocols.base import MasterData, MemberData, VFLConfig
+from repro_torch.core.protocols.driver import Callback
+
+
+class Imports(Callback):
+    # runs in each agent's own process: records what the worker imported
+    def __init__(self, out):
+        self.out = out
+
+    def on_fit_end(self, driver):
+        top = sorted({k.split(".")[0] for k, m in sys.modules.items()
+                      if m is not None})
+        pathlib.Path(self.out, driver.role).write_text(json.dumps(top))
+
+
+if __name__ == "__main__":
+    out = sys.argv[1]
+    rng = np.random.default_rng(0)
+    ids = [f"u{i}" for i in range(48)]
+    master = MasterData(ids, rng.normal(size=(48, 1)),
+                        rng.normal(size=(48, 3)))
+    members = [MemberData(ids, rng.normal(size=(48, 2)))]
+    cfg = VFLConfig(protocol="linreg", epochs=1, batch_size=16,
+                    use_psi=False)
+    with VFLJob(cfg, master, members, mode="process", device="cpu",
+                callbacks=[Imports(out)]) as job:
+        assert len(job.fit()["history"]) == 3
+    print("ok")
+"""
+
+
+def test_process_mode_workers_import_no_jax(tmp_path):
+    """A process-mode job's spawned agents import the port alone: the
+    script blocks ``jax`` and ``repro`` in the parent and, run again as
+    each spawned worker's main module, in every worker, and each worker
+    reports the top-level modules it holds at the end of its fit."""
+    script = tmp_path / "blocked_workers.py"
+    script.write_text(_BLOCKED_WORKERS)
+    out = subprocess.run(
+        [sys.executable, str(script), str(tmp_path)], capture_output=True,
+        text=True, timeout=300, cwd=str(ROOT / "src"),
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    for role in ("master", "member0"):
+        mods = json.loads((tmp_path / role).read_text())
+        assert "repro_torch" in mods and "torch" in mods
+        assert not {"jax", "jaxlib", "repro"} & set(mods), mods

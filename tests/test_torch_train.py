@@ -441,10 +441,12 @@ def test_member_recv_differentiates_at_current_params(cuts):
 
 
 def test_secure_agg_training_refused():
-    """Pairwise masking is not ported yet (ROADMAP Queue 1 item 7): a
-    split-NN job asking for it is refused before any round runs."""
-    kw, master, members = _case("narrow", secure_agg=True)
-    with pytest.raises((NotImplementedError, RuntimeError)) as err:
+    """Pairwise masks do not survive each member's own quantization of
+    its activations: a split-NN job asking for both secure aggregation
+    and channel compression is refused before any round runs, as the
+    JAX package refuses it."""
+    kw, master, members = _case("narrow", secure_agg=True, compress=True)
+    with pytest.raises((ValueError, RuntimeError)) as err:
         job = VFLJob(tbase.VFLConfig(**kw), master, members, device="cpu",
                      comm_timeout=5.0)
         try:
@@ -452,4 +454,4 @@ def test_secure_agg_training_refused():
         finally:
             job.shutdown()
     text = repr(err.value) + repr(err.value.__cause__)
-    assert "secure_agg is not ported yet" in text
+    assert "secure_agg masks do not survive" in text
