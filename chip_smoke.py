@@ -63,7 +63,20 @@ NVIDIA GPU.
    each of ``process`` at depth 2 and ``socket`` and ``grpc`` at depth 1
    against thread mode's losses at the same tolerance, and secure
    aggregation over the member's silo split in two: 16 rounds and two
-   masked predicts within 1e-3 of the same weights predicted unmasked);
+   masked predicts within 1e-3 of the same weights predicted unmasked;
+   then phase 4e, the cluster launcher: test certificates minted with
+   ``launch/certs.py`` (TLS whenever the ``openssl`` CLI is there), the
+   committed ``examples/cluster`` specs loaded and validated, the
+   quickstart spec at the demo's published scale (phase 4c's protocol,
+   ``demo_silos`` as its data provider) run by two ``ClusterLauncher``s,
+   every agent its own process and CUDA context over TLS'd gRPC framing:
+   fit (224 rounds, first and last loss within rtol 1e-6 of thread
+   mode's), evaluate and a serve window queried through ``ServeClient``,
+   each agent's launches counted in its own process; an elastic restart
+   (member0 crashed by ``[chaos]`` at step 5, respawned by ``[restart]``,
+   every round completing); the privacy matrix of
+   ``repro_torch.attacks.runner`` on the card and on the CPU, gated by
+   ``benchmarks/check_regression.py --privacy``);
 5. times each kernel, its plain version and, for attention,
    ``scaled_dot_product_attention`` (a yardstick only: the port never
    calls it) with CUDA events at the path's shapes; quantize also at
@@ -168,6 +181,8 @@ SRC = ROOT / "src"
 ROUNDS_ROWS = 512
 HEADS, TOKENS, DIM = 4, 8, 64
 CALLERS, QUERIES, QUERY_ROWS = 16, 8, 64
+# phase 4e's queries to the cluster's serve window
+CLUSTER_SERVE_CALLERS, CLUSTER_SERVE_QUERIES = 4, 8
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory rate; the float32
 # rate outside the tensor cores (the WKV, scan and quantize kernels, and
@@ -1136,6 +1151,354 @@ def demo_modes(torch, dev, cfg, master, members, thread_losses):
     return launches, measured
 
 
+def demo_silos(role: str, launches: str = "", **_):
+    """The ``[data]`` provider of phase 4e's published-scale cluster:
+    ``make_slice``'s silos for ``role``, built by each agent itself from
+    the seed (nothing raw crosses the wire). Import-safe, as any user's
+    provider is. With ``launches`` set, the agent's process zeroes its
+    kernel counters here, before any launch, and writes them to
+    ``<launches>/<role>-<pid>.json`` as it exits: each agent is its own
+    process with its own counters."""
+    _, master, members = make_slice()
+    if launches:
+        import atexit
+        counters = _split_nn_counters()
+        for c in counters.values():
+            c.reset()
+
+        def write() -> None:
+            Path(launches, f"{role}-{os.getpid()}.json").write_text(
+                json.dumps({k: c.count for k, c in counters.items()}))
+        atexit.register(write)
+    if role == "master":
+        return master
+    return members[int(role[len("member"):])]
+
+
+def _run_launchers(spec, log_root: Path, device: str):
+    """Both hosts' launchers of ``spec``, each in a thread of this process
+    (the JAX package's ``tests/test_cluster.py`` runs them so), their
+    agents in processes of their own. Returns (exit codes, wall time, each
+    host's seconds from the launch to its ``pids.json``: every agent of
+    the host spawned, its torch imported and its listener bound)."""
+    from repro_torch.launch.cluster import ClusterLauncher
+    codes, ready = {}, {}
+    t0 = time.perf_counter()
+
+    def run(host):
+        codes[host] = ClusterLauncher(spec, host, log_dir=log_root / host,
+                                      device=device).run()
+    # daemon threads: a launcher past the deadline below must not keep
+    # this process alive after it raises
+    threads = [threading.Thread(target=run, args=(h,), daemon=True)
+               for h in spec.hosts]
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        for h in spec.hosts:
+            if h not in ready and (log_root / h / "pids.json").exists():
+                ready[h] = time.perf_counter() - t0
+        time.sleep(0.05)
+        if time.perf_counter() - t0 > 600:
+            raise RuntimeError("a launcher did not finish in 600 s")
+    return codes, time.perf_counter() - t0, ready
+
+
+def _summary(log_root: Path, host: str) -> dict:
+    return json.loads((log_root / host / "summary.json").read_text())
+
+
+def _serve_queries(log: Path, port: int, n: int, items: int) -> None:
+    """Once the master's log says its frontend is up, CALLERS clients
+    send QUERIES queries each of 64 matched rows through the port's
+    ``ServeClient``; every answer must be finite (64, items) scores."""
+    import numpy as np
+    from repro_torch.serve.federated import ServeClient
+    deadline = time.perf_counter() + 300
+    while "serving on" not in (log.read_text() if log.exists() else ""):
+        if time.perf_counter() > deadline:
+            raise RuntimeError("the cluster's serve window did not open")
+        time.sleep(0.1)
+    bad = []
+
+    def caller(i):
+        r = np.random.default_rng(200 + i)
+        try:
+            with ServeClient("127.0.0.1", port, timeout=120.0) as cl:
+                for _ in range(CLUSTER_SERVE_QUERIES):
+                    s = cl.query(r.choice(n, QUERY_ROWS))
+                    if s.shape != (QUERY_ROWS, items) \
+                            or not np.isfinite(s).all():
+                        bad.append((i, s.shape))
+        except Exception as e:               # reported below
+            bad.append((i, repr(e)))
+    threads = [threading.Thread(target=caller, args=(i,))
+               for i in range(CLUSTER_SERVE_CALLERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if bad or any(t.is_alive() for t in threads):
+        raise AssertionError(f"cluster serve answers: {bad[:5]}")
+
+
+def cluster_phase(torch, thread_losses, n_matched: int, items: int):
+    """Phase 4e: the cluster launcher on the card. Mints a test CA and
+    certificates for master, member0, alpha and beta under ``build/`` with
+    ``launch/certs.py`` (TLS is required whenever the ``openssl`` CLI is
+    there); loads and validates the committed ``examples/cluster`` specs
+    with the port's ``load_spec``. Then the quickstart spec, its
+    ``[protocol]`` set to phase 4c's (the demo tower, batch 512, lr 0.3,
+    seed 0, no PSI, one epoch, depth 1) and its ``[data]`` to
+    :func:`demo_silos`, runs as two ``ClusterLauncher``s (alpha: master,
+    beta: member0), every agent its own process and CUDA context, over
+    TLS'd gRPC framing, phases fit, evaluate and serve: both launchers
+    exit 0, 224 rounds, the first and last loss within rtol 1e-6 of thread
+    mode's (``thread_losses``, phase 4c), finite scores served through
+    ``ServeClient``, each agent's launches counted in its own process
+    (fit: 1 a round in the master, 2 in the member; evaluate and serve: 1
+    a round in each). Then an elastic restart on the card: the committed
+    quickstart spec (its reduced data) with the demo tower, member0
+    crashed at step 5 by ``[chaos]`` and respawned by ``[restart]``, a new
+    process and CUDA context resuming from its checkpoint; every round
+    completes and ``recoveries`` names member0 once. Then the privacy
+    matrix (``repro_torch.attacks.runner``) on the card and on the CPU:
+    logreg_he rows equal to the CPU's and to the committed
+    ``benchmarks/results/privacy.json``'s, split-NN utility within 0.02
+    of the CPU's and leakage too, but for ``secure_agg``, whose masks come
+    from a fresh secret in every run (its leakage is printed);
+    ``benchmarks/check_regression.py --privacy`` run on the card's rows,
+    its logreg_he cells passing, every verdict printed. Returns (the
+    cluster's launches by kernel, the measured numbers)."""
+    import shutil
+    import numpy as np
+    from repro_torch.attacks.runner import run_privacy_matrix
+    from repro_torch.comm.sock import local_addresses
+    from repro_torch.core.protocols.base import batch_bounds
+    from repro_torch.launch.certs import TestCA, have_openssl
+    from repro_torch.launch.cluster import load_spec, parse_toml
+    t_phase = time.perf_counter()
+    measured = {}
+    build = ROOT / "build"
+    root = build / "cluster"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    examples = ROOT / "examples" / "cluster"
+
+    # 1. certificates
+    tls = None
+    if have_openssl():
+        ver = subprocess.run(["openssl", "version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+        ca = TestCA(build / "cluster_certs")
+        for name in ("master", "member0", "alpha", "beta"):
+            ca.issue(name)
+        tls = {"cert": str(ca.dir / "{agent}.crt"),
+               "key": str(ca.dir / "{agent}.key"), "ca": ca.ca_cert}
+        log(f"cluster: {ver}; test CA and certificates for master, member0, "
+            f"alpha, beta in {ca.dir}; TLS on every link")
+    else:
+        log("cluster: no openssl CLI on this machine, so no test "
+            "certificates: the cluster runs without [comm.tls]")
+    measured["tls"] = tls is not None
+
+    # 2. the committed specs
+    for name in ("quickstart_cluster.toml", "logreg_he_sharded.toml"):
+        spec = load_spec(examples / name)
+        spec.validate()
+        log(f"cluster: {name} loads and validates: world {spec.world()}, "
+            f"framing {spec.framing}")
+
+    def spec_for(raw, **tables):
+        ports = [p for _, p in local_addresses(
+            [f"p{i}" for i in range(4)]).values()]
+        raw = dict(raw, **tables)
+        raw["comm"] = dict(raw["comm"])
+        raw["comm"].pop("tls", None)
+        if tls is not None:
+            raw["comm"]["tls"] = tls
+        raw["agents"] = {"master": f"127.0.0.1:{ports[0]}",
+                         "member0": f"127.0.0.1:{ports[1]}"}
+        raw["hosts"] = {"alpha": {"control": f"127.0.0.1:{ports[2]}",
+                                  "agents": ["master"]},
+                        "beta": {"control": f"127.0.0.1:{ports[3]}",
+                                 "agents": ["member0"]}}
+        return load_spec(raw)
+
+    quick = parse_toml((examples / "quickstart_cluster.toml").read_text())
+
+    # 3. the published-scale cluster
+    launches_dir = root / "launches"
+    launches_dir.mkdir()
+    stop = root / "serve.stop"
+    proto = {"name": "split_nn", "epochs": 1, "batch_size": 512,
+             "lr": TRAIN_LR, "seed": 0, "use_psi": False,
+             "embedding_dim": 64, "pipeline_depth": 1,
+             "tower": list(TOWER), "top_tower": list(TOP_TOWER)}
+    serve_port = local_addresses(["serve"])["serve"][1]
+    spec = spec_for(
+        quick, protocol=proto,
+        run={"phases": ["fit", "evaluate", "serve"]},
+        data={"provider": "chip_smoke:demo_silos",
+              "launches": str(launches_dir)},
+        serve={"port": serve_port, "host": "127.0.0.1", "max_batch": 512,
+               "stop_file": str(stop)})
+    errors = []
+
+    def serve_guarded():
+        # the queries, then the stop file that ends the serve window
+        try:
+            _serve_queries(root / "demo" / "alpha" / "master.log",
+                           serve_port, n_matched, items)
+        except Exception as e:               # raised again below
+            errors.append(e)
+        finally:
+            stop.write_text("stop")
+    server = threading.Thread(target=serve_guarded, daemon=True)
+    server.start()
+    codes, wall, ready = _run_launchers(spec, root / "demo", "cuda")
+    server.join(60)
+    if errors:
+        raise errors[0]
+    if codes != {"alpha": 0, "beta": 0}:
+        raise AssertionError(f"cluster launchers exited {codes}; logs in "
+                             f"{root / 'demo'}")
+    master = _summary(root / "demo", "alpha")["agents"]["master"]
+    member = _summary(root / "demo", "beta")["agents"]["member0"]
+    fit = master["fit"]
+    want = thread_losses[1]
+    rel = [abs(fit["first_loss"] - want[0]) / abs(want[0]),
+           abs(fit["final_loss"] - want[-1]) / abs(want[-1])]
+    if fit["steps"] != len(want) or not max(rel) <= 1e-6:
+        raise AssertionError(f"cluster fit {fit} against thread mode's "
+                             f"{want[0]} -> {want[-1]} ({len(want)} rounds)")
+    serve = master["serve"]
+    eval_rounds = len(batch_bounds(n_matched, spec.cfg))
+    per_agent = {}
+    for f in sorted(launches_dir.iterdir()):
+        per_agent[f.name.split("-")[0]] = json.loads(f.read_text())
+    expect = {"master": fit["steps"] + eval_rounds + serve["batches"],
+              "member0": 2 * fit["steps"] + eval_rounds + serve["batches"]}
+    for role, want_n in expect.items():
+        if per_agent.get(role) != {k: want_n for k in _split_nn_counters()}:
+            raise AssertionError(f"cluster {role} launched "
+                                 f"{per_agent.get(role)}, expected {want_n} "
+                                 f"of each")
+    launches = {k: sum(a[k] for a in per_agent.values())
+                for k in _split_nn_counters()}
+    m = {"wall_s": wall, "ready_s_by_host": ready, "fit": fit,
+         "rounds_per_s": fit["steps"] / fit["wall_s"],
+         "loss_rel_err_vs_thread": rel,
+         "evaluate_auc": master["evaluate"].get("auc"), "serve": serve,
+         "comm_master": master["comm"], "comm_member": member["comm"],
+         "launches_by_agent": per_agent}
+    measured["published_scale"] = m
+    log(f"cluster (published scale, {'TLS' if tls else 'plaintext'} gRPC "
+        f"framing, one process and CUDA context an agent): launchers "
+        f"{codes} in {wall:.1f} s; spawn to ready {ready}; fit "
+        f"{fit['steps']} rounds, master's wall_s {fit['wall_s']:.3f} s "
+        f"({m['rounds_per_s']:.1f} rounds/s); loss {fit['first_loss']:.6f} "
+        f"-> {fit['final_loss']:.6f}, rel err vs thread mode {rel}; "
+        f"evaluate AUC {m['evaluate_auc']}; serve p50 {serve['p50_ms']} ms "
+        f"p99 {serve['p99_ms']} ms over {serve['batches']} rounds; bytes "
+        f"sent by master {master['comm'].get('sent_bytes')}, member "
+        f"{member['comm'].get('sent_bytes')}; launches {per_agent}")
+
+    # 4. elastic restart on the card
+    proto = dict(quick["protocol"], tower=list(TOWER),
+                 top_tower=list(TOP_TOWER))
+    spec = spec_for(
+        quick, protocol=proto,
+        chaos={"role": "member0", "step": 5},
+        restart={"member0": {"policy": "on_failure"}})
+    codes, wall, ready = _run_launchers(spec, root / "elastic", "cuda")
+    if codes != {"alpha": 0, "beta": 0}:
+        raise AssertionError(f"elastic launchers exited {codes}; logs in "
+                             f"{root / 'elastic'}")
+    master = _summary(root / "elastic", "alpha")["agents"]["master"]
+    rounds = spec.cfg.epochs * len(batch_bounds(master["fit"]["n_common"],
+                                                 spec.cfg))
+    rec = master.get("recoveries", [])
+    if master["fit"]["steps"] != rounds \
+            or [r["role"] for r in rec] != ["member0"]:
+        raise AssertionError(f"elastic run: {master['fit']}, recoveries "
+                             f"{rec}, expected {rounds} rounds")
+    measured["elastic"] = {"wall_s": wall, "ready_s_by_host": ready,
+                           "fit": master["fit"], "recoveries": rec}
+    log(f"cluster elastic restart: launchers {codes} in {wall:.1f} s; "
+        f"{master['fit']['steps']} of {rounds} rounds; recoveries {rec} "
+        f"(wait_s: the respawn's torch import, CUDA context and data; "
+        f"RestartPolicy.wait_s {spec.restart_of('member0').wait_s})")
+
+    # 5. the privacy matrix on the card and on the CPU
+    t0 = time.perf_counter()
+    rows = {"cuda": run_privacy_matrix(mode="thread", verbose=False,
+                                       device="cuda")}
+    cuda_s = time.perf_counter() - t0
+    rows["cpu"] = run_privacy_matrix(mode="thread", verbose=False,
+                                     device="cpu")
+    committed = json.loads((ROOT / "benchmarks" / "results"
+                            / "privacy.json").read_text())
+
+    def key(r):
+        return r["protocol"], r["attack"], r["defense"]
+    cpu = {key(r): r for r in rows["cpu"]}
+    ref = {key(r): r for r in committed}
+    gaps = {}
+    for r in rows["cuda"]:
+        k, c = key(r), cpu[key(r)]
+        if r["protocol"] == "logreg_he":
+            if r != c or r != ref[k]:
+                raise AssertionError(f"logreg_he row {r} against the CPU's "
+                                     f"{c} and the committed {ref[k]}")
+            continue
+        gaps["/".join(k[1:])] = (r["leakage_auc"] - c["leakage_auc"],
+                                 r["utility_auc"] - c["utility_auc"])
+        # secure_agg's masks come from a fresh Diffie-Hellman secret in
+        # every run (core/secure_agg_protocol.py): its leakage is another
+        # draw in each run, so only its utility is held; the masks cancel
+        if abs(r["utility_auc"] - c["utility_auc"]) > 0.02 or (
+                k[2] != "secure_agg"
+                and abs(r["leakage_auc"] - c["leakage_auc"]) > 0.02):
+            raise AssertionError(f"split-NN row {r} against the CPU's {c}")
+    paths = {}
+    for dev_name, got in rows.items():
+        paths[dev_name] = build / f"privacy_torch_{dev_name}.json"
+        paths[dev_name].write_text(json.dumps(got, indent=1) + "\n")
+    gate = subprocess.run(
+        [sys.executable, str(ROOT / "benchmarks" / "check_regression.py"),
+         "--privacy", str(paths["cuda"])], capture_output=True, text=True,
+        timeout=120)
+    verdicts = [ln for ln in (gate.stdout + gate.stderr).splitlines() if ln]
+    for ln in verdicts:
+        log(f"privacy gate (card's rows): {ln}")
+    failed = [ln for ln in verdicts if ln.startswith("PRIVACY-FAIL")]
+    if any("logreg_he" in ln for ln in failed) or not any(
+            ln.startswith("OK  logreg_he") for ln in verdicts):
+        raise AssertionError("the logreg_he cells fail the privacy gate")
+    for ln in failed:
+        cell = ln.split()[1].rstrip(":")
+        k = tuple(cell.split("/"))
+        log(f"privacy gate: {cell} fails on the card ("
+            f"{next(r for r in rows['cuda'] if key(r) == k)['leakage_auc']}"
+            f"), CPU {cpu[k]['leakage_auc']}, committed JAX row "
+            f"{ref[k]['leakage_auc']}")
+    measured["privacy"] = {
+        "cuda_matrix_s": cuda_s, "gate_rc": gate.returncode,
+        "gate_failures": failed, "split_nn_gaps_cuda_minus_cpu": gaps,
+        "max_gap_but_secure_agg_leakage": max(
+            max(abs(lk), abs(ut)) if not name.endswith("secure_agg")
+            else abs(ut) for name, (lk, ut) in gaps.items()),
+        "rows_cuda": rows["cuda"], "rows_cpu": rows["cpu"]}
+    log(f"privacy matrix on the card in {cuda_s:.1f} s: logreg_he rows equal "
+        f"the CPU's and the committed; split-NN gaps card - CPU (leakage, "
+        f"utility) {gaps}")
+    measured["phase_s"] = time.perf_counter() - t_phase
+    log("cluster phase " + json.dumps(measured))
+    log(f"cluster phase: {measured['phase_s']:.1f} s")
+    return launches, measured
+
+
 def attention_backward_ms(torch, dev) -> float:
     """Device time of one backward of the tower's attention at the
     path's shape, (512, 4, 8, 16) f32: the plain attention's VJP
@@ -2063,12 +2426,18 @@ def main() -> int:
     # aggregation
     mode_launches, modes = demo_modes(torch, dev, cfg, master, members,
                                       thread_losses)
+    # the cluster launcher: TLS, every agent its own process, the elastic
+    # restart; the privacy matrix
+    n_matched = len(set(master.ids) & set(members[0].ids))
+    cluster_launches, cluster = cluster_phase(
+        torch, thread_losses, n_matched, master.y.shape[1])
 
     # launches of each kernel on each path's counted run
     by_path = {
         "flash_attention": {"split_nn_serve": counts["flash_attention"]},
         "quantize_int8": {"split_nn_serve": counts["quantize_int8"]},
         "rwkv6_wkv": {}, "moe_gmm": {}, "selective_scan": {}}
+    mode_launches["split_nn_cluster"] = cluster_launches
     for run, got in (train_launches | mode_launches).items():
         for name, c in got.items():
             by_path[name][run] = c
@@ -2123,7 +2492,8 @@ def main() -> int:
         f"rounds/s {train['depth1']['rounds_per_s']:.1f} (depth 1), "
         f"{train['depth2']['rounds_per_s']:.1f} (depth 2); socket_proc "
         f"{modes['socket_proc_d1']['rounds_per_s']:.1f} (depth 1), "
-        f"{modes['socket_proc_d2']['rounds_per_s']:.1f} (depth 2); build "
+        f"{modes['socket_proc_d2']['rounds_per_s']:.1f} (depth 2); cluster "
+        f"{cluster['published_scale']['rounds_per_s']:.1f}; build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

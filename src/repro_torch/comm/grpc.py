@@ -32,7 +32,12 @@ Scope (documented in docs/transports.md, internals in DESIGN.md §8):
 * ``CommCfg.tls`` applies here exactly as on the socket framing — the
   shared ``_TcpCommunicator`` base wraps every connection in mutual
   TLS before any frame moves, so ``mode="grpc"``/``"grpc_proc"`` run
-  encrypted with no change to the framing (docs/deploy.md).
+  encrypted with no change to the framing (docs/deploy.md). A client
+  connection is read by its reader thread and written by the sender:
+  the two take turns under the connection's lock, since an
+  ``ssl.SSLSocket`` read in one thread while another writes it corrupts
+  the TLS stream, and the reader waits for the server's bytes with no
+  deadline, so an idle connection outlives the transport timeout.
 * Messages ride one stream each (odd ids, ascending): HEADERS
   (END_HEADERS) then DATA frames of at most 16384 bytes, the last
   flagged END_STREAM. The DATA body is the gRPC length-prefixed
@@ -43,7 +48,9 @@ Scope (documented in docs/transports.md, internals in DESIGN.md §8):
 """
 from __future__ import annotations
 
+import select
 import socket
+import ssl
 import struct
 import threading
 import time
@@ -52,7 +59,8 @@ from typing import Dict, List, Optional, Tuple
 from repro_torch.comm import codec
 from repro_torch.comm.base import Message
 from repro_torch.comm.sock import (_MidFrameClose, _TcpCommunicator,
-                                   _recv_exact, local_addresses)
+                                   _drop_conn, _recv_exact,
+                                   local_addresses)
 
 __all__ = ["GrpcCommunicator", "local_addresses"]
 
@@ -162,6 +170,50 @@ def _read_frame(conn: socket.socket) -> Tuple[int, int, int, bytes]:
     stream = int.from_bytes(hdr[5:9], "big") & 0x7FFFFFFF
     body = _recv_exact(conn, length) if length else b""
     return ftype, flags, stream, body
+
+
+def _take_frame(buf: bytearray) -> Optional[Tuple[int, int, int, bytes]]:
+    """The first whole frame in ``buf``, removed from it; None while
+    ``buf`` holds less than a frame."""
+    if len(buf) < 9:
+        return None
+    length = int.from_bytes(buf[:3], "big")
+    if len(buf) < 9 + length:
+        return None
+    ftype, flags = buf[3], buf[4]
+    stream = int.from_bytes(buf[5:9], "big") & 0x7FFFFFFF
+    body = bytes(buf[9:9 + length])
+    del buf[:9 + length]
+    return ftype, flags, stream, body
+
+
+def _recv_ready(conn: socket.socket, lock: threading.Lock) -> bytes:
+    """The bytes of ``conn`` that can be read now: wait until the socket
+    is readable outside ``lock``, then read under it without blocking,
+    so a writer holding ``lock`` never waits on a read. Returns b"" while
+    a TLS record is still incomplete (the rest of it is on the socket,
+    which shows readable again); raises once the peer has closed. Under
+    the lock the TLS layer is drained, so no decrypted byte is left where
+    the next wait on the socket cannot see it."""
+    poller = select.poll()
+    poller.register(conn, select.POLLIN)
+    while not poller.poll(1000):
+        if conn.fileno() < 0:
+            raise ConnectionError("socket closed")
+    with lock:
+        timeout = conn.gettimeout()
+        conn.settimeout(0.0)
+        try:
+            chunk = conn.recv(1 << 16)
+        except (ssl.SSLWantReadError, BlockingIOError):
+            return b""
+        finally:
+            conn.settimeout(timeout)
+        if not chunk:
+            raise ConnectionError("socket closed")
+        while isinstance(conn, ssl.SSLSocket) and conn.pending():
+            chunk += conn.recv(conn.pending())
+    return chunk
 
 
 def _settings_body(entries: Dict[int, int]) -> bytes:
@@ -294,22 +346,30 @@ class GrpcCommunicator(_TcpCommunicator):
                               FLAG_END_HEADERS | FLAG_END_STREAM, 1,
                               hello))
         fc = _FlowState()
+        lock = threading.Lock()
         self._fc[conn] = fc
-        self._wl[conn] = threading.Lock()
+        self._wl[conn] = lock
         t = threading.Thread(target=self._client_reader,
-                             args=(conn, fc),
+                             args=(conn, fc, lock),
                              name=f"grpc-fc-{self.me}", daemon=True)
         t.start()
 
-    def _client_reader(self, conn: socket.socket,
-                       fc: _FlowState) -> None:
+    def _client_reader(self, conn: socket.socket, fc: _FlowState,
+                       lock: threading.Lock) -> None:
         """Consume the server's control frames on an outbound
         connection: SETTINGS (initial window size; acked), WINDOW_UPDATE
         (credit). Exits — releasing any window-blocked sender — when the
-        connection dies."""
+        connection dies. Reads take turns with the sender's writes under
+        ``lock`` (:func:`_recv_ready`); a server that sends nothing for
+        longer than the transport timeout is idle, not dead."""
+        buf = bytearray()
         try:
             while True:
-                ftype, flags, stream, body = _read_frame(conn)
+                frame = _take_frame(buf)
+                if frame is None:
+                    buf += _recv_ready(conn, lock)
+                    continue
+                ftype, flags, stream, body = frame
                 if ftype == FT_SETTINGS:
                     if flags & FLAG_ACK:
                         continue
@@ -317,11 +377,8 @@ class GrpcCommunicator(_TcpCommunicator):
                         SETTINGS_INITIAL_WINDOW_SIZE)
                     if iw is not None:
                         fc.apply_settings(iw)
-                    lock = self._wl.get(conn)
-                    if lock is not None:
-                        with lock:
-                            conn.sendall(
-                                _frame(FT_SETTINGS, FLAG_ACK, 0, b""))
+                    with lock:
+                        conn.sendall(_frame(FT_SETTINGS, FLAG_ACK, 0, b""))
                 elif ftype == FT_WINDOW_UPDATE:
                     inc = int.from_bytes(body[:4], "big") & 0x7FFFFFFF
                     fc.window_update(stream, inc)
@@ -376,10 +433,7 @@ class GrpcCommunicator(_TcpCommunicator):
                     # a stalled window is a dead link: drop the cached
                     # conn so no later write corrupts peer framing
                     self._out.pop(msg.recipient, None)
-                    try:
-                        conn.close()
-                    except OSError:
-                        pass
+                    _drop_conn(conn)
                     raise
                 # small messages coalesce HEADERS+DATA into one sendall
                 # (one packet under NODELAY), mirroring the socket

@@ -58,6 +58,23 @@ def _recv_exact(conn: socket.socket, n: int) -> bytes:
     return b"".join(chunks)
 
 
+def _drop_conn(conn: socket.socket) -> None:
+    """Close a connection that another thread may still be waiting on (a
+    gRPC client's reader, a server's read loop): shutdown() first wakes
+    the waiters with EOF. A bare close() frees the fd number while such a
+    thread still holds the kernel socket, and with TLS OpenSSL keeps the
+    bare number, so its next read or write would hit whatever socket
+    reuses it."""
+    try:
+        conn.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    try:
+        conn.close()
+    except OSError:
+        pass
+
+
 class _TcpCommunicator(PartyCommunicator):
     """Shared TCP server/connection machinery for framed transports.
 
@@ -249,10 +266,7 @@ class _TcpCommunicator(PartyCommunicator):
                 conn.sendall(b)
         except BaseException:
             self._out.pop(recipient, None)
-            try:
-                conn.close()
-            except OSError:
-                pass
+            _drop_conn(conn)
             raise
 
     # -- receive side --------------------------------------------------------
@@ -306,10 +320,7 @@ class _TcpCommunicator(PartyCommunicator):
                 self._suspect = None
         out = self._out.pop(peer, None)
         if out is not None:
-            try:
-                out.close()
-            except OSError:
-                pass
+            _drop_conn(out)
         with self._cv:
             self._down.discard(peer)
             for key in list(self._pending):
@@ -333,18 +344,10 @@ class _TcpCommunicator(PartyCommunicator):
         except OSError:
             pass
         self._listener.join(timeout=5)
-        for c in self._out.values():
-            try:
-                c.close()
-            except OSError:
-                pass
         with self._in_lock:
             pending_in = list(self._in)
-        for c in pending_in:
-            try:
-                c.close()
-            except OSError:
-                pass
+        for c in list(self._out.values()) + pending_in:
+            _drop_conn(c)
 
 
 class SocketCommunicator(_TcpCommunicator):

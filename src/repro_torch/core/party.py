@@ -45,7 +45,7 @@ from repro_torch.core.protocols import PROTOCOLS, VFLConfig  # noqa: F401
 from repro_torch.core.protocols.base import (MasterData, MemberData,
                                              resolve_protocol)
 from repro_torch.core.protocols.driver import (Callback, Driver,
-                                               load_checkpoint)
+                                               ElasticCfg, load_checkpoint)
 from repro_torch.models.params import resolve_device
 
 # ensure built-in protocols register
@@ -99,6 +99,7 @@ class VFLAgent:
     def __init__(self, comm: PartyCommunicator, cfg: VFLConfig,
                  callbacks: Sequence[Callback] = (),
                  resume_dir: Optional[str] = None,
+                 elastic: Optional[ElasticCfg] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.comm = comm
         self.cfg = cfg
@@ -108,7 +109,7 @@ class VFLAgent:
         resume = load_checkpoint(resume_dir, comm.me) if resume_dir \
             else None
         self.driver = Driver(proto, callbacks=callbacks,
-                             resume_state=resume)
+                             resume_state=resume, elastic=elastic)
 
 
 class PartyMaster(VFLAgent):
@@ -151,9 +152,28 @@ class PartyMember(VFLAgent):
 
     role = "member"
 
-    def serve(self, data: MemberData) -> Dict[str, Any]:
+    def serve(self, data: MemberData,
+              rejoin: bool = False) -> Dict[str, Any]:
+        """``rejoin=True`` is the restarted-agent entry: state was
+        restored from ``resume_dir`` (the checkpoint carries the
+        matched order, so ``prepare`` does no matching comm) and the
+        member enters the master's paused fit via the ``ctrl/rejoin``
+        handshake instead of waiting for a phase announcement."""
         try:
             self.driver.prepare(data)
+            if rejoin:
+                return self.driver.rejoin_follow()
+            return self.driver.follow()
+        finally:
+            self.driver.proto.close()
+
+
+class Arbiter(VFLAgent):
+    role = "arbiter"
+
+    def serve(self) -> Dict[str, Any]:
+        try:
+            self.driver.prepare(None)
             return self.driver.follow()
         finally:
             self.driver.proto.close()
@@ -294,11 +314,17 @@ class VFLJob:
                  pipeline_depth: Optional[int] = None,
                  comm_timeout: Optional[float] = None,
                  comm_cfg: Optional[CommCfg] = None,
+                 comm_cfgs: Optional[Dict[str, CommCfg]] = None,
                  device: Union[str, torch.device] = "cuda"):
         """``pipeline_depth`` overrides ``cfg.pipeline_depth``;
-        ``comm_timeout`` overrides each transport's per-message wait;
-        ``comm_cfg`` configures the transports in full. ``device`` is
-        where every agent keeps its tensors (see
+        ``comm_timeout`` overrides each transport's per-message wait
+        (including any edge-pinned ``[comm.a.b]`` timeouts);
+        ``comm_cfg`` configures the transports in full. ``comm_cfgs``
+        overrides ``comm_cfg`` per role (keyed by agent id):
+        ``ClusterSpec.comm_for(role)`` resolves a spec's ``[comm.a.b]``
+        tables into per-role cfgs, and :meth:`from_spec` passes them
+        here; roles without an entry fall back to ``comm_cfg``.
+        ``device`` is where every agent keeps its tensors (see
         :func:`resolve_device`)."""
         import dataclasses
         if mode not in MODES:
@@ -309,7 +335,18 @@ class VFLJob:
         if comm_timeout is not None:
             comm_cfg = _force_comm_timeout(comm_cfg or CommCfg(),
                                            comm_timeout)
-        ckw = {} if comm_cfg is None else {"comm_cfg": comm_cfg}
+            if comm_cfgs is not None:
+                comm_cfgs = {w: _force_comm_timeout(c, comm_timeout)
+                             for w, c in comm_cfgs.items()}
+
+        def _cfg_for(w: str) -> Optional[CommCfg]:
+            if comm_cfgs is not None and w in comm_cfgs:
+                return comm_cfgs[w]
+            return comm_cfg
+
+        def _ckw(w: str) -> Dict[str, Any]:
+            c = _cfg_for(w)
+            return {} if c is None else {"comm_cfg": c}
 
         self.cfg = cfg
         self.mode = mode
@@ -334,12 +371,13 @@ class VFLJob:
             self._res_q: Any = queue.Queue()
             if mode == "thread":
                 bus = ThreadBus(self.world)
-                comms = {w: bus.communicator(w, **ckw) for w in self.world}
+                comms = {w: bus.communicator(w, **_ckw(w))
+                         for w in self.world}
             else:
                 tcls = SocketCommunicator if mode == "socket" \
                     else GrpcCommunicator
                 addrs = local_addresses(self.world)
-                comms = {w: tcls(w, addrs, **ckw) for w in self.world}
+                comms = {w: tcls(w, addrs, **_ckw(w)) for w in self.world}
             for w in self.world:
                 is_m = w == "master"
                 t = threading.Thread(
@@ -379,12 +417,54 @@ class VFLJob:
                     args=(w, transport, self.world, cfg, datas[w],
                           self._q, str(dev), list(callbacks), resume_dir,
                           self._cmd_q if is_m else None,
-                          self._res_q if is_m else None, comm_cfg))
+                          self._res_q if is_m else None, _cfg_for(w)))
                 # daemonized: an abandoned job (no shutdown) must not
                 # block interpreter exit on multiprocessing's atexit join
                 p.daemon = True
                 self._procs[w] = p
                 p.start()
+
+    @classmethod
+    def from_spec(cls, spec, mode: Optional[str] = None,
+                  **kw) -> "VFLJob":
+        """Run a whole cluster spec in-process — every agent from the
+        spec's world, the spec's protocol/transport settings (TLS, link
+        shaping, timeouts), data built by the spec's provider — so a
+        deployment spec can be validated end-to-end on one machine
+        before ``python -m repro_torch.launch.cluster`` distributes it.
+
+        The spec's ``[agents]``/``[hosts]`` address maps are ignored
+        here (local ports are auto-assigned); ``mode`` overrides the
+        execution mode (default: the spec's framing as threads,
+        ``"socket"``/``"grpc"``; pass e.g. ``"grpc_proc"`` for one OS
+        process per agent). Other keywords go to the constructor, the
+        port's ``device`` among them.
+
+        Example (the spec's ``[comm.tls]`` certificates must exist —
+        mint them once with the command in the spec's header, or drop
+        the table for a plaintext run)::
+
+            # python -m repro_torch.launch.certs \\
+            #     --dir examples/cluster/certs \\
+            #     --agents master member0 alpha beta
+            job = VFLJob.from_spec("examples/cluster/"
+                                   "quickstart_cluster.toml")
+            job.fit(); print(job.evaluate()["auc"]); job.shutdown()
+        """
+        from repro_torch.launch.cluster import load_spec
+        spec = load_spec(spec)
+        spec.validate()
+        datas = {r: spec.build_data(r) for r in spec.world()}
+        members = [datas[f"member{i}"] for i in range(spec.n_members)]
+        if mode is None:
+            mode = "socket" if spec.framing == "sock" else "grpc"
+        kw.setdefault("comm_cfg", spec.comm)
+        if spec.comm_edges:
+            # per-link [comm.a.b] overrides: each role's transport gets
+            # its own resolved cfg (peer_overrides on the named edges)
+            kw.setdefault("comm_cfgs",
+                          {r: spec.comm_for(r) for r in spec.world()})
+        return cls(spec.cfg, datas["master"], members, mode=mode, **kw)
 
     # -- phase API -----------------------------------------------------------
     # ``timeout`` bounds how long the job waits for the master's reply;

@@ -130,3 +130,94 @@ def test_process_mode_workers_import_no_jax(tmp_path):
         mods = json.loads((tmp_path / role).read_text())
         assert "repro_torch" in mods and "torch" in mods
         assert not {"jax", "jaxlib", "repro"} & set(mods), mods
+
+
+_BLOCKED_CLUSTER = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import atexit, json, os, pathlib, threading
+
+
+def data(role, out, **kw):
+    # the spec's data provider: runs in each agent's own process, the
+    # respawned member's included, and records what that process holds
+    # now and when it exits
+    from repro_torch.launch.cluster import linreg_demo_data
+
+    def record(when):
+        top = sorted({k.split(".")[0] for k, m in sys.modules.items()
+                      if m is not None})
+        pathlib.Path(out, f"{role}-{os.getpid()}-{when}").write_text(
+            json.dumps(top))
+    record("data")
+    atexit.register(record, "exit")
+    return linreg_demo_data(role, **kw)
+
+
+if __name__ == "__main__":
+    from repro_torch.comm.sock import local_addresses
+    from repro_torch.launch.cluster import ClusterLauncher, load_spec
+    out = sys.argv[1]
+    ports = [p for _, p in local_addresses(
+        [f"p{i}" for i in range(4)]).values()]
+    spec = load_spec({
+        "protocol": {"name": "linreg", "epochs": 2, "batch_size": 48,
+                     "lr": 0.1, "seed": 0, "use_psi": False},
+        "data": {"provider": "blocked_cluster:data", "out": out},
+        "comm": {"framing": "grpc", "timeout": 30.0},
+        "agents": {"master": f"127.0.0.1:{ports[0]}",
+                   "member0": f"127.0.0.1:{ports[1]}"},
+        "hosts": {"alpha": {"control": f"127.0.0.1:{ports[2]}",
+                            "agents": ["master"]},
+                  "beta": {"control": f"127.0.0.1:{ports[3]}",
+                           "agents": ["member0"]}},
+        "chaos": {"role": "member0", "step": 3},
+        "restart": {"member0": {"policy": "on_failure",
+                                "backoff_s": 0.2}}})
+    codes = {}
+
+    def run(host):
+        codes[host] = ClusterLauncher(
+            spec, host, log_dir=pathlib.Path(out, "logs", host),
+            device="cpu").run()
+    ts = [threading.Thread(target=run, args=(h,)) for h in ("alpha", "beta")]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(150)
+    assert codes == {"alpha": 0, "beta": 0}, codes
+    summary = json.loads(pathlib.Path(out, "logs", "alpha",
+                                      "summary.json").read_text())
+    assert [r["role"] for r in
+            summary["agents"]["master"]["recoveries"]] == ["member0"]
+    print("ok")
+"""
+
+
+def test_cluster_agents_import_no_jax(tmp_path):
+    """A two-launcher run on the CPU whose member crashes and is
+    respawned: every agent process, the respawned member's included,
+    imports the port alone. The script blocks ``jax`` and ``repro`` in the
+    launchers' process and, as the spec's data provider's module, in
+    every agent; the provider records each agent's top-level modules when
+    it builds the data and when the process exits."""
+    script = tmp_path / "blocked_cluster.py"
+    script.write_text(_BLOCKED_CLUSTER)
+    out = subprocess.run(
+        [sys.executable, str(script), str(tmp_path)], capture_output=True,
+        text=True, timeout=300, cwd=str(ROOT / "src"),
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    records = sorted(p.name for p in tmp_path.iterdir()
+                     if p.name.startswith(("master-", "member0-")))
+    members = {r.split("-")[1] for r in records
+               if r.startswith("member0-")}
+    assert len(members) == 2, records            # the first and the respawn
+    assert any(r.startswith("master-") and r.endswith("-exit")
+               for r in records), records
+    for r in records:
+        mods = json.loads((tmp_path / r).read_text())
+        assert "repro_torch" in mods and "torch" in mods, r
+        assert not {"jax", "jaxlib", "repro"} & set(mods), (r, mods)
