@@ -148,7 +148,34 @@ NVIDIA GPU.
    a clock on each of 132 SMs, at the SM clock ``nvidia-smi`` reads),
    and the grouped matmul and attention at jamba's shapes; and the
    phase's wall time;
-10. prints all kernels in one ``kernels`` JSON line with each kernel's
+10. trains ``granite-moe-3b-a800m`` at full width and depth (32 layers,
+   3.37 B params; AdamW and remat "minimal", its config's; f32) after
+   every other phase has freed its weights: attention's backward kernel
+   (``csrc/flash_attention_bwd.cu``) first against autograd through the
+   plain attention at granite's training shape, causal, with a window of
+   128 and at head dim 80, dq, dk and dv each within 1e-4 of the largest
+   gradient, and at its edges (rows that see no key, sq < sk, head dims
+   5 to 300, the split-NN tower's call, bf16 within 2e-2); dx and dw of
+   the grouped matmul's ``Function`` (the forward
+   kernel twice) against autograd through ``gmm_ref`` within 2e-4 at the
+   step's two shapes; the WKV and scan kernels raising on CUDA inputs
+   that require grad. Then one step's loss and gradients with the
+   kernels and with the plain versions at the same params (the routing's
+   top-k picks of the kernel step replayed in the plain one, and the
+   tokens whose own picks differ counted): losses within rtol 1e-5,
+   every gradient present and within 1e-3 of its leaf's largest, and the
+   kernel step's launches exact (attention 64: the forward and its remat
+   recomputation, its backward 32, the grouped matmul 384); ``train()``
+   for 2 warm-up and 8 timed steps of (4, 512) batches of
+   ``make_lm_batches``: step time, tokens/s, peak device memory, launches
+   a step, a finite loss lower at the end, model-FLOPs utilisation
+   against 67 TFLOP/s (f32, TF32 off), and one more step under
+   ``torch.profiler`` (busy share, device time by kind); the checkpoint
+   round trip of ``examples/train_lm.py`` at full width and 2 layers
+   (train with a ``ckpt_dir``, restore, the same loss within 1e-5, the
+   params bit for bit); and the times of the backward kernel and of the
+   grouped matmul at the step's dx and dw shapes;
+11. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time (bytes over the memory rate, or operations over
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
    on the tensor cores in 3xTF32, 989 for bf16 on them, 67 for f32
@@ -255,6 +282,40 @@ SSM_CASES = [
     (2, 37, 200, 5, "float32", "float32"),
     (2, 37, 200, 32, "float32", "float32"),
     (2, 37, 72, 100, "float32", "float32"),
+]
+
+# the language-model training phase: granite-moe-3b-a800m at full width,
+# AdamW (its config's optimizer) and remat "minimal" (its config's), f32;
+# (4, 512) batches of make_lm_batches; 2 warm-up and 8 timed steps
+LM_ARCH = MOE_ARCH
+LM_LAYERS = 32
+LM_BATCH, LM_SEQ = 4, 512
+LM_WARMUP, LM_TIMED = 2, 8
+LM_LR = 3e-4
+# the checkpoint round trip's depth (full width): params and AdamW state
+# of 2 layers, 4.2 GB on disk, where 32 layers would write 54 GB
+LM_CKPT_LAYERS = 2
+# attention's gradient checks at granite's training shapes: causal, a
+# window shorter than the sequence, and a head dim of no power of two
+ATT_GRAD_CASES = [
+    # b, h, kvh, s, dh, window; causal, f32
+    (LM_BATCH, 24, 8, LM_SEQ, 64, 0),
+    (LM_BATCH, 24, 8, LM_SEQ, 64, 128),
+    (LM_BATCH, 24, 8, LM_SEQ, 80, 0),
+]
+# and at its edges: rows that see no key (sq > sk with a window; causal
+# and not), sq < sk, head dims in the widths of 32, 256 and 512, a
+# bidirectional short tower call, bf16 (against the plain VJP in f32)
+ATT_GRAD_EDGE_CASES = [
+    # b, h, kvh, sq, sk, dh, causal, window, dtype
+    (1, 4, 2, 300, 100, 32, True, 37, "float32"),
+    (1, 4, 2, 300, 100, 32, False, 37, "float32"),
+    (2, 2, 2, 17, 513, 128, True, 0, "float32"),
+    (1, 2, 1, 70, 70, 200, True, 0, "float32"),
+    (1, 2, 2, 40, 40, 300, False, 0, "float32"),
+    (512, 4, 4, 8, 8, 16, False, 0, "float32"),
+    (1, 4, 2, 100, 100, 5, False, 0, "float32"),
+    (1, 4, 2, 256, 256, 64, True, 0, "bfloat16"),
 ]
 
 # quantize_int8: the path's (8R, 64), a shape where bytes dominate (256
@@ -1900,12 +1961,14 @@ def profile_window(torch, fn, wall_s: float) -> dict:
                and _device_us(e) > 0]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
     kinds = {"wkv": 0.0, "scan": 0.0, "gmm": 0.0, "attention": 0.0,
-             "quantize": 0.0, "matmul": 0.0, "other": 0.0}
+             "attention_bwd": 0.0, "quantize": 0.0, "matmul": 0.0,
+             "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         kind = ("wkv" if "rwkv6_wkv" in name else
                 "scan" if "selective_scan" in name else
                 "gmm" if "gmm_" in name else
+                "attention_bwd" if "attention_bwd" in name else
                 "attention" if "attention_" in name
                 or "hidden_keys" in name else
                 "quantize" if "quantize_" in name else
@@ -2178,9 +2241,10 @@ def all_counters() -> dict:
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.kernels import selective_scan as ssm
-    return {"flash_attention": fa.launches, "quantize_int8": qz.launches,
-            "rwkv6_wkv": wkv.launches, "moe_gmm": gmm.launches,
-            "selective_scan": ssm.launches}
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches,
+            "quantize_int8": qz.launches, "rwkv6_wkv": wkv.launches,
+            "moe_gmm": gmm.launches, "selective_scan": ssm.launches}
 
 
 def jamba_config():
@@ -2319,6 +2383,524 @@ def time_scan(torch, dev, cfg) -> dict:
     return out
 
 
+def lm_config(layers: int = LM_LAYERS):
+    """granite-moe-3b-a800m at full width, cut in depth to ``layers``
+    with ``dataclasses.replace`` (as examples/train_lm.py cuts its
+    model); every width, the optimizer and the remat policy its own."""
+    cfg = dataclasses.replace(moe_config(), n_layers=layers)
+    assert (cfg.optimizer, cfg.remat_policy) == ("adamw", "minimal")
+    return cfg
+
+
+def grad_rel_err(got, exp) -> float:
+    """max |got - exp| / max |exp| over a tuple of gradients."""
+    return max(((a.float() - e.float()).abs().max()
+                / e.float().abs().max()).item() for a, e in zip(got, exp))
+
+
+def check_attention_grads(torch, dev) -> dict:
+    """Phase 10a: the backward kernel's dq, dk, dv against autograd
+    through the plain attention (``ref.attention_vjp_ref``) at granite's
+    training shapes, each within 1e-4 of the largest gradient: causal,
+    causal with a window of 128, and head dim 80; then at the kernel's
+    edges (ATT_GRAD_EDGE_CASES), bf16 within 2e-2. Returns the training
+    shapes' errors."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(14)
+    errs = {}
+    for b, h, kvh, s, dh, window in ATT_GRAD_CASES:
+        q, do = (torch.randn((b, h, s, dh), generator=g).to(dev)
+                 for _ in range(2))
+        k, v = (torch.randn((b, kvh, s, dh), generator=g).to(dev)
+                for _ in range(2))
+        o = fa.flash_attention(q, k, v, causal=True, window=window)
+        got = fa.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                     window=window)
+        exp = ref.attention_vjp_ref(q, k, v, do, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = grad_rel_err(got, exp)
+        log(f"flash_attention_bwd q {(b, h, s, dh)} k/v {(b, kvh, s, dh)} "
+            f"causal window {window} f32: max err / max grad {err:.3e} "
+            f"(tol 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError("attention's backward kernel disagrees "
+                                 "with the plain version's VJP")
+        errs[f"dh{dh}_window{window}"] = err
+        del q, k, v, o, do, got, exp
+    for b, h, kvh, sq, sk, dh, causal, window, dt in ATT_GRAD_EDGE_CASES:
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn((b, h, sq, dh), generator=g).to(dtype).to(dev)
+                 for _ in range(2))
+        k, v = (torch.randn((b, kvh, sk, dh), generator=g).to(dtype).to(dev)
+                for _ in range(2))
+        o = fa.flash_attention(q, k, v, causal=causal, window=window)
+        got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                     window=window)
+        exp = ref.attention_vjp_ref(*(t.float() for t in (q, k, v, do)),
+                                    causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = grad_rel_err(got, exp)
+        # bf16: the forward's bf16 tolerance
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        log(f"flash_attention_bwd {(b, h, kvh, sq, sk, dh)} causal "
+            f"{causal} window {window} {dt}: max err / max grad "
+            f"{err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError("attention's backward kernel disagrees "
+                                 "with the plain version's VJP at an edge")
+        del q, k, v, o, do, got, exp
+    return errs
+
+
+def gmm_train_shapes(cfg):
+    """(name, (e, c, d, f)) of the expert matmuls of a (4, 512) training
+    step: gate/up and down at the step's capacity."""
+    from repro_torch.models import moe
+    c = moe._capacity(LM_BATCH * LM_SEQ, cfg)
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+    return [("gate_up", (e, c, d, f)), ("down", (e, c, f, d))]
+
+
+def check_gmm_grads(torch, dev, cfg) -> float:
+    """Phase 10a: dx and dw through the grouped matmul's ``Function`` (the
+    kernel twice) against autograd through ``gmm_ref``, within the
+    forward's 2e-4, at a training step's two shapes."""
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(15)
+    worst = 0.0
+    for name, (e, c, d, f) in gmm_train_shapes(cfg):
+        x = torch.randn((e, c, d), generator=g).to(dev).requires_grad_()
+        w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(
+            dev).requires_grad_()
+        dy = torch.randn((e, c, f), generator=g).to(dev)
+        got = torch.autograd.grad(gmm.MoeGmm.apply(x, w), (x, w), dy)
+        xr, wr = (t.detach().requires_grad_() for t in (x, w))
+        exp = torch.autograd.grad(ref.gmm_ref(xr, wr), (xr, wr), dy)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("dx", "dw"), got, exp):
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+            err = (a - b).abs().max().item()
+            worst = max(worst, err)
+            log(f"moe_gmm {name} {(e, c, d, f)} {what} {tuple(a.shape)}: "
+                f"max_abs_err {err:.3e} (atol = rtol = 2e-4)")
+        del x, w, dy, got, exp
+    return worst
+
+
+def check_grad_refusal(torch, dev) -> None:
+    """Phase 10b: the WKV and scan kernels have no backward: on CUDA
+    inputs that require grad they must raise, not return a result
+    without a gradient."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import selective_scan as ssm
+    g = torch.Generator().manual_seed(16)
+    calls = {
+        "rwkv6_wkv": lambda: wkv.rwkv6_wkv(*[
+            t.requires_grad_() for t in wkv_inputs(
+                torch, dev, 1, 2, 8, 32, torch.float32, g)]),
+        "selective_scan": lambda: ssm.selective_scan(*[
+            t.requires_grad_() for t in scan_inputs(
+                torch, dev, 1, 8, 32, 16, torch.float32, torch.float32, g,
+                0.0)]),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            log(f"{name} on CUDA inputs that require grad raises: {e}")
+        else:
+            raise AssertionError(f"{name} returned a result on inputs "
+                                 f"that require grad")
+
+
+class Routing:
+    """Holds the plain-version step to the kernel step's routing: the
+    router's top-k picks (``moe._top_k``) are recorded in the kernel
+    step and replayed, call for call (the forward's, then the remat
+    recomputation's), in the plain one. A top-k is not continuous: two
+    runs whose router inputs differ in the last bits can pick another
+    expert for a token whose k-th and (k+1)-th probabilities tie that
+    closely, and compare two models. ``flips`` counts the tokens whose
+    own top-k in the plain step differs from the replayed one."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.orig = torch, moe, moe._top_k
+        self.picks, self.flips = [], 0
+
+    def _patched(self, fn):
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            self.moe._top_k = fn
+            try:
+                yield
+            finally:
+                self.moe._top_k = self.orig
+        return ctx()
+
+    def record(self):
+        def rec(probs, k):
+            vals, sel = self.orig(probs, k)
+            self.picks.append(sel)
+            return vals, sel
+        return self._patched(rec)
+
+    def replay(self):
+        it = iter(self.picks)
+
+        def rep(probs, k):
+            sel = next(it)
+            own = self.orig(probs, k)[1]
+            self.flips += int((own.sort(-1).values != sel.sort(-1).values
+                               ).any(-1).sum())
+            return probs.gather(-1, sel), sel
+        return self._patched(rep)
+
+
+def plain_versions():
+    """The model's attention and expert matmuls through ``ops``'
+    ``kernel="ref"``: the plain versions on the card."""
+    import contextlib
+    import functools
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = ops.flash_attention, ops.moe_gmm
+        ops.flash_attention = functools.partial(orig[0], kernel="ref")
+        ops.moe_gmm = functools.partial(orig[1], kernel="ref")
+        try:
+            yield
+        finally:
+            ops.flash_attention, ops.moe_gmm = orig
+    return ctx()
+
+
+def lm_batch(torch, dev, cfg, seed: int):
+    from repro_torch.data.synthetic import make_lm_batches
+    batch = next(make_lm_batches(cfg.vocab, LM_BATCH, LM_SEQ, 1, seed=seed))
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def lm_launches_per_step(cfg) -> dict:
+    """Each kernel's launches in one training step under remat
+    "minimal": every layer's forward, its recomputation in the backward,
+    and the backward (two grouped matmuls for each forward one)."""
+    n = cfg.n_layers
+    return {"flash_attention": 2 * n, "flash_attention_bwd": n,
+            "moe_gmm": 3 * n * 2 + 2 * 3 * n, "quantize_int8": 0,
+            "rwkv6_wkv": 0, "selective_scan": 0}
+
+
+def lm_kernel_vs_plain(torch, dev, cfg, card: str) -> dict:
+    """Phase 10c: one step's loss and gradients (``steps.loss_and_grads``)
+    with the kernels and with the plain versions, at the same params and
+    batch, the routing held alike (``Routing``): losses within rtol
+    1e-5, every gradient present and within 1e-3 of its leaf's largest.
+    The kernel step's launches are counted."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import params as PRM
+    from repro_torch.models import transformer as T
+    # drawn outside inference mode (draw_params'), whose tensors autograd
+    # may not track; the trainer draws the same way
+    with torch.no_grad():
+        params = PRM.init_tree(T.model_spec(cfg),
+                               torch.Generator(dev).manual_seed(0),
+                               torch.float32, dev)
+    batch = lm_batch(torch, dev, cfg, seed=0)
+    counters = all_counters()
+    routing = Routing(torch)
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with routing.record():
+        loss_k, _, g_k = ST.loss_and_grads(cfg, params, batch,
+                                           torch.float32)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    if launches != lm_launches_per_step(cfg):
+        raise AssertionError(f"the kernel step launched {launches}, "
+                             f"expected {lm_launches_per_step(cfg)}")
+    # the forward's share, under no_grad (no remat, no backward); the
+    # step's attention launches beyond it are the remat recomputation's
+    for c in counters.values():
+        c.reset()
+    with torch.no_grad():
+        T.loss_fn(cfg, params, batch, torch.float32)
+    forward = {name: c.count for name, c in counters.items()}
+    split = {"forward": forward,
+             "recompute": {k: launches[k] - forward[k] for k in
+                           ("flash_attention",)} | {
+                               "moe_gmm": forward["moe_gmm"]},
+             "backward": {"flash_attention_bwd":
+                          launches["flash_attention_bwd"],
+                          "moe_gmm": launches["moe_gmm"]
+                          - 2 * forward["moe_gmm"]}}
+    t0 = time.perf_counter()
+    with plain_versions(), routing.replay():
+        loss_p, _, g_p = ST.loss_and_grads(cfg, params, batch,
+                                           torch.float32)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    worst, worst_leaf, missing = 0.0, None, []
+    for (path, a), (_, b) in zip(PRM.tree_items(g_k), PRM.tree_items(g_p)):
+        if a is None or b is None:
+            missing.append("/".join(path))
+            continue
+        err = grad_rel_err((a,), (b,))
+        if err > worst:
+            worst, worst_leaf = err, "/".join(path)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    out = {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+           "loss_rel_err": loss_err, "grad_rel_err": worst,
+           "grad_rel_err_leaf": worst_leaf,
+           "n_grads": len(PRM.tree_items(g_k)),
+           "routing_flips_replayed": routing.flips,
+           "kernel_step_s": t_kernel, "plain_step_s": t_plain,
+           "launches": launches, "launches_split": split}
+    log(f"{cfg.arch_id} {cfg.n_layers} layers, kernel vs plain step "
+        f"({card}): " + json.dumps(out))
+    if missing:
+        raise AssertionError(f"gradients missing: {missing}")
+    if not loss_err <= 1e-5 or not worst <= 1e-3:
+        raise AssertionError("the kernel step's loss or gradients "
+                             "disagree with the plain versions'")
+    del params, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train(torch, dev, cfg, card: str) -> dict:
+    """Phase 10d: ``train()`` from drawn params, 2 warm-up and 8 timed
+    steps of (4, 512) batches: step time (from the trainer's history,
+    whose float() of the metrics waits for the card each step),
+    tokens/s, peak device memory, launches a step, the loss finite and
+    lower after the steps; then one more step of ``make_train_step``
+    under ``torch.profiler`` for the busy share and where the device time
+    goes, and the model-FLOPs utilisation against the f32 FMA peak."""
+    import math
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_lm_batches
+    from repro_torch.launch import flops as F
+    from repro_torch.launch import steps as ST
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainer import TrainJob, train
+    steps = LM_WARMUP + LM_TIMED
+    counters = all_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    job = TrainJob(cfg=cfg, lr=LM_LR, steps=steps, log_every=1, device=dev)
+    t0 = time.perf_counter()
+    res = train(job, make_lm_batches(cfg.vocab, LM_BATCH, LM_SEQ, steps,
+                                     seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: c.count for name, c in counters.items()}
+    per_step = lm_launches_per_step(cfg)
+    if launches != {k: n * steps for k, n in per_step.items()}:
+        raise AssertionError(f"train() launched {launches} in {steps} "
+                             f"steps, expected {per_step} a step")
+    hist = res["history"]
+    t = [r["t"] for r in hist]
+    timed = [t[i] - t[i - 1] for i in range(LM_WARMUP, steps)]
+    step_s = statistics.median(timed)
+    losses = [r["loss"] for r in hist]
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    tokens = LM_BATCH * LM_SEQ
+    shape = InputShape("lm_train", LM_SEQ, LM_BATCH, "train")
+    model_flops = F.model_flops(cfg, shape)
+    out = {"layers": cfg.n_layers, "steps": steps, "wall_s": wall,
+           "step_ms": step_s * 1e3, "step_ms_timed": [x * 1e3 for x in timed],
+           "tokens_per_s": tokens / step_s, "peak_gb": peak / 1e9,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "launches_per_step": per_step,
+           "model_flops": model_flops,
+           "train_flops_analytic": F.train_flops(cfg, shape),
+           "mfu_f32": model_flops / step_s / F32_FLOP_S}
+    log(f"{cfg.arch_id} train(): {cfg.n_layers} layers, {steps} steps of "
+        f"({LM_BATCH}, {LM_SEQ}): step {out['step_ms']:.1f} ms (median of "
+        f"{LM_TIMED}), {out['tokens_per_s']:.1f} tokens/s, peak "
+        f"{out['peak_gb']:.2f} GB, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        f", model FLOPs {model_flops / 1e12:.2f} T a step, utilisation "
+        f"{out['mfu_f32']:.4f} of 67 TFLOP/s (f32, TF32 off); launches a "
+        f"step {per_step}; {card}")
+    # a profiled step: the trainer's params and a fresh AdamW state
+    params = res["params"]
+    del res
+    gc.collect()
+    opt = O.adamw()
+    state = opt.init(params)
+    step = ST.make_train_step(cfg, opt, lr=LM_LR,
+                              compute_dtype=torch.float32)
+    batch = lm_batch(torch, dev, cfg, seed=1)
+    step(params, state, batch)          # the fresh state's first step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    # busy: the profiled step's device time over the wall time of the
+    # same step unprofiled just before
+    prof = profile_window(torch, lambda: step(params, state, batch), wall_s)
+    out["busy_share"] = prof["device_busy_share"]
+    out["profiled_step_unprofiled_ms"] = wall_s * 1e3
+    log(f"granite train profile ({card}) " + json.dumps(prof))
+    del params, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_checkpoint(torch, dev, card: str) -> dict:
+    """Phase 10e: the checkpoint round trip of examples/train_lm.py on
+    the card, at full width and LM_CKPT_LAYERS layers: ``train()`` with
+    a ``ckpt_dir`` for 2 steps, ``restore`` of its latest step, the loss
+    of a fresh batch on the trained and the restored params within
+    1e-5."""
+    import shutil
+    from repro_torch.data.synthetic import make_lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.models import params as PRM
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train.trainer import TrainJob, train
+    cfg = lm_config(LM_CKPT_LAYERS)
+    ckpt = ROOT / "build" / "lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = train(TrainJob(cfg=cfg, lr=LM_LR, steps=2, log_every=1,
+                         ckpt_dir=str(ckpt), device=dev),
+                make_lm_batches(cfg.vocab, LM_BATCH, LM_SEQ, 3, seed=2))
+    step = CKPT.latest_step(str(ckpt))
+    restored, _ = CKPT.restore(str(ckpt), step, res["params"])
+    batch = lm_batch(torch, dev, cfg, seed=123)
+    with torch.no_grad():
+        l1, _ = T.loss_fn(cfg, res["params"], batch, torch.float32)
+        l2, _ = T.loss_fn(cfg, restored, batch, torch.float32)
+    same = all(torch.equal(a, b) for a, b in zip(
+        PRM.tree_leaves(res["params"]), PRM.tree_leaves(restored)))
+    size = sum(f.stat().st_size for f in ckpt.iterdir())
+    out = {"layers": cfg.n_layers, "step": step, "loss": l1.item(),
+           "loss_restored": l2.item(), "params_equal": same,
+           "bytes": size, "seconds": time.perf_counter() - t0}
+    log(f"checkpoint round trip ({cfg.arch_id}, {cfg.n_layers} layers at "
+        f"full width; {card}): " + json.dumps(out))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not abs(l1.item() - l2.item()) < 1e-5 or not same:
+        raise AssertionError("the restored params give another loss")
+    del res, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_lm_kernels(torch, dev, cfg, card: str) -> tuple:
+    """Phase 10f: the backward kernel at granite's training shape (causal)
+    beside autograd through the plain attention, with SDPA's forward and
+    backward for scale (no single PyTorch call computes the backward
+    alone); the grouped matmul at the four shapes of a training step's
+    dx and dw beside ``gmm_ref`` and ``torch.bmm``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(17)
+    b, h, kvh, s, dh, _ = ATT_GRAD_CASES[0]
+    q, do = (torch.randn((b, h, s, dh), generator=g).to(dev)
+             for _ in range(2))
+    k, v = (torch.randn((b, kvh, s, dh), generator=g).to(dev)
+            for _ in range(2))
+    o = fa.flash_attention(q, k, v, causal=True)
+    pairs = s * (s + 1) / 2
+    # q, k, v, o, dO read once, dq, dk, dv written once; five products
+    # of 2 dh a (query, key) pair over the causal pairs (s.k again, dO.v,
+    # p^T dO, dS k, dS^T q)
+    # (the plain VJP runs autograd's engine, which is timed eagerly, not
+    # captured in a graph)
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, o, do, causal=True)
+    att = {"ms": graph_ms(kernel, reps=20, trials=10),
+           "eager_ms": eager_ms(kernel, reps=20, trials=10),
+           "plain_ms": eager_ms(
+               lambda: ref.attention_vjp_ref(q, k, v, do, causal=True),
+               reps=5, trials=5),
+           "library_ms": None,
+           **_bound((4 * q.numel() + 4 * k.numel()) * 4,
+                    5 * 2.0 * dh * pairs * b * h)}
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, (qs, ks, vs), do)
+    att["sdpa_fwd_bwd_ms"] = eager_ms(sdpa_fwd_bwd, reps=20, trials=5)
+    log(f"flash_attention_bwd granite training q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} causal f32 ({card}): {att}")
+    del q, k, v, o, do, qs, ks, vs
+    gmm_t = {}
+    for name, (e, c, d, f) in gmm_train_shapes(cfg):
+        x = torch.randn((e, c, d), generator=g).to(dev)
+        w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
+        dy = torch.randn((e, c, f), generator=g).to(dev)
+        wt, xt = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
+        for part, (a, bm) in (("dx", (dy, wt)), ("dw", (xt, dy))):
+            ee, cc, dd = a.shape
+            ff = bm.shape[2]
+            t = time_call(lambda: gmm.moe_gmm(a, bm),
+                          lambda: ref.gmm_ref(a, bm),
+                          lambda: torch.bmm(a, bm),
+                          (a.numel() + bm.numel() + ee * cc * ff) * 4,
+                          2.0 * ee * cc * dd * ff, dict(reps=20, trials=10),
+                          rate=route_rate(gmm.variant(a, bm)))
+            t["variant"] = gmm.variant(a, bm)
+            t["shape"] = [list(a.shape), list(bm.shape)]
+            gmm_t[f"{name}_{part}"] = t
+            log(f"moe_gmm backward {name} {part} {tuple(a.shape)} @ "
+                f"{tuple(bm.shape)} f32 ({card}): {t}")
+        del x, w, dy, wt, xt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return att, gmm_t
+
+
+def lm_train_phase(torch, dev) -> tuple:
+    """Phase 10: language-model training on the card (granite at full
+    width, LM_LAYERS layers). Returns (the launches of the counted
+    runs, the measured numbers)."""
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    cfg = lm_config()
+    full = moe_config()
+    log(f"{LM_ARCH} training: depth {cfg.n_layers} of {full.n_layers} "
+        f"layers; every width as published; AdamW, remat "
+        f"{cfg.remat_policy!r}, f32, ({LM_BATCH}, {LM_SEQ}) batches")
+    att_errs = check_attention_grads(torch, dev)
+    gmm_err = check_gmm_grads(torch, dev, cfg)
+    check_grad_refusal(torch, dev)
+    versus = lm_kernel_vs_plain(torch, dev, cfg, card)
+    trained = lm_train(torch, dev, cfg, card)
+    ckpt = lm_checkpoint(torch, dev, card)
+    att_t, gmm_t = time_lm_kernels(torch, dev, cfg, card)
+    out = {"attention_grad_errs": att_errs, "gmm_grad_err": gmm_err,
+           "kernel_vs_plain": versus, "train": trained, "checkpoint": ckpt,
+           "attention_bwd": att_t, "gmm_bwd": gmm_t,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"{LM_ARCH} training phase: {out['seconds']:.1f} s; {card}")
+    steps = LM_WARMUP + LM_TIMED
+    launches = {"lm_train": {k: n * steps for k, n in
+                             trained["launches_per_step"].items()}}
+    return launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -2432,21 +3014,28 @@ def main() -> int:
     cluster_launches, cluster = cluster_phase(
         torch, thread_losses, n_matched, master.y.shape[1])
 
+    # language-model training: granite at full width, the backward
+    # kernels, AdamW, checkpoints
+    lm_launches, lm = lm_train_phase(torch, dev)
+
     # launches of each kernel on each path's counted run
     by_path = {
         "flash_attention": {"split_nn_serve": counts["flash_attention"]},
         "quantize_int8": {"split_nn_serve": counts["quantize_int8"]},
-        "rwkv6_wkv": {}, "moe_gmm": {}, "selective_scan": {}}
+        "rwkv6_wkv": {}, "moe_gmm": {}, "selective_scan": {},
+        "flash_attention_bwd": {}}
     mode_launches["split_nn_cluster"] = cluster_launches
     for run, got in (train_launches | mode_launches).items():
         for name, c in got.items():
             by_path[name][run] = c
-    zoo_runs = zoo_launches | moe_launches | h2o_launches | jamba_launches
+    zoo_runs = (zoo_launches | moe_launches | h2o_launches | jamba_launches
+                | lm_launches)
     for run, got in zoo_runs.items():
         for name, c in got.items():
             by_path[name][run] = c
     errs["moe_gmm"] = max(moe_errs[name] for name, _ in
                           gmm_path_shapes(moe_cfg))
+    errs["flash_attention_bwd"] = max(lm["attention_grad_errs"].values())
     extra = {
         # the attention kernel's times at the zoo's prefill shapes
         "flash_attention": {
@@ -2463,7 +3052,16 @@ def main() -> int:
         # gate/up
         "moe_gmm": {"shapes": gmm_t, "jamba_shapes": {
             name: dict(t, max_abs_err=jamba_errs[name])
-            for name, t in jamba_gmm_t.items()}}}
+            for name, t in jamba_gmm_t.items()},
+            # dx and dw of a training step, through the same kernel
+            "train_backward_shapes": lm["gmm_bwd"],
+            "train_backward_max_abs_err": lm["gmm_grad_err"]},
+        # max_abs_err: the largest of dq, dk, dv's errors over the
+        # largest gradient, at the three checked cases
+        "flash_attention_bwd": {
+            "grad_errs": lm["attention_grad_errs"],
+            "launches_per_train_step": lm["train"]["launches_per_step"][
+                "flash_attention_bwd"]}}
     kernels = []
     for name, src, replaces, t in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -2475,7 +3073,10 @@ def main() -> int:
             ("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
              "src/repro/kernels/moe_gmm.py:39", gmm_t["prefill_gate_up"]),
             ("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
-             "src/repro/kernels/selective_scan.py:51", scan_t)):
+             "src/repro/kernels/selective_scan.py:51", scan_t),
+            ("flash_attention_bwd",
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:69", lm["attention_bwd"])):
         per_train_round = {
             f"depth{d}": train[f"depth{d}"]["launches_per_round"].get(name, 0)
             for d in (1, 2)}
@@ -2493,7 +3094,10 @@ def main() -> int:
         f"{train['depth2']['rounds_per_s']:.1f} (depth 2); socket_proc "
         f"{modes['socket_proc_d1']['rounds_per_s']:.1f} (depth 1), "
         f"{modes['socket_proc_d2']['rounds_per_s']:.1f} (depth 2); cluster "
-        f"{cluster['published_scale']['rounds_per_s']:.1f}; build "
+        f"{cluster['published_scale']['rounds_per_s']:.1f}; granite "
+        f"training {lm['train']['step_ms']:.1f} ms a step, "
+        f"{lm['train']['tokens_per_s']:.1f} tokens/s, peak "
+        f"{lm['train']['peak_gb']:.2f} GB; build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

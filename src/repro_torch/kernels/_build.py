@@ -163,6 +163,9 @@ def load(path: Path) -> ctypes.CDLL:
     lib.repro_quantize_int8_floor.argtypes = [
         p, p, ctypes.c_int64, i, i, p]
     lib.repro_quantize_int8_floor.restype = i
+    lib.repro_flash_attention_bwd.argtypes = [
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+    lib.repro_flash_attention_bwd.restype = i
     lib.repro_flash_attention_variant.argtypes = [p, p, p, i, i]
     lib.repro_flash_attention_variant.restype = i
     lib.repro_moe_gmm.argtypes = [p, p, p, p, i, i, i, i, i, p]

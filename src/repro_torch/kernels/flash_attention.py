@@ -1,10 +1,14 @@
-"""Wrapper of the hand-written flash-attention kernel
+"""Wrappers of the hand-written flash-attention kernels: the forward
 (``csrc/flash_attention.cu``, the port of the Pallas kernel in
-``repro/kernels/flash_attention.py``).
+``repro/kernels/flash_attention.py``) and its backward
+(``csrc/flash_attention_bwd.cu``), joined by :class:`FlashAttention`,
+the ``torch.autograd.Function`` that ``ops.flash_attention`` applies to
+CUDA tensors.
 
-On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
-computes the plain version (``ref.attention_ref``), and that is the only
-way the plain version is taken.
+On a CUDA tensor each launches its kernel, or raises; on a CPU tensor
+it computes the plain version (``ref.attention_ref``, and for the
+backward that function's VJP, ``ref.attention_vjp_ref``), and that is
+the only way the plain version is taken.
 
 Layout: q (b, h, sq, dh); k/v (b, kvh, sk, dh), contiguous, float32 or
 bfloat16; any head dim 1 <= dh <= 512 (16, 32, 64, 80 and 128 are
@@ -16,17 +20,18 @@ heads.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, attention_vjp_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 512
 
 launches = _build.LaunchCounter()
+bwd_launches = _build.LaunchCounter()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -51,6 +56,70 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "flash_attention")
     launches.add()
     return o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the attention at (q, k, v), whose output is ``o``,
+    for the output cotangent ``do`` (both shaped as q). The kernel
+    recomputes each row's softmax statistics: the forward keeps none."""
+    if q.device.type == "cpu":
+        return attention_vjp_ref(q, k, v, do, causal=causal, window=window,
+                                 scale=scale)
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    b, h, sq, dh = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    scale = dh ** -0.5 if scale is None else scale
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # each row's max, 1 / denominator and rowsum(do * o), from the first
+    # kernel to the second
+    stats = torch.empty(3 * b * h * sq, dtype=torch.float32,
+                        device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), b, h, kvh, sq, sk, dh, DTYPES[q.dtype],
+            int(bool(causal)), int(window), float(scale), stream)
+    _build.check(err, "flash_attention_bwd")
+    bwd_launches.add()
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The attention with the backward kernel as its gradient: it saves
+    q, k, v and the output, and the backward recomputes the softmax from
+    them (on a CPU tensor both directions are the plain versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None
+
 
 
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:

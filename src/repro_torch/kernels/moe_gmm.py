@@ -4,7 +4,10 @@
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 computes the plain version (``ref.gmm_ref``), and that is the only way
-the plain version is taken.
+the plain version is taken. :class:`MoeGmm` (which ``ops.moe_gmm``
+applies to CUDA tensors) gives it a gradient through two more launches
+of the same kernel, each a grouped matmul it already computes: dx = dy
+@ w^T and dw = x^T @ dy, per expert, on contiguous transposes.
 
 Layout: x (e, c, d) and w (e, d, f), contiguous, both float32 or both
 bfloat16; out (e, c, f) in x's dtype. Any c, d and f: no tile has to
@@ -50,6 +53,27 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(err, "moe_gmm")
     launches.add()
     return out
+
+
+class MoeGmm(torch.autograd.Function):
+    """The grouped matmul whose backward is the grouped matmul."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return moe_gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = moe_gmm(dy, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = moe_gmm(x.transpose(1, 2).contiguous(), dy)
+        return dx, dw
+
 
 
 def _plan(lib, e: int, c: int, d: int, f: int) -> Tuple[int, int, int]:

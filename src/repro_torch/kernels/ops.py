@@ -10,7 +10,14 @@ package's ``repro/kernels/ops.py``.
 * ``ref``    — the plain version, as asked.
 
 There is no fallback: a CUDA tensor under ``auto`` or ``pallas`` gets
-the kernel, or the kernel's error when it cannot build or launch. The
+the kernel, or the kernel's error when it cannot build or launch.
+
+Gradients: on a CUDA tensor ``flash_attention`` and ``moe_gmm`` run as
+``torch.autograd.Function``s whose backward passes are hand-written
+kernels too (``csrc/flash_attention_bwd.cu``; the grouped matmul twice,
+for dx and dw); ``rwkv6_wkv`` and ``selective_scan`` have no backward
+kernel yet and raise on a CUDA input that requires grad. On a CPU tensor
+all four are the plain versions, differentiated by autograd. The
 Pallas tiling knobs (``block_q``, ``block_k``, ``block_r``, ``chunk``,
 ``block_c``, ``block_f``, ``block_d``)
 and ``interpret`` have no counterpart: the CUDA kernels choose their own
@@ -57,8 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _use_ref(kernel, q, "flash_attention"):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale)
+    return _fa.FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, *, kernel: str = "auto"
@@ -67,7 +73,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, *, kernel: str = "auto"
     f32."""
     if _use_ref(kernel, x, "moe_gmm"):
         return ref.gmm_ref(x, w)
-    return _gmm.moe_gmm(x, w)
+    return _gmm.MoeGmm.apply(x, w)
 
 
 def quantize_int8(x: torch.Tensor, *, kernel: str = "auto"

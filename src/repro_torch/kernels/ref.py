@@ -25,6 +25,12 @@ NEG_INF = -1e30
 INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 for the sums, or float64 where it is float64 (the
+    CPU gradient checks run the plain versions in float64)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   scale: Optional[float] = None) -> torch.Tensor:
@@ -32,9 +38,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, sq, dh = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     g = h // kvh
-    qg = q.reshape(b, kvh, g, sq, dh).float()
+    qg = _f32(q.reshape(b, kvh, g, sq, dh))
     scale = dh ** -0.5 if scale is None else scale
-    s = torch.einsum("bngqd,bnkd->bngqk", qg * scale, k.float())
+    s = torch.einsum("bngqd,bnkd->bngqk", qg * scale, _f32(k))
     qi = torch.arange(sq, device=q.device)[:, None]
     ki = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -44,14 +50,28 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= qi - ki < window
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bngqk,bnkd->bngqd", p, v.float())
+    o = torch.einsum("bngqk,bnkd->bngqd", p, _f32(v))
     return o.reshape(b, h, sq, dh).to(q.dtype)
+
+
+def attention_vjp_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, scale: Optional[float] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention_ref` at (q, k, v) for the output
+    cotangent ``do``: autograd through the plain version, the
+    counterpart of the backward kernel."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attention_ref(qq, kk, vv, causal=causal, window=window,
+                            scale=scale)
+        return torch.autograd.grad(out, (qq, kk, vv), do)
 
 
 def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped matmul: x (e, c, d) @ w (e, d, f) -> (e, c, f), in f32,
     cast to x's dtype."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    return torch.einsum("ecd,edf->ecf", _f32(x), _f32(w)).to(x.dtype)
 
 
 def quantize_int8_ref(x: torch.Tensor

@@ -3,7 +3,8 @@ the port of the Pallas kernel in ``repro/kernels/rwkv6_wkv.py``).
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 computes the plain version (``ref.rwkv6_ref``), and that is the only way
-the plain version is taken.
+the plain version is taken. The kernel has no backward yet: a CUDA
+input that requires grad, with grad enabled, raises.
 
 Layout: r, k, v, w (b, h, s, dh), contiguous, all float32 or all
 bfloat16; u (h, dh) float32; any head dim dh >= 1 (32 and 64 are
@@ -23,6 +24,9 @@ from repro_torch.kernels.ref import rwkv6_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = _build.LaunchCounter()
+# the ROADMAP entry that ports its backward kernel
+BWD_ITEM = ("ROADMAP Queue 2, backward kernels for rwkv6_wkv and "
+            "selective_scan")
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,6 +35,7 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """-> (y f32 (b, h, s, dh), s_final f32 (b, h, dh, dh))."""
     if r.device.type == "cpu":
         return rwkv6_ref(r, k, v, w, u)
+    _refuse_grad(r, k, v, w, u)
     _check(r, k, v, w, u)
     b, h, s, dh = r.shape
     y = torch.empty((b, h, s, dh), dtype=torch.float32, device=r.device)
@@ -46,6 +51,18 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, "rwkv6_wkv")
     launches.add()
     return y, s_final
+
+
+def _refuse_grad(*inputs: torch.Tensor) -> None:
+    """The kernel has no backward yet: a CUDA input that asks for a
+    gradient raises rather than leave it None (or take a plain VJP that
+    would hide the kernel)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise NotImplementedError(
+            f"rwkv6_wkv: no backward kernel on the card yet "
+            f"({BWD_ITEM}); run it under torch.no_grad() or "
+            f"inference_mode, or train on the CPU, where the plain "
+            f"version is differentiable")
 
 
 def _check(r, k, v, w, u) -> None:

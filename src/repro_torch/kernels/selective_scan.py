@@ -4,7 +4,8 @@
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 computes the plain version (``ref.selective_scan_ref``), and that is the
-only way the plain version is taken.
+only way the plain version is taken. The kernel has no backward yet: a CUDA
+input that requires grad, with grad enabled, raises.
 
 Layout: dt, u (b, s, di); B, C (b, s, n); A (di, n) float32; all
 contiguous. dt, B and C are all float32 or all bfloat16, u is float32 or
@@ -26,6 +27,9 @@ from repro_torch.kernels.ref import selective_scan_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = _build.LaunchCounter()
+# the ROADMAP entry that ports its backward kernel
+BWD_ITEM = ("ROADMAP Queue 2, backward kernels for rwkv6_wkv and "
+            "selective_scan")
 
 
 def selective_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
@@ -34,6 +38,7 @@ def selective_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     """-> (y f32 (b, s, di), h_final f32 (b, di, n))."""
     if dt.device.type == "cpu":
         return selective_scan_ref(dt, bmat, cmat, u, a)
+    _refuse_grad(dt, bmat, cmat, u, a)
     _check(dt, bmat, cmat, u, a)
     b, s, di = dt.shape
     n = a.shape[1]
@@ -49,6 +54,18 @@ def selective_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     _build.check(err, "selective_scan")
     launches.add()
     return y, h_final
+
+
+def _refuse_grad(*inputs: torch.Tensor) -> None:
+    """The kernel has no backward yet: a CUDA input that asks for a
+    gradient raises rather than leave it None (or take a plain VJP that
+    would hide the kernel)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise NotImplementedError(
+            f"selective_scan: no backward kernel on the card yet "
+            f"({BWD_ITEM}); run it under torch.no_grad() or "
+            f"inference_mode, or train on the CPU, where the plain "
+            f"version is differentiable")
 
 
 def _check(dt, bmat, cmat, u, a) -> None:

@@ -56,13 +56,20 @@ def _act(act: str):
     return F.silu if act == "silu" else layers._gelu
 
 
+def _top_k(probs: torch.Tensor, k: int):
+    """The ``k`` largest router probabilities of each token and their
+    experts (one place for a caller that holds two runs to one routing,
+    as ``chip_smoke.py``'s kernel-against-plain training step does)."""
+    return torch.topk(probs, k, dim=-1)
+
+
 def _route(cfg: ModelConfig, x32: torch.Tensor, router: torch.Tensor):
     """Top-k routing of the f32 tokens ``x32`` (..., d). Returns (gate
     values renormalized over the k picks, the picks, aux losses)."""
     m = cfg.moe
     logits = x32 @ router                                       # (..., E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, sel = torch.topk(probs, m.top_k, dim=-1)         # (..., k)
+    gate_vals, sel = _top_k(probs, m.top_k)                     # (..., k)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)              # renormalize
     lead = tuple(range(probs.dim() - 1))

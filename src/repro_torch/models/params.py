@@ -11,13 +11,17 @@ device (the JAX package's per-path ``jax.random`` stream cannot be
 reproduced), with the same distributions. ``from_numpy`` / ``to_numpy``
 carry a JAX-made tree (nested dicts of stacked leaves, through
 ``np.asarray``) across unchanged, so one set of weights drives either
-package. ``abstract_tree`` and ``axes_tree`` come with the sharding
-slice.
+package. ``abstract_tree`` gives the shapes and dtypes as tensors on
+PyTorch's ``meta`` device (nothing is allocated: a 398-billion-parameter
+spec is described, never built), ``axes_tree`` the logical axes, both
+equal to the JAX package's. ``tree_map`` and ``tree_items`` walk a
+param tree (nested dicts, and lists for the split-NN towers) in the JAX
+package's flattening order: dict keys sorted, list entries in order.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,10 +66,36 @@ def _map_specs(fn: Callable[[Tuple[str, ...], Spec], Any], tree: PyTree,
     return {k: _map_specs(fn, v, path + (k,)) for k, v in tree.items()}
 
 
-def _tree_map(fn, tree: PyTree) -> PyTree:
+def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree
+             ) -> PyTree:
+    """``fn`` over the leaves of ``tree`` and, leaf for leaf, of the
+    trees in ``rest``, which share its structure (a leaf of ``tree`` may
+    face a subtree in ``rest``, as an optimizer slot does)."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_items(tree: PyTree, path: Tuple[str, ...] = ()
+               ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs in the JAX package's flattening order: dict
+    keys sorted, list entries by index (the path holds ``str(index)``)."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], path + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree)
+                for item in tree_items(v, path + (str(i),))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree: PyTree) -> List[Any]:
+    """The leaves of ``tree`` in :func:`tree_items`'s order."""
+    return [leaf for _, leaf in tree_items(tree)]
 
 
 def init_tree(spec: PyTree, generator: torch.Generator,
@@ -96,6 +126,22 @@ def init_tree(spec: PyTree, generator: torch.Generator,
     return _map_specs(leaf, spec)
 
 
+def abstract_tree(spec: PyTree, param_dtype: torch.dtype = torch.float32
+                  ) -> PyTree:
+    """The params' shapes and dtypes, as tensors on the ``meta`` device:
+    nothing is allocated."""
+    def leaf(_, s: Spec):
+        return torch.empty(s.shape, dtype=s.dtype or param_dtype,
+                           device="meta")
+    return _map_specs(leaf, spec)
+
+
+def axes_tree(spec: PyTree) -> PyTree:
+    """Each param's logical axes (the names the JAX package's sharding
+    rules resolve)."""
+    return _map_specs(lambda _, s: s.axes, spec)
+
+
 def stack(spec: PyTree, n: int, axis_name: str = "layers") -> PyTree:
     """Prepend a layer dimension of size ``n`` to every leaf."""
     def leaf(_, s: Spec):
@@ -115,7 +161,18 @@ def param_bytes(spec: PyTree, bytes_per_el: int = 2) -> int:
 
 def tree_slice(tree: PyTree, i) -> PyTree:
     """Index the leading (layer) dim of every leaf."""
-    return _tree_map(lambda x: x[i], tree)
+    return tree_map(lambda x: x[i], tree)
+
+
+def unstack(tree: PyTree, n: int) -> List[PyTree]:
+    """The ``n`` slices of every leaf's leading (layer) dim as ``n``
+    trees, through one ``unbind`` a leaf: under autograd its backward
+    writes the stacked gradient once, where a slice a layer would add a
+    zero-filled stacked gradient per layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def from_numpy(tree: PyTree, device: Device = "cuda") -> PyTree:
@@ -123,10 +180,10 @@ def from_numpy(tree: PyTree, device: Device = "cuda") -> PyTree:
     ``np.asarray``) as tensors on ``device``, in the same layout and
     dtypes. Values are copied, never reinterpreted."""
     dev = resolve_device(device)
-    return _tree_map(
+    return tree_map(
         lambda a: torch.as_tensor(np.array(a, copy=True)).to(dev), tree)
 
 
 def to_numpy(tree: PyTree) -> PyTree:
     """The inverse of :func:`from_numpy`: the tree as numpy arrays."""
-    return _tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -13,17 +13,26 @@ Layer stacks keep the JAX package's *stacked* layout (every leaf of
 ``params["blocks"]["pos<i>"]`` has a leading ``n_repeats`` dim), so one
 numpy tree drives either package; where the JAX package runs
 ``lax.scan`` over that dim, the port walks it with a Python loop.
-``cfg.remat_policy`` (``jax.checkpoint`` around each repeat) has no
-counterpart: serving runs under ``torch.inference_mode``, which keeps
-nothing for a backward pass. The JAX package's sharding constraints are
+Under grad, ``cfg.remat_policy`` wraps each repeat as the JAX package's
+``_maybe_remat`` does: ``full`` in ``torch.utils.checkpoint`` (nothing
+kept but the repeat's input; the backward recomputes it), ``minimal`` in
+selective checkpointing that keeps the outputs of the matmuls without
+batch dims (``aten.mm`` / ``addmm``, the counterpart of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
+kernels included; ``none`` keeps everything. Values do not change, only
+memory; under ``torch.no_grad`` or ``inference_mode`` (serving) nothing
+is wrapped. The JAX package's sharding constraints are
 the identity on one device and are dropped, and so is its
 ``decode_partial_softmax`` branch, which it takes only under mesh rules.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mamba, moe, params as P
@@ -118,6 +127,22 @@ def _apply_block(cfg: ModelConfig, mixer: str, ffn: str, p, x,
     return x + h, aux
 
 
+# the matmuls without batch dims, whose outputs ``minimal`` keeps
+_MATMULS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` (one repeat of the pattern) under ``cfg.remat_policy``."""
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat_policy == "minimal":
+        contexts = functools.partial(create_selective_checkpoint_contexts,
+                                     _MATMULS)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=contexts)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def _stack_forward(cfg: ModelConfig, params, x, positions
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefix blocks, then the pattern blocks, repeat by repeat. The
@@ -125,18 +150,29 @@ def _stack_forward(cfg: ModelConfig, params, x, positions
     aux_losses = {k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in _AUX}
 
-    def run(mixer, ffn, p, x):
-        x, aux = _apply_block(cfg, mixer, ffn, p, x, positions)
+    def add(aux):
         for k in aux:
             aux_losses[k] = aux_losses[k] + aux[k]
-        return x
+
+    def unit(x, unit_params) -> Tuple[torch.Tensor, List[Dict]]:
+        auxes = []
+        for i, (mixer, ffn) in enumerate(cfg.block_pattern):
+            x, aux = _apply_block(cfg, mixer, ffn, unit_params[f"pos{i}"],
+                                  x, positions)
+            auxes.append(aux)
+        return x, auxes
 
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
-        x = run(mixer, ffn, params[f"prefix{i}"], x)
+        x, aux = _apply_block(cfg, mixer, ffn, params[f"prefix{i}"], x,
+                              positions)
+        add(aux)
+    unit = _maybe_remat(cfg, unit)
+    per_layer = {pos: P.unstack(p, cfg.n_repeats)
+                 for pos, p in params["blocks"].items()}
     for layer in range(cfg.n_repeats):
-        for i, (mixer, ffn) in enumerate(cfg.block_pattern):
-            x = run(mixer, ffn,
-                    P.tree_slice(params["blocks"][f"pos{i}"], layer), x)
+        x, auxes = unit(x, {pos: ps[layer] for pos, ps in per_layer.items()})
+        for aux in auxes:
+            add(aux)
     n_moe = sum(f == "moe" for _, f in
                 cfg.prefix_pattern + cfg.block_pattern * cfg.n_repeats)
     if n_moe:

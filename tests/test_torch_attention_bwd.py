@@ -1,0 +1,212 @@
+"""The port's gradients through its zoo kernels, on the CPU.
+
+* The backward kernel's algorithm (``csrc/flash_attention_bwd.cu``),
+  written out in torch tile by tile as the two CUDA kernels walk it:
+  the row statistics recomputed with an online softmax over the key
+  tiles that some row of a query tile can see (all of them where a row
+  sees no key), D = rowsum(dO o O), dQ over those key tiles, and dK, dV
+  summed over a KV head's query heads and the query tiles that can see a
+  key tile. In float64 it must give the plain version's VJP
+  (``ref.attention_vjp_ref``) to 1e-12, causal, windowed, GQA, sq != sk,
+  and rows that see no key.
+* ``torch.autograd.gradcheck`` in float64 of the two
+  ``torch.autograd.Function``s (``FlashAttention``, ``MoeGmm``), whose
+  CPU path is the plain version in both directions: the wiring of the
+  saved tensors, the transposes and the non-tensor arguments.
+* Each of the four ``ops`` calls returns a result with a ``grad_fn``
+  when its input requires grad (the plain versions on the CPU); the WKV
+  and scan wrappers' refusal on the card, held through the check they
+  run first.
+"""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_wkv as twkv  # noqa: E402
+from repro_torch.kernels import selective_scan as tssm  # noqa: E402
+
+F64 = torch.float64
+
+
+def _tile_active(i0, i1, j0, j1, causal, window, sk):
+    """The kernels' skip test: query rows [i0, i1) and keys [j0, j1)
+    hold a visible pair, or a row of the tile sees no key."""
+    lo, hi = i0 - (j1 - 1), (i1 - 1) - j0
+    if causal:
+        lo = max(lo, 0)
+    if window > 0:
+        hi = min(hi, window - 1)
+    return lo <= hi or (window > 0 and i1 - 1 >= sk + window - 1)
+
+
+def _visible(qi, ki, causal, window):
+    vis = torch.ones(qi.shape[0], ki.shape[1], dtype=torch.bool)
+    if causal:
+        vis &= ki <= qi
+    if window > 0:
+        vis &= qi - ki < window
+    return vis
+
+
+def _bwd_model(q, k, v, o, do, causal, window, scale, tile):
+    """dq, dk, dv as the two kernels compute them."""
+    b, h, sq, _ = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    neg = torch.tensor(-1e30, dtype=q.dtype)
+    zero = torch.zeros((), dtype=q.dtype)
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    stats = torch.zeros((3, b, h, sq), dtype=q.dtype)
+    # kernel 1: a (batch, head) and a query tile a block
+    for bi in range(b):
+        for hd in range(h):
+            kh = hd // g
+            for i0 in range(0, sq, tile):
+                i1 = min(sq, i0 + tile)
+                qs, dout = q[bi, hd, i0:i1] * scale, do[bi, hd, i0:i1]
+                dd = (dout * o[bi, hd, i0:i1]).sum(-1)
+                qi = torch.arange(i0, i1)[:, None]
+                tiles = [(j0, min(sk, j0 + tile))
+                         for j0 in range(0, sk, tile)
+                         if _tile_active(i0, i1, j0, min(sk, j0 + tile),
+                                         causal, window, sk)]
+                m = torch.full((i1 - i0,), -math.inf, dtype=q.dtype)
+                lsum = torch.zeros(i1 - i0, dtype=q.dtype)
+                for j0, j1 in tiles:
+                    ki = torch.arange(j0, j1)[None]
+                    s = torch.where(_visible(qi, ki, causal, window),
+                                    qs @ k[bi, kh, j0:j1].T, neg)
+                    mn = torch.maximum(m, s.max(1).values)
+                    lsum = lsum * torch.exp(m - mn) \
+                        + torch.exp(s - mn[:, None]).sum(1)
+                    m = mn
+                linv = 1 / lsum
+                stats[:, bi, hd, i0:i1] = torch.stack([m, linv, dd])
+                acc = torch.zeros(i1 - i0, q.shape[3], dtype=q.dtype)
+                for j0, j1 in tiles:
+                    ki = torch.arange(j0, j1)[None]
+                    vis = _visible(qi, ki, causal, window)
+                    p = torch.exp(qs @ k[bi, kh, j0:j1].T - m[:, None]) \
+                        * linv[:, None]
+                    dp = dout @ v[bi, kh, j0:j1].T
+                    acc += torch.where(vis, p * (dp - dd[:, None]),
+                                       zero) @ k[bi, kh, j0:j1]
+                dq[bi, hd, i0:i1] = acc * scale
+    # kernel 2: a (batch, kv head) and a key tile a block
+    for bi in range(b):
+        for kh in range(kvh):
+            for j0 in range(0, sk, tile):
+                j1 = min(sk, j0 + tile)
+                ki = torch.arange(j0, j1)[None]
+                for hd in range(kh * g, (kh + 1) * g):
+                    for i0 in range(0, sq, tile):
+                        i1 = min(sq, i0 + tile)
+                        if not _tile_active(i0, i1, j0, j1, causal, window,
+                                            sk):
+                            continue
+                        qs, dout = q[bi, hd, i0:i1] * scale, \
+                            do[bi, hd, i0:i1]
+                        m, linv, dd = stats[:, bi, hd, i0:i1, None]
+                        vis = _visible(torch.arange(i0, i1)[:, None], ki,
+                                       causal, window)
+                        s = torch.where(vis, qs @ k[bi, kh, j0:j1].T, neg)
+                        p = torch.exp(s - m) * linv
+                        dp = dout @ v[bi, kh, j0:j1].T
+                        ds = torch.where(vis, p * (dp - dd), zero)
+                        dv[bi, kh, j0:j1] += p.T @ dout
+                        dk[bi, kh, j0:j1] += ds.T @ qs
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,dh,causal,window,tile", [
+    (1, 4, 2, 37, 37, 8, True, 0, 8),       # GQA 2:1, ragged last tile
+    (1, 4, 2, 37, 37, 8, True, 5, 8),       # a window inside a tile
+    (2, 2, 1, 30, 20, 4, False, 0, 8),      # bidirectional, sq > sk
+    (1, 2, 2, 40, 10, 4, True, 3, 8),       # rows 12.. see no key
+    (1, 2, 1, 40, 10, 4, False, 3, 8),      # the same, bidirectional
+    (1, 3, 1, 33, 33, 6, False, 7, 16),     # GQA 3:1 with a window
+    (1, 2, 2, 17, 33, 5, True, 0, 8),       # sq < sk
+])
+def test_backward_kernel_algorithm_matches_plain_vjp(b, h, kvh, sq, sk, dh,
+                                                     causal, window, tile):
+    g = torch.Generator().manual_seed(sq * 100 + sk)
+    q = torch.randn(b, h, sq, dh, generator=g, dtype=F64)
+    k, v = (torch.randn(b, kvh, sk, dh, generator=g, dtype=F64)
+            for _ in range(2))
+    do = torch.randn(b, h, sq, dh, generator=g, dtype=F64)
+    o = ref.attention_ref(q, k, v, causal=causal, window=window)
+    got = _bwd_model(q, k, v, o, do, causal, window, dh ** -0.5, tile)
+    exp = ref.attention_vjp_ref(q, k, v, do, causal=causal, window=window)
+    for a, e in zip(got, exp):
+        torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("causal,window,sq,sk,scale", [
+    (True, 0, 5, 5, None), (False, 0, 4, 6, 0.3), (True, 2, 6, 6, None),
+    (False, 2, 7, 3, None)])
+def test_flash_attention_function_gradcheck(causal, window, sq, sk, scale):
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(1, 4, sq, 3, generator=g, dtype=F64, requires_grad=True)
+    k, v = (torch.randn(1, 2, sk, 3, generator=g, dtype=F64,
+                        requires_grad=True) for _ in range(2))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tfa.FlashAttention.apply(q, k, v, causal, window,
+                                                 scale), (q, k, v))
+
+
+@pytest.mark.parametrize("needs", [(True, True), (True, False),
+                                   (False, True)])
+def test_moe_gmm_function_gradcheck(needs):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(3, 4, 5, generator=g, dtype=F64,
+                    requires_grad=needs[0])
+    w = torch.randn(3, 5, 2, generator=g, dtype=F64,
+                    requires_grad=needs[1])
+    assert torch.autograd.gradcheck(tgmm.MoeGmm.apply, (x, w))
+
+
+def test_ops_results_carry_grad_fn():
+    g = torch.Generator().manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).requires_grad_()
+    outs = {
+        "flash_attention": ops.flash_attention(rnd(1, 2, 5, 4),
+                                               rnd(1, 1, 5, 4),
+                                               rnd(1, 1, 5, 4)),
+        "moe_gmm": ops.moe_gmm(rnd(2, 3, 4), rnd(2, 4, 5)),
+        "rwkv6_wkv": ops.rwkv6_wkv(
+            rnd(1, 2, 3, 4), rnd(1, 2, 3, 4), rnd(1, 2, 3, 4),
+            torch.sigmoid(rnd(1, 2, 3, 4)), rnd(2, 4))[0],
+        "selective_scan": ops.selective_scan(
+            torch.nn.functional.softplus(rnd(1, 3, 4)), rnd(1, 3, 2),
+            rnd(1, 3, 2), rnd(1, 3, 4), -torch.exp(rnd(4, 2)))[0],
+    }
+    for name, out in outs.items():
+        assert out.grad_fn is not None, name
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("mod", [twkv, tssm], ids=["rwkv6_wkv",
+                                                   "selective_scan"])
+def test_recurrences_refuse_grad_on_the_card(mod):
+    """The WKV and scan wrappers check for a gradient before anything
+    else on a CUDA tensor (the CPU takes the plain version first, so the
+    check is driven directly): an input that requires grad raises
+    naming the ROADMAP entry, unless grad is off."""
+    plain = torch.zeros(2)
+    tracked = torch.zeros(2, requires_grad=True)
+    mod._refuse_grad(plain, plain)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        mod._refuse_grad(plain, tracked)
+    with torch.no_grad():
+        mod._refuse_grad(plain, tracked)
+    with torch.inference_mode():
+        mod._refuse_grad(plain, torch.zeros(2))

@@ -278,8 +278,9 @@ def test_kernel_sources_build_flags():
     recurrence keeps denormals as its plain version does)."""
     from repro_torch.kernels import _build
     names = [s.name for s in _build.sources()]
-    assert names == ["flash_attention.cu", "moe_gmm.cu", "quantize.cu",
-                     "rwkv6_wkv.cu", "selective_scan.cu"]
+    assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
+                     "moe_gmm.cu", "quantize.cu", "rwkv6_wkv.cu",
+                     "selective_scan.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     for s in _build.sources():
