@@ -148,6 +148,25 @@ NVIDIA GPU.
    a clock on each of 132 SMs, at the SM clock ``nvidia-smi`` reads),
    and the grouped matmul and attention at jamba's shapes; and the
    phase's wall time;
+9b. serves ``deepseek-v2-lite-16b`` at full width and depth (27 layers:
+   a dense prefix layer of d_ff 10944, then 26 of multi-head latent
+   attention (MLA: kv_lora 512, no q-LoRA, 16 heads of q/k 128 + 64 and
+   v 128) and 64 experts top-6 of width 1408 with 2 shared; vocab
+   102400; 15.7 B params, 62.8 GB in f32, drawn on the card after
+   jamba's weights are freed), as step 7 serves granite: the grouped
+   matmul at the path's four shapes (capacity 240 in prefill, 4 in
+   decode) within 2e-4 and attention at (4, 16, 511, 192) causal with
+   v's columns past 128 zero, as the MLA call pads them (the SIMT
+   kernel), within 2e-5; ``score`` of a (4, 512) batch with exactly 27
+   attention and 78 grouped-matmul launches; decode (the absorbed form
+   over the latent cache) vs prefill within 2e-3 at ``capacity_factor``
+   64 / 6; greedy ``generate`` (78 grouped-matmul launches a step, no
+   attention kernel); tokens/s, profiles, peak memory, and both
+   kernels' times beside ``torch.bmm`` and SDPA (which takes v of 128
+   itself); then ``minicpm3-4b`` as step 8 runs h2o-danube: attention at
+   (4, 40, 511, 96), v past 64 zero (the tensor-core kernel at width
+   128), and one ``score`` of the full 62 layers (4.26 B params, 17.0
+   GB) with exactly 62 attention launches;
 10. trains ``granite-moe-3b-a800m`` at full width and depth (32 layers,
    3.37 B params; AdamW and remat "minimal", its config's; f32) after
    every other phase has freed its weights: attention's backward kernel
@@ -283,6 +302,12 @@ SSM_CASES = [
     (2, 37, 200, 32, "float32", "float32"),
     (2, 37, 72, 100, "float32", "float32"),
 ]
+
+# the MLA phase: deepseek-v2-lite-16b at full width and depth, f32 (62.8
+# GB of weights on one card), served as the MoE phase serves granite;
+# then one cold score of the full minicpm3-4b (62 layers, 17.0 GB)
+MLA_ARCH = "deepseek-v2-lite-16b"
+MINICPM_ARCH = "minicpm3-4b"
 
 # the language-model training phase: granite-moe-3b-a800m at full width,
 # AdamW (its config's optimizer) and remat "minimal" (its config's), f32;
@@ -463,6 +488,14 @@ def _bound(nbytes: float, ops: float, rate: float = F32_FLOP_S) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "op_rate_tflop_s": rate / 1e12}
+
+
+def product_rate(dtype) -> float:
+    """The card's best rate for products of ``dtype`` at the accuracy
+    the function needs: the tensor cores in bf16, or in 3xTF32 for f32
+    (f32-accurate), whichever route a kernel takes; a bound at the rate
+    of the route a kernel chose would flatter a slow route."""
+    return BF16_FLOP_S if "bfloat16" in str(dtype) else TF32X3_FLOP_S
 
 
 def route_rate(variant: str) -> float:
@@ -1653,7 +1686,7 @@ def time_kernels(torch, dev):
                     lambda: F.scaled_dot_product_attention(q, k, v),
                     2 * nbytes(q) + nbytes(k, v),
                     4.0 * b * h * s * s * dh,          # q.k and p.v
-                    rate=route_rate(variant))
+                    rate=product_rate(q.dtype))
     att["variant"] = variant
     qo, so = qz.quantize_int8(x)
     quant = time_call(lambda: qz.quantize_int8(x),
@@ -2046,27 +2079,51 @@ def gmm_path_shapes(cfg, score_tokens: int = SCORE_TOKENS):
 
 
 def prefill_attention_shapes(cfg, score_tokens: int = SCORE_TOKENS):
-    """q and k/v shapes of the model's prefill self-attention."""
+    """q and k/v shapes of the model's prefill self-attention (MLA's: a
+    k head a q head, of head dim nope + rope, v padded to it)."""
     s = score_tokens - 1
+    if cfg.attention == "mla":
+        dh = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
+        return ((SCORE_BATCH, cfg.n_heads, s, dh),) * 2
     return ((SCORE_BATCH, cfg.n_heads, s, cfg.head_dim),
             (SCORE_BATCH, cfg.n_kv_heads, s, cfg.head_dim))
 
 
-def check_attention(torch, dev, qs, ks, window: int, g) -> float:
-    """The attention kernel against its plain version at a model's
-    prefill shape (causal, ``window`` as the model sets it), f32,
-    within 2e-5; returns the largest difference."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+def v_head_dim(cfg):
+    """v's own head dim where it is narrower than the kernel's (MLA's,
+    whose v the call pads with zero columns), else None."""
+    return cfg.mla.v_head_dim if cfg.attention == "mla" else None
+
+
+def attention_inputs(torch, dev, qs, ks, g, dv=None):
+    """q, k, v on the card; v's columns past ``dv`` zero, as MLA's call
+    pads them."""
     q = torch.randn(qs, generator=g).to(dev)
     k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    if dv is not None:
+        v[..., dv:] = 0
+    return q, k, v
+
+
+def check_attention(torch, dev, qs, ks, window: int, g, dv=None) -> float:
+    """The attention kernel against its plain version at a model's
+    prefill shape (causal, ``window`` as the model sets it; v's columns
+    past ``dv`` zero), f32, within 2e-5; returns the largest
+    difference."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v = attention_inputs(torch, dev, qs, ks, g, dv)
     out = fa.flash_attention(q, k, v, causal=True, window=window)
     exp = ref.attention_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
     err = (out - exp).abs().max().item()
-    log(f"attention q {qs} k/v {ks} causal window {window} f32: "
-        f"max_abs_err {err:.3e} (tol 2e-5)")
+    if dv is not None and torch.count_nonzero(out[..., dv:]).item():
+        raise AssertionError("attention: v's zero columns gave nonzero "
+                             "output columns")
+    padded = "" if dv is None else f", v's columns past {dv} zero"
+    log(f"attention q {qs} k/v {ks} causal window {window} f32{padded} "
+        f"({fa.variant(q, k, v)}): max_abs_err {err:.3e} (tol 2e-5)")
     return err
 
 
@@ -2105,36 +2162,53 @@ def check_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
             errs[name] = err
         del x, w, out, exp
     qs, ks = prefill_attention_shapes(cfg, score_tokens)
-    errs["attention"] = check_attention(torch, dev, qs, ks, 0, g)
+    errs["attention"] = check_attention(torch, dev, qs, ks, 0, g,
+                                        v_head_dim(cfg))
     return errs
 
 
 def time_attention(torch, dev, cfg, qs, ks, window: int, g,
-                   timing: dict) -> dict:
+                   timing: dict, dv=None) -> dict:
     """The attention kernel at a model's prefill shape (causal,
-    ``window``) beside its plain version and SDPA (a yardstick only)."""
+    ``window``; v's columns past ``dv`` zero, as MLA's call pads them)
+    beside its plain version and SDPA (a yardstick only; it takes v of
+    ``dv`` columns itself)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.launch.attention_turns import kernel_us
-    q = torch.randn(qs, generator=g).to(dev)
-    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    q, k, v = attention_inputs(torch, dev, qs, ks, g, dv)
     b, h, s, dh = qs
+    dv = dh if dv is None else dv
+    v_own = v[..., :dv].contiguous()
     if window and window < s:
         raise ValueError("SDPA's is_causal has no window: time the "
                          "attention kernel where the window masks nothing")
-    # q, k, v read once, o written once; q.k and p.v over the causal
-    # pairs only, s (s + 1) / 2 a (batch, head)
+    # the model's own work: q, k and v of dv columns read once, o of dv
+    # columns written once; q.k at dh and p.v at dv over the causal pairs
+    # only, s (s + 1) / 2 a (batch, head). A padded v's extra columns
+    # are the kernel's cost, not the function's
+    nbytes = (q.numel() + k.numel() + v_own.numel() + b * h * s * dv) * 4
+    ops = 2.0 * b * h * (dh + dv) * s * (s + 1) / 2
     variant = fa.variant(q, k, v)
     att = time_call(
         lambda: fa.flash_attention(q, k, v, causal=True, window=window),
         lambda: ref.attention_ref(q, k, v, causal=True, window=window),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        lambda: F.scaled_dot_product_attention(q, k, v_own, is_causal=True,
                                                enable_gqa=True),
-        (2 * q.numel() + k.numel() + v.numel()) * 4,
-        4.0 * b * h * dh * s * (s + 1) / 2, timing,
-        rate=route_rate(variant))
+        nbytes, ops, timing, rate=product_rate(q.dtype))
     att["variant"] = variant
+    if route_rate(variant) != att["op_rate_tflop_s"] * 1e12:
+        # the same work at the peak of the route the kernel took (f32
+        # FMAs for the SIMT kernel), beside the bound
+        att["route_bound_ms"] = _bound(nbytes, ops,
+                                       route_rate(variant))["bound_ms"]
+    if dv != dh:
+        # SDPA on the padded v: what the pad costs a library kernel
+        att["library_padded_v_ms"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            **timing)
     # device time a call of each kernel it launches: the attention
     # kernel and its hidden-key fix-up apart
     att["kernel_us"] = kernel_us(
@@ -2165,13 +2239,14 @@ def time_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
                       (x.numel() + w.numel() + e * c * f) * 4,
                       2.0 * e * c * d * f,
                       (prefill_timing or few) if name.startswith("prefill")
-                      else few, rate=route_rate(variant))
+                      else few, rate=product_rate(x.dtype))
         t["variant"] = variant
         log(f"moe_gmm {name} {(e, c, d, f)} f32: {t}")
         gmm_t[name] = t
         del x, w
     qs, ks = prefill_attention_shapes(cfg, score_tokens)
-    att = time_attention(torch, dev, cfg, qs, ks, 0, g, few)
+    att = time_attention(torch, dev, cfg, qs, ks, 0, g, few,
+                         v_head_dim(cfg))
     return gmm_t, att
 
 
@@ -2185,21 +2260,22 @@ def h2o_config():
     return cfg
 
 
-def h2o_check(torch, dev):
-    """Phase 8: head dim 80 on the card. The attention kernel against
-    its plain version at h2o-danube-1.8b's prefill shape (causal,
-    window 4096), then the full 24-layer model drawn in f32 and one
-    ``score`` of a (4, 512) batch, which must give a finite loss with
-    exactly one attention launch a layer; then the kernel's times at
-    that shape. Decode and the profile are left out to save time.
-    Returns (the error, the score's launches, the times)."""
+def cold_score(torch, dev, cfg, tag: str, seed: int):
+    """Phases 8 and 9b: a dense attention model's head dim on the card.
+    The attention kernel against its plain version at the model's
+    prefill shape (causal, its window; MLA's v padded), then the full
+    model drawn in f32 and one ``score`` of a (4, 512) batch, which
+    must give a finite loss with exactly one attention launch a layer
+    and no other kernel's; then the kernel's times at that shape.
+    Decode and the profile are left out to save time. Returns (the
+    error, the score's launches, the times)."""
     import numpy as np
     from repro_torch.serve.engine import ServeEngine
     t_phase = time.perf_counter()
-    cfg = h2o_config()
-    g = torch.Generator().manual_seed(10)
+    g = torch.Generator().manual_seed(seed)
     qs, ks = prefill_attention_shapes(cfg)
-    err = check_attention(torch, dev, qs, ks, cfg.window, g)
+    window = cfg.window if cfg.attention == "swa" else 0
+    err = check_attention(torch, dev, qs, ks, window, g, v_head_dim(cfg))
     params = draw_params(torch, dev, cfg)
     eng = ServeEngine(cfg, params, max_seq=SCORE_TOKENS, dtype=torch.float32,
                       device=dev)
@@ -2216,22 +2292,22 @@ def h2o_check(torch, dev):
     expected = {name: 0 for name in counters}
     expected["flash_attention"] = cfg.n_layers
     if got != expected:
-        raise AssertionError(f"{H2O_ARCH} score launched {got}, expected "
-                             f"{expected}")
+        raise AssertionError(f"{cfg.arch_id} score launched {got}, "
+                             f"expected {expected}")
     if not np.isfinite(loss):
-        raise AssertionError(f"{H2O_ARCH} score gave a non-finite loss "
+        raise AssertionError(f"{cfg.arch_id} score gave a non-finite loss "
                              f"{loss}")
-    log(f"{H2O_ARCH} score of ({SCORE_BATCH}, {SCORE_TOKENS}) tokens: loss "
-        f"{loss:.6f} (ln vocab {np.log(cfg.vocab):.6f}) in {wall * 1e3:.1f} "
-        f"ms (one call, not warmed up); launches {got}")
+    log(f"{cfg.arch_id} score of ({SCORE_BATCH}, {SCORE_TOKENS}) tokens: "
+        f"loss {loss:.6f} (ln vocab {np.log(cfg.vocab):.6f}) in "
+        f"{wall * 1e3:.1f} ms (one call, not warmed up); launches {got}")
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    att = time_attention(torch, dev, cfg, qs, ks, cfg.window, g,
-                         dict(reps=20, trials=10))
-    log(f"{H2O_ARCH} phase: {time.perf_counter() - t_phase:.1f} s")
-    return err, {"h2o_score": {"flash_attention": got["flash_attention"]}}, \
-        att
+    att = time_attention(torch, dev, cfg, qs, ks, window, g,
+                         dict(reps=20, trials=10), v_head_dim(cfg))
+    log(f"{cfg.arch_id} phase: {time.perf_counter() - t_phase:.1f} s")
+    return err, {f"{tag}_score": {"flash_attention":
+                                  got["flash_attention"]}}, att
 
 
 def all_counters() -> dict:
@@ -2245,6 +2321,70 @@ def all_counters() -> dict:
             "flash_attention_bwd": fa.bwd_launches,
             "quantize_int8": qz.launches, "rwkv6_wkv": wkv.launches,
             "moe_gmm": gmm.launches, "selective_scan": ssm.launches}
+
+
+def mla_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(MLA_ARCH)
+    m, a = cfg.moe, cfg.mla
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab,
+            m.num_experts, m.top_k, m.num_shared, m.d_expert,
+            a.kv_lora_rank, a.q_lora_rank, a.nope_head_dim, a.rope_head_dim,
+            a.v_head_dim) == (27, 2048, 16, 10944, 102400, 64, 6, 2, 1408,
+                              512, None, 128, 64, 128), \
+        "the full deepseek-v2-lite-16b config"
+    assert cfg.prefix_pattern == (("attn", "mlp"),) and \
+        cfg.block_pattern == (("attn", "moe"),)
+    return cfg
+
+
+def minicpm_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(MINICPM_ARCH)
+    a = cfg.mla
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab,
+            a.kv_lora_rank, a.q_lora_rank, a.nope_head_dim, a.rope_head_dim,
+            a.v_head_dim) == (62, 2560, 40, 6400, 73448, 256, 768, 64, 32,
+                              64), "the full minicpm3-4b config"
+    return cfg
+
+
+def mla_phase(torch, dev):
+    """Phase 9b: multi-head latent attention on the card. The grouped
+    matmul against its plain version at deepseek-v2-lite-16b's four
+    shapes and attention at its prefill shape, (4, 16, 511, 192) causal
+    with v's columns past 128 zero, as the MLA call pads them (the SIMT
+    kernel: head dims above 128); the full 27-layer model served
+    (``serve_model``: 27 attention and 78 gmm launches a ``score``, 78
+    gmm launches and no attention a decode step; decode vs prefill at
+    ``capacity_factor`` 64 / 6); both kernels' times at the path's
+    shapes; then minicpm3-4b's attention at (4, 40, 511, 96), v past 64
+    zero, and one cold ``score`` of the full 62 layers with exactly 62
+    attention launches. Returns (errors, launches by run, times)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    t_phase = time.perf_counter()
+    cfg = mla_config()
+    errs = check_moe_kernels(torch, dev, cfg, jax_cases=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_moe = sum(f == "moe" for _, f in
+                cfg.prefix_pattern + cfg.block_pattern * cfg.n_repeats)
+    # an attention launch a layer in prefill, none in decode; gate, up,
+    # down per MoE layer in both (the dense prefix layer and the shared
+    # experts are plain matmuls)
+    launches, served = serve_model(
+        torch, dev, cfg, "deepseek",
+        {"moe_gmm": (gmm.launches, 3 * n_moe, 3 * n_moe),
+         "flash_attention": (fa.launches, cfg.n_layers, 0)})
+    gmm_t, att = time_moe_kernels(torch, dev, cfg)
+    log(f"{MLA_ARCH} phase: {time.perf_counter() - t_phase:.1f} s")
+    mc_err, mc_launches, mc_att = cold_score(torch, dev, minicpm_config(),
+                                             "minicpm3", 12)
+    errs["minicpm3_attention"] = mc_err
+    return errs, launches | mc_launches, {
+        "served": served, "gmm": gmm_t, "attention": att,
+        "minicpm3_attention": mc_att}
 
 
 def jamba_config():
@@ -2835,7 +2975,7 @@ def time_lm_kernels(torch, dev, cfg, card: str) -> tuple:
                reps=5, trials=5),
            "library_ms": None,
            **_bound((4 * q.numel() + 4 * k.numel()) * 4,
-                    5 * 2.0 * dh * pairs * b * h)}
+                    5 * 2.0 * dh * pairs * b * h, product_rate(q.dtype))}
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
 
     def sdpa_fwd_bwd():
@@ -2860,7 +3000,7 @@ def time_lm_kernels(torch, dev, cfg, card: str) -> tuple:
                           lambda: torch.bmm(a, bm),
                           (a.numel() + bm.numel() + ee * cc * ff) * 4,
                           2.0 * ee * cc * dd * ff, dict(reps=20, trials=10),
-                          rate=route_rate(gmm.variant(a, bm)))
+                          rate=product_rate(a.dtype))
             t["variant"] = gmm.variant(a, bm)
             t["shape"] = [list(a.shape), list(bm.shape)]
             gmm_t[f"{name}_{part}"] = t
@@ -2974,7 +3114,8 @@ def main() -> int:
     gmm_t, moe_att = time_moe_kernels(torch, dev, moe_cfg)
 
     # the granite-moe weights are freed by now
-    h2o_err, h2o_launches, h2o_att = h2o_check(torch, dev)
+    h2o_err, h2o_launches, h2o_att = cold_score(torch, dev, h2o_config(),
+                                                "h2o", 10)
 
     t_jamba = time.perf_counter()
     jamba_cfg = jamba_config()
@@ -3000,6 +3141,9 @@ def main() -> int:
     jamba_gmm_t, jamba_att = time_moe_kernels(
         torch, dev, jamba_cfg, JAMBA_SCORE_TOKENS, dict(reps=2, trials=3))
     log(f"{JAMBA_ARCH} phase: {time.perf_counter() - t_jamba:.1f} s")
+
+    # the jamba weights are freed by now
+    mla_errs, mla_launches, mla = mla_phase(torch, dev)
 
     # last, so that its profiler session comes after every zoo timing
     train_launches, train, thread_losses = train_slice(torch, dev, cfg,
@@ -3029,7 +3173,7 @@ def main() -> int:
         for name, c in got.items():
             by_path[name][run] = c
     zoo_runs = (zoo_launches | moe_launches | h2o_launches | jamba_launches
-                | lm_launches)
+                | mla_launches | lm_launches)
     for run, got in zoo_runs.items():
         for name, c in got.items():
             by_path[name][run] = c
@@ -3046,13 +3190,23 @@ def main() -> int:
                                     max_abs_err=moe_errs["attention"]),
             "h2o_prefill": dict(h2o_att, max_abs_err=h2o_err),
             "jamba_prefill": dict(jamba_att,
-                                  max_abs_err=jamba_errs["attention"])},
+                                  max_abs_err=jamba_errs["attention"]),
+            # MLA: v padded to q/k's head dim; the bound counts the
+            # model's own work (p.v at v's head dim)
+            "deepseek_prefill": dict(mla["attention"],
+                                     max_abs_err=mla_errs["attention"]),
+            "minicpm3_prefill": dict(
+                mla["minicpm3_attention"],
+                max_abs_err=mla_errs["minicpm3_attention"])},
         # the grouped matmul's at each of its four shapes of each MoE
         # model; the top-level times are those of granite's prefill
         # gate/up
         "moe_gmm": {"shapes": gmm_t, "jamba_shapes": {
             name: dict(t, max_abs_err=jamba_errs[name])
             for name, t in jamba_gmm_t.items()},
+            "deepseek_shapes": {
+                name: dict(t, max_abs_err=mla_errs[name])
+                for name, t in mla["gmm"].items()},
             # dx and dw of a training step, through the same kernel
             "train_backward_shapes": lm["gmm_bwd"],
             "train_backward_max_abs_err": lm["gmm_grad_err"]},

@@ -6,9 +6,10 @@ the zoo with random weights from a seed.
       --batch 4 --prompt-len 16 --new 32
 
 Ported archs: ``rwkv6-7b``, ``granite-moe-3b-a800m``, ``glm4-9b``,
-``qwen3-14b``, ``h2o-danube-1.8b`` and ``jamba-1.5-large-398b`` (whose
+``qwen3-14b``, ``h2o-danube-1.8b``, ``jamba-1.5-large-398b`` (whose
 full 72 layers of 16 experts do not fit one card: ``chip_smoke.py``
-serves one 8-layer period of 4 experts). ``--device``
+serves one 8-layer period of 4 experts), and the MLA archs
+``deepseek-v2-lite-16b`` and ``minicpm3-4b``. ``--device``
 defaults to ``cuda``, where the weights are drawn on the card. An arch
 whose family is not ported yet exits with the ``NotImplementedError``
 that names its ROADMAP item.

@@ -2,12 +2,14 @@
 counterpart of the JAX package's ``repro/models/transformer.py``.
 
 This slice runs the decoder-only families whose blocks are GQA attention
-(full, sliding-window, qk-norm; RoPE or none), an RWKV-6 time-mix or a
-Mamba (S6) mixer, followed by a gated MLP or a mixture of experts, under
-rmsnorm: ``rwkv6-7b``, ``granite-moe-3b-a800m``, ``glm4-9b``,
-``qwen3-14b``, ``h2o-danube-1.8b`` and the hybrid
-``jamba-1.5-large-398b``. MLA, the encoder and the modality prefixes
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+(full, sliding-window, qk-norm; RoPE or none), multi-head latent
+attention (MLA), an RWKV-6 time-mix or a Mamba (S6) mixer, followed by
+a gated MLP or a mixture of experts (with shared experts and a dense
+prefix layer), under rmsnorm: ``rwkv6-7b``, ``granite-moe-3b-a800m``,
+``glm4-9b``, ``qwen3-14b``, ``h2o-danube-1.8b``, the hybrid
+``jamba-1.5-large-398b``, and the MLA models ``deepseek-v2-lite-16b``
+and ``minicpm3-4b``. The encoder and the modality prefixes raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Layer stacks keep the JAX package's *stacked* layout (every leaf of
 ``params["blocks"]["pos<i>"]`` has a leading ``n_repeats`` dim), so one
@@ -35,8 +37,8 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, mamba, moe, params as P
-from repro_torch.models import rwkv
+from repro_torch.models import attention, layers, mamba, mla, moe
+from repro_torch.models import params as P, rwkv
 
 # the ROADMAP Queue 1 item that ports what this slice does not run
 _ZOO = "ROADMAP Queue 1 item 11 (the rest of the model zoo)"
@@ -48,11 +50,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet: {item}")
 
 
-def _check_block(cfg: ModelConfig, mixer: str) -> None:
-    if mixer == "attn" and cfg.attention == "mla":
-        raise _unported(f"{cfg.arch_id}: the MLA mixer", _ZOO)
-
-
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless this slice runs ``cfg``."""
     if cfg.encoder is not None:
@@ -60,8 +57,6 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.frontend is not None:
         raise _unported(f"{cfg.arch_id}: the {cfg.frontend.kind} prefix",
                         _ZOO)
-    for mixer, _ in cfg.prefix_pattern + cfg.block_pattern:
-        _check_block(cfg, mixer)
 
 
 # ---------------------------------------------------------------------------
@@ -74,10 +69,14 @@ _MIXER_SPECS = {"attn": attention.attention_spec,
                 "rwkv": rwkv.rwkv_spec}
 
 
+def _mla(cfg: ModelConfig, mixer: str) -> bool:
+    return mixer == "attn" and cfg.attention == "mla"
+
+
 def block_spec(cfg: ModelConfig, mixer: str, ffn: str):
-    _check_block(cfg, mixer)
     return {"norm1": layers.rmsnorm_spec(cfg.d_model),
-            "mixer": _MIXER_SPECS[mixer](cfg),
+            "mixer": (mla.mla_spec(cfg) if _mla(cfg, mixer)
+                      else _MIXER_SPECS[mixer](cfg)),
             "norm2": layers.rmsnorm_spec(cfg.d_model),
             "ffn": (moe.moe_spec(cfg) if ffn == "moe"
                     else layers.gated_mlp_spec(cfg.d_model, cfg.d_ff))}
@@ -115,7 +114,9 @@ def _ffn(cfg: ModelConfig, ffn: str, p, x
 def _apply_block(cfg: ModelConfig, mixer: str, ffn: str, p, x,
                  positions) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if mixer == "attn":
+    if _mla(cfg, mixer):
+        h = mla.mla_self_attention(cfg, p["mixer"], h, positions=positions)
+    elif mixer == "attn":
         h = attention.self_attention(cfg, p["mixer"], h,
                                      positions=positions)
     elif mixer == "mamba":
@@ -226,6 +227,8 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
 def _block_cache(cfg: ModelConfig, mixer: str, batch: int, max_seq: int,
                  dtype: torch.dtype, device):
+    if _mla(cfg, mixer):
+        return mla.init_mla_cache(cfg, batch, max_seq, dtype, device)
     if mixer == "attn":
         return attention.init_kv_cache(cfg, batch, max_seq, dtype, device)
     if mixer == "mamba":
@@ -236,7 +239,8 @@ def _block_cache(cfg: ModelConfig, mixer: str, batch: int, max_seq: int,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device="cuda"):
     """Per-layer decode state: a KV cache of ``max_seq`` slots (an SWA
-    ring of at most ``window``) for attention, the RWKV state or the
+    ring of at most ``window``) for attention, the latent and rope key
+    of ``max_seq`` slots for MLA, the RWKV state or the
     Mamba state and conv tail (which do not grow with the sequence) for
     RWKV and Mamba. Stacked blocks get the per-layer cache repeated
     along a leading ``n_repeats`` dim."""
@@ -258,7 +262,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 def _decode_block(cfg: ModelConfig, mixer: str, ffn: str, p, x, cache,
                   index: int):
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if mixer == "attn":
+    if _mla(cfg, mixer):
+        h, cache = mla.mla_decode_attention(cfg, p["mixer"], h, cache,
+                                            index)
+    elif mixer == "attn":
         h, cache = attention.decode_attention(cfg, p["mixer"], h, cache,
                                               index)
     elif mixer == "mamba":

@@ -2,12 +2,12 @@
 decode, the counterpart of the JAX package's ``repro/serve/engine.py``.
 
 It serves the families ``models/transformer.py`` runs: ``rwkv6-7b``,
-``granite-moe-3b-a800m``, ``glm4-9b``, ``qwen3-14b``, ``h2o-danube-1.8b``
-and ``jamba-1.5-large-398b``; any other arch raises
-``NotImplementedError``.
+``granite-moe-3b-a800m``, ``glm4-9b``, ``qwen3-14b``, ``h2o-danube-1.8b``,
+``jamba-1.5-large-398b``, ``deepseek-v2-lite-16b`` and ``minicpm3-4b``;
+any other arch raises ``NotImplementedError``.
 
-``generate`` fills the per-layer state (the KV cache, the RWKV state or
-the Mamba state)
+``generate`` fills the per-layer state (the KV cache, MLA's latent
+cache, the RWKV state or the Mamba state)
 with the prompt by teacher-forced decode steps, then samples new tokens:
 greedy at temperature 0, else from softmax(logits / T) with an explicit
 ``torch.Generator`` seeded by ``seed`` (the JAX package's ``jax.random``

@@ -15,13 +15,17 @@ to the port's thread mode bit for bit and through it to the JAX
 package's depth 2. A spawned worker does not inherit
 ``torch.set_num_threads``, and another intra-op thread count changes
 CPU reduction orders, so the process-mode jobs run with
-``OMP_NUM_THREADS=1`` in their environment.
+``OMP_NUM_THREADS=1`` in their environment. Every mode but thread runs
+its job in a fresh interpreter (``_port_fit_fresh``).
 """
 import multiprocessing as mp
 import socket
 import struct
+import subprocess
+import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -347,6 +351,34 @@ def _port_fit(cut, mode, depth):
                            pipeline_depth=depth, device="cpu"))
 
 
+def _port_fit_fresh(cut, mode, depth, tmp_path):
+    """``_port_fit`` in a fresh interpreter, so that the job's pipes and
+    sockets are its own. A TLS reader thread that an earlier test left
+    in this process (the JAX package's gRPC client, ROADMAP Queue 3)
+    keeps reading and writing the file descriptor number it held; once
+    that number was reused, it landed a TLS alert in a process-mode
+    job's queue, whose readers then waited for a frame of 0x17030300
+    bytes. The child writes to files, so this process holds no pipe of
+    the job."""
+    out, log = tmp_path / f"{mode}_{depth}.npy", tmp_path / "fit.log"
+    script = tmp_path / "fit.py"
+    here = Path(__file__).resolve().parent
+    script.write_text(
+        "import sys\n"
+        f"sys.path[:0] = [{str(here)!r}, {str(here.parent / 'src')!r}]\n"
+        "import numpy as np\n"
+        "import test_torch_modes as t\n"
+        "if __name__ == '__main__':\n"
+        f"    np.save({str(out)!r}, t._port_fit({str(cut)!r}, {mode!r}, "
+        f"{depth}))\n")
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, str(script)],
+                            stdin=subprocess.DEVNULL, stdout=f,
+                            stderr=subprocess.STDOUT, timeout=300).returncode
+    assert rc == 0, log.read_text()[-4000:]
+    return np.load(out)
+
+
 @pytest.fixture(scope="module")
 def reference(cut):
     """The JAX package's thread mode and the port's, at depth 1 and 2,
@@ -384,20 +416,21 @@ def test_thread_mode_matches_jax(reference):
 
 @pytest.mark.parametrize("mode", [m for m in MODES if m != "thread"])
 def test_split_nn_mode_bit_identical_at_depth1(cut, reference, mode,
-                                               monkeypatch):
+                                               monkeypatch, tmp_path):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    got = _port_fit(cut, mode, 1)
+    got = _port_fit_fresh(cut, mode, 1, tmp_path)
     thread, want, flips = reference[1]
     np.testing.assert_array_equal(got, thread)
     _check_against_jax(got, want, flips)
 
 
-def test_socket_proc_depth2_matches_jax(cut, reference, monkeypatch):
+def test_socket_proc_depth2_matches_jax(cut, reference, monkeypatch,
+                                       tmp_path):
     """Every agent its own OS process over TCP, at bounded staleness 1:
     the same losses as the port's thread mode at depth 2, held to the
     JAX package's depth 2."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    got = _port_fit(cut, "socket_proc", 2)
+    got = _port_fit_fresh(cut, "socket_proc", 2, tmp_path)
     thread, want, flips = reference[2]
     np.testing.assert_array_equal(got, thread)
     _check_against_jax(got, want, flips)

@@ -270,8 +270,7 @@ def test_decode_matches_own_forward(model):
                                        atol=2e-3)
 
 
-UNPORTED = ["deepseek-v2-lite-16b", "internvl2-76b", "minicpm3-4b",
-            "whisper-large-v3"]
+UNPORTED = ["internvl2-76b", "whisper-large-v3"]
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
@@ -307,7 +306,16 @@ def test_launcher_serves_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert f"{ARCH} on cpu: generated (2, 7)" in out
     monkeypatch.setattr(sys, "argv", [
-        "serve", "--arch", "deepseek-v2-lite-16b", "--reduced", "--device",
+        "serve", "--arch", "whisper-large-v3", "--reduced", "--device",
         "cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tlaunch.main()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b"])
+def test_launcher_serves_mla_on_cpu(arch, monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", arch, "--reduced", "--device", "cpu",
+        "--batch", "2", "--prompt-len", "3", "--new", "4"])
+    tlaunch.main()
+    assert f"{arch} on cpu: generated (2, 7)" in capsys.readouterr().out
