@@ -167,6 +167,25 @@ NVIDIA GPU.
    (4, 40, 511, 96), v past 64 zero (the tensor-core kernel at width
    128), and one ``score`` of the full 62 layers (4.26 B params, 17.0
    GB) with exactly 62 attention launches;
+9c. serves the encoder-decoder ``whisper-large-v3`` at full width and
+   depth (32 encoder layers over 1,500 frames, 32 decoder layers with
+   cross-attention; d_model 1280, 20 heads of 64, d_ff 5120, vocab
+   51866; 1.60 B params, 6.41 GB in f32, drawn on the card after the
+   MLA weights are freed): attention at its four shapes within 2e-5 of
+   the plain version, naming each variant (the encoder's bidirectional
+   (4, 20, 1500, 64), whose 1,500 keys end in a partial tile;
+   cross-attention in prefill, q of 448 against 1,500 keys; the
+   decoder's causal (4, 20, 448, 64); cross-attention in a decode step,
+   one query against 1,500 keys, the SIMT kernel), and the encoder's
+   shape with infs in v (the plain version's +-inf and NaN exactly);
+   ``encode`` of (4, 1500, 1280) frames with exactly 32 attention
+   launches; ``make_prefill_step`` of (4, 448) tokens with the frames
+   with exactly 96; decode vs prefill over 16 positions within 2e-3;
+   greedy ``generate`` of 64 tokens after 4 with 32 attention launches
+   a decode step and finite logits; encode ms, prefill and decode
+   tokens/s, the profiled busy shares of the prefill and of one decode
+   step, device time by kind, peak memory, and the kernel's times at
+   the four shapes beside its plain version and SDPA;
 10. trains ``granite-moe-3b-a800m`` at full width and depth (32 layers,
    3.37 B params; AdamW and remat "minimal", its config's; f32) after
    every other phase has freed its weights: attention's backward kernel
@@ -308,6 +327,15 @@ SSM_CASES = [
 # then one cold score of the full minicpm3-4b (62 layers, 17.0 GB)
 MLA_ARCH = "deepseek-v2-lite-16b"
 MINICPM_ARCH = "minicpm3-4b"
+
+# the encoder-decoder phase: whisper-large-v3 at full width and depth,
+# f32 (6.41 GB of weights): frames of (4, 1500, 1280), a prefill of 448
+# tokens (its published decoder context), decode vs prefill over 16
+# positions, greedy generate of 64 tokens after a prompt of 4
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_BATCH, WHISPER_TOKENS = 4, 448
+WHISPER_CONSIST = 16
+WHISPER_PROMPT, WHISPER_NEW = 4, 64
 
 # the language-model training phase: granite-moe-3b-a800m at full width,
 # AdamW (its config's optimizer) and remat "minimal" (its config's), f32;
@@ -782,32 +810,40 @@ def check_inf_attention(torch, dev, g) -> dict:
     in those tiles' non-finite columns of the query tiles that skipped
     them, so the causal output is held to ``attention_ref`` itself. Returns the
     counts."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     q, k, v = inf_attention_inputs(torch, dev, g)
     counts = {}
     for causal in (False, True):
-        out = fa.flash_attention(q, k, v, causal=causal)
-        exp = ref.attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        where = exp.isinf()
-        if not (torch.equal(out.isnan(), exp.isnan())
-                and torch.equal(out.isinf(), where)
-                and torch.equal(out[where], exp[where])):
-            raise AssertionError(
-                f"attention inf in v causal={causal}: {int(out.isnan().sum())}"
-                f" NaN and {int(out.isinf().sum())} inf, expected "
-                f"{int(exp.isnan().sum())} and {int(where.sum())} "
-                f"({fa.variant(q, k, v)})")
-        fin = exp.isfinite()
-        torch.testing.assert_close(out[fin], exp[fin], atol=2e-5, rtol=2e-5)
-        counts[f"causal={causal}"] = {"inf": int(where.sum()),
-                                      "nan": int(exp.isnan().sum())}
-        log(f"attention inf in v q (4, 24, 511, 64) causal={causal}: "
-            f"{int(where.sum())} inf and {int(exp.isnan().sum())} NaN as "
-            f"the plain version's {fa.variant(q, k, v)}")
-        del out, exp
+        counts[f"causal={causal}"] = same_specials(torch, q, k, v, causal)
     return counts
+
+
+def same_specials(torch, q, k, v, causal: bool) -> dict:
+    """The attention kernel against ``attention_ref`` on the card where
+    v holds infs: the same +-inf and NaN at the same places, the rest
+    within 2e-5; returns their counts and the finite part's largest
+    difference."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    out = fa.flash_attention(q, k, v, causal=causal)
+    exp = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    where = exp.isinf()
+    what = (f"attention inf in v q {tuple(q.shape)} causal={causal} "
+            f"({fa.variant(q, k, v)})")
+    if not (torch.equal(out.isnan(), exp.isnan())
+            and torch.equal(out.isinf(), where)
+            and torch.equal(out[where], exp[where])):
+        raise AssertionError(
+            f"{what}: {int(out.isnan().sum())} NaN and "
+            f"{int(out.isinf().sum())} inf, expected "
+            f"{int(exp.isnan().sum())} and {int(where.sum())}")
+    fin = exp.isfinite()
+    torch.testing.assert_close(out[fin], exp[fin], atol=2e-5, rtol=2e-5)
+    got = {"inf": int(where.sum()), "nan": int(exp.isnan().sum()),
+           "finite_max_abs_err": (out[fin] - exp[fin]).abs().max().item()}
+    log(f"{what}: {got['inf']} inf and {got['nan']} NaN as the plain "
+        f"version's; the rest max_abs_err {got['finite_max_abs_err']:.3e}")
+    return got
 
 
 def make_slice():
@@ -2105,16 +2141,17 @@ def attention_inputs(torch, dev, qs, ks, g, dv=None):
     return q, k, v
 
 
-def check_attention(torch, dev, qs, ks, window: int, g, dv=None) -> float:
+def check_attention(torch, dev, qs, ks, window: int, g, dv=None,
+                    causal: bool = True) -> float:
     """The attention kernel against its plain version at a model's
-    prefill shape (causal, ``window`` as the model sets it; v's columns
-    past ``dv`` zero), f32, within 2e-5; returns the largest
-    difference."""
+    prefill shape (causal unless ``causal`` is False, ``window`` as the
+    model sets it; v's columns past ``dv`` zero), f32, within 2e-5;
+    returns the largest difference."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q, k, v = attention_inputs(torch, dev, qs, ks, g, dv)
-    out = fa.flash_attention(q, k, v, causal=True, window=window)
-    exp = ref.attention_ref(q, k, v, causal=True, window=window)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    exp = ref.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, exp, atol=2e-5, rtol=2e-5)
     err = (out - exp).abs().max().item()
@@ -2122,8 +2159,9 @@ def check_attention(torch, dev, qs, ks, window: int, g, dv=None) -> float:
         raise AssertionError("attention: v's zero columns gave nonzero "
                              "output columns")
     padded = "" if dv is None else f", v's columns past {dv} zero"
-    log(f"attention q {qs} k/v {ks} causal window {window} f32{padded} "
-        f"({fa.variant(q, k, v)}): max_abs_err {err:.3e} (tol 2e-5)")
+    log(f"attention q {qs} k/v {ks} causal={causal} window {window} "
+        f"f32{padded} ({fa.variant(q, k, v)}): max_abs_err {err:.3e} "
+        f"(tol 2e-5)")
     return err
 
 
@@ -2168,34 +2206,38 @@ def check_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
 
 
 def time_attention(torch, dev, cfg, qs, ks, window: int, g,
-                   timing: dict, dv=None) -> dict:
-    """The attention kernel at a model's prefill shape (causal,
-    ``window``; v's columns past ``dv`` zero, as MLA's call pads them)
-    beside its plain version and SDPA (a yardstick only; it takes v of
-    ``dv`` columns itself)."""
+                   timing: dict, dv=None, causal: bool = True) -> dict:
+    """The attention kernel at one of a model's shapes (causal unless
+    ``causal`` is False, ``window``; v's columns past ``dv`` zero, as
+    MLA's call pads them) beside its plain version and SDPA (a yardstick
+    only; it takes v of ``dv`` columns itself)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.launch.attention_turns import kernel_us
     q, k, v = attention_inputs(torch, dev, qs, ks, g, dv)
     b, h, s, dh = qs
+    sk = ks[2]
     dv = dh if dv is None else dv
     v_own = v[..., :dv].contiguous()
-    if window and window < s:
+    if window and window < sk:
         raise ValueError("SDPA's is_causal has no window: time the "
                          "attention kernel where the window masks nothing")
+    if causal and s != sk:
+        raise ValueError("SDPA's is_causal aligns the diagonal top-left")
     # the model's own work: q, k and v of dv columns read once, o of dv
-    # columns written once; q.k at dh and p.v at dv over the causal pairs
-    # only, s (s + 1) / 2 a (batch, head). A padded v's extra columns
-    # are the kernel's cost, not the function's
+    # columns written once; q.k at dh and p.v at dv over the visible
+    # pairs only, s (s + 1) / 2 a (batch, head) when causal. A padded
+    # v's extra columns are the kernel's cost, not the function's
     nbytes = (q.numel() + k.numel() + v_own.numel() + b * h * s * dv) * 4
-    ops = 2.0 * b * h * (dh + dv) * s * (s + 1) / 2
+    pairs = s * (s + 1) / 2 if causal else s * sk
+    ops = 2.0 * b * h * (dh + dv) * pairs
     variant = fa.variant(q, k, v)
     att = time_call(
-        lambda: fa.flash_attention(q, k, v, causal=True, window=window),
-        lambda: ref.attention_ref(q, k, v, causal=True, window=window),
-        lambda: F.scaled_dot_product_attention(q, k, v_own, is_causal=True,
-                                               enable_gqa=True),
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+        lambda: ref.attention_ref(q, k, v, causal=causal, window=window),
+        lambda: F.scaled_dot_product_attention(
+            q, k, v_own, is_causal=causal, enable_gqa=True),
         nbytes, ops, timing, rate=product_rate(q.dtype))
     att["variant"] = variant
     if route_rate(variant) != att["op_rate_tflop_s"] * 1e12:
@@ -2206,14 +2248,13 @@ def time_attention(torch, dev, cfg, qs, ks, window: int, g,
     if dv != dh:
         # SDPA on the padded v: what the pad costs a library kernel
         att["library_padded_v_ms"] = graph_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True),
-            **timing)
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), **timing)
     # device time a call of each kernel it launches: the attention
     # kernel and its hidden-key fix-up apart
     att["kernel_us"] = kernel_us(
-        lambda: fa.flash_attention(q, k, v, causal=True, window=window))
-    log(f"flash_attention {cfg.arch_id} prefill q {qs} k/v {ks} causal "
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
+    log(f"flash_attention {cfg.arch_id} q {qs} k/v {ks} causal={causal} "
         f"f32: {att}")
     return att
 
@@ -2385,6 +2426,242 @@ def mla_phase(torch, dev):
     return errs, launches | mc_launches, {
         "served": served, "gmm": gmm_t, "attention": att,
         "minicpm3_attention": mc_att}
+
+
+def whisper_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.encoder.n_layers,
+            cfg.encoder.n_frames, cfg.tie_embeddings) == \
+        (32, 1280, 20, 20, 64, 5120, 51866, 32, 1500, False), \
+        "the full whisper-large-v3 config"
+    return cfg
+
+
+def whisper_attention_shapes(cfg) -> dict:
+    """name -> (q shape, k/v shape, causal) of whisper's four attention
+    calls: the encoder's bidirectional self-attention over the frames,
+    cross-attention in prefill (sq != sk), the decoder's causal
+    self-attention in prefill, and cross-attention in a decode step (one
+    query against every frame)."""
+    b, h, dh = WHISPER_BATCH, cfg.n_heads, cfg.head_dim
+    f, s = cfg.encoder.n_frames, WHISPER_TOKENS
+    return {"encoder": ((b, h, f, dh), (b, h, f, dh), False),
+            "cross_prefill": ((b, h, s, dh), (b, h, f, dh), False),
+            "decoder_self": ((b, h, s, dh), (b, h, s, dh), True),
+            "cross_decode": ((b, h, 1, dh), (b, h, f, dh), False)}
+
+
+def check_whisper_attention(torch, dev, cfg, g) -> dict:
+    """Phase 9c's kernel checks: attention against its plain version at
+    whisper's four shapes, f32 within 2e-5 (naming the variant each
+    runs), and at the encoder's shape with infs in v (two columns of one
+    (batch, head), +inf and -inf in one column of another, whose sum is
+    NaN): no key tile is skipped when ``causal=False``, so the hidden-key
+    fix-up must change nothing and the output must hold the plain
+    version's +-inf and NaN exactly. Returns the errors by shape."""
+    shapes = whisper_attention_shapes(cfg)
+    errs = {name: check_attention(torch, dev, qs, ks, 0, g, causal=causal)
+            for name, (qs, ks, causal) in shapes.items()}
+    qs, ks, _ = shapes["encoder"]
+    q, k, v = attention_inputs(torch, dev, qs, ks, g)
+    _, h, f, dh = ks
+    v[0, 0, 3, 5], v[0, 0, f - 1, 7] = float("inf"), -float("inf")
+    v[1, h - 1, f // 2, dh - 1] = float("inf")
+    v[1, h - 1, f // 3, dh - 1] = -float("inf")
+    errs["encoder_inf_in_v"] = same_specials(
+        torch, q, k, v, False)["finite_max_abs_err"]
+    return errs
+
+
+def time_whisper_attention(torch, dev, cfg, g) -> dict:
+    """Phase 9c's kernel times at whisper's four shapes
+    (``time_attention``: device ms in a replayed graph and eager ms,
+    beside the plain version and SDPA, and the bound over the visible
+    pairs)."""
+    return {name: time_attention(torch, dev, cfg, qs, ks, 0, g,
+                                 dict(reps=20, trials=10), causal=causal)
+            for name, (qs, ks, causal)
+            in whisper_attention_shapes(cfg).items()}
+
+
+def whisper_phase(torch, dev):
+    """Phase 9c: the encoder-decoder on the card. Attention at
+    whisper-large-v3's four shapes against its plain version
+    (``check_whisper_attention``); the full model (32 encoder layers
+    over 1,500 frames, 32 decoder layers with cross-attention; 1.60 B
+    params, 6.41 GB in f32) drawn on the card; ``encode`` of frames of
+    (4, 1500, 1280) (normal times 0.02) with exactly 32 attention
+    launches; ``make_prefill_step`` of (4, 448) tokens and those frames
+    with exactly 96 (32 encoder, 32 decoder self, 32 cross); teacher-
+    forced ``decode_step``s over the first 16 positions against the
+    prefill's logits at the same positions within 2e-3; greedy
+    ``generate`` of 64 tokens after a prompt of 4 with 32 attention
+    launches a decode step (one cross-attention a layer; the decoder's
+    self-attention reads its cache in plain torch), in-vocabulary tokens
+    and finite logits at every step; encode ms, prefill and decode
+    tokens/s, the busy share of the prefill and of one decode step under
+    the profiler, device time by kind, peak memory; then the kernel's
+    times at the four shapes. Returns (errors, launches by run, the
+    measured numbers)."""
+    import numpy as np
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    t_phase = time.perf_counter()
+    cfg = whisper_config()
+    g = torch.Generator().manual_seed(13)
+    errs = check_whisper_attention(torch, dev, cfg, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = draw_params(torch, dev, cfg)
+    counters = all_counters()
+    launches = {}
+
+    def counted(run, fn, attention: int):
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: c.count for name, c in counters.items()}
+        expected = {name: 0 for name in counters}
+        expected["flash_attention"] = attention
+        launches[f"whisper_{run}"] = {"flash_attention":
+                                      got["flash_attention"]}
+        if got != expected:
+            raise AssertionError(f"{cfg.arch_id} {run} launched {got}, "
+                                 f"expected {expected}")
+        return out, wall
+
+    b, f, d = WHISPER_BATCH, cfg.encoder.n_frames, cfg.d_model
+    frames = torch.randn((b, f, d), generator=torch.Generator(dev)
+                         .manual_seed(1), device=dev) * 0.02
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, WHISPER_TOKENS)),
+                           device=dev)
+    with torch.inference_mode():
+        T.encode(cfg, params, frames)              # warm-up: cuBLAS
+        torch.cuda.synchronize()
+        memory, enc_s = counted("encode",
+                                lambda: T.encode(cfg, params, frames),
+                                cfg.encoder.n_layers)
+    if memory.shape != (b, f, d) or not torch.isfinite(memory).all():
+        raise AssertionError(f"encode gave {tuple(memory.shape)}, finite "
+                             f"{bool(torch.isfinite(memory).all())}")
+    log(f"{cfg.arch_id} encode of ({b}, {f}, {d}) frames: "
+        f"{enc_s * 1e3:.1f} ms; launches {launches['whisper_encode']}")
+
+    prefill = ST.make_prefill_step(cfg, compute_dtype=torch.float32)
+    batch = {"tokens": toks, "frames": frames}
+    prefill(params, batch)                          # warm-up
+    torch.cuda.synchronize()
+    last, pre_s = counted("prefill", lambda: prefill(params, batch),
+                          cfg.encoder.n_layers + 2 * cfg.n_layers)
+    if last.shape != (b, cfg.vocab) or not torch.isfinite(last).all():
+        raise AssertionError(f"prefill gave {tuple(last.shape)} logits, "
+                             f"finite {bool(torch.isfinite(last).all())}")
+    prefill_tok = b * WHISPER_TOKENS
+    log(f"{cfg.arch_id} prefill of ({b}, {WHISPER_TOKENS}) tokens and the "
+        f"frames: {pre_s * 1e3:.1f} ms, {prefill_tok / pre_s:.1f} tokens/s "
+        f"(the encoder's frames not counted); launches "
+        f"{launches['whisper_prefill']}")
+    prof_prefill = profile_window(torch, lambda: prefill(params, batch),
+                                  pre_s)
+    log("whisper profile prefill " + json.dumps(prof_prefill))
+
+    # decode vs prefill: the prefill's logits at the first positions
+    # (causal, so they are those of the whole 448-token prefill)
+    n = WHISPER_CONSIST
+    with torch.inference_mode():
+        ref_logits, _ = T.forward(cfg, params, batch, torch.float32)
+        ref_logits = ref_logits[:, :n].clone()
+        cache = T.init_cache(cfg, b, n + 1, torch.float32, dev)
+        consist_err = 0.0
+        for i in range(n):
+            logits, cache = T.decode_step(cfg, params, toks[:, i:i + 1],
+                                          cache, i, memory, torch.float32)
+            torch.testing.assert_close(logits[:, 0], ref_logits[:, i],
+                                       rtol=2e-3, atol=2e-3)
+            consist_err = max(consist_err, (logits[:, 0] - ref_logits[:, i]
+                                            ).abs().max().item())
+        # one more step, timed and profiled alone
+        tok = toks[:, n:n + 1]
+
+        @torch.inference_mode()
+        def step():
+            return T.decode_step(cfg, params, tok, cache, n, memory,
+                                 torch.float32)
+        step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        step_s = statistics.median(walls)
+    log(f"{cfg.arch_id} decode vs prefill logits over {n} positions of "
+        f"{b} rows: max_abs_err {consist_err:.3e} (tol 2e-3)")
+    prof_step = profile_window(torch, step, step_s)
+    log("whisper profile decode_step " + json.dumps(prof_step))
+    del ref_logits, cache
+
+    eng = ServeEngine(cfg, params, max_seq=WHISPER_PROMPT + WHISPER_NEW + 1,
+                      dtype=torch.float32, device=dev)
+    prompts = rng.integers(0, cfg.vocab, (b, WHISPER_PROMPT))
+    eng.generate(prompts[:, :2], 2, memory=memory)      # warm-up
+    finite = []
+    plain_decode = eng._decode
+
+    def checked(tok, cache, index, memory):
+        # every step's logits finite: a flag on the card, read after
+        logits, cache = plain_decode(tok, cache, index, memory)
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    eng._decode = checked
+    steps = WHISPER_PROMPT + WHISPER_NEW - 1
+    out, gen_s = counted(
+        "generate", lambda: eng.generate(prompts, WHISPER_NEW,
+                                         memory=memory),
+        cfg.n_layers * steps)
+    if len(finite) != steps or not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{cfg.arch_id} generate: non-finite logits "
+                             f"in {steps} steps")
+    if out.shape != (b, WHISPER_PROMPT + WHISPER_NEW) \
+            or not ((out >= 0) & (out < cfg.vocab)).all() \
+            or not np.array_equal(out[:, :WHISPER_PROMPT], prompts):
+        raise AssertionError(f"generate gave {out.shape} {out[:, -4:]}")
+    decode_tok = b * steps
+    log(f"{cfg.arch_id} generate {WHISPER_NEW} tokens from {b} prompts of "
+        f"{WHISPER_PROMPT}: {gen_s * 1e3:.1f} ms, {decode_tok / gen_s:.1f} "
+        f"decode tokens/s; launches {launches['whisper_generate']}; first "
+        f"new tokens {out[:, WHISPER_PROMPT:WHISPER_PROMPT + 4].tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{cfg.arch_id} peak device memory {peak:.2f} GiB")
+    del eng, params, memory, frames, batch, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = time_whisper_attention(torch, dev, cfg, g)
+    measured = {"encode_ms": enc_s * 1e3, "prefill_ms": pre_s * 1e3,
+                "prefill_tok_s": prefill_tok / pre_s,
+                "decode_step_ms": step_s * 1e3, "generate_s": gen_s,
+                "decode_tok_s": decode_tok / gen_s,
+                "consist_err": consist_err,
+                "prefill_busy_share": prof_prefill["device_busy_share"],
+                "decode_step_busy_share": prof_step["device_busy_share"],
+                "prefill_device_ms_by_kind": prof_prefill[
+                    "device_ms_by_kind"],
+                "decode_step_device_ms_by_kind": prof_step[
+                    "device_ms_by_kind"],
+                "peak_gib": peak}
+    log("whisper " + json.dumps(measured))
+    log(f"{WHISPER_ARCH} phase: {time.perf_counter() - t_phase:.1f} s")
+    return errs, launches, {"served": measured, "attention": times}
 
 
 def jamba_config():
@@ -3145,6 +3422,9 @@ def main() -> int:
     # the jamba weights are freed by now
     mla_errs, mla_launches, mla = mla_phase(torch, dev)
 
+    # the encoder-decoder: whisper-large-v3 at full width and depth
+    whisper_errs, whisper_launches, whisper = whisper_phase(torch, dev)
+
     # last, so that its profiler session comes after every zoo timing
     train_launches, train, thread_losses = train_slice(torch, dev, cfg,
                                                        master, members)
@@ -3173,7 +3453,7 @@ def main() -> int:
         for name, c in got.items():
             by_path[name][run] = c
     zoo_runs = (zoo_launches | moe_launches | h2o_launches | jamba_launches
-                | mla_launches | lm_launches)
+                | mla_launches | whisper_launches | lm_launches)
     for run, got in zoo_runs.items():
         for name, c in got.items():
             by_path[name][run] = c
@@ -3197,7 +3477,13 @@ def main() -> int:
                                      max_abs_err=mla_errs["attention"]),
             "minicpm3_prefill": dict(
                 mla["minicpm3_attention"],
-                max_abs_err=mla_errs["minicpm3_attention"])},
+                max_abs_err=mla_errs["minicpm3_attention"]),
+            # whisper: the encoder, cross-attention in prefill and in a
+            # decode step, the decoder's causal self-attention
+            "whisper": {name: dict(t, max_abs_err=whisper_errs[name])
+                        for name, t in whisper["attention"].items()},
+            "whisper_encoder_inf_in_v_max_abs_err":
+                whisper_errs["encoder_inf_in_v"]},
         # the grouped matmul's at each of its four shapes of each MoE
         # model; the top-level times are those of granite's prefill
         # gate/up
@@ -3251,7 +3537,10 @@ def main() -> int:
         f"{cluster['published_scale']['rounds_per_s']:.1f}; granite "
         f"training {lm['train']['step_ms']:.1f} ms a step, "
         f"{lm['train']['tokens_per_s']:.1f} tokens/s, peak "
-        f"{lm['train']['peak_gb']:.2f} GB; build "
+        f"{lm['train']['peak_gb']:.2f} GB; whisper encode "
+        f"{whisper['served']['encode_ms']:.1f} ms, prefill "
+        f"{whisper['served']['prefill_tok_s']:.1f} tokens/s, decode "
+        f"{whisper['served']['decode_tok_s']:.1f} tokens/s; build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

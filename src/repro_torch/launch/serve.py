@@ -8,8 +8,11 @@ the zoo with random weights from a seed.
 Ported archs: ``rwkv6-7b``, ``granite-moe-3b-a800m``, ``glm4-9b``,
 ``qwen3-14b``, ``h2o-danube-1.8b``, ``jamba-1.5-large-398b`` (whose
 full 72 layers of 16 experts do not fit one card: ``chip_smoke.py``
-serves one 8-layer period of 4 experts), and the MLA archs
-``deepseek-v2-lite-16b`` and ``minicpm3-4b``. ``--device``
+serves one 8-layer period of 4 experts), the MLA archs
+``deepseek-v2-lite-16b`` and ``minicpm3-4b``, and the encoder-decoder
+``whisper-large-v3``, whose encoder takes zero frames of (batch,
+n_frames, d_model) and whose decoder attends to their encoding, as the
+JAX package's launcher serves it. ``--device``
 defaults to ``cuda``, where the weights are drawn on the card. An arch
 whose family is not ported yet exits with the ``NotImplementedError``
 that names its ROADMAP item.
@@ -48,6 +51,12 @@ def main() -> None:
         params = PRM.init_tree(
             spec, torch.Generator(device).manual_seed(args.seed),
             torch.float32, device)
+        memory = None
+        if cfg.encoder is not None:
+            frames = torch.zeros(
+                (args.batch, cfg.encoder.n_frames, cfg.d_model),
+                dtype=torch.float32, device=device)
+            memory = T.encode(cfg, params, frames)
     engine = ServeEngine(cfg, params,
                          max_seq=args.prompt_len + args.new + 1,
                          device=device)
@@ -56,7 +65,7 @@ def main() -> None:
                            size=(args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.perf_counter()
     out = engine.generate(prompts, args.new, temperature=args.temperature,
-                          seed=args.seed)
+                          seed=args.seed, memory=memory)
     dt = time.perf_counter() - t0
     print(f"{args.arch} on {device}: generated {out.shape} in {dt:.2f}s "
           f"({args.batch * args.new / dt:.1f} tok/s)")

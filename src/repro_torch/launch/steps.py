@@ -98,6 +98,10 @@ def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
 
 def make_prefill_step(cfg: ModelConfig, rules=None,
                       compute_dtype: torch.dtype = torch.bfloat16):
+    """A step of ``batch["tokens"]`` (b, s), and for an encoder-decoder
+    model ``batch["frames"]`` (b, n_frames, d), which the step encodes
+    before the decoder attends to them; returns the last position's
+    logits (b, vocab)."""
     check_rules(rules)
 
     def prefill_step(params, batch) -> torch.Tensor:
@@ -111,6 +115,9 @@ def make_prefill_step(cfg: ModelConfig, rules=None,
 def make_decode_step(cfg: ModelConfig, rules=None,
                      compute_dtype: torch.dtype = torch.bfloat16,
                      with_memory: bool = False):
+    """A decode step; ``with_memory`` gives it a ``memory`` argument,
+    the encoder's output that an encoder-decoder model's cross-attention
+    reads."""
     check_rules(rules)
 
     def decode_step(params, token, cache, index,

@@ -1,8 +1,10 @@
 """GQA attention of the port's model zoo: full-causal, sliding-window,
-qk-norm, RoPE; prefill and single-token decode. The counterpart of the
-JAX package's ``repro/models/attention.py``.
+qk-norm, RoPE; prefill and single-token decode; whisper's bidirectional
+encoder attention and its decoder's cross-attention. The counterpart of
+the JAX package's ``repro/models/attention.py``.
 
-Prefill (``self_attention``) runs through ``ops.flash_attention``: the
+Prefill (``self_attention``) and cross-attention (``cross_attention``,
+in prefill and in every decode step) run through ``ops.flash_attention``: the
 hand-written CUDA kernel on a CUDA tensor, the plain quadratic version
 on a CPU tensor. The kernel takes any length, so the JAX package's
 ``q_chunk`` (``lax.map`` over query chunks) has no counterpart; it masks
@@ -25,7 +27,6 @@ from repro_torch.models import layers
 from repro_torch.models.params import Spec
 
 NEG_INF = -1e30
-_ZOO = "ROADMAP Queue 1 item 11 (the rest of the model zoo)"
 
 
 def attention_spec(cfg: ModelConfig, cross: bool = False):
@@ -105,17 +106,30 @@ def self_attention(cfg: ModelConfig, params, x, *, positions=None,
         positions = torch.arange(s, device=x.device)
     q, k, v = _qkv(cfg, params, x, positions[None])
     window = cfg.window if cfg.attention == "swa" else 0
-    # the kernel's layout is (b, h, s, hd), contiguous
+    return _attend_out(params, q, k, v, causal, window)
+
+
+def _attend_out(params, q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """``ops.flash_attention`` of q (b, sq, h, hd) against k, v (b, sk,
+    kv, hd), in the kernel's contiguous (b, h, s, hd) layout, then the
+    output projection: (b, sq, d)."""
     out = ops.flash_attention(
         *(t.transpose(1, 2).contiguous() for t in (q, k, v)),
         causal=causal, window=window)
     return torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params["wo"])
 
 
-def cross_attention(cfg: ModelConfig, params, x, memory):
-    raise NotImplementedError(
-        f"{cfg.arch_id}: cross-attention is not ported to repro_torch yet: "
-        f"{_ZOO}")
+def cross_attention(cfg: ModelConfig, params, x, memory) -> torch.Tensor:
+    """Decoder -> encoder attention (whisper). x: (b, s, d); memory:
+    (b, frames, d). q from ``x``, k and v from ``memory``, no qk-norm and
+    no RoPE, every frame visible to every query: one
+    ``ops.flash_attention`` call with ``causal=False`` (sq != sk in
+    prefill, sq = 1 in a decode step). k and v are recomputed from
+    ``memory`` on every call, as the JAX package recomputes them."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bfd,dnk->bfnk", memory, params["wk"])
+    v = torch.einsum("bfd,dnk->bfnk", memory, params["wv"])
+    return _attend_out(params, q, k, v, False, 0)
 
 
 # ---------------------------------------------------------------------------

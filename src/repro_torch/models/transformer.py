@@ -1,5 +1,6 @@
-"""Model assembly of the port's model zoo: block -> stack -> LM. The
-counterpart of the JAX package's ``repro/models/transformer.py``.
+"""Model assembly of the port's model zoo: block -> stack -> LM /
+enc-dec. The counterpart of the JAX package's
+``repro/models/transformer.py``.
 
 This slice runs the decoder-only families whose blocks are GQA attention
 (full, sliding-window, qk-norm; RoPE or none), multi-head latent
@@ -8,13 +9,19 @@ a gated MLP or a mixture of experts (with shared experts and a dense
 prefix layer), under rmsnorm: ``rwkv6-7b``, ``granite-moe-3b-a800m``,
 ``glm4-9b``, ``qwen3-14b``, ``h2o-danube-1.8b``, the hybrid
 ``jamba-1.5-large-398b``, and the MLA models ``deepseek-v2-lite-16b``
-and ``minicpm3-4b``. The encoder and the modality prefixes raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+and ``minicpm3-4b``; and the encoder-decoder ``whisper-large-v3``: an
+encoder of bidirectional attention over precomputed frame embeddings
+(the audio frontend is a stub in both packages), sinusoidal positions,
+a decoder whose blocks add cross-attention to the encoder's output
+(``memory``), layernorm and the non-gated biased MLP throughout. The
+vision prefix raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 
 Layer stacks keep the JAX package's *stacked* layout (every leaf of
-``params["blocks"]["pos<i>"]`` has a leading ``n_repeats`` dim), so one
-numpy tree drives either package; where the JAX package runs
-``lax.scan`` over that dim, the port walks it with a Python loop.
+``params["blocks"]["pos<i>"]`` and ``params["encoder"]["blocks"]`` has a
+leading layer dim), so one numpy tree drives either package; where the
+JAX package runs ``lax.scan`` over that dim, the port walks it with a
+Python loop.
 Under grad, ``cfg.remat_policy`` wraps each repeat as the JAX package's
 ``_maybe_remat`` does: ``full`` in ``torch.utils.checkpoint`` (nothing
 kept but the repeat's input; the backward recomputes it), ``minimal`` in
@@ -23,7 +30,8 @@ batch dims (``aten.mm`` / ``addmm``, the counterpart of
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
 kernels included; ``none`` keeps everything. Values do not change, only
 memory; under ``torch.no_grad`` or ``inference_mode`` (serving) nothing
-is wrapped. The JAX package's sharding constraints are
+is wrapped. The encoder's blocks are not wrapped, as the JAX package's
+``encode`` wraps none. The JAX package's sharding constraints are
 the identity on one device and are dropped, and so is its
 ``decode_partial_softmax`` branch, which it takes only under mesh rules.
 """
@@ -51,10 +59,11 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless this slice runs ``cfg``."""
-    if cfg.encoder is not None:
-        raise _unported(f"{cfg.arch_id}: the encoder", _ZOO)
-    if cfg.frontend is not None:
+    """Raise ``NotImplementedError`` unless this slice runs ``cfg``: the
+    vision prefix is the one part of the zoo left. (Whisper's audio
+    frontend is a stub in both packages: ``encode`` takes the frame
+    embeddings it would make.)"""
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
         raise _unported(f"{cfg.arch_id}: the {cfg.frontend.kind} prefix",
                         _ZOO)
 
@@ -73,28 +82,58 @@ def _mla(cfg: ModelConfig, mixer: str) -> bool:
     return mixer == "attn" and cfg.attention == "mla"
 
 
-def block_spec(cfg: ModelConfig, mixer: str, ffn: str):
-    return {"norm1": layers.rmsnorm_spec(cfg.d_model),
-            "mixer": (mla.mla_spec(cfg) if _mla(cfg, mixer)
-                      else _MIXER_SPECS[mixer](cfg)),
-            "norm2": layers.rmsnorm_spec(cfg.d_model),
-            "ffn": (moe.moe_spec(cfg) if ffn == "moe"
-                    else layers.gated_mlp_spec(cfg.d_model, cfg.d_ff))}
+def _is_ln(cfg: ModelConfig) -> bool:
+    """The whisper family: layernorm and the biased, non-gated MLP."""
+    return cfg.encoder is not None
+
+
+def _norm_spec(cfg: ModelConfig):
+    return layers.layernorm_spec(cfg.d_model) if _is_ln(cfg) \
+        else layers.rmsnorm_spec(cfg.d_model)
+
+
+def _norm(cfg: ModelConfig, p, x):
+    fn = layers.layernorm if _is_ln(cfg) else layers.rmsnorm
+    return fn(p, x, cfg.norm_eps)
+
+
+def block_spec(cfg: ModelConfig, mixer: str, ffn: str, cross: bool = False):
+    spec: Dict[str, Any] = {
+        "norm1": _norm_spec(cfg),
+        "mixer": (mla.mla_spec(cfg) if _mla(cfg, mixer)
+                  else _MIXER_SPECS[mixer](cfg))}
+    if cross:
+        spec["norm_x"] = _norm_spec(cfg)
+        spec["cross"] = attention.attention_spec(cfg, cross=True)
+    spec["norm2"] = _norm_spec(cfg)
+    spec["ffn"] = (moe.moe_spec(cfg) if ffn == "moe"
+                   else layers.mlp_spec(cfg.d_model, cfg.d_ff) if _is_ln(cfg)
+                   else layers.gated_mlp_spec(cfg.d_model, cfg.d_ff))
+    return spec
 
 
 def model_spec(cfg: ModelConfig):
     check_ported(cfg)
+    cross = cfg.encoder is not None
     spec: Dict[str, Any] = {
         "embed": layers.embedding_spec(cfg.vocab, cfg.d_model),
-        "final_norm": layers.rmsnorm_spec(cfg.d_model),
+        "final_norm": _norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = layers.unembed_spec(cfg.vocab, cfg.d_model)
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
-        spec[f"prefix{i}"] = block_spec(cfg, mixer, ffn)
+        spec[f"prefix{i}"] = block_spec(cfg, mixer, ffn, cross)
     spec["blocks"] = {
-        f"pos{i}": P.stack(block_spec(cfg, mixer, ffn), cfg.n_repeats)
+        f"pos{i}": P.stack(block_spec(cfg, mixer, ffn, cross), cfg.n_repeats)
         for i, (mixer, ffn) in enumerate(cfg.block_pattern)}
+    if cfg.encoder is not None:
+        enc_block = {"norm1": _norm_spec(cfg),
+                     "mixer": attention.attention_spec(cfg),
+                     "norm2": _norm_spec(cfg),
+                     "ffn": layers.mlp_spec(cfg.d_model, cfg.d_ff)}
+        spec["encoder"] = {
+            "blocks": P.stack(enc_block, cfg.encoder.n_layers),
+            "final_norm": _norm_spec(cfg)}
     return spec
 
 
@@ -103,17 +142,28 @@ def model_spec(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _cross(cfg: ModelConfig, p, x, memory) -> torch.Tensor:
+    """The decoder block's cross-attention residual, where it has one."""
+    if memory is None or "cross" not in p:
+        return x
+    return x + attention.cross_attention(
+        cfg, p["cross"], _norm(cfg, p["norm_x"], x), memory)
+
+
 def _ffn(cfg: ModelConfig, ffn: str, p, x
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    h = _norm(cfg, p["norm2"], x)
     if ffn == "moe":
         return moe.moe_ffn(cfg, p["ffn"], h, cfg.act)
+    if _is_ln(cfg):
+        return layers.mlp(p["ffn"], h, cfg.act), {}
     return layers.gated_mlp(p["ffn"], h, cfg.act), {}
 
 
 def _apply_block(cfg: ModelConfig, mixer: str, ffn: str, p, x,
-                 positions) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
+                 positions, memory=None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    h = _norm(cfg, p["norm1"], x)
     if _mla(cfg, mixer):
         h = mla.mla_self_attention(cfg, p["mixer"], h, positions=positions)
     elif mixer == "attn":
@@ -123,7 +173,7 @@ def _apply_block(cfg: ModelConfig, mixer: str, ffn: str, p, x,
         h = mamba.mamba_mixer(cfg, p["mixer"], h)
     else:
         h = rwkv.rwkv_mixer(cfg, p["mixer"], h)
-    x = x + h
+    x = _cross(cfg, p, x + h, memory)
     h, aux = _ffn(cfg, ffn, p, x)
     return x + h, aux
 
@@ -144,10 +194,11 @@ def _maybe_remat(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
-def _stack_forward(cfg: ModelConfig, params, x, positions
+def _stack_forward(cfg: ModelConfig, params, x, positions, memory=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prefix blocks, then the pattern blocks, repeat by repeat. The
-    router losses are summed over the MoE layers and averaged."""
+    """Prefix blocks, then the pattern blocks, repeat by repeat, each
+    attending to the encoder's ``memory`` where it is given. The router
+    losses are summed over the MoE layers and averaged."""
     aux_losses = {k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in _AUX}
 
@@ -159,13 +210,13 @@ def _stack_forward(cfg: ModelConfig, params, x, positions
         auxes = []
         for i, (mixer, ffn) in enumerate(cfg.block_pattern):
             x, aux = _apply_block(cfg, mixer, ffn, unit_params[f"pos{i}"],
-                                  x, positions)
+                                  x, positions, memory)
             auxes.append(aux)
         return x, auxes
 
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
         x, aux = _apply_block(cfg, mixer, ffn, params[f"prefix{i}"], x,
-                              positions)
+                              positions, memory)
         add(aux)
     unit = _maybe_remat(cfg, unit)
     per_layer = {pos: P.unstack(p, cfg.n_repeats)
@@ -182,23 +233,69 @@ def _stack_forward(cfg: ModelConfig, params, x, positions
 
 
 def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].T
     return layers.unembed(params["lm_head"], x)
 
 
+# ---------------------------------------------------------------------------
+# encoder (whisper)
+# ---------------------------------------------------------------------------
+
+
+def _angles(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """sin and cos of ``pos`` (f32, any shape) over ``10000 ** (2i / d)``,
+    concatenated along a new last dim of width ``d``."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    angle = pos[..., None] / torch.pow(10_000.0, dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], -1)[..., :d]
+
+
+def _sinusoidal(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) f32 sinusoidal positions 0 .. n - 1."""
+    return _angles(torch.arange(n, dtype=torch.float32, device=device), d)
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (b, n_frames, d) precomputed embeddings (the frontend is a
+    stub). Sinusoidal positions, then each encoder block: bidirectional
+    self-attention (one ``ops.flash_attention`` call, ``causal=False``)
+    and the MLP, pre-norm; then the encoder's final norm. Returns the
+    decoder's ``memory``, (b, n_frames, d)."""
+    x = frames + _sinusoidal(frames.shape[1], cfg.d_model,
+                             frames.device).to(frames.dtype)[None]
+    enc = params["encoder"]
+    for p in P.unstack(enc["blocks"], cfg.encoder.n_layers):
+        h = _norm(cfg, p["norm1"], x)
+        x = x + attention.self_attention(cfg, p["mixer"], h, causal=False)
+        x = x + layers.mlp(p["ffn"], _norm(cfg, p["norm2"], x), cfg.act)
+    return _norm(cfg, enc["final_norm"], x)
+
+
+# ---------------------------------------------------------------------------
+# full forward passes
+# ---------------------------------------------------------------------------
+
+
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             dtype: torch.dtype = torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict]:
-    """Prefill forward. batch["tokens"]: (b, s) int.
+    """Prefill forward. batch["tokens"]: (b, s) int; batch["frames"]:
+    (b, n_frames, d), the encoder's input, for an encoder-decoder model.
 
     Returns (logits (b, s, vocab), aux): the MoE router losses averaged
     over the MoE layers, zero for a model without them."""
     check_ported(cfg)
     x = layers.embed(params["embed"], batch["tokens"], dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _stack_forward(cfg, params, x, positions)
+    if _is_ln(cfg):       # whisper's decoder: sinusoidal positions
+        x = x + _sinusoidal(x.shape[1], cfg.d_model,
+                            x.device).to(dtype)[None]
+    memory = None
+    if cfg.encoder is not None:
+        memory = encode(cfg, params, batch["frames"].to(dtype))
+    x, aux = _stack_forward(cfg, params, x, positions, memory)
     return _head(cfg, params, x), aux
 
 
@@ -260,8 +357,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def _decode_block(cfg: ModelConfig, mixer: str, ffn: str, p, x, cache,
-                  index: int):
-    h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
+                  index: int, memory):
+    h = _norm(cfg, p["norm1"], x)
     if _mla(cfg, mixer):
         h, cache = mla.mla_decode_attention(cfg, p["mixer"], h, cache,
                                             index)
@@ -272,7 +369,7 @@ def _decode_block(cfg: ModelConfig, mixer: str, ffn: str, p, x, cache,
         h, cache = mamba.mamba_decode(cfg, p["mixer"], h, cache)
     else:
         h, cache = rwkv.rwkv_decode(cfg, p["mixer"], h, cache)
-    x = x + h
+    x = _cross(cfg, p, x + h, memory)
     h, _ = _ffn(cfg, ffn, p, x)
     return x + h, cache
 
@@ -282,27 +379,32 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
                 dtype: torch.dtype = torch.bfloat16
                 ) -> Tuple[torch.Tensor, Any]:
     """token: (b, 1) int; index: tokens so far (the KV cache's write
-    slot and the RoPE position; the RWKV and Mamba states do not use
-    it); ``memory`` is the encoder's, which no ported family has.
+    slot, the RoPE position and whisper's sinusoidal position; the RWKV
+    and Mamba states do not use it); ``memory`` is the encoder's output,
+    which every cross-attention of the step reads (its k and v are
+    recomputed each step, as the JAX package recomputes them).
 
     Returns (logits (b, 1, vocab), new_cache); ``cache`` is not
     changed."""
     check_ported(cfg)
-    if memory is not None:
-        raise _unported("cross-attention memory", _ZOO)
     x = layers.embed(params["embed"], token, dtype)
+    if _is_ln(cfg):
+        # the sinusoidal position at ``index``, in f32
+        pos = torch.tensor(float(index), dtype=torch.float32,
+                           device=x.device)
+        x = x + _angles(pos, cfg.d_model).to(dtype)[None, None]
     new_cache: Dict[str, Any] = {}
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
         x, new_cache[f"prefix{i}"] = _decode_block(
             cfg, mixer, ffn, params[f"prefix{i}"], x, cache[f"prefix{i}"],
-            index)
+            index, memory)
     per_layer = {f"pos{i}": [] for i in range(len(cfg.block_pattern))}
     for layer in range(cfg.n_repeats):
         for i, (mixer, ffn) in enumerate(cfg.block_pattern):
             pos = f"pos{i}"
             x, c = _decode_block(
                 cfg, mixer, ffn, P.tree_slice(params["blocks"][pos], layer),
-                x, P.tree_slice(cache["blocks"][pos], layer), index)
+                x, P.tree_slice(cache["blocks"][pos], layer), index, memory)
             per_layer[pos].append(c)
     new_cache["blocks"] = {
         pos: {k: torch.stack([c[k] for c in outs]) for k in outs[0]}

@@ -3,8 +3,12 @@ decode, the counterpart of the JAX package's ``repro/serve/engine.py``.
 
 It serves the families ``models/transformer.py`` runs: ``rwkv6-7b``,
 ``granite-moe-3b-a800m``, ``glm4-9b``, ``qwen3-14b``, ``h2o-danube-1.8b``,
-``jamba-1.5-large-398b``, ``deepseek-v2-lite-16b`` and ``minicpm3-4b``;
-any other arch raises ``NotImplementedError``.
+``jamba-1.5-large-398b``, ``deepseek-v2-lite-16b``, ``minicpm3-4b`` and
+the encoder-decoder ``whisper-large-v3``; the vision-prefix arch
+raises ``NotImplementedError``. An encoder-decoder model is served as
+the JAX package serves it: ``transformer.encode`` the frames once, then
+``generate(..., memory=...)``, which hands the encoder's output to every
+decode step; its ``score`` raises, as the JAX engine's does.
 
 ``generate`` fills the per-layer state (the KV cache, MLA's latent
 cache, the RWKV state or the Mamba state)
@@ -85,6 +89,8 @@ class ServeEngine:
     def score(self, tokens: np.ndarray) -> float:
         """Mean NLL of a token batch under the model (prefill path),
         plus the weighted router losses of an MoE model."""
+        if self.cfg.encoder is not None:
+            raise NotImplementedError("use generate() for enc-dec")
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                device=self.device)
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -150,10 +150,34 @@ def test_decode_attention_matches_jax(case):
                                        np.asarray(jcache[name]), **ATT_TOL)
 
 
-def test_cross_attention_is_not_ported():
+def test_cross_attention_is_not_ported(monkeypatch):
+    """Cross-attention runs as one ``ops.flash_attention`` call,
+    bidirectional (``causal=False``, no window), q of the decoder's
+    length against k and v of the memory's, contiguous in the kernel's
+    (b, h, s, hd) layout. (tests/test_torch_whisper.py holds its values
+    to the JAX package's.)"""
     cfg = get_config("whisper-large-v3").reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tatt.cross_attention(cfg, {}, None, None)
+    tp = tparams.init_tree(tatt.attention_spec(cfg, cross=True),
+                           torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+    calls = []
+    real = tops.flash_attention
+
+    def spy(q, k, v, **kwargs):
+        calls.append((q, k, v, kwargs))
+        return real(q, k, v, **kwargs)
+    monkeypatch.setattr(tops, "flash_attention", spy)
+    x = torch.randn((2, 3, cfg.d_model))
+    memory = torch.randn((2, 7, cfg.d_model))
+    out = tatt.cross_attention(cfg, tp, x, memory)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert len(calls) == 1
+    q, k, v, kwargs = calls[0]
+    assert kwargs == {"causal": False, "window": 0}
+    assert tuple(q.shape) == (2, cfg.eff_heads, 3, cfg.head_dim)
+    assert tuple(k.shape) == tuple(v.shape) == \
+        (2, cfg.n_kv_heads, 7, cfg.head_dim)
+    assert all(t.is_contiguous() for t in (q, k, v))
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ from repro_torch.models import params as tP  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 
 PORTED = ["rwkv6-7b", "granite-moe-3b-a800m", "glm4-9b", "qwen3-14b",
-          "h2o-danube-1.8b", "jamba-1.5-large-398b"]
+          "h2o-danube-1.8b", "jamba-1.5-large-398b", "whisper-large-v3"]
 
 
 @pytest.mark.parametrize("arch", list_archs())
