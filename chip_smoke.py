@@ -186,6 +186,20 @@ NVIDIA GPU.
    tokens/s, the profiled busy shares of the prefill and of one decode
    step, device time by kind, peak memory, and the kernel's times at
    the four shapes beside its plain version and SDPA;
+9d. serves the vision-language ``internvl2-76b`` at full width (d_model
+   8192, 64 query and 8 KV heads of 128, d_ff 28672, vocab 128256, RoPE
+   theta 500,000), cut in depth from 80 to 16 layers (15.8 B params,
+   63.2 GB in f32, drawn on the card after whisper's weights are freed):
+   attention at the prefill's q (4, 64, 768, 128) against k/v (4, 8,
+   768, 128), causal, within 2e-5; ``make_prefill_step`` of (4, 512)
+   tokens behind (4, 256, 8192) patch embeddings (the vision encoder is
+   a stub in both packages), 768 positions a row, with exactly 16
+   attention launches; one ``loss_fn``, finite, whose 256 prefix
+   positions carry no loss (other labels under them leave it bit for
+   bit); greedy ``generate`` of 16 tokens from 4 prompts of 16 (the text
+   path, as the JAX package's engine decodes); ``score`` raising;
+   tokens/s, the busy share, peak memory and the kernel's times at that
+   shape beside SDPA;
 10. trains ``granite-moe-3b-a800m`` at full width and depth (32 layers,
    3.37 B params; AdamW and remat "minimal", its config's; f32) after
    every other phase has freed its weights: attention's backward kernel
@@ -196,8 +210,7 @@ NVIDIA GPU.
    5 to 300, the split-NN tower's call, bf16 within 2e-2); dx and dw of
    the grouped matmul's ``Function`` (the forward
    kernel twice) against autograd through ``gmm_ref`` within 2e-4 at the
-   step's two shapes; the WKV and scan kernels raising on CUDA inputs
-   that require grad. Then one step's loss and gradients with the
+   step's two shapes. Then one step's loss and gradients with the
    kernels and with the plain versions at the same params (the routing's
    top-k picks of the kernel step replayed in the plain one, and the
    tokens whose own picks differ counted): losses within rtol 1e-5,
@@ -211,13 +224,29 @@ NVIDIA GPU.
    ``torch.profiler`` (busy share, device time by kind); the checkpoint
    round trip of ``examples/train_lm.py`` at full width and 2 layers
    (train with a ``ckpt_dir``, restore, the same loss within 1e-5, the
-   params bit for bit); and the times of the backward kernel and of the
-   grouped matmul at the step's dx and dw shapes;
+   params bit for bit); ``python -m repro_torch.examples.train_lm`` on
+   the card for 8 steps (its falling loss and resume check, exact
+   launches); and the times of the backward kernel and of the
+   grouped matmul at the step's dx and dw shapes; then (phases 10g-10j)
+   the recurrences' backward kernels (``csrc/rwkv6_wkv_bwd.cu``,
+   ``csrc/selective_scan_bwd.cu``), through the ``autograd.Function``s
+   that ``rwkv6_wkv`` and ``selective_scan`` apply to CUDA inputs that
+   require grad, against autograd through the plain versions in float64
+   at rwkv6-7b's (4, 64, 511, 64) and jamba's (4, 512, 16384, 16), every
+   gradient within 1e-4 of its largest magnitude, and at edges (ragged
+   lengths, masked head and state dims, bf16 within 1e-2); their times
+   beside the plain VJPs; then ``rwkv6-7b`` cut in depth 32 -> 8 (AdamW)
+   and jamba's first two layers (mamba + mlp, mamba + MoE of 4 experts;
+   its adafactor) trained at full width as granite is: a kernel step
+   against a plain step (gradients within 1e-4 of each leaf's largest),
+   ``train()`` for 10 steps with a falling loss and exact launches, a
+   profiled step;
 11. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time (bytes over the memory rate, or operations over
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
    on the tensor cores in 3xTF32, 989 for bf16 on them, 67 for f32
-   FMAs), the variant each
+   FMAs; eight kernels: the five forward ports and the backward kernels
+   of attention, WKV and the scan), the variant each
    path's shape ran, its launches on each path and a training round,
    then
    ``{"ok": true, "device": {...}}`` as its last line.
@@ -332,6 +361,10 @@ MINICPM_ARCH = "minicpm3-4b"
 # f32 (6.41 GB of weights): frames of (4, 1500, 1280), a prefill of 448
 # tokens (its published decoder context), decode vs prefill over 16
 # positions, greedy generate of 64 tokens after a prompt of 4
+INTERNVL_ARCH = "internvl2-76b"
+# depth 80 -> 16 (15.8 B params, 63.2 GB in f32); 512 text tokens a row
+# behind the 256 patch embeddings
+INTERNVL_LAYERS, INTERNVL_TEXT = 16, 512
 WHISPER_ARCH = "whisper-large-v3"
 WHISPER_BATCH, WHISPER_TOKENS = 4, 448
 WHISPER_CONSIST = 16
@@ -348,6 +381,23 @@ LM_LR = 3e-4
 # the checkpoint round trip's depth (full width): params and AdamW state
 # of 2 layers, 4.2 GB on disk, where 32 layers would write 54 GB
 LM_CKPT_LAYERS = 2
+# phase 10g: the recurrences' backward kernels at the training path's
+# shapes (rwkv6-7b (b, h, s, dh) of a (4, 512) score's 511 tokens, a
+# length no multiple of the chunk; jamba's (b, s, di, n) of a (4, 512)
+# batch), then at edges: ragged lengths, masked head and state dims, bf16
+WKV_GRAD_CASES = [(4, 64, 511, 64, "float32"), (2, 3, 37, 32, "float32"),
+                  (1, 2, 17, 48, "float32"), (2, 2, 9, 5, "float32"),
+                  (1, 2, 40, 64, "bfloat16")]
+SCAN_GRAD_CASES = [(4, 512, 16384, 16, "float32", "float32"),
+                   (2, 37, 200, 16, "float32", "float32"),
+                   (1, 64, 130, 8, "float32", "float32"),
+                   (2, 21, 64, 4, "float32", "float32"),
+                   (1, 33, 100, 5, "float32", "float32"),
+                   (2, 48, 256, 16, "bfloat16", "bfloat16")]
+# phase 10e': steps of ``python -m repro_torch.examples.train_lm``
+TRAIN_LM_STEPS = 8
+# phase 10i: rwkv6-7b trained at depth 32 -> 8 (~42 GB with AdamW's state)
+RWKV_TRAIN_LAYERS = 8
 # attention's gradient checks at granite's training shapes: causal, a
 # window shorter than the sequence, and a head dim of no power of two
 ATT_GRAD_CASES = [
@@ -2013,7 +2063,9 @@ def _device_us(e) -> float:
 def profile_window(torch, fn, wall_s: float) -> dict:
     """Runs ``fn`` once under ``torch.profiler`` and sums its kernels'
     device time, by kind (the port's WKV, selective-scan, grouped-matmul
-    and attention kernels, library matmuls, the rest) and for the
+    and attention kernels and the backward kernels, library matmuls, the
+    rest; the backward kernels' second pass, ``sum_parts``, is in the
+    rest) and for the
     six longest kernels. The busy share is that device time over
     ``wall_s``, the wall time of the same call timed without the
     profiler: the profiler slows the host's dispatch, not the kernels,
@@ -2029,12 +2081,14 @@ def profile_window(torch, fn, wall_s: float) -> dict:
                and "cuda" in str(e.device_type).lower()
                and _device_us(e) > 0]
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    kinds = {"wkv": 0.0, "scan": 0.0, "gmm": 0.0, "attention": 0.0,
-             "attention_bwd": 0.0, "quantize": 0.0, "matmul": 0.0,
-             "other": 0.0}
+    kinds = {"wkv": 0.0, "wkv_bwd": 0.0, "scan": 0.0, "scan_bwd": 0.0,
+             "gmm": 0.0, "attention": 0.0, "attention_bwd": 0.0,
+             "quantize": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        kind = ("wkv" if "rwkv6_wkv" in name else
+        kind = ("wkv_bwd" if "rwkv6_wkv_bwd" in name else
+                "wkv" if "rwkv6_wkv" in name else
+                "scan_bwd" if "selective_scan_bwd" in name else
                 "scan" if "selective_scan" in name else
                 "gmm" if "gmm_" in name else
                 "attention_bwd" if "attention_bwd" in name else
@@ -2361,7 +2415,9 @@ def all_counters() -> dict:
     return {"flash_attention": fa.launches,
             "flash_attention_bwd": fa.bwd_launches,
             "quantize_int8": qz.launches, "rwkv6_wkv": wkv.launches,
-            "moe_gmm": gmm.launches, "selective_scan": ssm.launches}
+            "moe_gmm": gmm.launches, "selective_scan": ssm.launches,
+            "rwkv6_wkv_bwd": wkv.bwd_launches,
+            "selective_scan_bwd": ssm.bwd_launches}
 
 
 def mla_config():
@@ -2486,6 +2542,34 @@ def time_whisper_attention(torch, dev, cfg, g) -> dict:
             in whisper_attention_shapes(cfg).items()}
 
 
+def attention_counted(torch, cfg, tag: str, launches: dict):
+    """``counted(run, fn, attention)`` for a phase whose runs launch only
+    the attention kernel: sets every count to 0, runs ``fn`` and waits
+    for the card, records the attention launches in ``launches`` under
+    ``{tag}_{run}`` and raises unless the attention kernel launched
+    exactly ``attention`` times and no other kernel at all. Returns
+    (``fn``'s result, its wall time)."""
+    counters = all_counters()
+
+    def counted(run, fn, attention: int):
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: c.count for name, c in counters.items()}
+        expected = {name: 0 for name in counters}
+        expected["flash_attention"] = attention
+        launches[f"{tag}_{run}"] = {"flash_attention":
+                                    got["flash_attention"]}
+        if got != expected:
+            raise AssertionError(f"{cfg.arch_id} {run} launched {got}, "
+                                 f"expected {expected}")
+        return out, wall
+    return counted
+
+
 def whisper_phase(torch, dev):
     """Phase 9c: the encoder-decoder on the card. Attention at
     whisper-large-v3's four shapes against its plain version
@@ -2517,25 +2601,8 @@ def whisper_phase(torch, dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = draw_params(torch, dev, cfg)
-    counters = all_counters()
     launches = {}
-
-    def counted(run, fn, attention: int):
-        for c in counters.values():
-            c.reset()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {name: c.count for name, c in counters.items()}
-        expected = {name: 0 for name in counters}
-        expected["flash_attention"] = attention
-        launches[f"whisper_{run}"] = {"flash_attention":
-                                      got["flash_attention"]}
-        if got != expected:
-            raise AssertionError(f"{cfg.arch_id} {run} launched {got}, "
-                                 f"expected {expected}")
-        return out, wall
+    counted = attention_counted(torch, cfg, "whisper", launches)
 
     b, f, d = WHISPER_BATCH, cfg.encoder.n_frames, cfg.d_model
     frames = torch.randn((b, f, d), generator=torch.Generator(dev)
@@ -2662,6 +2729,174 @@ def whisper_phase(torch, dev):
     log("whisper " + json.dumps(measured))
     log(f"{WHISPER_ARCH} phase: {time.perf_counter() - t_phase:.1f} s")
     return errs, launches, {"served": measured, "attention": times}
+
+
+def internvl_config():
+    """internvl2-76b's language model at full width, cut in depth from 80
+    to INTERNVL_LAYERS layers (its 76 B params do not fit one card in
+    f32); the vision encoder is a stub in both packages: the batch
+    carries its 256 patch embeddings."""
+    from repro_torch.configs import get_config
+    full = get_config(INTERNVL_ARCH)
+    cfg = dataclasses.replace(full, n_layers=INTERNVL_LAYERS)
+    fe = cfg.frontend
+    assert (full.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.rope, cfg.rope_theta,
+            fe.kind, fe.num_tokens) == \
+        (80, 8192, 64, 8, 128, 28672, 128256, True, 500_000.0, "vision",
+         256), "the full internvl2-76b config"
+    log(f"{INTERNVL_ARCH}: cut to depth {cfg.n_layers} of {full.n_layers} "
+        f"layers; every width as published; {fe.num_tokens} patch "
+        f"embeddings (normal x 0.02) in front of {INTERNVL_TEXT} text "
+        f"tokens a row")
+    return cfg
+
+
+def internvl_attention_shapes(cfg):
+    """q and k/v of the prefill's self-attention over the patches and the
+    text: (4, 64, 768, 128) against (4, 8, 768, 128)."""
+    s = cfg.frontend.num_tokens + INTERNVL_TEXT
+    return ((SCORE_BATCH, cfg.n_heads, s, cfg.head_dim),
+            (SCORE_BATCH, cfg.n_kv_heads, s, cfg.head_dim))
+
+
+def internvl_phase(torch, dev):
+    """Phase 9d: the vision prefix on the card. Attention at the
+    prefill's shape (q (4, 64, 768, 128), k/v (4, 8, 768, 128), causal)
+    against its plain version within 2e-5; the 16-layer internvl2-76b
+    (15.8 B params, 63.2 GB in f32) drawn on the card; ``make_prefill_step``
+    of (4, 512) tokens behind (4, 256, 8192) patch embeddings, 768
+    positions a row, with exactly 16 attention launches, finite last
+    logits, tokens/s over every position and the profiled busy share;
+    one ``loss_fn`` (16 launches), finite, whose prefix carries no loss:
+    its labels there (the zero pad) changed to random tokens leave the
+    loss bit for bit, and without the prefix mask it differs; greedy
+    ``generate`` of 16 tokens from 4 prompts of 16 (the text path, as the
+    JAX package's engine decodes, no kernel launch); ``score`` raising,
+    as its batch has no patches; peak memory; the kernel's times at the
+    prefill's shape. Returns (error, launches by run, measured)."""
+    import numpy as np
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    t_phase = time.perf_counter()
+    cfg = internvl_config()
+    g = torch.Generator().manual_seed(19)
+    qs, ks = internvl_attention_shapes(cfg)
+    err = check_attention(torch, dev, qs, ks, 0, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = draw_params(torch, dev, cfg)
+    launches = {}
+    counted = attention_counted(torch, cfg, "internvl2", launches)
+
+    b, npatch, d = SCORE_BATCH, cfg.frontend.num_tokens, cfg.d_model
+    patches = torch.randn((b, npatch, d), generator=torch.Generator(dev)
+                          .manual_seed(2), device=dev) * 0.02
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, INTERNVL_TEXT + 1)),
+                           device=dev)
+    batch = {"tokens": toks[:, :-1], "patches": patches}
+    prefill = ST.make_prefill_step(cfg, compute_dtype=torch.float32)
+    prefill(params, batch)                          # warm-up: cuBLAS
+    torch.cuda.synchronize()
+    last, pre_s = counted("prefill", lambda: prefill(params, batch),
+                          cfg.n_layers)
+    if last.shape != (b, cfg.vocab) or not torch.isfinite(last).all():
+        raise AssertionError(f"prefill gave {tuple(last.shape)} logits, "
+                             f"finite {bool(torch.isfinite(last).all())}")
+    positions = b * (npatch + INTERNVL_TEXT)
+    log(f"{cfg.arch_id} prefill of ({b}, {INTERNVL_TEXT}) tokens behind "
+        f"({b}, {npatch}, {d}) patches: {pre_s * 1e3:.1f} ms, "
+        f"{positions / pre_s:.1f} tokens/s over all {positions} positions; "
+        f"launches {launches['internvl2_prefill']}")
+    prof_prefill = profile_window(torch, lambda: prefill(params, batch),
+                                  pre_s)
+    log("internvl2 profile prefill " + json.dumps(prof_prefill))
+    del last
+
+    # the loss: the prefix masked out, its labels the zero pad
+    lbatch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+              "patches": patches}
+    seen = {}
+    xent = T.layers.softmax_xent
+
+    def capture(logits, labels, mask=None):
+        seen.update(logits=logits, labels=labels, mask=mask)
+        return xent(logits, labels, mask)
+    T.layers.softmax_xent = capture
+    try:
+        with torch.no_grad():
+            (loss, _), loss_s = counted(
+                "loss", lambda: T.loss_fn(cfg, params, lbatch,
+                                          torch.float32), cfg.n_layers)
+    finally:
+        T.layers.softmax_xent = xent
+    labels, mask = seen["labels"], seen["mask"]
+    s_all = npatch + INTERNVL_TEXT
+    if labels.shape != (b, s_all) or mask.shape != (b, s_all) \
+            or bool(labels[:, :npatch].any()) \
+            or bool(mask[:, :npatch].any()) \
+            or not bool((mask[:, npatch:] == 1).all()):
+        raise AssertionError("loss_fn's labels or mask over the prefix")
+    other = labels.clone()
+    other[:, :npatch] = torch.randint(0, cfg.vocab, (b, npatch),
+                                      generator=torch.Generator(dev)
+                                      .manual_seed(3), device=dev)
+    with torch.no_grad():
+        moved, _ = xent(seen["logits"], other, mask)
+        unmasked, _ = xent(seen["logits"], labels, None)
+    if not torch.isfinite(loss) or not torch.equal(moved, loss) \
+            or torch.equal(unmasked, loss):
+        raise AssertionError(f"the prefix carries loss: loss {loss.item()},"
+                             f" other labels under it {moved.item()}, "
+                             f"unmasked {unmasked.item()}")
+    log(f"{cfg.arch_id} loss_fn with the prefix masked: {loss.item():.6f} "
+        f"(ln vocab {np.log(cfg.vocab):.6f}) in {loss_s * 1e3:.1f} ms; "
+        f"other labels under the {npatch} prefix positions: "
+        f"{moved.item():.6f}, bit-identical; without the mask "
+        f"{unmasked.item():.6f}; launches {launches['internvl2_loss']}")
+    del seen, labels, mask, other, lbatch
+
+    eng = ServeEngine(cfg, params, max_seq=GEN_PROMPT + GEN_NEW + 1,
+                      dtype=torch.float32, device=dev)
+    prompts = rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))
+    eng.generate(prompts[:, :2], 2)                 # warm-up
+    torch.cuda.synchronize()
+    out, gen_s = counted("generate",
+                         lambda: eng.generate(prompts, GEN_NEW), 0)
+    check_generated(out, prompts, cfg.vocab)
+    decode_tok = GEN_BATCH * (GEN_PROMPT + GEN_NEW - 1)
+    log(f"{cfg.arch_id} generate {GEN_NEW} tokens from {GEN_BATCH} prompts "
+        f"of {GEN_PROMPT} (the text path): {gen_s * 1e3:.1f} ms, "
+        f"{decode_tok / gen_s:.1f} decode tokens/s; launches "
+        f"{launches['internvl2_generate']}; first new tokens "
+        f"{out[:, GEN_PROMPT:GEN_PROMPT + 4].tolist()}")
+    try:
+        eng.score(toks.cpu().numpy())
+    except ValueError as e:
+        log(f"{cfg.arch_id} score raises, as its batch has no patches: {e}")
+    else:
+        raise AssertionError("score ran without the vision prefix")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{cfg.arch_id} peak device memory {peak:.2f} GiB")
+    del eng, params, patches, batch, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    att = time_attention(torch, dev, cfg, qs, ks, 0, g,
+                         dict(reps=20, trials=10))
+    measured = {"layers": cfg.n_layers, "prefill_ms": pre_s * 1e3,
+                "prefill_tok_s": positions / pre_s,
+                "prefill_busy_share": prof_prefill["device_busy_share"],
+                "prefill_device_ms_by_kind": prof_prefill[
+                    "device_ms_by_kind"],
+                "loss": loss.item(), "loss_ms": loss_s * 1e3,
+                "generate_s": gen_s, "decode_tok_s": decode_tok / gen_s,
+                "peak_gib": peak}
+    log("internvl2 " + json.dumps(measured))
+    log(f"{INTERNVL_ARCH} phase: {time.perf_counter() - t_phase:.1f} s")
+    return err, launches, {"served": measured, "attention": att}
 
 
 def jamba_config():
@@ -2906,32 +3141,6 @@ def check_gmm_grads(torch, dev, cfg) -> float:
     return worst
 
 
-def check_grad_refusal(torch, dev) -> None:
-    """Phase 10b: the WKV and scan kernels have no backward: on CUDA
-    inputs that require grad they must raise, not return a result
-    without a gradient."""
-    from repro_torch.kernels import rwkv6_wkv as wkv
-    from repro_torch.kernels import selective_scan as ssm
-    g = torch.Generator().manual_seed(16)
-    calls = {
-        "rwkv6_wkv": lambda: wkv.rwkv6_wkv(*[
-            t.requires_grad_() for t in wkv_inputs(
-                torch, dev, 1, 2, 8, 32, torch.float32, g)]),
-        "selective_scan": lambda: ssm.selective_scan(*[
-            t.requires_grad_() for t in scan_inputs(
-                torch, dev, 1, 8, 32, 16, torch.float32, torch.float32, g,
-                0.0)]),
-    }
-    for name, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as e:
-            log(f"{name} on CUDA inputs that require grad raises: {e}")
-        else:
-            raise AssertionError(f"{name} returned a result on inputs "
-                                 f"that require grad")
-
-
 class Routing:
     """Holds the plain-version step to the kernel step's routing: the
     router's top-k picks (``moe._top_k``) are recorded in the kernel
@@ -2978,22 +3187,31 @@ class Routing:
         return self._patched(rep)
 
 
+# the zoo's kernels a model calls through ``ops``, and each one's
+# backward kernel
+ZOO_OPS = ("flash_attention", "moe_gmm", "rwkv6_wkv", "selective_scan")
+MIXER_KERNELS = {"attn": ("flash_attention", "flash_attention_bwd"),
+                 "rwkv": ("rwkv6_wkv", "rwkv6_wkv_bwd"),
+                 "mamba": ("selective_scan", "selective_scan_bwd")}
+
+
 def plain_versions():
-    """The model's attention and expert matmuls through ``ops``'
-    ``kernel="ref"``: the plain versions on the card."""
+    """The model's attention, expert matmuls, WKV and scan through
+    ``ops``' ``kernel="ref"``: the plain versions on the card."""
     import contextlib
     import functools
     from repro_torch.kernels import ops
 
     @contextlib.contextmanager
     def ctx():
-        orig = ops.flash_attention, ops.moe_gmm
-        ops.flash_attention = functools.partial(orig[0], kernel="ref")
-        ops.moe_gmm = functools.partial(orig[1], kernel="ref")
+        orig = {name: getattr(ops, name) for name in ZOO_OPS}
+        for name, fn in orig.items():
+            setattr(ops, name, functools.partial(fn, kernel="ref"))
         try:
             yield
         finally:
-            ops.flash_attention, ops.moe_gmm = orig
+            for name, fn in orig.items():
+                setattr(ops, name, fn)
     return ctx()
 
 
@@ -3005,20 +3223,34 @@ def lm_batch(torch, dev, cfg, seed: int):
 
 def lm_launches_per_step(cfg) -> dict:
     """Each kernel's launches in one training step under remat
-    "minimal": every layer's forward, its recomputation in the backward,
-    and the backward (two grouped matmuls for each forward one)."""
-    n = cfg.n_layers
-    return {"flash_attention": 2 * n, "flash_attention_bwd": n,
-            "moe_gmm": 3 * n * 2 + 2 * 3 * n, "quantize_int8": 0,
-            "rwkv6_wkv": 0, "selective_scan": 0}
+    "minimal": every repeated layer's mixer kernel twice (the forward and
+    its recomputation in the backward) and its backward kernel once; an
+    MoE layer's three grouped matmuls twice and two for each in the
+    backward (a prefix layer, which no remat wraps, runs its forward
+    kernels once)."""
+    assert cfg.remat_policy == "minimal"
+    out = {name: 0 for name in all_counters()}
+    layers = [(m, f, 1) for m, f in cfg.prefix_pattern] + \
+        [(m, f, 2) for m, f in cfg.block_pattern * cfg.n_repeats]
+    for mixer, ffn, runs in layers:
+        fwd, bwd = MIXER_KERNELS[mixer]
+        out[fwd] += runs
+        out[bwd] += 1
+        if ffn == "moe":
+            out["moe_gmm"] += 3 * runs + 2 * 3
+    return out
 
 
-def lm_kernel_vs_plain(torch, dev, cfg, card: str) -> dict:
+def lm_kernel_vs_plain(torch, dev, cfg, card: str,
+                       grad_tol: float = 1e-3) -> dict:
     """Phase 10c: one step's loss and gradients (``steps.loss_and_grads``)
     with the kernels and with the plain versions, at the same params and
     batch, the routing held alike (``Routing``): losses within rtol
-    1e-5, every gradient present and within 1e-3 of its leaf's largest.
-    The kernel step's launches are counted."""
+    1e-5, every gradient present and within ``grad_tol`` of its leaf's
+    largest. The kernel step's launches are counted. Its gradients wait
+    on the host while the plain step runs (three copies of a 20 GB
+    model's params do not fit beside the plain recurrences' autograd
+    history)."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import params as PRM
     from repro_torch.models import transformer as T
@@ -3043,21 +3275,21 @@ def lm_kernel_vs_plain(torch, dev, cfg, card: str) -> dict:
     if launches != lm_launches_per_step(cfg):
         raise AssertionError(f"the kernel step launched {launches}, "
                              f"expected {lm_launches_per_step(cfg)}")
+    g_k = PRM.tree_map(lambda t: None if t is None else t.cpu(), g_k)
     # the forward's share, under no_grad (no remat, no backward); the
-    # step's attention launches beyond it are the remat recomputation's
+    # step's mixer launches beyond it are the remat recomputation's
     for c in counters.values():
         c.reset()
     with torch.no_grad():
         T.loss_fn(cfg, params, batch, torch.float32)
     forward = {name: c.count for name, c in counters.items()}
+    mixers = [fwd for fwd, _ in MIXER_KERNELS.values()]
     split = {"forward": forward,
-             "recompute": {k: launches[k] - forward[k] for k in
-                           ("flash_attention",)} | {
-                               "moe_gmm": forward["moe_gmm"]},
-             "backward": {"flash_attention_bwd":
-                          launches["flash_attention_bwd"],
-                          "moe_gmm": launches["moe_gmm"]
-                          - 2 * forward["moe_gmm"]}}
+             "recompute": {k: launches[k] - forward[k] for k in mixers}
+             | {"moe_gmm": forward["moe_gmm"]},
+             "backward": {bwd: launches[bwd]
+                          for _, bwd in MIXER_KERNELS.values()}
+             | {"moe_gmm": launches["moe_gmm"] - 2 * forward["moe_gmm"]}}
     t0 = time.perf_counter()
     with plain_versions(), routing.replay():
         loss_p, _, g_p = ST.loss_and_grads(cfg, params, batch,
@@ -3069,7 +3301,7 @@ def lm_kernel_vs_plain(torch, dev, cfg, card: str) -> dict:
         if a is None or b is None:
             missing.append("/".join(path))
             continue
-        err = grad_rel_err((a,), (b,))
+        err = grad_rel_err((a.to(dev),), (b,))
         if err > worst:
             worst, worst_leaf = err, "/".join(path)
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -3084,7 +3316,7 @@ def lm_kernel_vs_plain(torch, dev, cfg, card: str) -> dict:
         f"({card}): " + json.dumps(out))
     if missing:
         raise AssertionError(f"gradients missing: {missing}")
-    if not loss_err <= 1e-5 or not worst <= 1e-3:
+    if not loss_err <= 1e-5 or not worst <= grad_tol:
         raise AssertionError("the kernel step's loss or gradients "
                              "disagree with the plain versions'")
     del params, g_k, g_p
@@ -3093,7 +3325,7 @@ def lm_kernel_vs_plain(torch, dev, cfg, card: str) -> dict:
     return out
 
 
-def lm_train(torch, dev, cfg, card: str) -> dict:
+def lm_train(torch, dev, cfg, card: str, tag: str = "granite") -> dict:
     """Phase 10d: ``train()`` from drawn params, 2 warm-up and 8 timed
     steps of (4, 512) batches: step time (from the trainer's history,
     whose float() of the metrics waits for the card each step),
@@ -3155,7 +3387,7 @@ def lm_train(torch, dev, cfg, card: str) -> dict:
     params = res["params"]
     del res
     gc.collect()
-    opt = O.adamw()
+    opt = O.make_optimizer(cfg.optimizer)
     state = opt.init(params)
     step = ST.make_train_step(cfg, opt, lr=LM_LR,
                               compute_dtype=torch.float32)
@@ -3171,7 +3403,7 @@ def lm_train(torch, dev, cfg, card: str) -> dict:
     prof = profile_window(torch, lambda: step(params, state, batch), wall_s)
     out["busy_share"] = prof["device_busy_share"]
     out["profiled_step_unprofiled_ms"] = wall_s * 1e3
-    log(f"granite train profile ({card}) " + json.dumps(prof))
+    log(f"{tag} train profile ({card}) " + json.dumps(prof))
     del params, state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3217,6 +3449,40 @@ def lm_checkpoint(torch, dev, card: str) -> dict:
     del res, restored
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def train_lm_example(torch, dev, card: str) -> dict:
+    """Phase 10e': ``python -m repro_torch.examples.train_lm`` on the
+    card for TRAIN_LM_STEPS steps (its small qwen3, output under
+    ``build/train_lm_smoke``, deleted after): the example's own gates (a
+    falling loss, the checkpoint's resume check) and exact launches: 8
+    attention layers, remat "none", so 8 forward and 8 backward kernel
+    launches a step, and 8 forward for each of the resume check's two
+    losses."""
+    import shutil
+    from repro_torch.examples import train_lm
+    out_dir = ROOT / "build" / "train_lm_smoke"
+    counters = all_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    out = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--device",
+                         str(dev), "--out", str(out_dir)])
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    got = {name: c.count for name, c in counters.items()}
+    layers = train_lm.small_qwen().n_layers
+    expected = {name: 0 for name in counters}
+    expected["flash_attention"] = layers * (TRAIN_LM_STEPS + 2)
+    expected["flash_attention_bwd"] = layers * TRAIN_LM_STEPS
+    out["launches"] = got
+    log(f"examples.train_lm, {TRAIN_LM_STEPS} steps ({card}): "
+        + json.dumps(out))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if got != expected:
+        raise AssertionError(f"train_lm launched {got}, expected "
+                             f"{expected}")
     return out
 
 
@@ -3302,19 +3568,220 @@ def lm_train_phase(torch, dev) -> tuple:
         f"{cfg.remat_policy!r}, f32, ({LM_BATCH}, {LM_SEQ}) batches")
     att_errs = check_attention_grads(torch, dev)
     gmm_err = check_gmm_grads(torch, dev, cfg)
-    check_grad_refusal(torch, dev)
     versus = lm_kernel_vs_plain(torch, dev, cfg, card)
     trained = lm_train(torch, dev, cfg, card)
     ckpt = lm_checkpoint(torch, dev, card)
+    example = train_lm_example(torch, dev, card)
     att_t, gmm_t = time_lm_kernels(torch, dev, cfg, card)
     out = {"attention_grad_errs": att_errs, "gmm_grad_err": gmm_err,
            "kernel_vs_plain": versus, "train": trained, "checkpoint": ckpt,
+           "train_lm_example": example,
            "attention_bwd": att_t, "gmm_bwd": gmm_t,
            "seconds": time.perf_counter() - t_phase}
     log(f"{LM_ARCH} training phase: {out['seconds']:.1f} s; {card}")
     steps = LM_WARMUP + LM_TIMED
     launches = {"lm_train": {k: n * steps for k, n in
                              trained["launches_per_step"].items()}}
+    return launches, out
+
+
+def check_recurrence_grads(torch, dev) -> dict:
+    """Phase 10g: the WKV and scan backward kernels, through their
+    ``autograd.Function``s (``rwkv6_wkv`` / ``selective_scan`` on CUDA
+    inputs that require grad), against autograd through the plain
+    versions in float64 on the same inputs, with nonzero cotangents of
+    both y and the final state: at rwkv6-7b's (4, 64, 511, 64) and
+    jamba's dt/u (4, 512, 16384), B/C (4, 512, 16), A (16384, 16), every
+    gradient within 1e-4 of its largest magnitude; then at the edges
+    (WKV_GRAD_CASES, SCAN_GRAD_CASES: ragged lengths and widths, masked
+    head and state dims, bf16 within 1e-2, the gradients' own rounding).
+    The forward under grad, which also writes the checkpoints, must
+    give the no-grad forward's outputs bit for bit, and each call must
+    launch its forward and its backward kernel once. Returns the path
+    shapes' errors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import selective_scan as ssm
+    g = torch.Generator().manual_seed(18)
+    out = {}
+
+    def run(name, fn, ins, cots, plain, names, case, path):
+        mod = wkv if name == "rwkv6_wkv" else ssm
+        leaves = [t.clone().requires_grad_() for t in ins]
+        mod.launches.reset()
+        mod.bwd_launches.reset()
+        outs = fn(*leaves)
+        got = torch.autograd.grad(outs, leaves, cots)
+        if (mod.launches.count, mod.bwd_launches.count) != (1, 1):
+            raise AssertionError(f"{name}: {mod.launches.count} forward "
+                                 f"and {mod.bwd_launches.count} backward "
+                                 f"launches, expected 1 and 1")
+        with torch.no_grad():
+            plain_outs = fn(*ins)
+        if not all(torch.equal(a.detach(), b)
+                   for a, b in zip(outs, plain_outs)):
+            raise AssertionError(f"{name}: the forward under grad differs "
+                                 f"from the forward without it")
+        exp = plain(*(t.double() for t in ins), *(c.double() for c in cots))
+        torch.cuda.synchronize()
+        errs = {n: grad_rel_err((a,), (e,))
+                for n, a, e in zip(names, got, exp)}
+        abs_err = max((a.double() - e).abs().max().item()
+                      for a, e in zip(got, exp))
+        tol = 1e-2 if ins[0].dtype == torch.bfloat16 else 1e-4
+        log(f"{name} backward {case}: max err / max grad {errs}, "
+            f"max_abs_err {abs_err:.3e} (tol {tol} of the largest)")
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"{name}'s backward kernel disagrees with "
+                                 f"the plain version's VJP at {case}")
+        if path:
+            out[name] = {"grad_rel_errs": errs, "max_abs_err": abs_err}
+        del leaves, outs, got, exp, plain_outs
+
+    for i, case in enumerate(WKV_GRAD_CASES):
+        b, h, s, dh, dt = case
+        ins = wkv_inputs(torch, dev, b, h, s, dh, getattr(torch, dt), g)
+        cots = [torch.randn((b, h, s, dh), generator=g).to(dev),
+                torch.randn((b, h, dh, dh), generator=g).to(dev)]
+        run("rwkv6_wkv", wkv.rwkv6_wkv, ins, cots, ref.rwkv6_vjp_ref,
+            ("dr", "dk", "dv", "dw", "du"), case, i == 0)
+        del ins, cots
+    for i, case in enumerate(SCAN_GRAD_CASES):
+        b, s, di, n, xd, ud = case
+        # the path's dt: softplus around the model's b_dt of -4.6
+        ins = scan_inputs(torch, dev, b, s, di, n, getattr(torch, xd),
+                          getattr(torch, ud), g, -4.6 if i == 0 else 0.0)
+        cots = [torch.randn((b, s, di), generator=g).to(dev),
+                torch.randn((b, di, n), generator=g).to(dev)]
+        run("selective_scan", ssm.selective_scan, ins, cots,
+            ref.selective_scan_vjp_ref, ("ddt", "dB", "dC", "du", "dA"),
+            case, i == 0)
+        del ins, cots
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_recurrence_bwd(torch, dev) -> dict:
+    """Phase 10h: each backward kernel at its path shape (rwkv6-7b's
+    (4, 64, 511, 64); jamba's (4, 512, 16384, 16)) from the forward's
+    checkpoints, beside its plain version (autograd through the plain
+    recurrence in f32, timed eagerly: the engine runs on the host) and
+    its bound: the function's inputs read once and its gradients written
+    once, or its operations at the f32 FMA rate (WKV: 12 dh^2 a (pair,
+    step), the recomputed update and five products with a vector; the
+    scan: 20 a state element and step). No PyTorch call computes either
+    gradient: library_ms is None."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import selective_scan as ssm
+    g = torch.Generator().manual_seed(20)
+    out = {}
+    b, h, s, dh, _ = WKV_GRAD_CASES[0]
+    ins = wkv_inputs(torch, dev, b, h, s, dh, torch.float32, g)
+    dy = torch.randn((b, h, s, dh), generator=g).to(dev)
+    ds = torch.randn((b, h, dh, dh), generator=g).to(dev)
+    _, _, chk = wkv.wkv_forward(*ins, checkpoints=True)
+
+    def wkv_kernel():
+        return wkv.rwkv6_wkv_bwd(*ins, chk, dy, ds)
+    # r, k, v, w, dy read, dr, dk, dv, dw written; dS read; u, du
+    n_el = b * h * s * dh
+    nbytes = (9 * n_el + b * h * dh * dh + 2 * h * dh) * 4
+    t = {"ms": graph_ms(wkv_kernel, reps=20, trials=10),
+         "eager_ms": eager_ms(wkv_kernel, reps=20, trials=10),
+         "plain_ms": eager_ms(lambda: ref.rwkv6_vjp_ref(*ins, dy, ds),
+                              reps=2, trials=3),
+         "library_ms": None, "shape": [b, h, s, dh],
+         **_bound(nbytes, 12.0 * dh * dh * b * h * s)}
+    log(f"rwkv6_wkv_bwd at {(b, h, s, dh)} f32: {nbytes / 1e6:.1f} MB; {t}")
+    out["rwkv6_wkv_bwd"] = t
+    del ins, dy, ds, chk
+    b, s, di, n, _, _ = SCAN_GRAD_CASES[0]
+    ins = scan_inputs(torch, dev, b, s, di, n, torch.float32, torch.float32,
+                      g, -4.6)
+    dy = torch.randn((b, s, di), generator=g).to(dev)
+    dh_ = torch.randn((b, di, n), generator=g).to(dev)
+    _, _, chk = ssm.scan_forward(*ins, checkpoints=True)
+
+    def scan_kernel():
+        return ssm.selective_scan_bwd(*ins, chk, dy, dh_)
+    # dt, u, dy read, d(dt), du written; B, C read, dB, dC written; A
+    # read, dA written; dh read
+    nbytes = (5 * b * s * di + 4 * b * s * n + 2 * di * n
+              + b * di * n) * 4
+    t = {"ms": graph_ms(scan_kernel, reps=20, trials=10),
+         "eager_ms": eager_ms(scan_kernel, reps=20, trials=10),
+         "plain_ms": eager_ms(
+             lambda: ref.selective_scan_vjp_ref(*ins, dy, dh_),
+             reps=2, trials=3),
+         "library_ms": None, "shape": [b, s, di, n],
+         **_bound(nbytes, 20.0 * b * s * di * n)}
+    clock, top = sm_clock_mhz()
+    # the kernel's exponentials: the recomputed decay and the walked one
+    ex2 = 2 * b * s * di * n / (SFU_EX2_PER_CLK * SMS)
+    t.update(sm_clock_mhz=clock, ex2_floor_ms=ex2 / (clock * 1e6) * 1e3)
+    log(f"selective_scan_bwd at {(b, s, di, n)} f32: {nbytes / 1e6:.1f} MB;"
+        f" {t}")
+    out["selective_scan_bwd"] = t
+    del ins, dy, dh_, chk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rwkv_train_config():
+    """rwkv6-7b at full width, cut in depth 32 -> RWKV_TRAIN_LAYERS; its
+    AdamW and remat policy."""
+    cfg = dataclasses.replace(zoo_config(), n_layers=RWKV_TRAIN_LAYERS)
+    assert (cfg.optimizer, cfg.remat_policy) == ("adamw", "minimal")
+    return cfg
+
+
+def jamba_train_config():
+    """The first two layers of jamba's period at full width, mamba + mlp
+    then mamba + MoE, experts 16 -> 4 (as ``jamba_config`` cuts them);
+    its adafactor and remat policy."""
+    period = jamba_config()
+    cfg = dataclasses.replace(period, n_layers=2,
+                              block_pattern=period.block_pattern[:2])
+    assert cfg.block_pattern == (("mamba", "mlp"), ("mamba", "moe")) and \
+        (cfg.optimizer, cfg.remat_policy) == ("adafactor", "minimal")
+    return cfg
+
+
+def recurrence_train_phase(torch, dev) -> tuple:
+    """Phase 10g-10j: the recurrences' backward kernels against the
+    plain versions and their times, then rwkv6-7b (RWKV_TRAIN_LAYERS
+    layers, AdamW) and the jamba cut (two layers, adafactor) trained at
+    full width in f32 on (4, 512) batches as phase 10 trains granite:
+    one step's loss and gradients with the kernels against the plain
+    versions' (loss within rtol 1e-5, every gradient within 1e-4 of its
+    leaf's largest), ``train()`` for 2 warm-up and 8 timed steps with a
+    falling loss, launches a step exact, a profiled step. Returns (the
+    launches of the counted runs, the measured numbers)."""
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    out = {"grad": check_recurrence_grads(torch, dev),
+           "times": time_recurrence_bwd(torch, dev)}
+    launches = {}
+    steps = LM_WARMUP + LM_TIMED
+    for tag, cfg in (("rwkv6", rwkv_train_config()),
+                     ("jamba", jamba_train_config())):
+        t0 = time.perf_counter()
+        log(f"{cfg.arch_id} training: {cfg.n_layers} layers "
+            f"{[m + '+' + f for m, f in cfg.block_pattern]} x "
+            f"{cfg.n_repeats}, every width as published; "
+            f"{cfg.optimizer}, remat {cfg.remat_policy!r}, f32, "
+            f"({LM_BATCH}, {LM_SEQ}) batches")
+        versus = lm_kernel_vs_plain(torch, dev, cfg, card, grad_tol=1e-4)
+        trained = lm_train(torch, dev, cfg, card, tag)
+        out[tag] = {"kernel_vs_plain": versus, "train": trained,
+                    "seconds": time.perf_counter() - t0}
+        launches[f"{tag}_train"] = {k: n * steps for k, n in
+                                    trained["launches_per_step"].items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"recurrence training phase: {out['seconds']:.1f} s; {card}")
     return launches, out
 
 
@@ -3425,6 +3892,9 @@ def main() -> int:
     # the encoder-decoder: whisper-large-v3 at full width and depth
     whisper_errs, whisper_launches, whisper = whisper_phase(torch, dev)
 
+    # the vision prefix: internvl2-76b at full width, 16 layers
+    internvl_err, internvl_launches, internvl = internvl_phase(torch, dev)
+
     # last, so that its profiler session comes after every zoo timing
     train_launches, train, thread_losses = train_slice(torch, dev, cfg,
                                                        master, members)
@@ -3441,25 +3911,31 @@ def main() -> int:
     # language-model training: granite at full width, the backward
     # kernels, AdamW, checkpoints
     lm_launches, lm = lm_train_phase(torch, dev)
+    # the recurrences' backward kernels; rwkv6 and jamba trained
+    rec_launches, rec = recurrence_train_phase(torch, dev)
 
     # launches of each kernel on each path's counted run
     by_path = {
         "flash_attention": {"split_nn_serve": counts["flash_attention"]},
         "quantize_int8": {"split_nn_serve": counts["quantize_int8"]},
         "rwkv6_wkv": {}, "moe_gmm": {}, "selective_scan": {},
-        "flash_attention_bwd": {}}
+        "flash_attention_bwd": {}, "rwkv6_wkv_bwd": {},
+        "selective_scan_bwd": {}}
     mode_launches["split_nn_cluster"] = cluster_launches
     for run, got in (train_launches | mode_launches).items():
         for name, c in got.items():
             by_path[name][run] = c
     zoo_runs = (zoo_launches | moe_launches | h2o_launches | jamba_launches
-                | mla_launches | whisper_launches | lm_launches)
+                | mla_launches | whisper_launches | internvl_launches
+                | lm_launches | rec_launches)
     for run, got in zoo_runs.items():
         for name, c in got.items():
             by_path[name][run] = c
     errs["moe_gmm"] = max(moe_errs[name] for name, _ in
                           gmm_path_shapes(moe_cfg))
     errs["flash_attention_bwd"] = max(lm["attention_grad_errs"].values())
+    for name in ("rwkv6_wkv", "selective_scan"):
+        errs[f"{name}_bwd"] = rec["grad"][name]["max_abs_err"]
     extra = {
         # the attention kernel's times at the zoo's prefill shapes
         "flash_attention": {
@@ -3483,7 +3959,10 @@ def main() -> int:
             "whisper": {name: dict(t, max_abs_err=whisper_errs[name])
                         for name, t in whisper["attention"].items()},
             "whisper_encoder_inf_in_v_max_abs_err":
-                whisper_errs["encoder_inf_in_v"]},
+                whisper_errs["encoder_inf_in_v"],
+            # internvl2: 256 patches and 512 tokens, 768 positions a row
+            "internvl2_prefill": dict(internvl["attention"],
+                                      max_abs_err=internvl_err)},
         # the grouped matmul's at each of its four shapes of each MoE
         # model; the top-level times are those of granite's prefill
         # gate/up
@@ -3501,7 +3980,15 @@ def main() -> int:
         "flash_attention_bwd": {
             "grad_errs": lm["attention_grad_errs"],
             "launches_per_train_step": lm["train"]["launches_per_step"][
-                "flash_attention_bwd"]}}
+                "flash_attention_bwd"]},
+        # each gradient's largest difference over its largest magnitude
+        # at the path's shape, against the plain VJP in float64
+        **{f"{name}_bwd": {
+            "grad_rel_errs": rec["grad"][name]["grad_rel_errs"],
+            "launches_per_train_step": rec[tag]["train"][
+                "launches_per_step"][f"{name}_bwd"]}
+           for name, tag in (("rwkv6_wkv", "rwkv6"),
+                             ("selective_scan", "jamba"))}}
     kernels = []
     for name, src, replaces, t in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -3516,7 +4003,14 @@ def main() -> int:
              "src/repro/kernels/selective_scan.py:51", scan_t),
             ("flash_attention_bwd",
              "src/repro_torch/csrc/flash_attention_bwd.cu",
-             "src/repro/kernels/flash_attention.py:69", lm["attention_bwd"])):
+             "src/repro/kernels/flash_attention.py:69", lm["attention_bwd"]),
+            ("rwkv6_wkv_bwd", "src/repro_torch/csrc/rwkv6_wkv_bwd.cu",
+             "src/repro/kernels/rwkv6_wkv.py:48",
+             rec["times"]["rwkv6_wkv_bwd"]),
+            ("selective_scan_bwd",
+             "src/repro_torch/csrc/selective_scan_bwd.cu",
+             "src/repro/kernels/selective_scan.py:51",
+             rec["times"]["selective_scan_bwd"])):
         per_train_round = {
             f"depth{d}": train[f"depth{d}"]["launches_per_round"].get(name, 0)
             for d in (1, 2)}
@@ -3540,7 +4034,11 @@ def main() -> int:
         f"{lm['train']['peak_gb']:.2f} GB; whisper encode "
         f"{whisper['served']['encode_ms']:.1f} ms, prefill "
         f"{whisper['served']['prefill_tok_s']:.1f} tokens/s, decode "
-        f"{whisper['served']['decode_tok_s']:.1f} tokens/s; build "
+        f"{whisper['served']['decode_tok_s']:.1f} tokens/s; internvl2 "
+        f"prefill {internvl['served']['prefill_tok_s']:.1f} tokens/s, decode "
+        f"{internvl['served']['decode_tok_s']:.1f} tokens/s; rwkv6 training "
+        f"{rec['rwkv6']['train']['step_ms']:.1f} ms a step, jamba "
+        f"{rec['jamba']['train']['step_ms']:.1f} ms; build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

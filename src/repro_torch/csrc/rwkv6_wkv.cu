@@ -51,12 +51,23 @@
 // a value column, its state column in S_final's rows (global memory,
 // cached).
 //
+// Under grad (s_chk not null) the kernel also writes the state before
+// every kChunk-th step, S_{8c}, to s_chk (b, h, ceil(s / 8), dh, dh) f32,
+// from which the backward kernel (rwkv6_wkv_bwd.cu) recomputes the states
+// between: one state a staged chunk, 1/8 of the steps' state traffic,
+// written from registers the chunk loop holds anyway. The writes are a
+// template parameter (CKPT): serving runs a kernel without them (a null
+// test a chunk cost 1.6% at rwkv6's shape, measured in turns). Head dims
+// above 64 have no backward kernel and take no s_chk.
+//
 // Not done: a chunked tensor-core form. The bound is bytes, so tensor
 // cores cannot lower it, and a chunk's cumulative decay products
 // underflow f32 (0.45^64 is ~1e-22).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "recurrence_bwd.cuh"
 
 namespace {
 
@@ -66,6 +77,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 
 constexpr int kChunk = 8;  // time steps staged in shared memory at once
+static_assert(kChunk == recurrence::kWkvCheckpoint,
+              "a checkpoint at the start of every staged chunk");
 
 // component i (known at compile time) of a float4
 __device__ __forceinline__ float part(const float4& a, int i) {
@@ -127,12 +140,14 @@ __device__ __forceinline__ int first_sum(int g) {
 // [cg CT, (cg + 1) CT). Rows and columns past dh are zero and never
 // stored. EXACT: dh == DH, every stride and bound a constant (measured
 // 7% faster at rwkv6's shape than the same kernel with dh at run time).
-template <typename T, int DH, bool EXACT>
+// CKPT: write s_chk.
+template <typename T, int DH, bool EXACT, bool CKPT>
 __global__ void __launch_bounds__(Tile<DH>::kRG * DH / Tile<DH>::kCT)
 rwkv6_wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ w,
                  const float* __restrict__ u, float* __restrict__ y,
-                 float* __restrict__ s_final, int h, int s, int dh_arg) {
+                 float* __restrict__ s_final, float* __restrict__ s_chk,
+                 int h, int s, int dh_arg) {
   const int dh = EXACT ? DH : dh_arg;
   constexpr int RG = Tile<DH>::kRG, CT = Tile<DH>::kCT;
   constexpr int JT = DH / RG;       // key rows a thread
@@ -242,9 +257,25 @@ rwkv6_wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
     if (writer) y[base + (size_t)t * dh + col] = acc[0];
   };
 
+  // this thread's tile of the state, at the checkpoint before step t0
+  auto checkpoint = [&](int t0) {
+    float* sc = s_chk + ((size_t)pair * ((s + kChunk - 1) / kChunk)
+                         + t0 / kChunk) * dh * dh;
+#pragma unroll
+    for (int jj = 0; jj < JT; ++jj) {
+      const int jr = g * JT + jj;
+#pragma unroll
+      for (int ci = 0; ci < CT; ++ci) {
+        const int i = cg * CT + ci;
+        if (jr < dh && i < dh) sc[(size_t)jr * dh + i] = st[jj][ci];
+      }
+    }
+  };
+
   fetch(0);
   int buf = 0;
   for (int t0 = 0; t0 < s; t0 += kChunk, buf ^= 1) {
+    if (CKPT) checkpoint(t0);
     // stage[buf] was last read two chunks ago, before the previous
     // chunk's barrier, so writing it now needs no barrier of its own
 #pragma unroll
@@ -313,33 +344,42 @@ rwkv6_wkv_wide_kernel(const T* __restrict__ r, const T* __restrict__ k,
 template <typename T, int DH, bool EXACT>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* w, const void* u, void* y, void* s_final,
-                   int b, int h, int s, int dh, cudaStream_t stream) {
+                   void* s_chk, int b, int h, int s, int dh,
+                   cudaStream_t stream) {
   constexpr int threads = Tile<DH>::kRG * DH / Tile<DH>::kCT;
-  rwkv6_wkv_kernel<T, DH, EXACT>
-      <<<(unsigned)(b * h), threads, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(w),
-      static_cast<const float*>(u), static_cast<float*>(y),
-      static_cast<float*>(s_final), h, s, dh);
+  const T *pr = static_cast<const T*>(r), *pk = static_cast<const T*>(k),
+          *pv = static_cast<const T*>(v), *pw = static_cast<const T*>(w);
+  const float* pu = static_cast<const float*>(u);
+  float *py = static_cast<float*>(y), *ps = static_cast<float*>(s_final),
+        *pc = static_cast<float*>(s_chk);
+  if (pc != nullptr)
+    rwkv6_wkv_kernel<T, DH, EXACT, true>
+        <<<(unsigned)(b * h), threads, 0, stream>>>(pr, pk, pv, pw, pu, py,
+                                                    ps, pc, h, s, dh);
+  else
+    rwkv6_wkv_kernel<T, DH, EXACT, false>
+        <<<(unsigned)(b * h), threads, 0, stream>>>(pr, pk, pv, pw, pu, py,
+                                                    ps, pc, h, s, dh);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* r, const void* k, const void* v,
                      const void* w, const void* u, void* y, void* s_final,
-                     int b, int h, int s, int dh, cudaStream_t stream) {
+                     void* s_chk, int b, int h, int s, int dh,
+                     cudaStream_t stream) {
   if (dh == 32)
-    return launch<T, 32, true>(r, k, v, w, u, y, s_final, b, h, s, dh,
-                               stream);
+    return launch<T, 32, true>(r, k, v, w, u, y, s_final, s_chk, b, h,
+                               s, dh, stream);
   if (dh == 64)
-    return launch<T, 64, true>(r, k, v, w, u, y, s_final, b, h, s, dh,
-                               stream);
+    return launch<T, 64, true>(r, k, v, w, u, y, s_final, s_chk, b, h,
+                               s, dh, stream);
   if (dh < 32)
-    return launch<T, 32, false>(r, k, v, w, u, y, s_final, b, h, s, dh,
-                                stream);
+    return launch<T, 32, false>(r, k, v, w, u, y, s_final, s_chk, b, h,
+                                s, dh, stream);
   if (dh < 64)
-    return launch<T, 64, false>(r, k, v, w, u, y, s_final, b, h, s, dh,
-                                stream);
+    return launch<T, 64, false>(r, k, v, w, u, y, s_final, s_chk, b, h,
+                                s, dh, stream);
   // pairs on grid.x (up to 2^31 - 1), column blocks on grid.y
   dim3 grid(b * h, (dh + 127) / 128);
   rwkv6_wkv_wide_kernel<T><<<grid, 128, 0, stream>>>(
@@ -353,19 +393,22 @@ cudaError_t dispatch(const void* r, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w alike; u is float32).
-// Any dh >= 1. Returns the launch's cudaError_t.
+// Any dh >= 1. s_chk: null, or (under grad; dh <= 64) the backward's
+// checkpoints, (b, h, ceil(s / 8), dh, dh) f32. Returns the launch's
+// cudaError_t.
 extern "C" int repro_rwkv6_wkv(const void* r, const void* k, const void* v,
                                const void* w, const void* u, void* y,
-                               void* s_final, int b, int h, int s, int dh,
-                               int dtype, void* stream) {
+                               void* s_final, void* s_chk, int b, int h,
+                               int s, int dh, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || h <= 0 || s <= 0 || dh <= 0 ||
-      (int64_t)b * h > 0x7fffffffLL)
+      (int64_t)b * h > 0x7fffffffLL || (s_chk != nullptr && dh > 64))
     return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(r, k, v, w, u, y, s_final, b, h, s, dh, st);
+    return dispatch<float>(r, k, v, w, u, y, s_final, s_chk, b, h, s, dh,
+                           st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(r, k, v, w, u, y, s_final, b, h, s, dh,
-                                   st);
+    return dispatch<__nv_bfloat16>(r, k, v, w, u, y, s_final, s_chk, b, h,
+                                   s, dh, st);
   return cudaErrorInvalidValue;
 }

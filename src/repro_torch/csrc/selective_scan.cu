@@ -60,16 +60,29 @@
 // (global memory, cached in L1/L2) instead of registers. A chunked
 // tensor-core form would not lower the floor: its decays are the same
 // exponentials.
+//
+// Under grad (h_chk not null) the kernel also writes h before every 4th
+// step to h_chk (b, ceil(s / 4), di, n) f32, from which the backward
+// kernel (selective_scan_bwd.cu) recomputes the states between (four
+// checkpoints a staged chunk, from the registers that hold h anyway).
+// The writes are a template parameter (CKPT): serving runs a kernel
+// without them (a null test in the step loop cost 3.4% at jamba's
+// shape, measured in turns). State dims above 16 have no backward
+// kernel and take no h_chk.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "recurrence_bwd.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // channels of one batch row per block
 constexpr int kChunk = 16;     // time steps staged at once
 constexpr float kLog2e = 1.44269504088896341f;
+constexpr int kCk = recurrence::kScanCheckpoint;
+static_assert(kChunk % kCk == 0, "checkpoints at fixed steps of a chunk");
 
 // 2^x on the special-function unit (~2 ulp), a result below 2^-126
 // flushed to 0
@@ -125,14 +138,15 @@ __device__ __forceinline__ void fetch(
 }
 
 // EXACT: n == N. Otherwise n < N and the states n..N-1 are masked: their
-// A, B and C are zero, so they stay 0 and add nothing to y.
-template <typename TX, typename TU, int N, bool EXACT>
+// A, B and C are zero, so they stay 0 and add nothing to y. CKPT: write
+// h_chk.
+template <typename TX, typename TU, int N, bool EXACT, bool CKPT>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
                       const TX* __restrict__ cm, const TU* __restrict__ u,
                       const float* __restrict__ a_mat, float* __restrict__ y,
-                      float* __restrict__ h_final, int s, int di,
-                      int n_arg) {
+                      float* __restrict__ h_final, float* __restrict__ h_chk,
+                      int s, int di, int n_arg) {
   // [buffer][step][state]
   __shared__ __align__(16) float sb[2][kChunk][N];
   __shared__ __align__(16) float sc[2][kChunk][N];
@@ -193,6 +207,14 @@ selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
       if (c < steps) {
+        if (CKPT && c % kCk == 0 && active) {
+          // h before step t0 + c
+          float* hc = h_chk + (((size_t)blockIdx.y * ((s + kCk - 1) / kCk)
+                                + (t0 + c) / kCk) * di + ch) * n;
+#pragma unroll
+          for (int k = 0; k < N; ++k)
+            if (EXACT || k < n) hc[k] = h[k];
+        }
         const float d = cdt[c];
         const float du = d * cu[c];
         float acc0 = 0.f, acc1 = 0.f;
@@ -270,39 +292,55 @@ selective_scan_wide_kernel(const TX* __restrict__ dt,
 template <typename TX, typename TU, int N, bool EXACT>
 cudaError_t launch(const void* dt, const void* bm, const void* cm,
                    const void* u, const void* a, void* y, void* h_final,
-                   int b, int s, int di, int n, cudaStream_t stream) {
+                   void* h_chk, int b, int s, int di, int n,
+                   cudaStream_t stream) {
   dim3 grid((di + kThreads - 1) / kThreads, b);
-  selective_scan_kernel<TX, TU, N, EXACT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(dt), static_cast<const TX*>(bm),
-      static_cast<const TX*>(cm), static_cast<const TU*>(u),
-      static_cast<const float*>(a), static_cast<float*>(y),
-      static_cast<float*>(h_final), s, di, n);
+  const TX *pdt = static_cast<const TX*>(dt),
+           *pbm = static_cast<const TX*>(bm),
+           *pcm = static_cast<const TX*>(cm);
+  const TU* pu = static_cast<const TU*>(u);
+  const float* pa = static_cast<const float*>(a);
+  float *py = static_cast<float*>(y), *ph = static_cast<float*>(h_final),
+        *pc = static_cast<float*>(h_chk);
+  // checkpoints only under grad, where n <= 16 (N <= 32)
+  if constexpr (N <= 32) {
+    if (pc != nullptr) {
+      selective_scan_kernel<TX, TU, N, EXACT, true>
+          <<<grid, kThreads, 0, stream>>>(pdt, pbm, pcm, pu, pa, py, ph, pc,
+                                          s, di, n);
+      return cudaGetLastError();
+    }
+  }
+  selective_scan_kernel<TX, TU, N, EXACT, false>
+      <<<grid, kThreads, 0, stream>>>(pdt, pbm, pcm, pu, pa, py, ph, pc, s,
+                                      di, n);
   return cudaGetLastError();
 }
 
 template <typename TX, typename TU>
 cudaError_t by_state(const void* dt, const void* bm, const void* cm,
                      const void* u, const void* a, void* y, void* h_final,
-                     int b, int s, int di, int n, cudaStream_t stream) {
+                     void* h_chk, int b, int s, int di, int n,
+                     cudaStream_t stream) {
   switch (n) {
     case 4:
-      return launch<TX, TU, 4, true>(dt, bm, cm, u, a, y, h_final, b, s, di,
-                                     n, stream);
+      return launch<TX, TU, 4, true>(dt, bm, cm, u, a, y, h_final,
+                                     h_chk, b, s, di, n, stream);
     case 8:
-      return launch<TX, TU, 8, true>(dt, bm, cm, u, a, y, h_final, b, s, di,
-                                     n, stream);
+      return launch<TX, TU, 8, true>(dt, bm, cm, u, a, y, h_final,
+                                     h_chk, b, s, di, n, stream);
     case 16:
-      return launch<TX, TU, 16, true>(dt, bm, cm, u, a, y, h_final, b, s,
-                                      di, n, stream);
+      return launch<TX, TU, 16, true>(dt, bm, cm, u, a, y, h_final,
+                                      h_chk, b, s, di, n, stream);
     default:
       break;
   }
   if (n <= 32)
-    return launch<TX, TU, 32, false>(dt, bm, cm, u, a, y, h_final, b, s, di,
-                                     n, stream);
+    return launch<TX, TU, 32, false>(dt, bm, cm, u, a, y, h_final,
+                                     h_chk, b, s, di, n, stream);
   if (n <= 64)
-    return launch<TX, TU, 64, false>(dt, bm, cm, u, a, y, h_final, b, s, di,
-                                     n, stream);
+    return launch<TX, TU, 64, false>(dt, bm, cm, u, a, y, h_final,
+                                     h_chk, b, s, di, n, stream);
   dim3 grid((di + kThreads - 1) / kThreads, b);
   selective_scan_wide_kernel<TX, TU><<<grid, kThreads, 0, stream>>>(
       static_cast<const TX*>(dt), static_cast<const TX*>(bm),
@@ -314,14 +352,15 @@ cudaError_t by_state(const void* dt, const void* bm, const void* cm,
 
 template <typename TX>
 cudaError_t by_u(const void* dt, const void* bm, const void* cm,
-                 const void* u, const void* a, void* y, void* h_final, int b,
-                 int s, int di, int n, int u_dtype, cudaStream_t stream) {
+                 const void* u, const void* a, void* y, void* h_final,
+                 void* h_chk, int b, int s, int di, int n, int u_dtype,
+                 cudaStream_t stream) {
   if (u_dtype == 0)
-    return by_state<TX, float>(dt, bm, cm, u, a, y, h_final, b, s, di, n,
-                               stream);
+    return by_state<TX, float>(dt, bm, cm, u, a, y, h_final, h_chk, b, s,
+                               di, n, stream);
   if (u_dtype == 1)
-    return by_state<TX, __nv_bfloat16>(dt, bm, cm, u, a, y, h_final, b, s,
-                                       di, n, stream);
+    return by_state<TX, __nv_bfloat16>(dt, bm, cm, u, a, y, h_final, h_chk,
+                                       b, s, di, n, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -329,21 +368,23 @@ cudaError_t by_u(const void* dt, const void* bm, const void* cm,
 
 // x_dtype (dt, B, C alike) and u_dtype: 0 = float32, 1 = bfloat16; A is
 // float32. dt, u (b, s, di), B, C (b, s, n), A (di, n), y (b, s, di),
-// h_final (b, di, n), all contiguous; any n >= 1. Returns the launch's
-// cudaError_t.
+// h_final (b, di, n), all contiguous; any n >= 1. h_chk: null, or (under
+// grad; n <= 16) the backward's checkpoints, (b, ceil(s / 4), di, n)
+// f32. Returns the launch's cudaError_t.
 extern "C" int repro_selective_scan(const void* dt, const void* bm,
                                     const void* cm, const void* u,
                                     const void* a, void* y, void* h_final,
-                                    int b, int s, int di, int n, int x_dtype,
-                                    int u_dtype, void* stream) {
+                                    void* h_chk, int b, int s, int di, int n,
+                                    int x_dtype, int u_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || s <= 0 || di <= 0 || n <= 0 || b > 65535)
+  if (b <= 0 || s <= 0 || di <= 0 || n <= 0 || b > 65535 ||
+      (h_chk != nullptr && n > 16))
     return cudaErrorInvalidValue;
   if (x_dtype == 0)
-    return by_u<float>(dt, bm, cm, u, a, y, h_final, b, s, di, n, u_dtype,
-                       st);
+    return by_u<float>(dt, bm, cm, u, a, y, h_final, h_chk, b, s, di, n,
+                       u_dtype, st);
   if (x_dtype == 1)
-    return by_u<__nv_bfloat16>(dt, bm, cm, u, a, y, h_final, b, s, di, n,
-                               u_dtype, st);
+    return by_u<__nv_bfloat16>(dt, bm, cm, u, a, y, h_final, h_chk, b, s,
+                               di, n, u_dtype, st);
   return cudaErrorInvalidValue;
 }

@@ -175,11 +175,17 @@ def load(path: Path) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int)]
     lib.repro_moe_gmm_plan.restype = i
     lib.repro_rwkv6_wkv.argtypes = [
-        p, p, p, p, p, p, p, i, i, i, i, i, p]
+        p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.repro_rwkv6_wkv.restype = i
+    lib.repro_rwkv6_wkv_bwd.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.repro_rwkv6_wkv_bwd.restype = i
     lib.repro_selective_scan.argtypes = [
-        p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_selective_scan.restype = i
+    lib.repro_selective_scan_bwd.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_selective_scan_bwd.restype = i
     return lib
 
 

@@ -12,12 +12,13 @@ package's ``repro/kernels/ops.py``.
 There is no fallback: a CUDA tensor under ``auto`` or ``pallas`` gets
 the kernel, or the kernel's error when it cannot build or launch.
 
-Gradients: on a CUDA tensor ``flash_attention`` and ``moe_gmm`` run as
+Gradients: on a CUDA tensor all four zoo kernels run as
 ``torch.autograd.Function``s whose backward passes are hand-written
 kernels too (``csrc/flash_attention_bwd.cu``; the grouped matmul twice,
-for dx and dw); ``rwkv6_wkv`` and ``selective_scan`` have no backward
-kernel yet and raise on a CUDA input that requires grad. On a CPU tensor
-all four are the plain versions, differentiated by autograd. The
+for dx and dw; ``csrc/rwkv6_wkv_bwd.cu`` and ``csrc/selective_scan_bwd.cu``,
+which recompute the states between the checkpoints their forward
+kernels write under grad). On a CPU tensor all four are the plain
+versions, differentiated by autograd. The
 Pallas tiling knobs (``block_q``, ``block_k``, ``block_r``, ``chunk``,
 ``block_c``, ``block_f``, ``block_d``)
 and ``interpret`` have no counterpart: the CUDA kernels choose their own

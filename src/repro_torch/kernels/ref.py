@@ -31,6 +31,11 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
+def _as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s compute type (:func:`_f32` of it)."""
+    return x.to(_f32(like).dtype)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   scale: Optional[float] = None) -> torch.Tensor:
@@ -95,15 +100,14 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     y_t[i] = sum_j r_t[j] * (S[j,i] + u[j] k_t[j] v_t[i])
     S      = diag(w_t) S + k_t v_t^T
-    Returns (y (b, h, s, dh) fp32, s_final (b, h, dh, dh) fp32).
+    Returns (y (b, h, s, dh) fp32, s_final (b, h, dh, dh) fp32), float64
+    where r is float64.
     """
     b, h, s, dh = r.shape
-    if s0 is None:
-        s0 = torch.zeros((b, h, dh, dh), dtype=torch.float32,
-                         device=r.device)
-    r, k, v, w = (x.float() for x in (r, k, v, w))
-    u = u.float()
-    state = s0.float()
+    r, k, v, w = (_as(x, r) for x in (r, k, v, w))
+    u = _as(u, r)
+    state = (torch.zeros((b, h, dh, dh), dtype=r.dtype, device=r.device)
+             if s0 is None else _as(s0, r))
     ys = []
     for t in range(s):
         rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t]
@@ -122,13 +126,14 @@ def selective_scan_ref(dt: torch.Tensor, bmat: torch.Tensor,
     a: (di, n).
 
     h_t = exp(dt_t * a) * h_{t-1} + dt_t * u_t * b_t;  y_t = h_t . c_t
-    Returns (y (b, s, di) fp32, h_final (b, di, n) fp32).
+    Returns (y (b, s, di) fp32, h_final (b, di, n) fp32), float64 where
+    dt is float64.
     """
     b, s, di = dt.shape
     n = a.shape[-1]
-    dt, bmat, cmat, u = (x.float() for x in (dt, bmat, cmat, u))
-    h = (torch.zeros((b, di, n), dtype=torch.float32, device=dt.device)
-         if h0 is None else h0.float())
+    dt, bmat, cmat, u, a = (_as(x, dt) for x in (dt, bmat, cmat, u, a))
+    h = (torch.zeros((b, di, n), dtype=dt.dtype, device=dt.device)
+         if h0 is None else _as(h0, dt))
     ys = []
     for t in range(s):
         dt_t = dt[:, t]
@@ -136,3 +141,26 @@ def selective_scan_ref(dt: torch.Tensor, bmat: torch.Tensor,
         h = decay * h + (dt_t * u[:, t])[..., None] * bmat[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def _vjp(fn, inputs, cotangents):
+    """Autograd through the plain version ``fn`` at ``inputs`` for the
+    output cotangents: the counterpart of a backward kernel."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        outs = fn(*leaves)
+        return torch.autograd.grad(outs, leaves, cotangents)
+
+
+def rwkv6_vjp_ref(r, k, v, w, u, dy, ds
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du) of :func:`rwkv6_ref` (from S = 0) for the
+    cotangents ``dy`` of y and ``ds`` of the final state."""
+    return _vjp(rwkv6_ref, (r, k, v, w, u), (dy, ds))
+
+
+def selective_scan_vjp_ref(dt, bmat, cmat, u, a, dy, dh
+                           ) -> Tuple[torch.Tensor, ...]:
+    """(d(dt), dB, dC, du, dA) of :func:`selective_scan_ref` (from h = 0)
+    for the cotangents ``dy`` of y and ``dh`` of the final state."""
+    return _vjp(selective_scan_ref, (dt, bmat, cmat, u, a), (dy, dh))

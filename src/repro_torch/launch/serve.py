@@ -9,13 +9,12 @@ Ported archs: ``rwkv6-7b``, ``granite-moe-3b-a800m``, ``glm4-9b``,
 ``qwen3-14b``, ``h2o-danube-1.8b``, ``jamba-1.5-large-398b`` (whose
 full 72 layers of 16 experts do not fit one card: ``chip_smoke.py``
 serves one 8-layer period of 4 experts), the MLA archs
-``deepseek-v2-lite-16b`` and ``minicpm3-4b``, and the encoder-decoder
+``deepseek-v2-lite-16b`` and ``minicpm3-4b``, the encoder-decoder
 ``whisper-large-v3``, whose encoder takes zero frames of (batch,
-n_frames, d_model) and whose decoder attends to their encoding, as the
-JAX package's launcher serves it. ``--device``
-defaults to ``cuda``, where the weights are drawn on the card. An arch
-whose family is not ported yet exits with the ``NotImplementedError``
-that names its ROADMAP item.
+n_frames, d_model) and whose decoder attends to their encoding, and
+``internvl2-76b``, whose ``generate`` decodes text tokens only, as the
+JAX package's launcher serves them. ``--device``
+defaults to ``cuda``, where the weights are drawn on the card.
 """
 from __future__ import annotations
 

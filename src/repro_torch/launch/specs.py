@@ -1,0 +1,102 @@
+"""Shape-and-dtype stand-ins for every model input, the counterpart of
+the JAX package's ``repro/launch/specs.py``: tensors on the ``meta``
+device, PyTorch's ``ShapeDtypeStruct``, which carry a shape and a dtype
+and allocate nothing.
+
+- train:    ``batch_specs(..., with_labels=True)``: tokens, labels and,
+  for a model with a frontend, patches or frames;
+- prefill:  ``batch_specs(..., with_labels=False)``;
+- decode:   ``cache_specs``, the per-layer decode state that
+  ``transformer.init_cache`` builds, built on ``meta``.
+
+``cache_axes`` names each cache dim as the JAX package does, for the
+sharding slice. Mesh rules (``rules``) belong to that slice: any
+``rules`` but None raises, as ``launch.steps`` does.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch.steps import check_rules
+from repro_torch.models import transformer
+
+META = torch.device("meta")
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def text_len(cfg: ModelConfig, shape: InputShape) -> int:
+    """Text-token length such that the whole sequence is
+    ``shape.seq_len`` (a vision prefix takes ``num_tokens`` of it)."""
+    if transformer.has_vision_prefix(cfg):
+        return shape.seq_len - cfg.frontend.num_tokens
+    return shape.seq_len
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape, rules=None,
+                with_labels: bool = True,
+                dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """The step's batch as ``meta`` tensors: tokens (and labels) (b,
+    s_text) int32, patches (b, num_tokens, d) or frames (b, n_frames, d)
+    of ``dtype``."""
+    check_rules(rules)
+    b = shape.global_batch
+    s = text_len(cfg, shape)
+    batch = {"tokens": _sds((b, s), torch.int32)}
+    if with_labels:
+        batch["labels"] = _sds((b, s), torch.int32)
+    if transformer.has_vision_prefix(cfg):
+        batch["patches"] = _sds((b, cfg.frontend.num_tokens, cfg.d_model),
+                                dtype)
+    elif cfg.frontend is not None or cfg.encoder is not None:
+        batch["frames"] = _sds((b, cfg.encoder.n_frames, cfg.d_model), dtype)
+    return batch
+
+
+# ---------------------------------------------------------------------------
+# cache axes (mirror transformer.init_cache's structure)
+# ---------------------------------------------------------------------------
+
+
+def _block_cache_axes(cfg: ModelConfig, mixer: str):
+    if mixer == "attn":
+        if cfg.attention == "mla":
+            return {"ckv": ("batch", "cache_seq", "kv_lora"),
+                    "k_rope": ("batch", "cache_seq", "head_dim")}
+        kv = ("batch", "cache_seq", "kv_heads", "head_dim")
+        return {"k": kv, "v": kv}
+    if mixer == "mamba":
+        return {"h": ("batch", "d_inner", "state"),
+                "conv": ("batch", "conv", "d_inner")}
+    if mixer == "rwkv":
+        return {"x_prev": ("batch", "embed"),
+                "s": ("batch", "heads", "head_dim", None)}
+    raise ValueError(mixer)
+
+
+def cache_axes(cfg: ModelConfig):
+    """The logical axis names of every cache leaf, as a tree like
+    ``init_cache``'s; stacked blocks get a leading ``layers`` axis."""
+    axes: Dict[str, Any] = {}
+    for i, (mixer, _) in enumerate(cfg.prefix_pattern):
+        axes[f"prefix{i}"] = _block_cache_axes(cfg, mixer)
+    axes["blocks"] = {
+        f"pos{i}": {k: ("layers",) + ax
+                    for k, ax in _block_cache_axes(cfg, mixer).items()}
+        for i, (mixer, _) in enumerate(cfg.block_pattern)}
+    return axes
+
+
+def cache_specs(cfg: ModelConfig, shape: InputShape, rules=None,
+                dtype: torch.dtype = torch.bfloat16):
+    """``transformer.init_cache`` for ``shape``'s batch and sequence
+    length, on ``meta``: the decode state's shapes and dtypes with
+    nothing allocated."""
+    check_rules(rules)
+    return transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  dtype, META)

@@ -61,7 +61,11 @@ def _microbatches(batch: Dict[str, torch.Tensor], n: int):
 def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
                     rules=None, compute_dtype: torch.dtype = torch.bfloat16,
                     accum_steps: int = 1):
-    """accum_steps > 1: microbatch gradient accumulation — the global
+    """The batch holds ``tokens`` and ``labels`` (b, s), and for a
+    vision-prefix model ``patches`` (b, num_tokens, d), which
+    ``loss_fn`` prepends and masks out of the loss.
+
+    accum_steps > 1: microbatch gradient accumulation — the global
     batch is split along the batch dim and grads are averaged in fp32
     over the microbatches, in order, as the JAX package's ``lax.scan``
     does. The optimizer update runs under ``torch.no_grad`` and writes
@@ -100,8 +104,9 @@ def make_prefill_step(cfg: ModelConfig, rules=None,
                       compute_dtype: torch.dtype = torch.bfloat16):
     """A step of ``batch["tokens"]`` (b, s), and for an encoder-decoder
     model ``batch["frames"]`` (b, n_frames, d), which the step encodes
-    before the decoder attends to them; returns the last position's
-    logits (b, vocab)."""
+    before the decoder attends to them, or for a vision-prefix model
+    ``batch["patches"]`` (b, num_tokens, d), prepended to the tokens;
+    returns the last position's logits (b, vocab)."""
     check_rules(rules)
 
     def prefill_step(params, batch) -> torch.Tensor:

@@ -13,9 +13,10 @@ and ``minicpm3-4b``; and the encoder-decoder ``whisper-large-v3``: an
 encoder of bidirectional attention over precomputed frame embeddings
 (the audio frontend is a stub in both packages), sinusoidal positions,
 a decoder whose blocks add cross-attention to the encoder's output
-(``memory``), layernorm and the non-gated biased MLP throughout. The
-vision prefix raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+(``memory``), layernorm and the non-gated biased MLP throughout; and
+the vision-language ``internvl2-76b``, whose precomputed patch
+embeddings (the vision encoder is a stub in both packages) are prepended
+to the token embeddings and carry no next-token loss.
 
 Layer stacks keep the JAX package's *stacked* layout (every leaf of
 ``params["blocks"]["pos<i>"]`` and ``params["encoder"]["blocks"]`` has a
@@ -41,6 +42,7 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -48,24 +50,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mamba, mla, moe
 from repro_torch.models import params as P, rwkv
 
-# the ROADMAP Queue 1 item that ports what this slice does not run
-_ZOO = "ROADMAP Queue 1 item 11 (the rest of the model zoo)"
 _AUX = ("load_balance", "router_z")
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: {item}")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless this slice runs ``cfg``: the
-    vision prefix is the one part of the zoo left. (Whisper's audio
-    frontend is a stub in both packages: ``encode`` takes the frame
-    embeddings it would make.)"""
-    if cfg.frontend is not None and cfg.frontend.kind == "vision":
-        raise _unported(f"{cfg.arch_id}: the {cfg.frontend.kind} prefix",
-                        _ZOO)
+def has_vision_prefix(cfg: ModelConfig) -> bool:
+    """internvl2: ``batch["patches"]`` are prepended to the tokens."""
+    return cfg.frontend is not None and cfg.frontend.kind == "vision"
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +103,6 @@ def block_spec(cfg: ModelConfig, mixer: str, ffn: str, cross: bool = False):
 
 
 def model_spec(cfg: ModelConfig):
-    check_ported(cfg)
     cross = cfg.encoder is not None
     spec: Dict[str, Any] = {
         "embed": layers.embedding_spec(cfg.vocab, cfg.d_model),
@@ -281,13 +270,17 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             dtype: torch.dtype = torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict]:
-    """Prefill forward. batch["tokens"]: (b, s) int; batch["frames"]:
-    (b, n_frames, d), the encoder's input, for an encoder-decoder model.
+    """Prefill forward. batch["tokens"]: (b, s_text) int;
+    batch["frames"]: (b, n_frames, d), the encoder's input, for an
+    encoder-decoder model; batch["patches"]: (b, n_patch, d), the vision
+    prefix, for internvl2: the sequence is [patches ; embed(tokens)] of
+    length s = n_patch + s_text, positions (RoPE) taken over all of it.
 
     Returns (logits (b, s, vocab), aux): the MoE router losses averaged
     over the MoE layers, zero for a model without them."""
-    check_ported(cfg)
     x = layers.embed(params["embed"], batch["tokens"], dtype)
+    if has_vision_prefix(cfg):
+        x = torch.cat([batch["patches"].to(dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     if _is_ln(cfg):       # whisper's decoder: sinusoidal positions
         x = x + _sinusoidal(x.shape[1], cfg.d_model,
@@ -303,10 +296,19 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             dtype: torch.dtype = torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict]:
     """Mean token NLL plus, for an MoE model, the weighted router
-    losses, as the JAX package's ``loss_fn`` adds them."""
+    losses, as the JAX package's ``loss_fn`` adds them. A vision prefix
+    carries no next-token loss: ``labels`` (b, s_text) are padded in
+    front with ``num_tokens`` zeros and the prefix is masked out of
+    ``loss_mask``, as in the JAX package."""
     logits, aux = forward(cfg, params, batch, dtype)
-    loss, metrics = layers.softmax_xent(logits, batch["labels"],
-                                        batch.get("loss_mask"))
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    if has_vision_prefix(cfg):
+        n = cfg.frontend.num_tokens
+        labels = F.pad(labels, (n, 0))
+        pm = (torch.arange(labels.shape[1], device=labels.device) >= n
+              ).float().expand(labels.shape)
+        mask = pm if mask is None else mask * pm
+    loss, metrics = layers.softmax_xent(logits, labels, mask)
     total = loss
     if cfg.moe is not None:
         total = (total
@@ -341,7 +343,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     Mamba state and conv tail (which do not grow with the sequence) for
     RWKV and Mamba. Stacked blocks get the per-layer cache repeated
     along a leading ``n_repeats`` dim."""
-    check_ported(cfg)
     dev = P.resolve_device(device)
     cache: Dict[str, Any] = {
         f"prefix{i}": _block_cache(cfg, mixer, batch, max_seq, dtype, dev)
@@ -385,8 +386,10 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache,
     recomputed each step, as the JAX package recomputes them).
 
     Returns (logits (b, 1, vocab), new_cache); ``cache`` is not
-    changed."""
-    check_ported(cfg)
+    changed. A vision prefix is not decoded here: the JAX package's
+    ``generate`` decodes text tokens only (the prefix reaches the model
+    through ``forward``, as ``make_prefill_step`` and ``loss_fn`` pass
+    it)."""
     x = layers.embed(params["embed"], token, dtype)
     if _is_ln(cfg):
         # the sinusoidal position at ``index``, in f32

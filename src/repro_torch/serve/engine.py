@@ -3,12 +3,19 @@ decode, the counterpart of the JAX package's ``repro/serve/engine.py``.
 
 It serves the families ``models/transformer.py`` runs: ``rwkv6-7b``,
 ``granite-moe-3b-a800m``, ``glm4-9b``, ``qwen3-14b``, ``h2o-danube-1.8b``,
-``jamba-1.5-large-398b``, ``deepseek-v2-lite-16b``, ``minicpm3-4b`` and
-the encoder-decoder ``whisper-large-v3``; the vision-prefix arch
-raises ``NotImplementedError``. An encoder-decoder model is served as
+``jamba-1.5-large-398b``, ``deepseek-v2-lite-16b``, ``minicpm3-4b``,
+the encoder-decoder ``whisper-large-v3`` and the vision-language
+``internvl2-76b``. An encoder-decoder model is served as
 the JAX package serves it: ``transformer.encode`` the frames once, then
 ``generate(..., memory=...)``, which hands the encoder's output to every
-decode step; its ``score`` raises, as the JAX engine's does.
+decode step; its ``score`` raises, as the JAX engine's does. A
+vision-prefix model is served as the JAX package serves it too:
+``generate`` decodes text tokens only (the JAX engine never passes the
+patches), and the prefix reaches the model through
+``launch.steps.make_prefill_step`` and ``transformer.loss_fn``, which
+take ``batch["patches"]``; its ``score``, whose batch has no patches,
+raises a ``ValueError`` (the JAX engine's raises ``KeyError('patches')``
+inside ``forward``).
 
 ``generate`` fills the per-layer state (the KV cache, MLA's latent
 cache, the RWKV state or the Mamba state)
@@ -49,7 +56,6 @@ class ServeEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        T.check_ported(self.cfg)
 
     def init_cache(self, batch: int):
         return T.init_cache(self.cfg, batch, self.max_seq, self.dtype,
@@ -91,6 +97,13 @@ class ServeEngine:
         plus the weighted router losses of an MoE model."""
         if self.cfg.encoder is not None:
             raise NotImplementedError("use generate() for enc-dec")
+        if T.has_vision_prefix(self.cfg):
+            raise ValueError(
+                f"{self.cfg.arch_id}: score() builds a text-only batch, "
+                f"but the model's loss needs batch['patches'] (the "
+                f"vision prefix); run transformer.loss_fn, or "
+                f"launch.steps.make_prefill_step, on a batch with "
+                f"'patches'")
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                device=self.device)
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -14,9 +14,10 @@
   CPU path is the plain version in both directions: the wiring of the
   saved tensors, the transposes and the non-tensor arguments.
 * Each of the four ``ops`` calls returns a result with a ``grad_fn``
-  when its input requires grad (the plain versions on the CPU); the WKV
-  and scan wrappers' refusal on the card, held through the check they
-  run first.
+  when its input requires grad (the plain versions on the CPU); the
+  wiring of the WKV and scan ``autograd.Function``s (``Rwkv6Wkv``,
+  ``SelectiveScan``) that take their gradients through the backward
+  kernels on the card, their launches replaced by plain stand-ins.
 """
 import math
 
@@ -196,17 +197,56 @@ def test_ops_results_carry_grad_fn():
 
 @pytest.mark.parametrize("mod", [twkv, tssm], ids=["rwkv6_wkv",
                                                    "selective_scan"])
-def test_recurrences_refuse_grad_on_the_card(mod):
-    """The WKV and scan wrappers check for a gradient before anything
-    else on a CUDA tensor (the CPU takes the plain version first, so the
-    check is driven directly): an input that requires grad raises
-    naming the ROADMAP entry, unless grad is off."""
-    plain = torch.zeros(2)
-    tracked = torch.zeros(2, requires_grad=True)
-    mod._refuse_grad(plain, plain)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        mod._refuse_grad(plain, tracked)
-    with torch.no_grad():
-        mod._refuse_grad(plain, tracked)
-    with torch.inference_mode():
-        mod._refuse_grad(plain, torch.zeros(2))
+def test_recurrences_refuse_grad_on_the_card(mod, monkeypatch):
+    """Once the WKV and scan wrappers refused, on the card, inputs that
+    require grad; now each applies its ``torch.autograd.Function`` there.
+    Its wiring, with the two kernel launches replaced by plain stand-ins
+    (the CPU has no kernel): the forward asks for checkpoints, saves them
+    with the inputs and is launched once; the backward is launched once
+    with those checkpoints and the cotangents of y and the final state,
+    and its gradients come back in the inputs' dtypes, equal to autograd
+    through the plain version. (tests/test_torch_recurrence_bwd.py
+    models the kernels' walks.)"""
+    g = torch.Generator().manual_seed(7)
+    if mod is twkv:
+        xs = [torch.randn(1, 2, 5, 4, generator=g, dtype=F64)
+              for _ in range(3)]
+        xs += [torch.rand(1, 2, 5, 4, generator=g, dtype=F64) * 0.9,
+               torch.randn(2, 4, generator=g, dtype=F64)]
+        fwd, bwd, plain, fn = ("wkv_forward", "rwkv6_wkv_bwd",
+                               ref.rwkv6_ref, twkv.Rwkv6Wkv)
+        cots = (torch.randn(1, 2, 5, 4, generator=g, dtype=F64),
+                torch.randn(1, 2, 4, 4, generator=g, dtype=F64))
+    else:
+        xs = [torch.rand(1, 5, 3, generator=g, dtype=F64),
+              torch.randn(1, 5, 2, generator=g, dtype=F64),
+              torch.randn(1, 5, 2, generator=g, dtype=F64),
+              torch.randn(1, 5, 3, generator=g, dtype=F64),
+              -torch.rand(3, 2, generator=g, dtype=F64) - 0.5]
+        fwd, bwd, plain, fn = ("scan_forward", "selective_scan_bwd",
+                               ref.selective_scan_ref, tssm.SelectiveScan)
+        cots = (torch.randn(1, 5, 3, generator=g, dtype=F64),
+                torch.randn(1, 3, 2, generator=g, dtype=F64))
+    chk = torch.zeros(3)                 # the checkpoints' stand-in
+    calls = []
+
+    def fake_forward(*args, checkpoints=False):
+        calls.append(("forward", checkpoints))
+        return (*plain(*args), chk)
+
+    def fake_backward(*args):
+        calls.append(("backward", args[5]))
+        torch.testing.assert_close(args[6], cots[0])
+        torch.testing.assert_close(args[7], cots[1])
+        return getattr(ref, plain.__name__.replace("_ref", "_vjp_ref"))(
+            *args[:5], *args[6:])
+    monkeypatch.setattr(mod, fwd, fake_forward)
+    monkeypatch.setattr(mod, bwd, fake_backward)
+    leaves = [x.clone().requires_grad_() for x in xs]
+    got = torch.autograd.grad(fn.apply(*leaves), leaves, cots)
+    assert calls == [("forward", True), ("backward", chk)]
+    ref_leaves = [x.clone().requires_grad_() for x in xs]
+    exp = torch.autograd.grad(plain(*ref_leaves), ref_leaves, cots)
+    for a, e, x in zip(got, exp, xs):
+        assert a.dtype == x.dtype
+        torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12)

@@ -280,7 +280,8 @@ def test_kernel_sources_build_flags():
     names = [s.name for s in _build.sources()]
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
                      "moe_gmm.cu", "quantize.cu", "rwkv6_wkv.cu",
-                     "selective_scan.cu"]
+                     "rwkv6_wkv_bwd.cu", "selective_scan.cu",
+                     "selective_scan_bwd.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     for s in _build.sources():

@@ -3,7 +3,8 @@ the reduced ``rwkv6-7b`` (2 layers, d 256, head dim 32, vocab 512):
 JAX-made params load through ``from_numpy``, and the mixer, the prefill
 logits, the decode logits, ``score`` and greedy ``generate`` agree on the
 CPU, where the WKV recurrence runs its plain version. Also the port's
-own decode-vs-prefill consistency, its refusals, and its launcher."""
+own decode-vs-prefill consistency, its refusals, and its launcher (which
+serves every arch of the zoo, internvl2's text path too)."""
 import sys
 
 import numpy as np
@@ -270,26 +271,21 @@ def test_decode_matches_own_forward(model):
                                        atol=2e-3)
 
 
-# the families once left to ROADMAP Queue 1 item 11: internvl2's vision
-# prefix still raises naming it; whisper's encoder and cross-attention
-# are ported (tests/test_torch_whisper.py holds them to the JAX package)
+# the families once left to ROADMAP Queue 1 item 11, which raised
+# naming it: both are ported now (tests/test_torch_whisper.py and
+# tests/test_torch_internvl.py hold them to the JAX package), so each
+# builds its spec and an engine
 UNPORTED = ["internvl2-76b", "whisper-large-v3"]
-PORTED_SINCE = {"whisper-large-v3"}
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
-    if arch in PORTED_SINCE:
-        spec = tT.model_spec(cfg)
-        assert {"encoder", "blocks", "embed", "final_norm",
-                "lm_head"} <= set(spec)
-        ServeEngine(cfg, {}, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        tT.model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(cfg, {}, device="cpu")
+    spec = tT.model_spec(cfg)
+    assert {"blocks", "embed", "final_norm", "lm_head"} <= set(spec)
+    assert ("encoder" in spec) == (cfg.encoder is not None)
+    assert tT.has_vision_prefix(cfg) == (arch == "internvl2-76b")
+    ServeEngine(cfg, {}, device="cpu")
 
 
 def test_cuda_defaults_raise_without_a_gpu(model, monkeypatch):
@@ -324,12 +320,19 @@ def test_launcher_serves_on_cpu(monkeypatch, capsys):
         capsys.readouterr().out
 
 
-def test_launcher_raises_for_the_vision_prefix(monkeypatch):
+def test_launcher_raises_for_the_vision_prefix(monkeypatch, capsys):
+    """The launcher once raised for internvl2; now it serves its text
+    path, as the JAX package's launcher does, and only the engine's
+    ``score`` (a batch without the patches) raises."""
     monkeypatch.setattr(sys, "argv", [
         "serve", "--arch", "internvl2-76b", "--reduced", "--device",
-        "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tlaunch.main()
+        "cpu", "--batch", "2", "--prompt-len", "3", "--new", "4"])
+    tlaunch.main()
+    assert "internvl2-76b on cpu: generated (2, 7)" in \
+        capsys.readouterr().out
+    cfg = get_config("internvl2-76b").reduced()
+    with pytest.raises(ValueError, match="patches.*make_prefill_step"):
+        ServeEngine(cfg, {}, device="cpu").score(np.zeros((1, 4), np.int32))
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b"])

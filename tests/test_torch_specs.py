@@ -1,0 +1,87 @@
+"""The port's ``launch/specs.py`` against the JAX package's, and the
+``train_lm`` example, on the CPU.
+
+* ``batch_specs`` (train and prefill) and ``cache_specs`` with
+  ``rules=None``: ``meta`` tensors whose shapes and dtypes equal the JAX
+  package's ``ShapeDtypeStruct``s (``cache_specs`` there is
+  ``jax.eval_shape`` of ``init_cache``), for every registered arch and
+  every ``SHAPES`` entry that ``shape_applicable`` admits; ``text_len``
+  and ``cache_axes`` equal too, and each axis tuple as long as its
+  leaf's rank. Mesh rules raise naming the ROADMAP item.
+* ``python -m repro_torch.examples.train_lm --steps 4 --device cpu``
+  trains the example's small qwen3 (loss falling), checkpoints it and
+  passes its resume check; by default it asks for the card."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro.configs import SHAPES as JSHAPES  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.launch import specs as jspecs  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: E402
+from repro_torch.configs import shape_applicable  # noqa: E402
+from repro_torch.examples import train_lm  # noqa: E402
+from repro_torch.launch import specs as tspecs  # noqa: E402
+
+CASES = [(arch, name) for arch in list_archs() for name in SHAPES
+         if shape_applicable(get_config(arch), SHAPES[name])[0]]
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _same(got, want):
+    """Both trees' (path, shape, dtype) equal; the port's on ``meta``."""
+    g, w = list(_flat(got)), list(_flat(want))
+    assert [p for p, _ in g] == [p for p, _ in w]
+    for (path, t), (_, s) in zip(g, w):
+        assert t.device.type == "meta", path
+        assert tuple(t.shape) == tuple(s.shape), path
+        assert str(t.dtype).split(".")[-1] == np.dtype(s.dtype).name, path
+
+
+@pytest.mark.parametrize("arch,shape", CASES)
+def test_specs_match_jax(arch, shape):
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    sh, jsh = SHAPES[shape], JSHAPES[shape]
+    assert tspecs.text_len(cfg, sh) == jspecs.text_len(jcfg, jsh)
+    for labels in (True, False):
+        _same(tspecs.batch_specs(cfg, sh, None, labels),
+              jspecs.batch_specs(jcfg, jsh, None, labels))
+    cache = tspecs.cache_specs(cfg, sh, None)
+    _same(cache, jspecs.cache_specs(jcfg, jsh, None))
+    axes = tspecs.cache_axes(cfg)
+    assert axes == jspecs.cache_axes(jcfg)
+    for (path, t), (_, ax) in zip(_flat(cache), _flat(axes)):
+        assert len(ax) == t.dim(), path
+
+
+def test_mesh_rules_raise():
+    cfg, sh = get_config("qwen3-14b"), SHAPES["train_4k"]
+    for call in (lambda: tspecs.batch_specs(cfg, sh, object(), True),
+                 lambda: tspecs.cache_specs(cfg, sh, object())):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 10"):
+            call()
+
+
+def test_train_lm_example_resumes_on_cpu(tmp_path, capsys):
+    out = train_lm.main(["--steps", "4", "--batch", "8", "--seq", "32",
+                         "--device", "cpu", "--out", str(tmp_path)])
+    assert out["loss_last"] < out["loss_first"]
+    assert out["step"] == 4 and out["loss"] == out["loss_restored"]
+    assert (tmp_path / "ckpt" / "step_00000004.npz").exists()
+    assert "checkpoint roundtrip" in capsys.readouterr().out
+
+
+def test_train_lm_example_asks_for_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm.main(["--steps", "1", "--out", str(tmp_path)])
