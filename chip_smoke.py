@@ -241,7 +241,37 @@ NVIDIA GPU.
    against a plain step (gradients within 1e-4 of each leaf's largest),
    ``train()`` for 10 steps with a falling loss and exact launches, a
    profiled step;
-11. prints all kernels in one ``kernels`` JSON line with each kernel's
+11. runs the sharded paths with every mesh position on this card
+   (``cuda:0`` repeated: every split, partial product and combine runs,
+   in one process, no ``torch.distributed``): the bench tower
+   (``benchmarks/bench_tower.py``'s embed + attn_block of 4 heads + mlp,
+   48 features) and the demo's member bottom at its published widths
+   (381 -> 256 -> 128), 512 rows, over a model axis of 2 and of 4
+   (``make_tower_rules(m, devices=...)``, ``shard_tower``,
+   ``apply(..., rules)``, ``split_nn.member_step(..., rules)``): forward
+   and member step within rtol 1e-5 / atol 1e-6 of the unsharded,
+   exactly m attention launches an attn_block a pass, the kernel at the
+   per-shard shapes (512, 2, 8, 16) and (512, 1, 8, 16) within 2e-5 of
+   its plain version and timed beside it and SDPA, and ms of a sharded
+   and an unsharded member step; mesh-mode VFL (``make_mesh_vfl_step``)
+   at the paper's widths (1,345 master features, the member's 381 padded
+   to them, bottom 256 -> 128, top (128, 64, 19), batch 4,096), 2 pods,
+   20 steps masked and unmasked, each loss within rtol 1e-5 of a plain
+   unsharded step's; ``granite-moe-3b-a800m`` at full width and depth
+   drawn once: its decode with ``decode_partial_softmax`` under rules of
+   a (2, 4) data x model mesh (the KV cache's 32 slots in 4 slices)
+   against the plain decode over 4 prompts of 16 and 16 greedy tokens,
+   logits within 2e-3, exactly 96 grouped-matmul launches a step and no
+   attention kernel; then ``repro_torch.examples.vfl_llm`` on it (2
+   silos, B 8, 16 soft tokens): the first step with the kernels and
+   masks against the plain versions unmasked (loss within rtol 1e-5,
+   every gradient within 1e-4 of its leaf's largest, the routing
+   replayed), exact launches (attention 64 and its backward 32, the
+   grouped matmul 384 a step), 8 SGD steps (step ms, tokens/s, peak
+   memory, whether the loss fell); and attention forward and backward
+   and the grouped matmul (forward, dx, dw) at that path's shapes
+   against their plain versions, timed beside SDPA and ``torch.bmm``;
+12. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time (bytes over the memory rate, or operations over
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
    on the tensor cores in 3xTF32, 989 for bf16 on them, 67 for f32
@@ -260,6 +290,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -508,6 +539,14 @@ GMM_EDGE_CASES = [
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """Log the script's elapsed wall time at the end of a phase."""
+    log(f"elapsed {time.perf_counter() - _T0:.1f} s: {what} done")
 
 
 def gpu_line() -> str:
@@ -1953,6 +1992,7 @@ def serve_model(torch, dev, cfg, tag: str, kernels: dict,
     import numpy as np
     from repro_torch.serve.engine import ServeEngine
     params = draw_params(torch, dev, cfg)
+    mark(f"{tag} weights")
     steps = GEN_PROMPT + GEN_NEW - 1
     per_score = {name: n for name, (_, n, _) in kernels.items()}
     per_generate = {name: n * steps for name, (_, _, n) in kernels.items()}
@@ -1992,6 +2032,7 @@ def serve_model(torch, dev, cfg, tag: str, kernels: dict,
     log(f"{cfg.arch_id} prefill tokens/s: {prefill_tok / score_s:.1f}")
     prof_prefill = profile_window(torch, lambda: eng.score(toks), score_s)
     log(f"{tag} profile prefill " + json.dumps(prof_prefill))
+    mark(f"{tag} score and its profile")
     measured = {"loss": loss, "score_s": score_s,
                 "prefill_tok_s": prefill_tok / score_s}
 
@@ -2017,7 +2058,9 @@ def serve_model(torch, dev, cfg, tag: str, kernels: dict,
             m, capacity_factor=m.num_experts / m.top_k))
     seq = torch.as_tensor(rng.integers(0, cfg.vocab, (1, CONSIST_TOKENS)),
                           device=dev)
+    mark(f"{tag} variants")
     consist_err = decode_vs_prefill(torch, dev, nd, params, seq)
+    mark(f"{tag} decode vs prefill")
     at = "" if nd.moe is None else \
         f" at capacity_factor {nd.moe.capacity_factor}"
     log(f"{cfg.arch_id} decode vs prefill logits over {CONSIST_TOKENS} "
@@ -2038,9 +2081,11 @@ def serve_model(torch, dev, cfg, tag: str, kernels: dict,
         f"{launches[f'{tag}_generate']}; first new tokens "
         f"{out[:, GEN_PROMPT:GEN_PROMPT + 4].tolist()}")
     log(f"{cfg.arch_id} decode tokens/s: {decode_tok / gen_s:.1f}")
+    mark(f"{tag} generate")
     prof_decode = profile_window(
         torch, lambda: eng.generate(prompts, GEN_NEW), gen_s)
     log(f"{tag} profile decode " + json.dumps(prof_decode))
+    mark(f"{tag} decode profile")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{cfg.arch_id} peak device memory {peak:.2f} GiB")
     del eng, params
@@ -2072,8 +2117,10 @@ def profile_window(torch, fn, wall_s: float) -> dict:
     and the kernels run one at a time on one stream."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the kernels alone: the numbers are device times, and tracing the
+    # host's ops too gives the same ones and more than doubles the time
+    # to collect a decode window of ~140k launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -3785,6 +3832,530 @@ def recurrence_train_phase(torch, dev) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sharding on the device path, every mesh position on this card
+# ---------------------------------------------------------------------------
+
+# 11a: the bench tower (benchmarks/bench_tower.py: 48 features, embed of
+# 8 tokens of 64, attn_block of 4 heads, mlp to 64) and the demo's member
+# bottom at its published widths (configs/vfl_recsys.py: 381 -> 256 ->
+# 128), a round of 512 rows, over a model axis of 2 and of 4
+BENCH_TOWER = ("embed:tokens=8,dim=64", "attn_block:heads=4",
+               "mlp:hidden=64")
+BENCH_IN, BENCH_OUT = 48, 64
+TOWER_SHARDS = (2, 4)
+SHARD_STEP_REPS = 20
+# 11b: mesh-mode VFL at the paper's widths (configs/vfl_recsys.py): the
+# master silo's 1,345 features and the member's 381 padded to them,
+# bottom hidden 256, embedding 128, top (128, 64, 19), batch 4,096
+VFL_FEATURES, VFL_MEMBER_FEATURES = 1345, 381
+VFL_HIDDEN, VFL_EMBED, VFL_TOP = (256,), 128, (128, 64, 19)
+VFL_BATCH, VFL_STEPS, VFL_LR = 4096, 20, 0.05
+# 11c: granite decode with the KV cache's sequence over model on a
+# (2, 4) data x model mesh (tests/test_sharded_decode.py's), 4 prompts
+# of 16 then 16 greedy steps
+DECODE_MESH = (2, 4)
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 16, 16
+# 11d: repro_torch.examples.vfl_llm at full width and depth
+VFL_LLM_STEPS = 8
+
+
+def repeated_mesh(dev, shape, axes):
+    """A mesh of ``shape`` whose every position is ``dev``."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes, [dev] * math.prod(shape))
+
+
+def _allclose_trees(torch, got, exp, what: str, rtol=1e-5, atol=1e-6
+                    ) -> float:
+    """Every leaf of ``got`` within rtol / atol of ``exp``'s; returns
+    the largest difference."""
+    from repro_torch.models import tower as twr
+    worst = 0.0
+    for a, b in zip(twr.leaves(got), twr.leaves(exp)):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{what}: {m}")
+        worst = max(worst, (a - b).abs().max().item())
+    return worst
+
+
+def sharded_tower_check(torch, dev, name, blocks, in_dim, out_dim,
+                        card: str, launches: dict) -> dict:
+    """Phase 11a for one tower: forward and the member's step
+    (``split_nn.member_step``) over a model axis of each of
+    TOWER_SHARDS on this card repeated, against the unsharded tower on
+    the same params, within rtol 1e-5 / atol 1e-6 (the JAX package's
+    test's); each counted run's attention launches (one an attn_block a
+    position, forward and step alike); the ms of a sharded and an
+    unsharded member step."""
+    from repro_torch.core.protocols import split_nn as sn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import tower as twr
+    spec = twr.resolve(blocks, in_dim, out_dim)
+    g = torch.Generator().manual_seed(21)
+    params = twr.init(spec, g, dev)
+    x = torch.randn((ROUNDS_ROWS, in_dim), generator=g).to(dev)
+    du = torch.randn((ROUNDS_ROWS, out_dim), generator=g).to(dev)
+    lr = 0.05
+    n_attn = sum(b["kind"] == "attn_block" for b in spec.blocks)
+    with torch.no_grad():
+        plain = twr.apply(spec, params, x)
+    plain_new = sn.member_step(spec, params, x, du, lr)
+
+    def step_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(SHARD_STEP_REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {"unsharded_step_ms": step_ms(
+        lambda: sn.member_step(spec, params, x, du, lr))}
+    for m in TOWER_SHARDS:
+        rules = twr.make_tower_rules(m, devices=[dev] * m)
+        sharded = twr.shard_tower(params, spec, rules)
+        fa.launches.reset()
+        with torch.no_grad():
+            got = twr.apply(spec, sharded, x, rules)
+        torch.cuda.synchronize()
+        fwd_launches = fa.launches.count
+        fa.launches.reset()
+        new = sn.member_step(spec, sharded, x, du, lr, rules)
+        torch.cuda.synchronize()
+        step_launches = fa.launches.count
+        launches[f"sharded_tower_{name}_m{m}"] = {
+            "flash_attention": fwd_launches + step_launches}
+        if (fwd_launches, step_launches) != (m * n_attn, m * n_attn):
+            raise AssertionError(
+                f"{name} over model {m}: attention launched "
+                f"{fwd_launches} (forward) and {step_launches} (step) "
+                f"times, expected {m * n_attn} each")
+        fwd_err = _allclose_trees(torch, [got], [plain], f"{name} m{m} "
+                                  f"forward")
+        new_err = _allclose_trees(torch, twr._whole(new, dev), plain_new,
+                                  f"{name} m{m} member step")
+        out[f"m{m}"] = {"forward_max_abs_err": fwd_err,
+                        "step_max_abs_err": new_err,
+                        "attention_launches": fwd_launches + step_launches,
+                        "step_ms": step_ms(lambda: sn.member_step(
+                            spec, sharded, x, du, lr, rules))}
+    log(f"sharded tower {name} {blocks} ({in_dim} -> {out_dim}, "
+        f"{ROUNDS_ROWS} rows) on {dev} repeated ({card}): "
+        + json.dumps(out))
+    return out
+
+
+def time_tower_shards(torch, dev, card: str) -> dict:
+    """Phase 11a: the attention kernel at the bench tower's per-shard
+    shapes, (512, 4 / m, 8, 16) bidirectional, against its plain version
+    within 2e-5, then timed beside it and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(22)
+    out = {}
+    for m in TOWER_SHARDS:
+        shape = (ROUNDS_ROWS, 4 // m, 8, 64 // 4)
+        err = check_attention(torch, dev, shape, shape, 0, g,
+                              causal=False)
+        q, k, v = attention_inputs(torch, dev, shape, shape, g)
+        b, h, s, dh = shape
+        t = time_call(lambda: fa.flash_attention(q, k, v, causal=False),
+                      lambda: ref.attention_ref(q, k, v, causal=False),
+                      lambda: F.scaled_dot_product_attention(q, k, v),
+                      4 * q.numel() * 4, 4.0 * b * h * s * s * dh,
+                      rate=product_rate(q.dtype))
+        t.update(shape=list(shape), variant=fa.variant(q, k, v),
+                 max_abs_err=err)
+        out[f"m{m}"] = t
+        log(f"flash_attention sharded bench tower shard q/k/v {shape} "
+            f"bidirectional f32 ({card}): {t}")
+    return out
+
+
+def plain_vfl_step(torch, bottoms, top, xs, y, lr: float):
+    """The unsharded reference of mesh-mode VFL: every party's bottom and
+    the top on one device, the plain sum of the bottom outputs, the BCE
+    loss, autograd, ``p - lr * g``."""
+    from repro_torch.core.protocols.split_nn import _bce
+    from repro_torch.core.vfl_step import mlp_apply
+    from repro_torch.models import tower as twr
+    trees = list(bottoms) + [top]
+    live = [[t.detach().requires_grad_() for t in twr.leaves(tr)]
+            for tr in trees]
+    with torch.enable_grad():
+        agg = sum(mlp_apply(twr.with_leaves(b, ls), x, final_act=True)
+                  for b, ls, x in zip(bottoms, live, xs))
+        loss = _bce(mlp_apply(twr.with_leaves(top, live[-1]), agg), y)
+        flat = [t for ls in live for t in ls]
+        grads = torch.autograd.grad(loss, flat)
+    with torch.no_grad():
+        new = [p - lr * g for p, g in zip(flat, grads)]
+    out, i = [], 0
+    for tr, ls in zip(trees, live):
+        out.append(twr.with_leaves(tr, new[i:i + len(ls)]))
+        i += len(ls)
+    return out[:-1], out[-1], loss.detach()
+
+
+def mesh_vfl_phase(torch, dev, card: str) -> dict:
+    """Phase 11b: ``make_mesh_vfl_step`` at the paper's widths, 2 pods
+    on this card, VFL_STEPS steps masked and unmasked from the same
+    params, against the plain unsharded step: losses within rtol 1e-5
+    of it, masked within 1e-5 of unmasked; ms a step of each."""
+    import numpy as np
+    from repro_torch.core import secure_agg as SA
+    from repro_torch.core import vfl_step as V
+    mesh = repeated_mesh(dev, (2,), ("pod",))
+    g = torch.Generator(dev).manual_seed(31)
+    stacked = V.init_party_params(0, 2, VFL_FEATURES, VFL_HIDDEN, VFL_EMBED)
+    top = [{k: t.to(dev) for k, t in lyr.items()} for lyr in V.mlp_init(
+        torch.Generator().manual_seed(1), VFL_TOP)]
+    x = torch.randn((2, VFL_BATCH, VFL_FEATURES), generator=g, device=dev)
+    # the member silo's 381 features padded to the master's width
+    x[1, :, VFL_MEMBER_FEATURES:] = 0
+    y = (torch.rand((VFL_BATCH, VFL_TOP[-1]), generator=g, device=dev)
+         < 0.3).float()
+    lr = float(np.float32(VFL_LR))
+    runs = {}
+    for name in ("masked", "unmasked", "plain"):
+        b, t = V.place_party_params(stacked, mesh), top
+        mesh_step = V.make_mesh_vfl_step(mesh, 2, VFL_LR,
+                                         use_masks=name == "masked")
+        losses, times = [], []
+        for i in range(VFL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "plain":
+                b, t, loss = plain_vfl_step(torch, b, t, [x[0], x[1]], y, lr)
+            else:
+                b, t, loss = mesh_step(b, t, x, y, SA.fold_in(0, i))
+            losses.append(loss.item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = {"losses": losses,
+                      "step_ms": statistics.median(times[1:])}
+    plain = np.asarray(runs["plain"]["losses"])
+    out = {"batch": VFL_BATCH, "steps": VFL_STEPS,
+           "loss_first": runs["masked"]["losses"][0],
+           "loss_last": runs["masked"]["losses"][-1]}
+    for name in ("masked", "unmasked"):
+        got = np.asarray(runs[name]["losses"])
+        out[f"{name}_vs_plain_rel_err"] = float(
+            np.abs(got - plain).max() / np.abs(plain).min())
+        out[f"{name}_step_ms"] = runs[name]["step_ms"]
+    out["masked_vs_unmasked_rel_err"] = float(np.abs(
+        np.asarray(runs["masked"]["losses"])
+        - np.asarray(runs["unmasked"]["losses"])).max() / np.abs(plain).min())
+    out["plain_step_ms"] = runs["plain"]["step_ms"]
+    log(f"mesh-mode VFL at the paper's widths, 2 pods on {dev} ({card}): "
+        + json.dumps(out))
+    if not (np.isfinite(plain).all() and out["masked_vs_plain_rel_err"] <= 1e-5
+            and out["unmasked_vs_plain_rel_err"] <= 1e-5
+            and out["masked_vs_unmasked_rel_err"] <= 1e-5):
+        raise AssertionError("mesh-mode VFL's losses disagree with the "
+                             "plain step's")
+    return out
+
+
+def sharded_decode_check(torch, dev, cfg, params, card: str,
+                         launches: dict) -> dict:
+    """Phase 11c: granite's decode with ``decode_partial_softmax`` under
+    rules of a (2, 4) data x model mesh of this card (the KV cache's 32
+    slots in 4 slices of 8), against the plain decode: 4 prompts of 16
+    and 16 greedy tokens decoded by the plain step, then the same tokens
+    teacher-forced through the sharded step, every step's logits within
+    2e-3 (the JAX package's test's bound); exact grouped-matmul launches
+    (3 a layer a step) and no attention kernel; ms a step of each."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import MeshRules
+    cfg = dataclasses.replace(cfg, decode_partial_softmax=True)
+    mesh = repeated_mesh(dev, DECODE_MESH, ("data", "model"))
+    rules = MeshRules(mesh)
+    n = DECODE_PROMPT + DECODE_NEW
+    g = torch.Generator(dev).manual_seed(41)
+    toks = torch.randint(0, cfg.vocab, (DECODE_BATCH, n), generator=g,
+                         device=dev)
+
+    def run(step, feed):
+        cache = T.init_cache(cfg, DECODE_BATCH, n, torch.float32, dev)
+        out, times = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = step(params, feed[:, i:i + 1], cache, i)
+            if feed is toks and i + 1 >= DECODE_PROMPT and i + 1 < n:
+                feed[:, i + 1] = logits[:, 0].argmax(-1)      # greedy
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits[:, 0])
+        return torch.stack(out, 1), statistics.median(times[1:])
+
+    plain, plain_ms = run(ST.make_decode_step(cfg, None, torch.float32),
+                          toks)
+    fa.launches.reset()
+    gmm.launches.reset()
+    sharded, sharded_ms = run(ST.make_decode_step(cfg, rules, torch.float32),
+                              toks.clone())
+    got = {"moe_gmm": gmm.launches.count,
+           "flash_attention": fa.launches.count}
+    launches["sharded_decode"] = dict(got)
+    expected = {"moe_gmm": 3 * cfg.n_layers * n, "flash_attention": 0}
+    if got != expected:
+        raise AssertionError(f"sharded decode launched {got}, expected "
+                             f"{expected}")
+    err = (sharded - plain).abs().max().item()
+    out = {"mesh": mesh.shape, "cache_slots": n, "steps": n,
+           "max_abs_err": err, "sharded_step_ms": sharded_ms,
+           "plain_step_ms": plain_ms, "launches": got}
+    log(f"{cfg.arch_id} sequence-sharded decode ({cfg.n_layers} layers, "
+        f"every position of the {mesh.shape} mesh on {dev}; {card}): "
+        + json.dumps(out))
+    if not (torch.isfinite(sharded).all() and err <= 2e-3):
+        raise AssertionError("the sharded decode's logits disagree with "
+                             "the plain decode's")
+    return out
+
+
+def vfl_llm_shapes(cfg):
+    """The kernels' shapes on the VFL x LLM path: attention q (b, h, s,
+    dh) and k/v (b, kvh, s, dh), causal; the grouped matmul's gate/up and
+    down at its capacity."""
+    from repro_torch.examples import vfl_llm
+    from repro_torch.models import moe
+    b, s = vfl_llm.BATCH, vfl_llm.SEQ
+    c = moe._capacity(b * s, cfg)
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+    return ((b, cfg.n_heads, s, cfg.head_dim),
+            (b, cfg.n_kv_heads, s, cfg.head_dim),
+            [("gate_up", (e, c, d, f)), ("down", (e, c, f, d))])
+
+
+def vfl_llm_kernels(torch, dev, cfg, card: str) -> dict:
+    """Phase 11d: the attention kernel (forward and backward) and the
+    grouped matmul (forward, dx and dw) at the VFL x LLM path's shapes
+    against their plain versions (2e-5; 1e-4 of the largest gradient;
+    2e-4), then timed beside them, SDPA and ``torch.bmm``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(51)
+    qs, ks, gmm_shapes = vfl_llm_shapes(cfg)
+    out = {"attention": time_attention(torch, dev, cfg, qs, ks, 0, g,
+                                       dict(reps=50, trials=10))}
+    out["attention"]["max_abs_err"] = check_attention(torch, dev, qs, ks,
+                                                      0, g)
+    q, do = (torch.randn(qs, generator=g).to(dev) for _ in range(2))
+    k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    o = fa.flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=True)
+    exp = ref.attention_vjp_ref(q, k, v, do, causal=True)
+    torch.cuda.synchronize()
+    bwd_err = grad_rel_err(got, exp)
+    if not bwd_err <= 1e-4:
+        raise AssertionError("attention's backward kernel disagrees with "
+                             "the plain VJP at the VFL x LLM shape")
+    b, h, s, dh = qs
+    pairs = s * (s + 1) / 2
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, o, do, causal=True)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(y, (qr, kr, vr), do)
+    out["attention_bwd"] = {
+        "shape": [list(qs), list(ks)], "max_abs_err": bwd_err,
+        "ms": graph_ms(kernel, reps=50, trials=10),
+        "eager_ms": eager_ms(kernel, reps=50, trials=10),
+        "plain_ms": eager_ms(
+            lambda: ref.attention_vjp_ref(q, k, v, do, causal=True),
+            reps=20, trials=5),
+        "library_ms": None,
+        "sdpa_fwd_bwd_ms": eager_ms(sdpa_fwd_bwd, reps=20, trials=5),
+        **_bound((4 * q.numel() + 4 * k.numel()) * 4,
+                 5 * 2.0 * dh * pairs * b * h, product_rate(q.dtype))}
+    log(f"flash_attention_bwd VFL x LLM q {qs} k/v {ks} causal f32 "
+        f"({card}): {out['attention_bwd']}")
+    for name, (e, c, d, f) in gmm_shapes:
+        x = torch.randn((e, c, d), generator=g).to(dev)
+        w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
+        dy = torch.randn((e, c, f), generator=g).to(dev)
+        xg, wg = (t.clone().requires_grad_() for t in (x, w))
+        grads = torch.autograd.grad(gmm.MoeGmm.apply(xg, wg), (xg, wg), dy)
+        xr, wr = (t.clone().requires_grad_() for t in (x, w))
+        want = torch.autograd.grad(ref.gmm_ref(xr, wr), (xr, wr), dy)
+        fwd = gmm.moe_gmm(x, w)
+        fwd_ref = ref.gmm_ref(x, w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(fwd, fwd_ref, atol=2e-4, rtol=2e-4)
+        for a, bb in zip(grads, want):
+            torch.testing.assert_close(a, bb, atol=2e-4, rtol=2e-4)
+        err = max((fwd - fwd_ref).abs().max().item(),
+                  *((a - bb).abs().max().item()
+                    for a, bb in zip(grads, want)))
+        t = time_call(lambda: gmm.moe_gmm(x, w), lambda: ref.gmm_ref(x, w),
+                      lambda: torch.bmm(x, w),
+                      (x.numel() + w.numel() + e * c * f) * 4,
+                      2.0 * e * c * d * f, dict(reps=50, trials=10),
+                      rate=product_rate(x.dtype))
+        t.update(shape=[list(x.shape), list(w.shape)],
+                 variant=gmm.variant(x, w), max_abs_err=err)
+        out[f"gmm_{name}"] = t
+        log(f"moe_gmm VFL x LLM {name} {(e, c, d, f)} f32, forward, dx "
+            f"and dw ({card}): {t}")
+        del x, w, dy, xg, wg, xr, wr, grads, want
+    return out
+
+
+def vfl_llm_phase(torch, dev, card: str, launches: dict) -> tuple:
+    """Phase 11c-d on one drawn granite-moe-3b-a800m (full width and
+    depth): the sequence-sharded decode (11c) on its weights, then
+    ``repro_torch.examples.vfl_llm`` (two silos on this card, B 8, 16
+    soft tokens): the first step's loss and gradients with the kernels
+    and masks against the plain versions unmasked (loss within rtol
+    1e-5, every gradient within 1e-4 of its leaf's largest; the routing
+    held alike, ``Routing``), its exact launches; VFL_LLM_STEPS SGD
+    steps: finite losses, step ms, tokens/s, peak memory, whether the
+    loss fell (logged, not gated). Returns (decode, vfl_llm numbers)."""
+    from repro_torch.core import secure_agg as SA
+    from repro_torch.examples import vfl_llm
+    from repro_torch.models import params as PRM
+    cfg = moe_config()
+    mesh = vfl_llm.silo_mesh(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex = vfl_llm.init_example(cfg, mesh, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(ex["backbone"]))
+    log(f"{cfg.arch_id} backbone: {n_params:,} params in f32, "
+        f"{n_params * 4 / 1e9:.2f} GB, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        decode = sharded_decode_check(torch, dev, cfg, ex["backbone"], card,
+                                      launches)
+    counters = all_counters()
+    key0 = SA.fold_in(0, 100)
+    routing = Routing(torch)
+    for c in counters.values():
+        c.reset()
+    with routing.record():
+        loss_k, gf_k, gb_k = vfl_llm.vfl_llm_grads(
+            cfg, mesh, ex["fronts"], ex["backbone"], ex["x"], ex["labels"],
+            key0)
+    torch.cuda.synchronize()
+    got = {name: c.count for name, c in counters.items()}
+    per_step = lm_launches_per_step(cfg)
+    if got != per_step:
+        raise AssertionError(f"the VFL x LLM step launched {got}, "
+                             f"expected {per_step}")
+    with plain_versions(), routing.replay():
+        loss_p, gf_p, gb_p = vfl_llm.vfl_llm_grads(
+            cfg, mesh, ex["fronts"], ex["backbone"], ex["x"], ex["labels"],
+            key0, use_masks=False)
+    worst, worst_leaf = 0.0, None
+    pairs = [(f"front{i}", a, b) for i, (a, b) in enumerate(zip(gf_k, gf_p))]
+    pairs += [("/".join(p), a, b) for (p, a), (_, b) in
+              zip(PRM.tree_items(gb_k), PRM.tree_items(gb_p))]
+    for name, a, b in pairs:
+        if (a is None) != (b is None):
+            raise AssertionError(f"gradient {name} present in one step only")
+        if a is None:
+            continue
+        err = grad_rel_err((a,), (b,))
+        if err > worst:
+            worst, worst_leaf = err, name
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    del gf_k, gb_k, gf_p, gb_p
+    gc.collect()
+    versus = {"loss_kernel_masked": loss_k.item(),
+              "loss_plain_unmasked": loss_p.item(),
+              "loss_rel_err": loss_err, "grad_rel_err": worst,
+              "grad_rel_err_leaf": worst_leaf,
+              "routing_flips_replayed": routing.flips, "launches": got}
+    log(f"VFL x LLM first step, kernels and masks vs plain versions "
+        f"unmasked ({card}): " + json.dumps(versus))
+    if not (loss_err <= 1e-5 and worst <= 1e-4):
+        raise AssertionError("the VFL x LLM step's loss or gradients "
+                             "disagree with the plain unmasked step's")
+    step = vfl_llm.make_vfl_llm_step(cfg, mesh)
+    losses, times = [], []
+    peak_all = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    for i in range(VFL_LLM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ex["fronts"], ex["backbone"], ex["x"], ex["labels"],
+                    SA.fold_in(0, 100 + i))
+        losses.append(loss.item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    got = {name: c.count for name, c in counters.items()}
+    launches["vfl_llm"] = {k: v for k, v in got.items() if v}
+    expected = {k: v * VFL_LLM_STEPS for k, v in per_step.items()}
+    if got != expected:
+        raise AssertionError(f"{VFL_LLM_STEPS} VFL x LLM steps launched "
+                             f"{got}, expected {expected}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"VFL x LLM losses {losses}")
+    step_ms = statistics.median(times[1:])
+    tokens = vfl_llm.BATCH * vfl_llm.SEQ
+    out = {"kernel_vs_plain": versus, "losses": losses,
+           "loss_fell": losses[-1] < losses[0], "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           # the steps alone, and with the first step's two gradient
+           # trees held for the comparison
+           "peak_gb_steps": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_gb": max(peak_all, torch.cuda.max_memory_allocated()) / 1e9,
+           "launches_per_step": {k: v for k, v in per_step.items() if v}}
+    log(f"VFL x LLM {cfg.arch_id} ({cfg.n_layers} layers, 2 silos on {dev}, "
+        f"B {vfl_llm.BATCH}, {vfl_llm.SEQ} soft tokens, SGD lr "
+        f"{vfl_llm.LR}; {card}): " + json.dumps(out))
+    del ex, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return decode, out
+
+
+def sharding_phase(torch, dev) -> tuple:
+    """Phase 11: the sharded paths, every mesh position on this card
+    (``cuda:0`` repeated: the splits, partial products and combines all
+    run, one process, no ``torch.distributed``). Returns (the launches
+    of the counted runs, the measured numbers)."""
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    log(f"sharding phase: every mesh position on {dev} repeated ({card})")
+    launches: dict = {}
+    from repro_torch.configs.vfl_recsys import CONFIG as RECSYS
+    towers = {
+        "bench": sharded_tower_check(torch, dev, "bench", BENCH_TOWER,
+                                     BENCH_IN, BENCH_OUT, card, launches),
+        "demo_member": sharded_tower_check(
+            torch, dev, "demo_member",
+            (f"mlp:hidden={RECSYS.bottom_dims[0]}",),
+            VFL_MEMBER_FEATURES, RECSYS.embedding_dim, card, launches)}
+    shards_t = time_tower_shards(torch, dev, card)
+    vfl = mesh_vfl_phase(torch, dev, card)
+    decode, llm = vfl_llm_phase(torch, dev, card, launches)
+    kernels = vfl_llm_kernels(torch, dev, moe_config(), card)
+    out = {"towers": towers, "tower_shard_attention": shards_t,
+           "mesh_vfl": vfl, "sharded_decode": decode, "vfl_llm": llm,
+           "vfl_llm_kernels": kernels,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"sharding phase: {out['seconds']:.1f} s; {card}")
+    return launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -3809,8 +4380,10 @@ def main() -> int:
     dev = torch.device("cuda")
 
     build = build_kernels()
+    mark('build')
 
     errs = check_kernels(torch, dev)
+    mark('kernel checks')
 
     import numpy as np
     t0 = time.perf_counter()
@@ -3831,8 +4404,10 @@ def main() -> int:
         raise AssertionError("served scores disagree with the plain "
                              "versions")
     default_tower_check(torch, dev, cfg, master, members)
+    mark('split-NN serving')
 
     att, quant = time_kernels(torch, dev)
+    mark('split-NN kernel times')
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
@@ -3845,6 +4420,7 @@ def main() -> int:
         torch, dev, zoo_cfg, "rwkv6",
         {"rwkv6_wkv": (wkv.launches, zoo_cfg.n_layers, 0)})
     wkv_t = time_wkv(torch, dev)
+    mark('rwkv6-7b')
 
     # the rwkv6-7b weights are freed by now
     moe_cfg = moe_config()
@@ -3856,6 +4432,7 @@ def main() -> int:
          "flash_attention": (fa.launches, n, 0)},
         {"grouped": dataclasses.replace(moe_cfg, moe_group_dispatch=True)})
     gmm_t, moe_att = time_moe_kernels(torch, dev, moe_cfg)
+    mark('granite-moe serving')
 
     # the granite-moe weights are freed by now
     h2o_err, h2o_launches, h2o_att = cold_score(torch, dev, h2o_config(),
@@ -3885,34 +4462,48 @@ def main() -> int:
     jamba_gmm_t, jamba_att = time_moe_kernels(
         torch, dev, jamba_cfg, JAMBA_SCORE_TOKENS, dict(reps=2, trials=3))
     log(f"{JAMBA_ARCH} phase: {time.perf_counter() - t_jamba:.1f} s")
+    mark('h2o-danube and jamba')
 
     # the jamba weights are freed by now
     mla_errs, mla_launches, mla = mla_phase(torch, dev)
+    mark('MLA')
 
     # the encoder-decoder: whisper-large-v3 at full width and depth
     whisper_errs, whisper_launches, whisper = whisper_phase(torch, dev)
+    mark('whisper')
 
     # the vision prefix: internvl2-76b at full width, 16 layers
     internvl_err, internvl_launches, internvl = internvl_phase(torch, dev)
+    mark('internvl2')
 
     # last, so that its profiler session comes after every zoo timing
     train_launches, train, thread_losses = train_slice(torch, dev, cfg,
                                                        master, members)
+    mark('split-NN training')
     # every party its own process, the other transports, secure
     # aggregation
     mode_launches, modes = demo_modes(torch, dev, cfg, master, members,
                                       thread_losses)
+    mark('execution modes')
     # the cluster launcher: TLS, every agent its own process, the elastic
     # restart; the privacy matrix
     n_matched = len(set(master.ids) & set(members[0].ids))
     cluster_launches, cluster = cluster_phase(
         torch, thread_losses, n_matched, master.y.shape[1])
+    mark('cluster')
 
     # language-model training: granite at full width, the backward
     # kernels, AdamW, checkpoints
     lm_launches, lm = lm_train_phase(torch, dev)
+    mark('granite training')
     # the recurrences' backward kernels; rwkv6 and jamba trained
     rec_launches, rec = recurrence_train_phase(torch, dev)
+    mark('recurrence training')
+    # sharding on the device path: the sharded tower, mesh-mode VFL, the
+    # sequence-sharded decode and the VFL x LLM example, every mesh
+    # position on this card
+    shard_launches, shard = sharding_phase(torch, dev)
+    mark('sharding')
 
     # launches of each kernel on each path's counted run
     by_path = {
@@ -3927,7 +4518,7 @@ def main() -> int:
             by_path[name][run] = c
     zoo_runs = (zoo_launches | moe_launches | h2o_launches | jamba_launches
                 | mla_launches | whisper_launches | internvl_launches
-                | lm_launches | rec_launches)
+                | lm_launches | rec_launches | shard_launches)
     for run, got in zoo_runs.items():
         for name, c in got.items():
             by_path[name][run] = c
@@ -3962,7 +4553,11 @@ def main() -> int:
                 whisper_errs["encoder_inf_in_v"],
             # internvl2: 256 patches and 512 tokens, 768 positions a row
             "internvl2_prefill": dict(internvl["attention"],
-                                      max_abs_err=internvl_err)},
+                                      max_abs_err=internvl_err),
+            # the sharded bench tower's per-shard shapes, model 2 and 4
+            "sharded_tower": shard["tower_shard_attention"],
+            # VFL x LLM: granite at full width, B 8, 16 soft tokens
+            "vfl_llm": shard["vfl_llm_kernels"]["attention"]},
         # the grouped matmul's at each of its four shapes of each MoE
         # model; the top-level times are those of granite's prefill
         # gate/up
@@ -3974,13 +4569,18 @@ def main() -> int:
                 for name, t in mla["gmm"].items()},
             # dx and dw of a training step, through the same kernel
             "train_backward_shapes": lm["gmm_bwd"],
-            "train_backward_max_abs_err": lm["gmm_grad_err"]},
+            "train_backward_max_abs_err": lm["gmm_grad_err"],
+            # VFL x LLM: forward, dx and dw held at each shape
+            "vfl_llm_shapes": {
+                name: shard["vfl_llm_kernels"][f"gmm_{name}"]
+                for name in ("gate_up", "down")}},
         # max_abs_err: the largest of dq, dk, dv's errors over the
         # largest gradient, at the three checked cases
         "flash_attention_bwd": {
             "grad_errs": lm["attention_grad_errs"],
             "launches_per_train_step": lm["train"]["launches_per_step"][
-                "flash_attention_bwd"]},
+                "flash_attention_bwd"],
+            "vfl_llm": shard["vfl_llm_kernels"]["attention_bwd"]},
         # each gradient's largest difference over its largest magnitude
         # at the path's shape, against the plain VJP in float64
         **{f"{name}_bwd": {
@@ -4038,7 +4638,11 @@ def main() -> int:
         f"prefill {internvl['served']['prefill_tok_s']:.1f} tokens/s, decode "
         f"{internvl['served']['decode_tok_s']:.1f} tokens/s; rwkv6 training "
         f"{rec['rwkv6']['train']['step_ms']:.1f} ms a step, jamba "
-        f"{rec['jamba']['train']['step_ms']:.1f} ms; build "
+        f"{rec['jamba']['train']['step_ms']:.1f} ms; VFL x LLM "
+        f"{shard['vfl_llm']['step_ms']:.1f} ms a step; mesh-mode VFL "
+        f"{shard['mesh_vfl']['masked_step_ms']:.1f} ms a step; sharded "
+        f"decode {shard['sharded_decode']['sharded_step_ms']:.1f} ms a "
+        f"step; build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

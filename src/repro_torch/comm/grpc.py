@@ -333,6 +333,7 @@ class GrpcCommunicator(_TcpCommunicator):
         # write on the same socket)
         self._fc: Dict[socket.socket, _FlowState] = {}
         self._wl: Dict[socket.socket, threading.Lock] = {}
+        self._readers: Dict[socket.socket, threading.Thread] = {}
 
     # -- client side ---------------------------------------------------------
     def _greet(self, conn: socket.socket) -> None:
@@ -352,6 +353,7 @@ class GrpcCommunicator(_TcpCommunicator):
         t = threading.Thread(target=self._client_reader,
                              args=(conn, fc, lock),
                              name=f"grpc-fc-{self.me}", daemon=True)
+        self._readers[conn] = t
         t.start()
 
     def _client_reader(self, conn: socket.socket, fc: _FlowState,
@@ -389,6 +391,17 @@ class GrpcCommunicator(_TcpCommunicator):
             fc.close()
             self._fc.pop(conn, None)
             self._wl.pop(conn, None)
+            self._readers.pop(conn, None)
+
+    def _await_eof(self, conn: socket.socket, deadline: float) -> None:
+        """The connection's reader reads the server's last control
+        frames and then its EOF; wait for it to end, then discard
+        whatever it left unread (it ends early if an ack cannot be
+        written after the half-close)."""
+        reader = self._readers.get(conn)
+        if reader is not None:
+            reader.join(max(deadline - time.monotonic(), 0.0))
+        super()._await_eof(conn, deadline)
 
     def _write_frames(self, recipient: str, *bufs: bytes) -> None:
         conn = self._conn_to(recipient)

@@ -24,6 +24,7 @@ of hanging until the timeout.
 from __future__ import annotations
 
 import random
+import select
 import socket
 import ssl
 import struct
@@ -37,6 +38,9 @@ from repro_torch.comm.base import CommCfg, Message, PartyCommunicator
 # below this, prefix+body are concatenated into one buffer (one packet
 # under NODELAY); above it, the concat copy costs more than it saves
 _INLINE_FRAME_BYTES = 1 << 16
+# how long close() waits for each peer to read an outbound connection
+# to its end (capped by the transport timeout)
+_LINGER_S = 10.0
 
 
 class _MidFrameClose(ConnectionError):
@@ -73,6 +77,32 @@ def _drop_conn(conn: socket.socket) -> None:
         conn.close()
     except OSError:
         pass
+
+
+def _shut_wr(conn: socket.socket) -> None:
+    """Half-close ``conn``: a FIN after every byte already written. On a
+    TLS socket this is the TCP socket's own shutdown, which leaves the
+    TLS layer to the thread that may still be reading it."""
+    try:
+        socket.socket.shutdown(conn, socket.SHUT_WR)
+    except OSError:
+        pass
+
+
+def _drain_to_eof(conn: socket.socket, deadline: float) -> None:
+    """Read and discard ``conn``'s bytes until the peer closes it or
+    ``deadline`` (``time.monotonic()``) passes."""
+    poller = select.poll()
+    poller.register(conn, select.POLLIN)
+    try:
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0 or not poller.poll(int(left * 1000) + 1):
+                return
+            if not socket.socket.recv(conn, 1 << 16):
+                return
+    except (OSError, ValueError):
+        return
 
 
 class _TcpCommunicator(PartyCommunicator):
@@ -346,8 +376,26 @@ class _TcpCommunicator(PartyCommunicator):
         self._listener.join(timeout=5)
         with self._in_lock:
             pending_in = list(self._in)
-        for c in list(self._out.values()) + pending_in:
+        for c in pending_in:
             _drop_conn(c)
+        # outbound connections close gracefully: half-close, wait for
+        # the peer's EOF (it has read every frame), then close. A close
+        # with the peer's bytes unread in the receive queue makes the
+        # kernel answer with a reset, which fails the peer's next write
+        # (a gRPC server's SETTINGS ack) and can end its read loop with
+        # our last frames unread.
+        out = list(self._out.values())
+        for c in out:
+            _shut_wr(c)
+        deadline = time.monotonic() + min(self._timeout, _LINGER_S)
+        for c in out:
+            self._await_eof(c, deadline)
+            _drop_conn(c)
+
+    def _await_eof(self, conn: socket.socket, deadline: float) -> None:
+        """Wait until the peer has closed ``conn`` (after reading what
+        we sent) or ``deadline`` passes."""
+        _drain_to_eof(conn, deadline)
 
 
 class SocketCommunicator(_TcpCommunicator):

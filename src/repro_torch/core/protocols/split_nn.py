@@ -102,12 +102,15 @@ def master_step(bspec: twr.TowerSpec, tspec: twr.TowerSpec, top, bottom,
             grads[n_top + n_bottom:])
 
 
-def member_step(spec: twr.TowerSpec, params, x, du, lr: float):
+def member_step(spec: twr.TowerSpec, params, x, du, lr: float,
+                rules=None):
     """A member's backward, the JAX package's ``_make_member_fns``
     ``bwd``: the VJP of its bottom tower at ``params`` on ``x`` against
-    ``du``, and an SGD step. Returns the new params."""
-    _, grads = _grads(lambda trees: twr.apply(spec, trees[0], x), [params],
-                      [], du)
+    ``du``, and an SGD step, through the tower's ``rules`` (a sharded
+    tower's parts each get their share of the gradient). Returns the new
+    params."""
+    _, grads = _grads(lambda trees: twr.apply(spec, trees[0], x, rules),
+                      [params], [], du)
     return _sgd(params, grads, lr)
 
 
@@ -145,8 +148,6 @@ class SplitNNProtocol(VFLProtocol):
         cfg, d, dev = self.cfg, self.data, self.device
         # the JAX package's float32 learning rate
         self.lr = float(np.float32(cfg.lr))
-        if cfg.tower_shard > 1:
-            raise NotImplementedError("tower_shard > 1 is not ported yet")
         self.x = torch.as_tensor(
             base._select(d.ids, self.order, d.x), dtype=torch.float32
         ).to(dev)
@@ -165,6 +166,12 @@ class SplitNNProtocol(VFLProtocol):
             self._spec = bottom_spec(cfg, self.x.shape[1])
             self.params = twr.init(self._spec,
                                    init_generator(cfg.seed, midx), dev)
+            # model-parallel placement of a large member tower over the
+            # distinct local devices of the party's type; tower_shard 1
+            # (the default) never builds a mesh
+            self._rules = twr.make_tower_rules(cfg.tower_shard, device=dev)
+            self.params = twr.shard_tower(self.params, self._spec,
+                                          self._rules)
             self.masker = None
             # mask-stream namespace for predict queries: every member
             # sees the same EVAL round sequence, so a shared counter
@@ -236,7 +243,8 @@ class SplitNNProtocol(VFLProtocol):
         arrives, and the VJP is taken at the params of that moment, as
         the JAX package takes it."""
         xb = self._rows(rows)
-        u = twr.apply(self._spec, self.params, xb).cpu().numpy()
+        u = twr.apply(self._spec, self.params, xb,
+                      self._rules).cpu().numpy()
         if self.cfg.noise_sigma > 0:
             # noising defense (docs/privacy.md): the member perturbs
             # its outgoing embedding, so neither the master nor a wire
@@ -252,7 +260,8 @@ class SplitNNProtocol(VFLProtocol):
     def member_stage_recv(self, rows, step, xb) -> None:
         du = torch.as_tensor(self.ch.recv("master", "splitnn/du").tensor("du"),
                              dtype=torch.float32).to(self.device)
-        self.params = member_step(self._spec, self.params, xb, du, self.lr)
+        self.params = member_step(self._spec, self.params, xb, du, self.lr,
+                                  self._rules)
 
     # -- predict/serve -------------------------------------------------------
     @torch.no_grad()
@@ -270,8 +279,8 @@ class SplitNNProtocol(VFLProtocol):
     def predict_embed(self, rows) -> np.ndarray:
         # pure bottom-model forward: cacheable per row (no masking —
         # masks are per-query and applied in send_embed)
-        return twr.apply(self._spec, self.params,
-                         self._rows(rows)).cpu().numpy()
+        return twr.apply(self._spec, self.params, self._rows(rows),
+                         self._rules).cpu().numpy()
 
     def send_embed(self, u, rows) -> None:
         if self.masker is not None:
@@ -325,7 +334,8 @@ class SplitNNProtocol(VFLProtocol):
             self.top = self._as_tower(state["top"])
             self.bottom = self._as_tower(state["bottom"])
         else:
-            self.params = self._as_tower(state["params"])
+            self.params = twr.shard_tower(self._as_tower(state["params"]),
+                                          self._spec, self._rules)
         if state.get("ef"):
             from repro_torch.core import compression
             # migrate pre-§7 checkpoints: the protocol-owned EF keyed

@@ -1,0 +1,156 @@
+"""Device meshes of the port, the counterpart of the JAX package's
+``repro/launch/mesh.py``.
+
+The JAX package is single-controller: one process, ``jax.devices()`` and
+a ``Mesh`` of named axes run every sharded path. The port keeps that
+shape. A :class:`Mesh` is an n-d array of ``torch.device``s with axis
+names; the modules that shard (``models/tower.py``'s tensor parallelism,
+``core/vfl_step.py``, ``models/decode_sharded.py``) place each mesh
+position's share of a tensor on that position's device themselves and
+combine the shares with the explicit collectives below, all from one
+process: no ``torch.distributed``, no spawned process.
+
+By default a mesh takes the distinct local CUDA devices and raises when
+there are too few. A caller may name the devices, and may repeat one:
+the CPU tests pass the CPU device repeated, and a one-card run passes
+``cuda:0`` repeated, so every split, partial product and combine runs on
+one device. A mesh never reuses a device the caller did not name.
+
+No hardware constant lives here: where the port needs a rate it takes
+the card's own (``chip_smoke.py``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+class Mesh:
+    """An n-d array of ``torch.device``s with one name per axis.
+
+    ``shape`` maps each axis name to its size, in axis order, as a JAX
+    mesh's does; ``devices`` is the object array itself."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+        devices = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"a mesh of {devices.ndim} dims needs as many "
+                             f"axis names, got {axis_names}")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"repeated mesh axis name in {axis_names}")
+        self.devices = devices
+        self.axis_names = axis_names
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def device(self, **position: int) -> torch.device:
+        """The device at ``position`` (axis name -> index); an axis not
+        named is taken at index 0."""
+        idx = tuple(position.get(a, 0) for a in self.axis_names)
+        return self.devices[idx]
+
+    def axis_devices(self, axis: str, **position: int
+                     ) -> Tuple[torch.device, ...]:
+        """The devices along ``axis``, the other axes at ``position``
+        (index 0 where not named)."""
+        return tuple(self.device(**{**position, axis: i})
+                     for i in range(self.shape[axis]))
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.reshape(-1)]})")
+
+
+def _cuda_devices() -> Tuple[torch.device, ...]:
+    return tuple(torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count()))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
+    """A mesh of ``shape`` named ``axes`` over ``devices`` in row-major
+    order: the first ``prod(shape)`` distinct local CUDA devices when
+    None (a ``ValueError`` naming the count when there are fewer), else
+    exactly the devices given, which may repeat one (``["cuda:0"] * 4``
+    runs a four-position mesh on one card)."""
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape)) if shape else 1
+    if devices is None:
+        have = _cuda_devices()
+        if len(have) < n:
+            raise ValueError(
+                f"a mesh of shape {shape} needs {n} CUDA device(s), but "
+                f"only {len(have)} are visible; pass devices= to place "
+                f"several mesh positions on one device")
+        devs = list(have[:n])
+    else:
+        devs = [torch.device(d) for d in devices]
+        if len(devs) != n:
+            raise ValueError(f"a mesh of shape {shape} needs {n} devices, "
+                             f"{len(devs)} given")
+    arr = np.empty(n, dtype=object)
+    for i, d in enumerate(devs):
+        arr[i] = d
+    return Mesh(arr.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Sequence[DeviceLike]) -> Mesh:
+    """The JAX package's production shapes, (16, 16) ``data x model`` or
+    (2, 16, 16) ``pod x data x model``, over an explicit device list."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
+def make_local_mesh(data: int = 1, model: int = 1,
+                    devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
+    """A ``data x model`` mesh over local devices (see :func:`make_mesh`)."""
+    return make_mesh((data, model), ("data", "model"), devices)
+
+
+def mesh_chips(mesh) -> int:
+    n = 1
+    for s in mesh.shape.values():
+        n *= s
+    return n
+
+
+# ---------------------------------------------------------------------------
+# collectives over one mesh axis, written out: a list of per-position
+# tensors combined on a target device in the axis order, so two runs
+# give the same bits. None writes a position's tensor in place (on a
+# repeated device, ``.to(device)`` between two positions is the same
+# tensor): the combine of two parts or more is a fresh tensor.
+# ---------------------------------------------------------------------------
+
+
+def psum(parts: Sequence[torch.Tensor], device: DeviceLike) -> torch.Tensor:
+    """The sum of ``parts`` on ``device``, added in order."""
+    return functools.reduce(torch.add, [p.to(device) for p in parts])
+
+
+def pmax(parts: Sequence[torch.Tensor], device: DeviceLike) -> torch.Tensor:
+    """The elementwise maximum of ``parts`` on ``device``."""
+    return functools.reduce(torch.maximum, [p.to(device) for p in parts])
+
+
+def all_gather(parts: Sequence[torch.Tensor], dim: int,
+               device: DeviceLike) -> torch.Tensor:
+    """``parts`` concatenated along ``dim`` on ``device``."""
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def broadcast(x: torch.Tensor, devices: Sequence[DeviceLike]
+              ) -> Tuple[torch.Tensor, ...]:
+    """``x`` on each of ``devices`` (the same tensor where it is there
+    already: read it, do not write it)."""
+    return tuple(x.to(d) for d in devices)

@@ -4,8 +4,10 @@ resolves them into a per-step compute-vs-wire split, surfaced in
 ``Driver.result()["roofline"]``. This is what makes pipeline-depth wins
 explainable: depth helps exactly when neither fraction dominates.
 
-The JAX package's module of the same name also aggregates LLM dry-run
-tables; that half belongs to the model zoo and is not ported yet.
+The JAX package's module of the same name also aggregates the LLM
+dry-run tables of ``launch/dryrun.py`` and ``launch/hlo_analysis.py``;
+that half waits for their port, ROADMAP Queue 1 item 10c (a
+compile-free H100 estimate of a sharded step).
 """
 from __future__ import annotations
 

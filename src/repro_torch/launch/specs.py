@@ -9,9 +9,10 @@ and allocate nothing.
 - decode:   ``cache_specs``, the per-layer decode state that
   ``transformer.init_cache`` builds, built on ``meta``.
 
-``cache_axes`` names each cache dim as the JAX package does, for the
-sharding slice. Mesh rules (``rules``) belong to that slice: any
-``rules`` but None raises, as ``launch.steps`` does.
+``cache_axes`` names each cache dim as the JAX package does. With mesh
+rules (``rules``) the stand-ins come beside a tree like theirs of the
+``PartitionSpec``s their logical axes resolve to, as the JAX package's
+carry a sharding.
 """
 from __future__ import annotations
 
@@ -20,14 +21,10 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.launch.steps import check_rules
 from repro_torch.models import transformer
+from repro_torch.sharding.rules import map_in_tree_order
 
 META = torch.device("meta")
-
-
-def _sds(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device=META)
 
 
 def text_len(cfg: ModelConfig, shape: InputShape) -> int:
@@ -40,22 +37,27 @@ def text_len(cfg: ModelConfig, shape: InputShape) -> int:
 
 def batch_specs(cfg: ModelConfig, shape: InputShape, rules=None,
                 with_labels: bool = True,
-                dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+                dtype: torch.dtype = torch.bfloat16):
     """The step's batch as ``meta`` tensors: tokens (and labels) (b,
     s_text) int32, patches (b, num_tokens, d) or frames (b, n_frames, d)
-    of ``dtype``."""
-    check_rules(rules)
+    of ``dtype``; under ``rules`` a pair (those, their specs by key)."""
     b = shape.global_batch
     s = text_len(cfg, shape)
-    batch = {"tokens": _sds((b, s), torch.int32)}
+    items = {"tokens": ((b, s), torch.int32, ("batch", "seq"))}
     if with_labels:
-        batch["labels"] = _sds((b, s), torch.int32)
+        items["labels"] = ((b, s), torch.int32, ("batch", "seq"))
     if transformer.has_vision_prefix(cfg):
-        batch["patches"] = _sds((b, cfg.frontend.num_tokens, cfg.d_model),
-                                dtype)
+        items["patches"] = ((b, cfg.frontend.num_tokens, cfg.d_model),
+                            dtype, ("batch", "seq", "embed"))
     elif cfg.frontend is not None or cfg.encoder is not None:
-        batch["frames"] = _sds((b, cfg.encoder.n_frames, cfg.d_model), dtype)
-    return batch
+        items["frames"] = ((b, cfg.encoder.n_frames, cfg.d_model), dtype,
+                           ("batch", "frames", "embed"))
+    batch = {k: torch.empty(sh, dtype=dt, device=META)
+             for k, (sh, dt, _) in items.items()}
+    if rules is None:
+        return batch
+    return batch, {k: rules.act_spec(ax, sh)
+                   for k, (sh, _, ax) in items.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +98,12 @@ def cache_specs(cfg: ModelConfig, shape: InputShape, rules=None,
                 dtype: torch.dtype = torch.bfloat16):
     """``transformer.init_cache`` for ``shape``'s batch and sequence
     length, on ``meta``: the decode state's shapes and dtypes with
-    nothing allocated."""
-    check_rules(rules)
-    return transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
-                                  dtype, META)
+    nothing allocated; under ``rules`` a pair (that, a tree like it of
+    the leaves' specs)."""
+    abstract = transformer.init_cache(cfg, shape.global_batch,
+                                      shape.seq_len, dtype, META)
+    if rules is None:
+        return abstract
+    return abstract, map_in_tree_order(
+        lambda t, ax: rules.act_spec(ax, tuple(t.shape)), abstract,
+        cache_axes(cfg))

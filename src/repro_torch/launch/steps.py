@@ -5,10 +5,18 @@ trainer and the training CLI.
 PyTorch runs eagerly: a step is a plain function, and its gradients come
 from autograd through the model, whose attention and expert matmuls are
 ``torch.autograd.Function``s with hand-written backward kernels on the
-card (``kernels/ops.py``). Mesh rules (``rules``), and with them the
-JAX package's sharding resolution (``resolve_param_shardings``,
-``opt_state_specs``), belong to the sharding slice: a step built with
-``rules`` raises.
+card (``kernels/ops.py``).
+
+Mesh rules (``rules``, a ``MeshRules``) are accepted as in the JAX
+package: every step runs under ``use_rules(rules)``, and
+``resolve_param_shardings`` / ``opt_state_specs`` resolve each param and
+optimizer slot to its ``PartitionSpec``. A decode step takes any mesh:
+under rules, ``cfg.decode_partial_softmax`` splits the KV cache's
+sequence over the mesh's ``model`` axis (``models/decode_sharded.py``).
+A train or prefill step on a mesh of more than one device needs tensor-
+and data-parallel layers for every family, which the port does not have
+yet: it raises, naming the ROADMAP item. On a one-device mesh it gives
+the values of no mesh.
 """
 from __future__ import annotations
 
@@ -17,20 +25,54 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import mesh_chips
+from repro_torch.models import params as PRM
 from repro_torch.models import transformer as T
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding.rules import (MeshRules, map_in_tree_order,
+                                        param_shardings, use_rules)
 from repro_torch.train import optimizer as O
 
-# the ROADMAP Queue 1 item that ports mesh rules
-_SHARDING = "ROADMAP Queue 1 item 10 (sharding on the device path)"
+# the ROADMAP Queue 1 item that ports train and prefill steps on a mesh
+# of more than one device
+_SHARDED_STEPS = ("ROADMAP Queue 1 item 10b (zoo train and prefill steps "
+                  "on a mesh of more than one device)")
 
 
-def check_rules(rules) -> None:
-    """Raise unless ``rules`` is None: one device, no mesh."""
-    if rules is not None:
+def check_rules(rules: Optional[MeshRules], what: str = "this step"
+                ) -> None:
+    """Raise unless ``rules`` is None or its mesh is one device."""
+    if rules is not None and mesh_chips(rules.mesh) > 1:
         raise NotImplementedError(
-            f"mesh rules (sharded steps) are not ported to repro_torch "
-            f"yet: {_SHARDING}")
+            f"{what} on a mesh of {dict(rules.mesh.shape)} needs tensor- "
+            f"and data-parallel layers, not ported to repro_torch yet: "
+            f"{_SHARDED_STEPS}")
+
+
+def resolve_param_shardings(cfg: ModelConfig, rules: Optional[MeshRules],
+                            param_dtype: torch.dtype = torch.bfloat16):
+    """(abstract params on ``meta``, their logical axes, their specs):
+    the specs a tree of ``PartitionSpec`` like the params, None without
+    rules."""
+    spec = T.model_spec(cfg)
+    abstract = PRM.abstract_tree(spec, param_dtype)
+    axes = PRM.axes_tree(spec)
+    if rules is None:
+        return abstract, axes, None
+    return abstract, axes, param_shardings(rules, axes, abstract)
+
+
+def opt_state_specs(opt: O.Optimizer, abstract_params, axes,
+                    rules: Optional[MeshRules]):
+    """The optimizer state of ``abstract_params`` on ``meta``; with
+    rules, a pair (that, a tree like it of each slot's spec)."""
+    abstract_state = opt.init(abstract_params)
+    if rules is None:
+        return abstract_state
+    return abstract_state, map_in_tree_order(
+        lambda sds, ax: rules.spec(tuple(ax), sds.shape, rules.param_rules,
+                                   "opt"),
+        abstract_state, opt.state_axes(axes))
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
@@ -71,10 +113,14 @@ def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
     does. The optimizer update runs under ``torch.no_grad`` and writes
     the params and state it is given (``train/optimizer.py``); the step
     returns them with the metrics."""
-    check_rules(rules)
+    check_rules(rules, "a train step")
 
     def train_step(params, opt_state, batch
                    ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+        with use_rules(rules):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if accum_steps == 1:
             _, metrics, grads = loss_and_grads(cfg, params, batch,
                                                compute_dtype)
@@ -107,10 +153,10 @@ def make_prefill_step(cfg: ModelConfig, rules=None,
     before the decoder attends to them, or for a vision-prefix model
     ``batch["patches"]`` (b, num_tokens, d), prepended to the tokens;
     returns the last position's logits (b, vocab)."""
-    check_rules(rules)
+    check_rules(rules, "a prefill step")
 
     def prefill_step(params, batch) -> torch.Tensor:
-        with torch.no_grad():
+        with torch.no_grad(), use_rules(rules):
             logits, _ = T.forward(cfg, params, batch, compute_dtype)
         # serving returns only the last-position logits
         return logits[:, -1, :]
@@ -122,12 +168,12 @@ def make_decode_step(cfg: ModelConfig, rules=None,
                      with_memory: bool = False):
     """A decode step; ``with_memory`` gives it a ``memory`` argument,
     the encoder's output that an encoder-decoder model's cross-attention
-    reads."""
-    check_rules(rules)
+    reads. Any mesh: under ``rules`` with ``cfg.decode_partial_softmax``
+    a full-attention model's KV cache is split over ``model``."""
 
     def decode_step(params, token, cache, index,
                     memory: Optional[torch.Tensor] = None):
-        with torch.no_grad():
+        with torch.no_grad(), use_rules(rules):
             return T.decode_step(cfg, params, token, cache, index, memory,
                                  compute_dtype)
     if not with_memory:

@@ -5,12 +5,9 @@
 
 The JAX package's flags, plus ``--device`` (default ``cuda``, where the
 params are drawn on the card; ``cpu`` trains with the kernels' plain
-versions). ``--mesh`` (a local mesh with sharding rules) raises: mesh
-rules come with ROADMAP Queue 1 item 10. Ported archs: those of
-``repro_torch.models.transformer``; the others exit with the
-``NotImplementedError`` naming their ROADMAP item. On the card,
-``rwkv6-7b`` and ``jamba-1.5-large-398b`` raise when their recurrences
-need a gradient (no backward kernel yet).
+versions). ``--mesh`` trains under sharding rules on the (1, 1) local
+mesh of that device, as the JAX package's flag does; its values are
+those of no mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +15,8 @@ import argparse
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data.synthetic import make_lm_batches
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.sharding.rules import MeshRules
 from repro_torch.train.trainer import TrainJob, train
 
 
@@ -34,21 +33,19 @@ def main() -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--metrics-dir", default=None)
     ap.add_argument("--mesh", action="store_true",
-                    help="use a local (1,1) mesh with sharding rules "
-                         "(not ported: raises)")
+                    help="use a local (1,1) mesh with sharding rules")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharding rules are not ported to repro_torch yet: "
-            "ROADMAP Queue 1 item 10 (sharding on the device path)")
+    rules = (MeshRules(make_local_mesh(devices=[args.device]))
+             if args.mesh else None)
     job = TrainJob(cfg=cfg, lr=args.lr, steps=args.steps, seed=args.seed,
                    ckpt_dir=args.ckpt_dir, metrics_dir=args.metrics_dir,
-                   log_every=max(1, args.steps // 20), device=args.device)
+                   rules=rules, log_every=max(1, args.steps // 20),
+                   device=args.device)
     batches = make_lm_batches(cfg.vocab, args.batch, args.seq,
                               args.steps + 1, seed=args.seed)
     res = train(job, batches)

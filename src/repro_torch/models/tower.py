@@ -21,6 +21,18 @@ are ``torch.autograd.Function``s with the JAX package's ``custom_vjp``
 contracts: attention's backward is the VJP of the plain attention
 recomputed from the saved q, k, v (the JAX package has no backward
 kernel either), the quantizer's is the identity (straight-through).
+
+Sharding (``logical_axes``, ``make_tower_rules``, ``shard_tower``,
+``apply(..., rules)``) is explicit tensor parallelism over the mesh's
+``model`` axis, placed as the logical axes resolve: the columns of
+``wq/wk/wv``, ``w1/b1`` and of every mlp layer's ``w`` and ``b`` split,
+the rows of ``wo`` and ``w2`` split with their partial products summed
+(``psum``), the embed table split over ``vocab``, each where its width
+divides; the rest stays whole on the first model position's device,
+where the activations between blocks live. A split param is a
+:class:`Shards` leaf (one part a position), so the member's backward
+differentiates each part and its SGD step updates it in place of the
+whole, as the JAX package's runs through the same rules.
 """
 from __future__ import annotations
 
@@ -33,7 +45,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import mesh as M
 from repro_torch.models.params import resolve_device
+from repro_torch.sharding.rules import MeshRules, is_axes, map_in_tree_order
 
 BLOCK_KINDS = ("embed", "attn_block", "quantize", "mlp")
 
@@ -347,20 +361,37 @@ _BLOCK_INIT = {"mlp": _init_mlp, "embed": _init_embed,
                "quantize": lambda b, g: {}}
 
 
+@dataclass
+class Shards:
+    """A param split along ``dim`` over the mesh's ``model`` axis:
+    ``parts[i]`` lives on model position i's device."""
+
+    parts: List[torch.Tensor]
+    dim: int
+
+    def gather(self, device) -> torch.Tensor:
+        return M.all_gather(self.parts, self.dim, device)
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, Shards):
+        return Shards([fn(t) for t in tree.parts], tree.dim)
     return fn(tree)
 
 
 def leaves(tree) -> List[Any]:
-    """The tree's tensors, in the order :func:`with_leaves` takes."""
+    """The tree's tensors (each part of a :class:`Shards`), in the order
+    :func:`with_leaves` takes."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in leaves(v)]
+    if isinstance(tree, Shards):
+        return list(tree.parts)
     return [tree]
 
 
@@ -386,17 +417,77 @@ def from_numpy(params, device: Union[str, torch.device] = "cuda"
         list(params))
 
 
+def _whole(tree, device=None):
+    """The tree with each :class:`Shards` gathered into one tensor (on
+    ``device``, else the first part's)."""
+    if isinstance(tree, dict):
+        return {k: _whole(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_whole(v, device) for v in tree]
+    if isinstance(tree, Shards):
+        return tree.gather(device or tree.parts[0].device)
+    return tree
+
+
 def to_numpy(params) -> List[Any]:
-    """The inverse of :func:`from_numpy`: the tree as numpy arrays."""
-    return _tree_map(lambda t: t.detach().cpu().numpy(), list(params))
+    """The inverse of :func:`from_numpy`: the tree as numpy arrays (a
+    sharded tree gathered whole)."""
+    return _tree_map(lambda t: t.detach().cpu().numpy(),
+                     _whole(list(params), "cpu"))
 
 
-def apply(spec: TowerSpec, params: Sequence[Any], x: torch.Tensor
-          ) -> torch.Tensor:
-    """Forward pass of the tower on ``x`` (batch, in_dim)."""
+def apply(spec: TowerSpec, params: Sequence[Any], x: torch.Tensor,
+          rules=None) -> torch.Tensor:
+    """Forward pass of the tower on ``x`` (batch, in_dim). With
+    ``rules`` (a ``MeshRules`` of :func:`make_tower_rules`) ``params``
+    is :func:`shard_tower`'s placement and each split param runs tensor
+    parallel over the mesh's model axis; the result is on the first
+    model position's device."""
+    if rules is not None:
+        x = x.to(rules.mesh.axis_devices("model")[0])
     for b, p in zip(spec.blocks, params):
         x = _BLOCK_APPLY[b["kind"]](b, p, x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the activations between blocks are whole on the
+# first model position's device, with every param that is not split; a
+# split param (:class:`Shards`) computes each position's share with its
+# part on its device, and the shares are combined on the activations'
+# ---------------------------------------------------------------------------
+
+
+def _devices(w: Shards) -> List[torch.device]:
+    return [t.device for t in w.parts]
+
+
+def _split(x: torch.Tensor, dim: int, devs) -> List[torch.Tensor]:
+    """``x`` cut into ``len(devs)`` equal chunks along ``dim``, chunk i
+    on ``devs[i]``."""
+    return [c.to(d) for c, d in zip(x.chunk(len(devs), dim), devs)]
+
+
+def _cols(x: torch.Tensor, w: Shards, bias=None) -> List[torch.Tensor]:
+    """Each position's columns of ``x @ w (+ bias)``: ``w`` (and
+    ``bias``) split over their last dim."""
+    out = [xi @ wi for xi, wi in zip(M.broadcast(x, _devices(w)), w.parts)]
+    if bias is not None:
+        out = [o + bi for o, bi in zip(out, bias.parts)]
+    return out
+
+
+def _dense(x: torch.Tensor, w, bias) -> torch.Tensor:
+    """``x @ w + bias``; a column-split ``w`` gathers its columns."""
+    if isinstance(w, Shards):
+        return M.all_gather(_cols(x, w, bias), -1, x.device)
+    return x @ w + bias
+
+
+def _row_sum(hs: Sequence[torch.Tensor], w: Shards, device) -> torch.Tensor:
+    """``concat(hs) @ w`` for a row-split ``w``: the positions' partial
+    products summed (``psum``)."""
+    return M.psum([hi @ wi for hi, wi in zip(hs, w.parts)], device)
 
 
 def _apply_mlp(b, p, x):
@@ -404,7 +495,7 @@ def _apply_mlp(b, p, x):
         x = x.mean(dim=1)
     n = len(p)
     for i, layer in enumerate(p):
-        x = x @ layer["w"] + layer["b"]
+        x = _dense(x, layer["w"], layer["b"])
         if i < n - 1 or b["final_act"]:
             x = torch.relu(x)
     return x
@@ -429,10 +520,31 @@ def embed_buckets(b, x):
 def _apply_embed(b, p, x):
     t, nb = b["tokens"], b["buckets"]
     xr, ids = embed_buckets(b, x)
-    val = torch.einsum("ntc,tcd->ntd", xr, p["w"])
-    tok = torch.arange(t, device=x.device)[None, :] * nb
-    look = p["table"][(tok + ids).long()]
-    return val + look + p["pos"][None, :, :]
+    w = p["w"]
+    if isinstance(w, Shards):
+        val = M.all_gather([torch.einsum("ntc,tcd->ntd", xi, wi) for xi, wi
+                            in zip(M.broadcast(xr, _devices(w)), w.parts)],
+                           -1, x.device)
+    else:
+        val = torch.einsum("ntc,tcd->ntd", xr, w)
+    rows = (torch.arange(t, device=x.device)[None, :] * nb + ids).long()
+    return val + _lookup(p["table"], rows) + p["pos"][None, :, :]
+
+
+def _lookup(table, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]``; a table split over its rows has each position
+    look up the rows it holds, the others adding zero."""
+    if not isinstance(table, Shards):
+        return table[rows]
+    looks = []
+    lo = 0
+    for tab in table.parts:
+        r = rows.to(tab.device) - lo
+        hit = (r >= 0) & (r < tab.shape[0])
+        looks.append(tab[r.clamp(0, tab.shape[0] - 1)]
+                     * hit[..., None].to(tab.dtype))
+        lo += tab.shape[0]
+    return M.psum(looks, rows.device)
 
 
 def _rmsnorm(scale, x, eps: float = 1e-5):
@@ -440,21 +552,53 @@ def _rmsnorm(scale, x, eps: float = 1e-5):
     return x * torch.rsqrt(var + eps) * scale
 
 
-def _apply_attn(b, p, x):
-    n, t, d = x.shape
+def _heads(z: torch.Tensor, h: int) -> torch.Tensor:
+    """(n, t, h * dh) -> (n, h, t, dh), the flash-attention layout; the
+    kernel takes contiguous tensors."""
+    n, t, d = z.shape
+    return z.reshape(n, t, h, d // h).transpose(1, 2).contiguous()
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(n, h, t, dh) -> (n, t, h * dh)."""
+    n, h, t, dh = o.shape
+    return o.transpose(1, 2).reshape(n, t, h * dh)
+
+
+def _attn_out(b, p, y):
+    """Attention of the normed ``y``, through ``wo``. Column-split
+    q/k/v: whole heads attend on their own position, or, where a
+    position's columns cut a head, the heads gather, attend whole and
+    hand each position its columns back; the row-split ``wo``'s partial
+    products are summed."""
     h = b["heads"]
-    dh = d // h
+    if not isinstance(p["wq"], Shards):
+        o = _attention(_heads(y @ p["wq"], h), _heads(y @ p["wk"], h),
+                       _heads(y @ p["wv"], h), b["kernel"])
+        return _merge_heads(o) @ p["wo"]
+    devs = _devices(p["wq"])
+    m = len(devs)
+    qkv = [_cols(y, p[w]) for w in ("wq", "wk", "wv")]
+    if h % m == 0:
+        os_ = [_merge_heads(_attention(_heads(qi, h // m), _heads(ki, h // m),
+                                       _heads(vi, h // m), b["kernel"]))
+               for qi, ki, vi in zip(*qkv)]
+    else:
+        q, k, v = (_heads(M.all_gather(z, -1, y.device), h) for z in qkv)
+        os_ = _split(_merge_heads(_attention(q, k, v, b["kernel"])), -1,
+                     devs)
+    return _row_sum(os_, p["wo"], y.device)
+
+
+def _apply_attn(b, p, x):
     y = _rmsnorm(p["ln1"], x)
-    # (n, t, d) -> (n, h, t, dh) for the flash-attention layout; the
-    # kernel takes contiguous tensors
-    q = (y @ p["wq"]).reshape(n, t, h, dh).transpose(1, 2).contiguous()
-    k = (y @ p["wk"]).reshape(n, t, h, dh).transpose(1, 2).contiguous()
-    v = (y @ p["wv"]).reshape(n, t, h, dh).transpose(1, 2).contiguous()
-    o = _attention(q, k, v, b["kernel"])
-    o = o.transpose(1, 2).reshape(n, t, d) @ p["wo"]
-    x = x + o
+    x = x + _attn_out(b, p, y)
     y = _rmsnorm(p["ln2"], x)
-    y = torch.relu(y @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+    if isinstance(p["w1"], Shards):
+        hs = [torch.relu(z) for z in _cols(y, p["w1"], p["b1"])]
+        y = _row_sum(hs, p["w2"], x.device) + p["b2"]
+    else:
+        y = torch.relu(y @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
     return x + y
 
 
@@ -464,6 +608,88 @@ def _apply_quant(b, p, x):
 
 _BLOCK_APPLY = {"mlp": _apply_mlp, "embed": _apply_embed,
                 "attn_block": _apply_attn, "quantize": _apply_quant}
+
+
+# ---------------------------------------------------------------------------
+# sharding
+# ---------------------------------------------------------------------------
+
+
+def logical_axes(spec: TowerSpec) -> List[Any]:
+    """Per-param logical axis names, matching the ``init`` tree."""
+    axes: List[Any] = []
+    for b in spec.blocks:
+        kind = b["kind"]
+        if kind == "mlp":
+            axes.append([{"w": ("embed", "mlp"), "b": ("mlp",)}
+                         for _ in range(len(b["dims"]) - 1)])
+        elif kind == "embed":
+            axes.append({"w": (None, None, "mlp"),
+                         "table": ("vocab", None),
+                         "pos": (None, None)})
+        elif kind == "attn_block":
+            axes.append({"ln1": (None,),
+                         "wq": ("embed", "heads"),
+                         "wk": ("embed", "heads"),
+                         "wv": ("embed", "heads"),
+                         "wo": ("heads", "embed"),
+                         "ln2": (None,),
+                         "w1": ("embed", "mlp"), "b1": ("mlp",),
+                         "w2": ("mlp", "embed"), "b2": (None,)})
+        else:
+            axes.append({})
+    return axes
+
+
+def make_tower_rules(shard: int, devices=None, device=None):
+    """MeshRules for an N-way model-parallel tower, or None when
+    ``shard <= 1`` (the common unsharded path). The mesh is ``data 1 x
+    model shard`` over ``devices`` when given (a device may repeat:
+    ``["cuda:0"] * 2`` runs both shards on one card), else over the
+    first ``shard`` distinct local devices of ``device``'s type (CUDA
+    by default): a ``ValueError`` naming the count when there are
+    fewer."""
+    if shard <= 1:
+        return None
+    if devices is None:
+        kind = torch.device(device if device is not None else "cuda").type
+        have = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if kind == "cuda" else [torch.device(kind)])
+        if len(have) < shard:
+            name = "CUDA" if kind == "cuda" else kind
+            raise ValueError(
+                f"tower_shard={shard} but only {len(have)} local {name} "
+                f"device(s); pass devices= to place several shards on "
+                f"one device")
+        devices = have[:shard]
+    return MeshRules(mesh=M.make_local_mesh(1, shard, devices))
+
+
+def shard_tower(params: Sequence[Any], spec: TowerSpec, rules):
+    """Place tower params per their logical axes (no-op without rules):
+    a leaf whose spec names ``model`` becomes a :class:`Shards` of
+    contiguous parts, one on each model position's device; every other
+    leaf goes whole to the first model position's device."""
+    if rules is None:
+        return list(params)
+    mesh = rules.mesh
+    if any(size > 1 for ax, size in mesh.shape.items() if ax != "model"):
+        raise ValueError(f"a tower shards over the model axis only; the "
+                         f"mesh is {mesh.shape}")
+    devs = mesh.axis_devices("model")
+
+    def place(ax, t):
+        t = _whole(t, devs[0])
+        spec_ = rules.param_spec(ax, tuple(t.shape))
+        for dim, part in enumerate(spec_):
+            if part == "model":
+                return Shards([c.clone(memory_format=torch.contiguous_format)
+                               for c in _split(t.detach(), dim, devs)], dim)
+        return t.detach().to(devs[0])
+
+    return map_in_tree_order(place, logical_axes(spec), list(params),
+                             is_leaf=is_axes)
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,11 @@ kernels included; ``none`` keeps everything. Values do not change, only
 memory; under ``torch.no_grad`` or ``inference_mode`` (serving) nothing
 is wrapped. The encoder's blocks are not wrapped, as the JAX package's
 ``encode`` wraps none. The JAX package's sharding constraints are
-the identity on one device and are dropped, and so is its
-``decode_partial_softmax`` branch, which it takes only under mesh rules.
+layout hints whose values do not depend on them, and are dropped; its
+``decode_partial_softmax`` branch is kept: a decode
+step under mesh rules with that flag and full attention splits the KV
+cache's sequence over the ``model`` axis
+(``models/decode_sharded.py``).
 """
 from __future__ import annotations
 
@@ -49,6 +52,8 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mamba, mla, moe
 from repro_torch.models import params as P, rwkv
+from repro_torch.models.decode_sharded import sharded_decode_attention
+from repro_torch.sharding.rules import current_rules
 
 _AUX = ("load_balance", "router_z")
 
@@ -363,6 +368,10 @@ def _decode_block(cfg: ModelConfig, mixer: str, ffn: str, p, x, cache,
     if _mla(cfg, mixer):
         h, cache = mla.mla_decode_attention(cfg, p["mixer"], h, cache,
                                             index)
+    elif (mixer == "attn" and cfg.decode_partial_softmax
+          and cfg.attention == "full" and current_rules() is not None):
+        h, cache = sharded_decode_attention(cfg, p["mixer"], h, cache,
+                                            index, current_rules())
     elif mixer == "attn":
         h, cache = attention.decode_attention(cfg, p["mixer"], h, cache,
                                               index)

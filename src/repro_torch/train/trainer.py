@@ -1,6 +1,7 @@
-"""Training loop of the port: any ported architecture on one device,
-checkpointing + metrics; the counterpart of the JAX package's
-``repro/train/trainer.py`` (no mesh: ``rules`` must be None).
+"""Training loop of the port: any ported architecture, checkpointing +
+metrics; the counterpart of the JAX package's ``repro/train/trainer.py``.
+``rules`` (a ``MeshRules``) runs each step under them; a mesh of more
+than one device raises in ``launch.steps.make_train_step``.
 """
 from __future__ import annotations
 
@@ -44,7 +45,6 @@ def train(job: TrainJob, batches: Iterator[Dict[str, np.ndarray]]
     metrics and the history (the JAX package's record keys, among them
     ``tokens_per_s``)."""
     cfg = job.cfg
-    ST.check_rules(job.rules)
     dev = PRM.resolve_device(job.device)
     spec = T.model_spec(cfg)
     params = PRM.init_tree(spec, torch.Generator(dev).manual_seed(job.seed),

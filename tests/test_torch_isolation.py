@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: every module of ``repro_torch`` imports
-and its tower runs on the CPU with ``jax`` and the JAX package blocked,
+and its tower (also sharded over a model axis of 2) and a mesh-mode VFL
+step run on the CPU with ``jax`` and the JAX package blocked,
 so do the agents a process-mode job spawns, and no source of the port
 (nor ``chip_smoke.py``) imports either."""
 import ast
@@ -36,9 +37,25 @@ from repro_torch.models import tower
 spec = tower.resolve(("embed:tokens=4,dim=16", "attn_block:heads=2",
                       "quantize", "mlp:hidden=16"), 13, 8)
 params = tower.init(spec, torch.Generator().manual_seed(0), "cpu")
+x = torch.randn(3, 13)
 with torch.no_grad():
-    y = tower.apply(spec, params, torch.randn(3, 13))
+    y = tower.apply(spec, params, x)
 assert y.shape == (3, 8) and torch.isfinite(y).all()
+# the sharded paths: the tower over a model axis of 2, a mesh-mode VFL
+# step of 2 masked parties (the CPU device repeated)
+from repro_torch.core import vfl_step
+from repro_torch.launch.mesh import make_mesh
+rules = tower.make_tower_rules(2, devices=["cpu"] * 2)
+with torch.no_grad():
+    ys = tower.apply(spec, tower.shard_tower(params, spec, rules), x, rules)
+assert ys.shape == (3, 8) and torch.isfinite(ys).all()
+mesh = make_mesh((2,), ("pod",), ["cpu"] * 2)
+b = vfl_step.place_party_params(
+    vfl_step.init_party_params(0, 2, 6, (8,), 4), mesh)
+t = vfl_step.mlp_init(torch.Generator().manual_seed(1), (4, 8, 2))
+_, _, loss = vfl_step.make_mesh_vfl_step(mesh, 2)(
+    b, t, torch.randn(2, 16, 6), torch.ones(16, 2), 0)
+assert torch.isfinite(loss)
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[k] is not None)

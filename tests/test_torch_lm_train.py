@@ -19,8 +19,9 @@ from ``make_lm_batches`` go through both packages:
   exactly (recomputation changes memory, not values);
 * ``train()`` on reduced ``h2o-danube-1.8b`` lowers the loss and serves
   its params, as ``tests/test_system.py``'s trainer test; the CLI with
-  ``--device cpu`` in a subprocess; mesh rules raise naming ROADMAP
-  Queue 1 item 10.
+  ``--device cpu`` in a subprocess, and with ``--mesh`` (the (1, 1)
+  mesh) the same final metrics; train and prefill steps on a larger
+  mesh raise naming ROADMAP Queue 1 item 10b.
 """
 import dataclasses
 import os
@@ -45,9 +46,11 @@ from repro.train import optimizer as jO  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.synthetic import make_lm_batches  # noqa: E402
 from repro_torch.launch import steps as tST  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import params as tP  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.sharding.rules import MeshRules  # noqa: E402
 from repro_torch.train import optimizer as tO  # noqa: E402
 from repro_torch.train.trainer import TrainJob, train  # noqa: E402
 
@@ -287,20 +290,24 @@ def test_train_cli_on_cpu(tmp_path):
     assert "qwen3-14b: final metrics {'loss':" in res.stdout
     assert (tmp_path / "ckpt" / "step_00000003.npz").exists()
     assert (tmp_path / "m" / "train_qwen3-14b.csv").exists()
-    res = subprocess.run(cmd[:-4] + ["--mesh"], capture_output=True,
-                         text=True, env=env, timeout=120, cwd=tmp_path)
-    assert res.returncode != 0
-    assert "ROADMAP Queue 1 item 10" in res.stderr
+    # --mesh: the (1, 1) mesh of the device, the same training
+    mesh = subprocess.run(cmd[:-4] + ["--mesh"], capture_output=True,
+                          text=True, env=env, timeout=120, cwd=tmp_path)
+    assert mesh.returncode == 0, mesh.stderr
+    assert mesh.stdout.splitlines()[-1] == res.stdout.splitlines()[-1]
 
 
 def test_mesh_rules_raise():
+    """Train and prefill steps on a mesh of more than one device raise
+    naming the ROADMAP item; a decode step takes any mesh."""
     cfg = get_config("qwen3-14b").reduced()
-    for make in (lambda: tST.make_train_step(cfg, tO.adamw(), rules=object()),
-                 lambda: tST.make_prefill_step(cfg, rules=object()),
-                 lambda: tST.make_decode_step(cfg, rules=object())):
+    rules = MeshRules(make_local_mesh(1, 2, devices=["cpu"] * 2))
+    for make in (lambda: tST.make_train_step(cfg, tO.adamw(), rules=rules),
+                 lambda: tST.make_prefill_step(cfg, rules=rules)):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10"):
+                           match="ROADMAP Queue 1 item 10b"):
             make()
+    tST.make_decode_step(cfg, rules=rules)
 
 
 def test_prefill_and_decode_steps_match_forward():

@@ -246,6 +246,33 @@ def test_clean_close_between_frames_is_not_an_error(kind):
         cb.close()
 
 
+@pytest.mark.parametrize("kind", ["socket", "grpc"])
+def test_close_before_the_server_reads_is_not_an_error(kind, monkeypatch):
+    """Fresh pairs whose receiving side picks its connection up only
+    after the sender has closed: every frame still arrives. A close
+    that left the server's gRPC SETTINGS unread reset the connection,
+    the server's SETTINGS ack then failed, and its read loop ended with
+    both frames unread (every pair lost them)."""
+    cls = SocketCommunicator if kind == "socket" else GrpcCommunicator
+    serve = cls._serve_conn
+
+    def slow_serve(self, conn):
+        time.sleep(0.05)
+        return serve(self, conn)
+
+    monkeypatch.setattr(cls, "_serve_conn", slow_serve)
+    for _ in range(8):
+        ca, cb = _pair(kind, timeout=5.0)
+        try:
+            ca.send("b", "t0", {"x": np.ones(3)})
+            ca.send("b", "t1", {"x": np.ones(3) * 2})
+            ca.close()
+            assert cb.recv("a", "t0").tensor("x")[0] == 1
+            assert cb.recv("a", "t1").tensor("x")[0] == 2
+        finally:
+            cb.close()
+
+
 def test_tcp_nodelay_set_on_outbound():
     ca, cb = _pair("socket")
     try:

@@ -7,7 +7,9 @@
   ``jax.eval_shape`` of ``init_cache``), for every registered arch and
   every ``SHAPES`` entry that ``shape_applicable`` admits; ``text_len``
   and ``cache_axes`` equal too, and each axis tuple as long as its
-  leaf's rank. Mesh rules raise naming the ROADMAP item.
+  leaf's rank. Under mesh rules each stand-in comes beside its spec,
+  and the train and prefill steps raise on a larger mesh naming the
+  ROADMAP item.
 * ``python -m repro_torch.examples.train_lm --steps 4 --device cpu``
   trains the example's small qwen3 (loss falling), checkpoints it and
   passes its resume check; by default it asks for the card."""
@@ -24,6 +26,10 @@ from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: E402
 from repro_torch.configs import shape_applicable  # noqa: E402
 from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.launch import specs as tspecs  # noqa: E402
+from repro_torch.launch import steps as tST  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.sharding.rules import MeshRules  # noqa: E402
+from repro_torch.train import optimizer as tO  # noqa: E402
 
 CASES = [(arch, name) for arch in list_archs() for name in SHAPES
          if shape_applicable(get_config(arch), SHAPES[name])[0]]
@@ -64,11 +70,25 @@ def test_specs_match_jax(arch, shape):
 
 
 def test_mesh_rules_raise():
+    """Under mesh rules every stand-in comes beside its resolved spec
+    (``tests/test_torch_sharding.py`` holds them to the JAX package's);
+    the train and prefill steps those specs feed raise on a mesh of more
+    than one device, naming the ROADMAP item."""
     cfg, sh = get_config("qwen3-14b"), SHAPES["train_4k"]
-    for call in (lambda: tspecs.batch_specs(cfg, sh, object(), True),
-                 lambda: tspecs.cache_specs(cfg, sh, object())):
+    rules = MeshRules(make_local_mesh(1, 2, devices=["cpu"] * 2))
+    batch, specs = tspecs.batch_specs(cfg, sh, rules, True)
+    assert tuple(specs["tokens"]) == ("data", None)
+    assert batch["tokens"].device.type == "meta"
+    cache, specs = tspecs.cache_specs(cfg, sh, rules)
+    assert cache["blocks"]["pos0"]["k"].device.type == "meta"
+    # (layers, batch, cache_seq, kv_heads, head_dim): the sequence takes
+    # the model axis, so the KV heads cannot
+    assert tuple(specs["blocks"]["pos0"]["k"]) == \
+        (None, "data", "model", None, None)
+    for call in (lambda: tST.make_train_step(cfg, tO.adamw(), rules=rules),
+                 lambda: tST.make_prefill_step(cfg, rules=rules)):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10"):
+                           match="ROADMAP Queue 1 item 10b"):
             call()
 
 
