@@ -51,14 +51,18 @@ NVIDIA GPU.
    each kernel, scores within 5e-3 of the plain versions (and, after
    step 9, trains the demo tower through ``VFLJob.fit``: one epoch at
    pipeline depth 1 and one at depth 2, lr 0.3, exactly 3 launches of
-   each kernel a round, finite and falling losses, rounds/s and epoch
-   wall time, the device's busy share over a profiled epoch, the first
-   16 losses within rtol 1e-3 of the same job on the plain versions,
-   and the device time of attention's backward, the plain version's
-   VJP; then the other execution modes: ``socket_proc``, every party
-   its own OS process and CUDA context over localhost TCP, one epoch at
-   depth 1 and 2 with each worker's launches counted by a driver
-   callback (1 of each kernel a round in the master, 2 in the member)
+   each kernel a round and 2 of attention's backward kernel (the
+   tower's attention gradient), finite and falling losses,
+   rounds/s and epoch wall time, the device's busy share over a
+   profiled epoch, the first 16 losses within rtol 1e-3 of the same job
+   on the plain versions, and the tower's attention backward at (512,
+   4, 8, 16): the backward kernel within 1e-4 of the plain VJP, its
+   device time beside the plain VJP's (what the tower ran before) and
+   SDPA's backward alone; then the other execution modes:
+   ``socket_proc``, every party its own OS process and CUDA context
+   over localhost TCP, one epoch at depth 1 and 2 with each worker's
+   launches counted by a driver callback (1 of each kernel a round in
+   the master, 2 in the member, 1 of attention's backward in each)
    and the depth-1 losses within rtol 1e-6 of thread mode's, 16 rounds
    each of ``process`` at depth 2 and ``socket`` and ``grpc`` at depth 1
    against thread mode's losses at the same tolerance, and secure
@@ -203,11 +207,16 @@ NVIDIA GPU.
 10. trains ``granite-moe-3b-a800m`` at full width and depth (32 layers,
    3.37 B params; AdamW and remat "minimal", its config's; f32) after
    every other phase has freed its weights: attention's backward kernel
-   (``csrc/flash_attention_bwd.cu``) first against autograd through the
-   plain attention at granite's training shape, causal, with a window of
-   128 and at head dim 80, dq, dk and dv each within 1e-4 of the largest
-   gradient, and at its edges (rows that see no key, sq < sk, head dims
-   5 to 300, the split-NN tower's call, bf16 within 2e-2); dx and dw of
+   (``csrc/flash_attention_bwd.cu``; on the tensor cores where the
+   forward takes them, from the forward's row log-sum-exp)
+   first against autograd through the plain attention at granite's
+   training shape (the route ``mma_3xtf32`` asserted), causal, with a
+   window of 128 and at head dim 80, dq, dk and dv each within 1e-4 of
+   the largest gradient, and at its edges (rows that see no key, sq <
+   sk, head dims 5 to 300, the split-NN tower's call, bf16 within
+   2e-2), each case's route printed, its log-sum-exp within 1e-5 of the
+   plain one, the forward's output the same to the bit with and without
+   it, and two runs of the backward the same to the bit; dx and dw of
    the grouped matmul's ``Function`` (the forward
    kernel twice) against autograd through ``gmm_ref`` within 2e-4 at the
    step's two shapes. Then one step's loss and gradients with the
@@ -226,8 +235,10 @@ NVIDIA GPU.
    (train with a ``ckpt_dir``, restore, the same loss within 1e-5, the
    params bit for bit); ``python -m repro_torch.examples.train_lm`` on
    the card for 8 steps (its falling loss and resume check, exact
-   launches); and the times of the backward kernel and of the
-   grouped matmul at the step's dx and dw shapes; then (phases 10g-10j)
+   launches); and the times of the backward kernel (beside the f32-FMA
+   route it replaced there, in turns, the plain VJP and SDPA's backward
+   alone) and of the grouped matmul at the step's dx and dw shapes;
+   then (phases 10g-10j)
    the recurrences' backward kernels (``csrc/rwkv6_wkv_bwd.cu``,
    ``csrc/selective_scan_bwd.cu``), through the ``autograd.Function``s
    that ``rwkv6_wkv`` and ``selective_scan`` apply to CUDA inputs that
@@ -252,7 +263,8 @@ NVIDIA GPU.
    and member step within rtol 1e-5 / atol 1e-6 of the unsharded,
    exactly m attention launches an attn_block a pass, the kernel at the
    per-shard shapes (512, 2, 8, 16) and (512, 1, 8, 16) within 2e-5 of
-   its plain version and timed beside it and SDPA, and ms of a sharded
+   its plain version, exactly m launches of its backward kernel an
+   attn_block a member step, and timed beside it and SDPA, and ms of a sharded
    and an unsharded member step; mesh-mode VFL (``make_mesh_vfl_step``)
    at the paper's widths (1,345 master features, the member's 381 padded
    to them, bottom 256 -> 128, top (128, 64, 19), batch 4,096), 2 pods,
@@ -270,7 +282,8 @@ NVIDIA GPU.
    grouped matmul 384 a step), 8 SGD steps (step ms, tokens/s, peak
    memory, whether the loss fell); and attention forward and backward
    and the grouped matmul (forward, dx, dw) at that path's shapes
-   against their plain versions, timed beside SDPA and ``torch.bmm``;
+   against their plain versions, timed beside SDPA (attention's backward
+   beside SDPA's backward alone) and ``torch.bmm``;
 12. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time (bytes over the memory rate, or operations over
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
@@ -438,8 +451,10 @@ ATT_GRAD_CASES = [
     (LM_BATCH, 24, 8, LM_SEQ, 80, 0),
 ]
 # and at its edges: rows that see no key (sq > sk with a window; causal
-# and not), sq < sk, head dims in the widths of 32, 256 and 512, a
-# bidirectional short tower call, bf16 (against the plain VJP in f32)
+# and not; bf16), sq < sk, head dims in the widths of 32, 256 and 512
+# and of no compiled width (5, 20), one head a kv group (the tensor-core
+# route's direct dk / dv), a bidirectional short tower call, bf16
+# (against the plain VJP in f32)
 ATT_GRAD_EDGE_CASES = [
     # b, h, kvh, sq, sk, dh, causal, window, dtype
     (1, 4, 2, 300, 100, 32, True, 37, "float32"),
@@ -449,7 +464,10 @@ ATT_GRAD_EDGE_CASES = [
     (1, 2, 2, 40, 40, 300, False, 0, "float32"),
     (512, 4, 4, 8, 8, 16, False, 0, "float32"),
     (1, 4, 2, 100, 100, 5, False, 0, "float32"),
+    (1, 4, 2, 100, 90, 20, False, 0, "float32"),
+    (2, 4, 4, 200, 200, 128, False, 0, "float32"),
     (1, 4, 2, 256, 256, 64, True, 0, "bfloat16"),
+    (1, 4, 2, 130, 70, 80, True, 30, "bfloat16"),
 ]
 
 # quantize_int8: the path's (8R, 64), a shape where bytes dominate (256
@@ -1071,8 +1089,9 @@ def train_slice(torch, dev, cfg, master, members):
     one epoch each (every matched row once, in batches of 512), which
     must launch each kernel exactly 3 times a round (the forward of the
     master's bottom tower, the member's send, the member's VJP recomputed
-    at its current params), with finite losses whose last 16 average
-    below the first 16. At depth 1 the same epoch twice more, timed and
+    at its current params) and the attention's backward kernel exactly 2
+    times a round (the master's bottom tower and the member's VJP), with
+    finite losses whose last 16 average below the first 16. At depth 1 the same epoch twice more, timed and
     under ``torch.profiler`` (the device's busy share). Then
     the first 16 rounds again with every block on its plain version
     (``kernel=ref``) on the card: the losses within rtol 1e-3 of the
@@ -1086,9 +1105,7 @@ def train_slice(torch, dev, cfg, master, members):
     import numpy as np
     from repro_torch.core.party import VFLJob
     from repro_torch.core.protocols.driver import StopAtStep
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import quantize as qz
-    counters = {"flash_attention": fa.launches, "quantize_int8": qz.launches}
+    counters = _split_nn_counters()
     measured, launches, all_losses = {}, {}, {}
     check = None
 
@@ -1114,9 +1131,10 @@ def train_slice(torch, dev, cfg, master, members):
         job = VFLJob(tcfg, master, members, mode="thread", device=dev)
         hist, wall, got = counted_fit(job, f"split_nn_train_d{depth}")
         rounds = len(hist)
-        if got != {name: 3 * rounds for name in counters}:
+        if got != split_nn_launches(3 * rounds, 2 * rounds):
             raise AssertionError(f"training at depth {depth} launched {got} "
-                                 f"in {rounds} rounds, expected 3 a round")
+                                 f"in {rounds} rounds, expected 3 forward "
+                                 f"and 2 backward launches a round")
         losses = np.array([h["loss"] for h in hist])
         all_losses[depth] = losses
         if not np.isfinite(losses).all():
@@ -1176,7 +1194,7 @@ def train_slice(torch, dev, cfg, master, members):
     if not rel <= 1e-3:
         raise AssertionError("training losses disagree with the plain "
                              "versions")
-    measured["attention_backward_ms"] = attention_backward_ms(torch, dev)
+    measured["attention_backward"] = tower_attention_backward(torch, dev)
     log("split-NN training " + json.dumps(measured))
     del launches["split_nn_train_plain"]
     return launches, measured, all_losses
@@ -1215,7 +1233,17 @@ class WorkerLaunches:
 def _split_nn_counters() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
-    return {"flash_attention": fa.launches, "quantize_int8": qz.launches}
+    return {"flash_attention": fa.launches, "quantize_int8": qz.launches,
+            "flash_attention_bwd": fa.bwd_launches}
+
+
+def split_nn_launches(forwards: int, backwards: int) -> dict:
+    """The launches of each split-NN kernel a party makes for
+    ``forwards`` tower forwards of which ``backwards`` are differentiated
+    (one attention and one quantize a forward, the attention's backward
+    kernel a backward)."""
+    return {"flash_attention": forwards, "quantize_int8": forwards,
+            "flash_attention_bwd": backwards}
 
 
 def _two_members(members):
@@ -1240,7 +1268,8 @@ def demo_modes(torch, dev, cfg, master, members, thread_losses):
     depth 1 and at depth 2: epoch wall time and rounds/s (all rounds,
     and from round 16) from the master's round clock, each worker's
     launches through ``WorkerLaunches`` (the master's bottom forward, 1 a
-    round; the member's send and VJP, 2 a round), and the depth-1 losses
+    round; the member's send and VJP, 2 a round; the attention's backward
+    kernel 1 a round in each), and the depth-1 losses
     within rtol 1e-6 of the thread mode's (``thread_losses``, from phase
     4c). Then 16 rounds each of ``process`` at depth 2 and ``socket`` and
     ``grpc`` (threads) at depth 1, whose losses must match the thread
@@ -1283,12 +1312,13 @@ def demo_modes(torch, dev, cfg, master, members, thread_losses):
                                            .read_text())
                           for role in ("master", "member0")}
         rounds = len(hist)
-        want = {"master": rounds, "member0": 2 * rounds}
+        want = {"master": split_nn_launches(rounds, rounds),
+                "member0": split_nn_launches(2 * rounds, rounds)}
         for role, got in per_worker.items():
-            if got != {name: want[role] for name in got}:
+            if got != want[role]:
                 raise AssertionError(
                     f"socket_proc depth {depth}: {role} launched {got} in "
-                    f"{rounds} rounds, expected {want[role]} of each")
+                    f"{rounds} rounds, expected {want[role]}")
         total = {name: sum(w[name] for w in per_worker.values())
                  for name in per_worker["master"]}
         launches[f"split_nn_train_socket_proc_d{depth}"] = total
@@ -1596,13 +1626,15 @@ def cluster_phase(torch, thread_losses, n_matched: int, items: int):
     per_agent = {}
     for f in sorted(launches_dir.iterdir()):
         per_agent[f.name.split("-")[0]] = json.loads(f.read_text())
-    expect = {"master": fit["steps"] + eval_rounds + serve["batches"],
-              "member0": 2 * fit["steps"] + eval_rounds + serve["batches"]}
-    for role, want_n in expect.items():
-        if per_agent.get(role) != {k: want_n for k in _split_nn_counters()}:
+    others = eval_rounds + serve["batches"]
+    expect = {"master": split_nn_launches(fit["steps"] + others,
+                                          fit["steps"]),
+              "member0": split_nn_launches(2 * fit["steps"] + others,
+                                           fit["steps"])}
+    for role, want in expect.items():
+        if per_agent.get(role) != want:
             raise AssertionError(f"cluster {role} launched "
-                                 f"{per_agent.get(role)}, expected {want_n} "
-                                 f"of each")
+                                 f"{per_agent.get(role)}, expected {want}")
     launches = {k: sum(a[k] for a in per_agent.values())
                 for k in _split_nn_counters()}
     m = {"wall_s": wall, "ready_s_by_host": ready, "fit": fit,
@@ -1718,36 +1750,116 @@ def cluster_phase(torch, thread_losses, n_matched: int, items: int):
     return launches, measured
 
 
-def attention_backward_ms(torch, dev) -> float:
-    """Device time of one backward of the tower's attention at the
-    path's shape, (512, 4, 8, 16) f32: the plain attention's VJP
-    (``models/tower.py``), summed over its kernels under
-    ``torch.profiler``, a mean over 20 calls."""
+def attention_bwd_bound(q, k, causal: bool) -> dict:
+    """The attention backward's bound: q, k, v, o, dO read once, dq, dk,
+    dv written once; five products of 2 dh a visible (query, key) pair
+    (S again, dP, dV, dK, dQ) at the rate of f32-accurate products."""
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    pairs = (sq * (sq + 1) / 2 if causal and sq == sk else sq * sk)
+    return _bound((4 * q.numel() + 4 * k.numel()) * q.element_size(),
+                  5 * 2.0 * dh * pairs * b * h, product_rate(q.dtype))
+
+
+def kernel_times(torch, fn, calls: int = 20) -> dict:
+    """Device ms a call of each kernel ``fn`` launches (by name, as
+    ``torch.profiler`` records it), a mean over ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        # a kernel may come back as more than one entry
+        key = e.key.replace("(anonymous namespace)::", "")
+        name = key.split("(")[0].removeprefix("void ").split("::")[-1][:60]
+        if _device_us(e) > 0:
+            out[name] = out.get(name, 0.0) + _device_us(e) / 1e3 / calls
+    return out
+
+
+def sdpa_backward_ms(torch, q, k, v, do, causal: bool, reps: int,
+                     trials: int) -> dict:
+    """SDPA's backward alone: one forward of
+    ``scaled_dot_product_attention`` with k and v expanded to q's heads
+    (not every backend takes GQA), then only its backward op,
+    ``autograd.grad`` with the graph retained. ``library_ms``: its
+    kernels' device time under ``torch.profiler`` (``kernel_times``
+    summed), as the kernel's own ``ms`` is device time;
+    ``library_eager_ms``: the eager call, the autograd engine's host
+    time included."""
+    import torch.nn.functional as F
+    g = q.shape[1] // k.shape[1]
+    leaves = [q.detach().clone().requires_grad_()] + [
+        t.repeat_interleave(g, dim=1).requires_grad_() for t in (k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+    def backward():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    kernels = kernel_times(torch, backward)
+    return {"library_ms": sum(kernels.values()),
+            "library_kernels_ms": kernels,
+            "library_eager_ms": eager_ms(backward, reps=reps,
+                                         trials=trials),
+            "library_op": out.grad_fn.name()}
+
+
+def tower_attention_backward(torch, dev) -> dict:
+    """The tower's attention backward at the path's shape, (512, 4, 8,
+    16) f32, bidirectional: the backward kernel (its route, held to the
+    plain VJP within 1e-4 of each gradient's largest entry) in a
+    replayed graph and eagerly; the plain attention's VJP that the tower
+    differentiated before it took the kernel, its device time summed
+    over its kernels under ``torch.profiler``, a mean over 20 calls
+    (the forward recomputed inside it is part of its cost); SDPA's
+    backward alone."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(13)
     shape = (ROUNDS_ROWS, HEADS, TOKENS, DIM // HEADS)
-    q, k, v = (torch.randn(shape, generator=g).to(dev).requires_grad_()
-               for _ in range(3))
-    grad = torch.randn(shape, generator=g).to(dev)
+    q, k, v, grad = (torch.randn(shape, generator=g).to(dev)
+                     for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
 
-    def backward():
-        out = ref.attention_ref(q, k, v, causal=False)
-        return torch.autograd.grad(out, (q, k, v), grad)
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, o, grad, causal=False,
+                                      lse=lse)
+    err = grad_rel_err(kernel(), ref.attention_vjp_ref(q, k, v, grad,
+                                                       causal=False))
+    if not err <= 1e-4:
+        raise AssertionError("attention's backward kernel disagrees with "
+                             "the plain VJP at the tower's shape")
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def plain():
+        out = ref.attention_ref(qs, ks, vs, causal=False)
+        return torch.autograd.grad(out, (qs, ks, vs), grad)
 
     for _ in range(3):
-        backward()
+        plain()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
-            backward()
+            plain()
         torch.cuda.synchronize()
-    # the forward recomputed inside the backward is part of its cost
     total = sum(_device_us(e) for e in prof.key_averages()
                 if e.device_type is not None
                 and "cuda" in str(e.device_type).lower())
-    return total / 1e3 / 20
+    out = {"shape": list(shape), "variant": fa.bwd_variant(q, k, v),
+           "max_abs_err": err, "ms": graph_ms(kernel, reps=50, trials=10),
+           "eager_ms": eager_ms(kernel, reps=50, trials=10),
+           "plain_ms": total / 1e3 / 20,
+           "plain_eager_ms": eager_ms(plain, reps=20, trials=5),
+           **sdpa_backward_ms(torch, q, k, v, grad, False, 20, 5),
+           **attention_bwd_bound(q, k, False)}
+    log(f"flash_attention_bwd split-NN tower {shape} bidirectional f32: "
+        f"{out}")
+    return out
 
 
 def default_tower_check(torch, dev, cfg, master, members) -> float:
@@ -3097,59 +3209,84 @@ def grad_rel_err(got, exp) -> float:
                 / e.float().abs().max()).item() for a, e in zip(got, exp))
 
 
-def check_attention_grads(torch, dev) -> dict:
-    """Phase 10a: the backward kernel's dq, dk, dv against autograd
-    through the plain attention (``ref.attention_vjp_ref``) at granite's
-    training shapes, each within 1e-4 of the largest gradient: causal,
-    causal with a window of 128, and head dim 80; then at the kernel's
-    edges (ATT_GRAD_EDGE_CASES), bf16 within 2e-2. Returns the training
-    shapes' errors."""
+def check_attention_grads(torch, dev) -> tuple:
+    """Phase 10a: the backward kernel's dq, dk, dv, from the forward's
+    log-sum-exp, against autograd through the plain attention
+    (``ref.attention_vjp_ref``) at granite's training shapes, each
+    within 1e-4 of the largest gradient: causal (the tensor-core route,
+    ``mma_3xtf32``, asserted), causal with a window of 128, and head dim
+    80; then at the kernel's edges (ATT_GRAD_EDGE_CASES), bf16 within
+    2e-2. At each case: the forward's output the same to the bit with and
+    without the log-sum-exp, the log-sum-exp within 1e-5 of the plain
+    version's (relative, past 1), the route printed, and two runs of the
+    backward the same to the bit (at granite's shape also with o and dO
+    4 bytes off 16-byte alignment). Returns (the training shapes' errors,
+    the route of every case)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(14)
-    errs = {}
-    for b, h, kvh, s, dh, window in ATT_GRAD_CASES:
-        q, do = (torch.randn((b, h, s, dh), generator=g).to(dev)
-                 for _ in range(2))
-        k, v = (torch.randn((b, kvh, s, dh), generator=g).to(dev)
-                for _ in range(2))
-        o = fa.flash_attention(q, k, v, causal=True, window=window)
-        got = fa.flash_attention_bwd(q, k, v, o, do, causal=True,
-                                     window=window)
-        exp = ref.attention_vjp_ref(q, k, v, do, causal=True, window=window)
-        torch.cuda.synchronize()
-        err = grad_rel_err(got, exp)
-        log(f"flash_attention_bwd q {(b, h, s, dh)} k/v {(b, kvh, s, dh)} "
-            f"causal window {window} f32: max err / max grad {err:.3e} "
-            f"(tol 1e-4)")
-        if not err <= 1e-4:
-            raise AssertionError("attention's backward kernel disagrees "
-                                 "with the plain version's VJP")
-        errs[f"dh{dh}_window{window}"] = err
-        del q, k, v, o, do, got, exp
-    for b, h, kvh, sq, sk, dh, causal, window, dt in ATT_GRAD_EDGE_CASES:
+    errs, routes = {}, {}
+    cases = [(b, h, kvh, s, s, dh, True, window, "float32")
+             for b, h, kvh, s, dh, window in ATT_GRAD_CASES]
+    for i, (b, h, kvh, sq, sk, dh, causal, window, dt) in enumerate(
+            cases + ATT_GRAD_EDGE_CASES):
         dtype = getattr(torch, dt)
         q, do = (torch.randn((b, h, sq, dh), generator=g).to(dtype).to(dev)
                  for _ in range(2))
         k, v = (torch.randn((b, kvh, sk, dh), generator=g).to(dtype).to(dev)
                 for _ in range(2))
-        o = fa.flash_attention(q, k, v, causal=causal, window=window)
+        o_alone = fa.flash_attention(q, k, v, causal=causal, window=window)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
         got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                     window=window)
+                                     window=window, lse=lse)
+        again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       window=window, lse=lse)
+        _, lse_ref = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
         exp = ref.attention_vjp_ref(*(t.float() for t in (q, k, v, do)),
                                     causal=causal, window=window)
         torch.cuda.synchronize()
         err = grad_rel_err(got, exp)
+        lse_err = ((lse - lse_ref).abs()
+                   / lse_ref.abs().clamp(min=1)).max().item()
+        same_o = torch.equal(o, o_alone)
+        same_bwd = all(torch.equal(a, c) for a, c in zip(got, again))
+        route = fa.bwd_variant(q, k, v)
         # bf16: the forward's bf16 tolerance
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        log(f"flash_attention_bwd {(b, h, kvh, sq, sk, dh)} causal "
-            f"{causal} window {window} {dt}: max err / max grad "
-            f"{err:.3e} (tol {tol})")
+        case = (b, h, kvh, sq, sk, dh, causal, window, dt)
+        log(f"flash_attention_bwd {case} ({route}): max err / max grad "
+            f"{err:.3e} (tol {tol}); lse rel err {lse_err:.3e} (tol 1e-5); "
+            f"o the same to the bit without lse {same_o}; two runs the same "
+            f"to the bit {same_bwd}")
         if not err <= tol:
             raise AssertionError("attention's backward kernel disagrees "
-                                 "with the plain version's VJP at an edge")
-        del q, k, v, o, do, got, exp
-    return errs
+                                 f"with the plain version's VJP at {case}")
+        if not (lse_err <= 1e-5 and same_o and same_bwd):
+            raise AssertionError(f"attention at {case}: the log-sum-exp, "
+                                 f"the output or a rerun differs")
+        if i == 0 and route != "mma_3xtf32":
+            raise AssertionError(f"granite's training shape took the {route} "
+                                 f"route")
+        if i == 0:
+            # o and dO 4 bytes into their storage: the wrapper copies them
+            # to 16-byte aligned memory for the route's staging
+            o_off, do_off = (torch.empty(t.numel() + 1, dtype=t.dtype,
+                                         device=dev)[1:].view(t.shape)
+                             .copy_(t) for t in (o, do))
+            shifted = fa.flash_attention_bwd(q, k, v, o_off, do_off,
+                                             causal=causal, window=window,
+                                             lse=lse)
+            if not all(torch.equal(a, c) for a, c in zip(got, shifted)):
+                raise AssertionError("the backward differs on misaligned "
+                                     "o and dO")
+            del o_off, do_off, shifted
+        routes[str(case)] = route
+        if i < len(cases):
+            errs[f"dh{dh}_window{window}"] = err
+        del q, k, v, o, o_alone, lse, lse_ref, do, got, again, exp
+    return errs, routes
 
 
 def gmm_train_shapes(cfg):
@@ -3534,12 +3671,16 @@ def train_lm_example(torch, dev, card: str) -> dict:
 
 
 def time_lm_kernels(torch, dev, cfg, card: str) -> tuple:
-    """Phase 10f: the backward kernel at granite's training shape (causal)
-    beside autograd through the plain attention, with SDPA's forward and
-    backward for scale (no single PyTorch call computes the backward
-    alone); the grouped matmul at the four shapes of a training step's
+    """Phase 10f: the backward kernel at granite's training shape (causal;
+    the tensor-core route) beside autograd through the plain attention,
+    SDPA's backward alone and SDPA's forward and backward, and the f32-FMA
+    route it replaced there (the C entry point
+    ``repro_flash_attention_bwd``, which still takes every shape), in
+    turns, with each of its kernels' device time; the forward with and
+    without the log-sum-exp, in turns; the grouped matmul at the four shapes of a training step's
     dx and dw beside ``gmm_ref`` and ``torch.bmm``."""
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
@@ -3549,23 +3690,42 @@ def time_lm_kernels(torch, dev, cfg, card: str) -> tuple:
              for _ in range(2))
     k, v = (torch.randn((b, kvh, s, dh), generator=g).to(dev)
             for _ in range(2))
-    o = fa.flash_attention(q, k, v, causal=True)
-    pairs = s * (s + 1) / 2
-    # q, k, v, o, dO read once, dq, dk, dv written once; five products
-    # of 2 dh a (query, key) pair over the causal pairs (s.k again, dO.v,
-    # p^T dO, dS k, dS^T q)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty(3 * b * h * s, dtype=torch.float32, device=dev)
+    lib = _build.library()
+
     # (the plain VJP runs autograd's engine, which is timed eagerly, not
     # captured in a graph)
     def kernel():
-        return fa.flash_attention_bwd(q, k, v, o, do, causal=True)
-    att = {"ms": graph_ms(kernel, reps=20, trials=10),
+        return fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+
+    def fma_route():
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), b, h, kvh, s, s, dh, 0, 1, 0, dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "flash_attention_bwd (f32 FMAs)")
+    def forward(lse: bool):
+        return lambda: fa.flash_attention(q, k, v, causal=True,
+                                          return_lse=lse)
+    turns = [graph_ms(fn, reps=20, trials=10)
+             for fn in (fma_route, kernel, kernel, fma_route)]
+    fwd = [graph_ms(forward(lse), reps=20, trials=10)
+           for lse in (False, True, True, False)]
+    att = {"variant": fa.bwd_variant(q, k, v), "ms": min(turns[1:3]),
+           "fma_route_ms": min(turns[0], turns[3]), "turns_ms": turns,
+           # the forward without and with the log-sum-exp, in turns
+           "forward_ms": min(fwd[0], fwd[3]),
+           "forward_lse_ms": min(fwd[1:3]), "forward_turns_ms": fwd,
+           "kernels_ms": kernel_times(torch, kernel),
            "eager_ms": eager_ms(kernel, reps=20, trials=10),
            "plain_ms": eager_ms(
                lambda: ref.attention_vjp_ref(q, k, v, do, causal=True),
                reps=5, trials=5),
-           "library_ms": None,
-           **_bound((4 * q.numel() + 4 * k.numel()) * 4,
-                    5 * 2.0 * dh * pairs * b * h, product_rate(q.dtype))}
+           **sdpa_backward_ms(torch, q, k, v, do, True, 20, 5),
+           **attention_bwd_bound(q, k, True)}
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
 
     def sdpa_fwd_bwd():
@@ -3575,7 +3735,7 @@ def time_lm_kernels(torch, dev, cfg, card: str) -> tuple:
     att["sdpa_fwd_bwd_ms"] = eager_ms(sdpa_fwd_bwd, reps=20, trials=5)
     log(f"flash_attention_bwd granite training q {tuple(q.shape)} k/v "
         f"{tuple(k.shape)} causal f32 ({card}): {att}")
-    del q, k, v, o, do, qs, ks, vs
+    del q, k, v, o, lse, do, qs, ks, vs, dq, dk, dv, stats
     gmm_t = {}
     for name, (e, c, d, f) in gmm_train_shapes(cfg):
         x = torch.randn((e, c, d), generator=g).to(dev)
@@ -3613,14 +3773,15 @@ def lm_train_phase(torch, dev) -> tuple:
     log(f"{LM_ARCH} training: depth {cfg.n_layers} of {full.n_layers} "
         f"layers; every width as published; AdamW, remat "
         f"{cfg.remat_policy!r}, f32, ({LM_BATCH}, {LM_SEQ}) batches")
-    att_errs = check_attention_grads(torch, dev)
+    att_errs, att_routes = check_attention_grads(torch, dev)
     gmm_err = check_gmm_grads(torch, dev, cfg)
     versus = lm_kernel_vs_plain(torch, dev, cfg, card)
     trained = lm_train(torch, dev, cfg, card)
     ckpt = lm_checkpoint(torch, dev, card)
     example = train_lm_example(torch, dev, card)
     att_t, gmm_t = time_lm_kernels(torch, dev, cfg, card)
-    out = {"attention_grad_errs": att_errs, "gmm_grad_err": gmm_err,
+    out = {"attention_grad_errs": att_errs,
+           "attention_grad_routes": att_routes, "gmm_grad_err": gmm_err,
            "kernel_vs_plain": versus, "train": trained, "checkpoint": ckpt,
            "train_lm_example": example,
            "attention_bwd": att_t, "gmm_bwd": gmm_t,
@@ -3886,8 +4047,8 @@ def sharded_tower_check(torch, dev, name, blocks, in_dim, out_dim,
     TOWER_SHARDS on this card repeated, against the unsharded tower on
     the same params, within rtol 1e-5 / atol 1e-6 (the JAX package's
     test's); each counted run's attention launches (one an attn_block a
-    position, forward and step alike); the ms of a sharded and an
-    unsharded member step."""
+    position, forward and step alike, and in the step one of its backward
+    kernel); the ms of a sharded and an unsharded member step."""
     from repro_torch.core.protocols import split_nn as sn
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import tower as twr
@@ -3924,16 +4085,20 @@ def sharded_tower_check(torch, dev, name, blocks, in_dim, out_dim,
         torch.cuda.synchronize()
         fwd_launches = fa.launches.count
         fa.launches.reset()
+        fa.bwd_launches.reset()
         new = sn.member_step(spec, sharded, x, du, lr, rules)
         torch.cuda.synchronize()
         step_launches = fa.launches.count
+        bwd_launches = fa.bwd_launches.count
         launches[f"sharded_tower_{name}_m{m}"] = {
-            "flash_attention": fwd_launches + step_launches}
-        if (fwd_launches, step_launches) != (m * n_attn, m * n_attn):
+            "flash_attention": fwd_launches + step_launches,
+            "flash_attention_bwd": bwd_launches}
+        if (fwd_launches, step_launches, bwd_launches) != (m * n_attn,) * 3:
             raise AssertionError(
                 f"{name} over model {m}: attention launched "
                 f"{fwd_launches} (forward) and {step_launches} (step) "
-                f"times, expected {m * n_attn} each")
+                f"times, its backward {bwd_launches}, expected "
+                f"{m * n_attn} each")
         fwd_err = _allclose_trees(torch, [got], [plain], f"{name} m{m} "
                                   f"forward")
         new_err = _allclose_trees(torch, twr._whole(new, dev), plain_new,
@@ -3941,6 +4106,7 @@ def sharded_tower_check(torch, dev, name, blocks, in_dim, out_dim,
         out[f"m{m}"] = {"forward_max_abs_err": fwd_err,
                         "step_max_abs_err": new_err,
                         "attention_launches": fwd_launches + step_launches,
+                        "attention_bwd_launches": bwd_launches,
                         "step_ms": step_ms(lambda: sn.member_step(
                             spec, sharded, x, du, lr, rules))}
     log(f"sharded tower {name} {blocks} ({in_dim} -> {out_dim}, "
@@ -4154,19 +4320,17 @@ def vfl_llm_kernels(torch, dev, cfg, card: str) -> dict:
                                                       0, g)
     q, do = (torch.randn(qs, generator=g).to(dev) for _ in range(2))
     k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
-    o = fa.flash_attention(q, k, v, causal=True)
-    got = fa.flash_attention_bwd(q, k, v, o, do, causal=True)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
     exp = ref.attention_vjp_ref(q, k, v, do, causal=True)
     torch.cuda.synchronize()
     bwd_err = grad_rel_err(got, exp)
     if not bwd_err <= 1e-4:
         raise AssertionError("attention's backward kernel disagrees with "
                              "the plain VJP at the VFL x LLM shape")
-    b, h, s, dh = qs
-    pairs = s * (s + 1) / 2
 
     def kernel():
-        return fa.flash_attention_bwd(q, k, v, o, do, causal=True)
+        return fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
 
     def sdpa_fwd_bwd():
@@ -4175,15 +4339,15 @@ def vfl_llm_kernels(torch, dev, cfg, card: str) -> dict:
         return torch.autograd.grad(y, (qr, kr, vr), do)
     out["attention_bwd"] = {
         "shape": [list(qs), list(ks)], "max_abs_err": bwd_err,
+        "variant": fa.bwd_variant(q, k, v),
         "ms": graph_ms(kernel, reps=50, trials=10),
         "eager_ms": eager_ms(kernel, reps=50, trials=10),
         "plain_ms": eager_ms(
             lambda: ref.attention_vjp_ref(q, k, v, do, causal=True),
             reps=20, trials=5),
-        "library_ms": None,
+        **sdpa_backward_ms(torch, q, k, v, do, True, 50, 10),
         "sdpa_fwd_bwd_ms": eager_ms(sdpa_fwd_bwd, reps=20, trials=5),
-        **_bound((4 * q.numel() + 4 * k.numel()) * 4,
-                 5 * 2.0 * dh * pairs * b * h, product_rate(q.dtype))}
+        **attention_bwd_bound(q, k, True)}
     log(f"flash_attention_bwd VFL x LLM q {qs} k/v {ks} causal f32 "
         f"({card}): {out['attention_bwd']}")
     for name, (e, c, d, f) in gmm_shapes:
@@ -4524,15 +4688,15 @@ def main() -> int:
             by_path[name][run] = c
     errs["moe_gmm"] = max(moe_errs[name] for name, _ in
                           gmm_path_shapes(moe_cfg))
-    errs["flash_attention_bwd"] = max(lm["attention_grad_errs"].values())
+    errs["flash_attention_bwd"] = max(
+        *lm["attention_grad_errs"].values(),
+        train["attention_backward"]["max_abs_err"])
     for name in ("rwkv6_wkv", "selective_scan"):
         errs[f"{name}_bwd"] = rec["grad"][name]["max_abs_err"]
     extra = {
         # the attention kernel's times at the zoo's prefill shapes
         "flash_attention": {
             "inf_in_v_granite": errs["attention_inf_in_v"],
-            # the plain attention's VJP, two a training round
-            "train_backward_ms": train["attention_backward_ms"],
             "granite_prefill": dict(moe_att,
                                     max_abs_err=moe_errs["attention"]),
             "h2o_prefill": dict(h2o_att, max_abs_err=h2o_err),
@@ -4580,6 +4744,8 @@ def main() -> int:
             "grad_errs": lm["attention_grad_errs"],
             "launches_per_train_step": lm["train"]["launches_per_step"][
                 "flash_attention_bwd"],
+            "routes": lm["attention_grad_routes"],
+            "split_nn_tower": train["attention_backward"],
             "vfl_llm": shard["vfl_llm_kernels"]["attention_bwd"]},
         # each gradient's largest difference over its largest magnitude
         # at the path's shape, against the plain VJP in float64

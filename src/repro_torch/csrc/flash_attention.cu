@@ -9,6 +9,12 @@
 // the denominator clamped at 1e-30, GQA through kv head `ih / group`,
 // output cast to q's dtype.
 //
+// Asked for (`repro_flash_attention_lse`, under grad), each kernel also
+// writes each row's log-sum-exp of its masked, scaled scores, m + log(l)
+// from the running max and denominator it already keeps, for the
+// backward's tensor-core route; `o` is computed the same way, to the
+// bit, whether or not it is asked for.
+//
 // What bounds it on this card: at the zoo's prefill shapes the products
 // q.k and p.v. jamba's (4, 64, 512, 128) causal call is 17.2 GFLOP over
 // the causal pairs against 84 MB: operations bound it, at 0.104 ms on
@@ -100,14 +106,20 @@
 
 #include <type_traits>
 
+#include "attention_tiles.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
 
+using attn::accumulate;
+using attn::key_tiles;
+using attn::scores;
+using attn::stage;
 using mma::store;
 using mma::to_f32;
 
 constexpr int kThreads = 128;      // threads per block, both kernels
+static_assert(kThreads == attn::kTileThreads, "the tiles' staging loops");
 constexpr float kNegInf = -1e30f;
 
 // ------------------------------------------------------------ SIMT path
@@ -120,6 +132,7 @@ template <int DH, int DPL, int BK, bool EXACT, typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse,
                       int n_pairs, int h, int kvh, int sq, int sk,
                       int dh_arg, int causal, int window, float scale,
                       int pairs, int qt) {
@@ -223,14 +236,17 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DPL; ++d)
       if (d0 + d < dh) store(orow + d, acc[d] / denom);
+    // every lane of the row holds its m and l
+    if (lse != nullptr && d0 == 0)
+      lse[(int64_t)pair * sq + qi] = m + logf(l);
   }
 }
 
 template <int DH, int DPL, int BK, bool EXACT, typename T>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        void* o, int b, int h, int kvh, int sq, int sk,
-                        int dh, int causal, int window, float scale,
-                        cudaStream_t stream) {
+                        void* o, float* lse, int b, int h, int kvh,
+                        int sq, int sk, int dh, int causal, int window,
+                        float scale, cudaStream_t stream) {
   constexpr int LANES = DH / DPL;
   constexpr int slots = kThreads / LANES;          // query rows per block
   // pairs whose k and v tiles fit the shared buffers together
@@ -244,28 +260,28 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   attention_simt_kernel<DH, DPL, BK, EXACT, T>
       <<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n_pairs, h, kvh, sq,
-      sk, dh, causal, window, scale, pairs, qt);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, n_pairs, h, kvh,
+      sq, sk, dh, causal, window, scale, pairs, qt);
   return cudaGetLastError();
 }
 
 template <int DH, int DPL, bool EXACT, typename T>
 cudaError_t simt(const void* q, const void* k, const void* v, void* o,
-                 int b, int h, int kvh, int sq, int sk, int dh, int causal,
-                 int window, float scale, cudaStream_t stream) {
+                 float* lse, int b, int h, int kvh, int sq, int sk, int dh,
+                 int causal, int window, float scale, cudaStream_t stream) {
   // a 16-key tile of one pair must fit its half of the shared buffers
   if constexpr (16 * DH > kSmemFloats / 2) {
-    return launch_simt<DH, DPL, 8, EXACT, T>(q, k, v, o, b, h, kvh, sq, sk,
-                                             dh, causal, window, scale,
+    return launch_simt<DH, DPL, 8, EXACT, T>(q, k, v, o, lse, b, h, kvh, sq,
+                                             sk, dh, causal, window, scale,
                                              stream);
   } else {
     if (sk <= 8)
-      return launch_simt<DH, DPL, 8, EXACT, T>(q, k, v, o, b, h, kvh, sq,
-                                               sk, dh, causal, window,
+      return launch_simt<DH, DPL, 8, EXACT, T>(q, k, v, o, lse, b, h, kvh,
+                                               sq, sk, dh, causal, window,
                                                scale, stream);
-    return launch_simt<DH, DPL, 16, EXACT, T>(q, k, v, o, b, h, kvh, sq,
-                                              sk, dh, causal, window, scale,
-                                              stream);
+    return launch_simt<DH, DPL, 16, EXACT, T>(q, k, v, o, lse, b, h, kvh,
+                                              sq, sk, dh, causal, window,
+                                              scale, stream);
   }
 }
 
@@ -281,163 +297,15 @@ struct MmaTile {
                 "head dim must be whole k-steps");
 };
 
-// s (16 x 8 NT per warp) = q (16 rows at q_s) . k (8 NT keys at k_s)^T
-template <int DH, int NT, int LD>
-__device__ __forceinline__ void scores(float (&s)[NT][4], const float* q_s,
-                                       const float* k_s, int g, int t,
-                                       float scale) {
-#pragma unroll
-  for (int kk = 0; kk < DH; kk += 8) {
-    float a[4];
-    mma::load_a_tf32(a, q_s + kk, LD, g, t, scale);  // q scaled in f32
-    const mma::Split<4> as = mma::split(a);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float b[2];
-      mma::load_b_tf32_nk(b, k_s + j * 8 * LD + kk, LD, g, t);
-      mma::mma_3xtf32(s[j], as, mma::split(b));
-    }
-  }
-}
-
-template <int DH, int NT, int LD>
-__device__ __forceinline__ void scores(float (&s)[NT][4],
-                                       const __nv_bfloat16* q_s,
-                                       const __nv_bfloat16* k_s, int g,
-                                       int t, float scale) {
-#pragma unroll
-  for (int kk = 0; kk < DH; kk += 16) {
-    uint32_t a[4];
-    mma::load_a_bf16(a, q_s + kk, LD, g, t);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t b[2];
-      mma::load_b_bf16_nk(b, k_s + j * 8 * LD + kk, LD, g, t);
-      mma::mma_bf16(s[j], a, b);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] *= scale;
-}
-
-// acc (16 x DH per warp) += p (16 x 8 NT keys) . v (8 NT keys at v_s).
-// The tensor cores round each sum they return toward zero, so the
-// tile's products go into a fresh fragment for every 8 dims of the
-// output, added to acc in f32 (to nearest): the truncation then grows
-// with a tile's 3 NT sums, not with all 3 sk / 8 of the row (at sk 4096,
-// 1,536 sums into one accumulator put a peaked softmax's output 2x past
-// 2e-5 in the CPU emulation of tests/test_torch_tf32x3.py). SAFE splits
-// P and V with the inf-safe `split<true>` (the key loop's second pass,
-// see the kernel), otherwise with the NaN-only split.
-template <bool SAFE, int DT, int NT, int LD>
-__device__ __forceinline__ void accumulate(float (&acc)[DT][4],
-                                           const float (&p)[NT][4],
-                                           const float* v_s, int g, int t) {
-  // A's column t is key 8j + 2t and its column t + 4 key 8j + 2t + 1:
-  // the score fragment's own layout, so no shuffle; V's B rows follow
-  mma::Split<4> ps[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
-    ps[j] = mma::split<SAFE>(a);
-  }
-  const float* vr = v_s + 2 * t * LD + g;
-#pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float* vj = vr + 8 * j * LD + 8 * n;
-      const float b[2] = {vj[0], vj[LD]};
-      mma::mma_3xtf32(part, ps[j], mma::split<SAFE>(b));
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-  }
-}
-
-// bf16: the output's rounding to bf16 (2^-9) dwarfs the truncation, so
-// the products go straight into acc
-template <bool SAFE, int DT, int NT, int LD>
-__device__ __forceinline__ void accumulate(float (&acc)[DT][4],
-                                           const float (&p)[NT][4],
-                                           const __nv_bfloat16* v_s, int g,
-                                           int t) {
-#pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
-    const uint32_t a[4] = {mma::pack_bf16(p[2 * j][0], p[2 * j][1]),
-                           mma::pack_bf16(p[2 * j][2], p[2 * j][3]),
-                           mma::pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
-                           mma::pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      uint32_t b[2];
-      mma::load_b_bf16_kn(b, v_s + 16 * j * LD + 8 * n, LD, g, t);
-      mma::mma_bf16(acc[n], a, b);
-    }
-  }
-}
-
-// `rows` rows of dh elements from row `row0` of src into a padded
-// shared tile of DH columns, zero-filled from row `limit` on and from
-// column dh on. Rows whose bytes are a multiple of 16 go by `cp.async`
-// (dh a multiple of 16 bytes' elements keeps every row 16-byte
-// aligned); others element by element, synchronously.
-template <int DH, int LD, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
-                                      int row0, int rows, int limit,
-                                      int dh) {
-  constexpr int V = 16 / sizeof(T);  // elements a 16-byte chunk
-  constexpr int CPR = DH / V;        // chunks a row
-  if (dh % V == 0) {
-    for (int i = threadIdx.x; i < rows * CPR; i += kThreads) {
-      const int r = i / CPR;
-      const int c = (i % CPR) * V;
-      const bool in = row0 + r < limit && c < dh;
-      mma::cp_async16(dst + r * LD + c,
-                      in ? src + (int64_t)(row0 + r) * dh + c : src, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * DH; i += kThreads) {
-      const int r = i / DH;
-      const int c = i % DH;
-      if (row0 + r < limit && c < dh)
-        dst[r * LD + c] = src[(int64_t)(row0 + r) * dh + c];
-      else
-        store(dst + r * LD + c, 0.f);
-    }
-  }
-}
-
-// The key tiles [t_lo, t_hi) of BK keys that the query tile starting at
-// row q0 walks: those some row of it can see.
-__host__ __device__ __forceinline__ void key_tiles(int q0, int bq, int sq,
-                                                   int sk, int causal,
-                                                   int window, int bk,
-                                                   int& t_lo, int& t_hi) {
-  // plain comparisons: this runs on the host too
-  const int q_last = (q0 + bq < sq ? q0 + bq : sq) - 1;
-  int lo = window && q0 - window + 1 > 0 ? q0 - window + 1 : 0;
-  int hi = causal && q_last + 1 < sk ? q_last + 1 : sk;
-  const int last_lo = q_last - window + 1 > 0 ? q_last - window + 1 : 0;
-  if (window && last_lo >= hi) {
-    lo = 0;   // the last row sees no key: walk them all, as the
-    hi = sk;  // reference's softmax over -1e30 everywhere does
-  }
-  t_lo = lo / bk;
-  t_hi = (hi + bk - 1) / bk;
-}
-
 // grid: (b * h, query tiles); blockIdx.y = 0 is the last query tile.
 // EXACT: dh == DH; otherwise the dims past dh are masked.
 template <int DH, bool EXACT, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int h,
-                     int kvh, int sq, int sk, int dh_arg, int causal,
-                     int window, float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int h, int kvh, int sq,
+                     int sk, int dh_arg, int causal, int window,
+                     float scale) {
   // a fix-up kernel launched after this one (its programmatic dependent)
   // may start once every block of this grid has reached here
   asm volatile("griddepcontrol.launch_dependents;");
@@ -582,6 +450,8 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int qi = row_g + 8 * r;
+    if (lse != nullptr && t == 0 && qi < sq)
+      lse[(int64_t)pair * sq + qi] = m[r] + logf(sum);
     if (qi < sq) {
       T* orow = og + (int64_t)qi * dh + 2 * t;
 #pragma unroll
@@ -691,8 +561,8 @@ hidden_keys_kernel(const T* __restrict__ v, T* __restrict__ o, int h,
 
 template <int DH, bool EXACT, typename T>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int b, int h, int kvh, int sq, int sk, int dh,
-                       int causal, int window, float scale,
+                       float* lse, int b, int h, int kvh, int sq, int sk,
+                       int dh, int causal, int window, float scale,
                        cudaStream_t stream) {
   using Tile = MmaTile<DH, T>;
   constexpr int BQ = Tile::kBQ, BK = Tile::kBK;
@@ -708,8 +578,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   attention_mma_kernel<DH, EXACT, T>
       <<<grid, kThreads, Tile::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, kvh, sq, sk, dh,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, h, kvh, sq, sk,
+      dh, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // the fix-up runs only where some query tile skips a key tile
@@ -750,26 +620,26 @@ int variant(const void* q, const void* k, const void* v, int sq, int dh) {
 
 template <int DH, int DPL, bool EXACT, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int h, int kvh, int sq, int sk, int dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   float* lse, int b, int h, int kvh, int sq, int sk, int dh,
+                   int causal, int window, float scale, cudaStream_t stream) {
   if constexpr (DH <= kMaxMmaDh) {
     if (variant(q, k, v, sq, dh))
-      return launch_mma<DH, EXACT, T>(q, k, v, o, b, h, kvh, sq, sk, dh,
-                                      causal, window, scale, stream);
+      return launch_mma<DH, EXACT, T>(q, k, v, o, lse, b, h, kvh, sq, sk,
+                                      dh, causal, window, scale, stream);
   }
-  return simt<DH, DPL, EXACT, T>(q, k, v, o, b, h, kvh, sq, sk, dh, causal,
-                                 window, scale, stream);
+  return simt<DH, DPL, EXACT, T>(q, k, v, o, lse, b, h, kvh, sq, sk, dh,
+                                 causal, window, scale, stream);
 }
 
 // Each dh runs in the narrowest compiled width DH >= dh, its columns
 // past dh zero (so they add nothing to q.k or p.v) and never stored.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int b, int h, int kvh, int sq, int sk, int dh,
-                     int causal, int window, float scale,
+                     float* lse, int b, int h, int kvh, int sq, int sk,
+                     int dh, int causal, int window, float scale,
                      cudaStream_t stream) {
 #define REPRO_ATT(DH, DPL, EXACT)                                          \
-  return launch<DH, DPL, EXACT, T>(q, k, v, o, b, h, kvh, sq, sk, dh,      \
+  return launch<DH, DPL, EXACT, T>(q, k, v, o, lse, b, h, kvh, sq, sk, dh, \
                                    causal, window, scale, stream)
 #define REPRO_ATT_WIDTH(DH, DPL)                                           \
   if (dh == DH) REPRO_ATT(DH, DPL, true);                                  \
@@ -788,21 +658,27 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
-extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int b, int h,
-                                     int kvh, int sq, int sk, int dh,
-                                     int dtype, int causal, int window,
-                                     float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. lse: null, or b * h * sq f32 that
+// get each row's log-sum-exp of its masked, scaled scores, m + log(l)
+// (-1e30 in f32 for a row that sees no key: the backward knows such rows
+// by position). `o` is the same to the bit either way. Returns the
+// launch's cudaError_t.
+extern "C" int repro_flash_attention_lse(const void* q, const void* k,
+                                         const void* v, void* o, void* lse,
+                                         int b, int h, int kvh, int sq,
+                                         int sk, int dh, int dtype,
+                                         int causal, int window,
+                                         float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh || sq <= 0 || sk <= 0 ||
       dh <= 0 || dh > kMaxDh)
     return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, b, h, kvh, sq, sk, dh, causal,
+    return dispatch<float>(q, k, v, o, l, b, h, kvh, sq, sk, dh, causal,
                            window, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, h, kvh, sq, sk, dh,
+    return dispatch<__nv_bfloat16>(q, k, v, o, l, b, h, kvh, sq, sk, dh,
                                    causal, window, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -20,44 +20,93 @@
 // 512, 64), k/v (4, 8, 512, 64), causal) five products of 2 s s dh over
 // the causal pairs, 8.1 GFLOP, against 31 MB read and written: the
 // operations, 0.049 ms at the 165 TFLOP/s of f32-accurate 3xTF32 on the
-// tensor cores (0.12 ms at the 67 TFLOP/s of the f32 FMAs this kernel
-// runs).
+// tensor cores. On the split-NN tower's path ((512, 4, 8, 16),
+// bidirectional) the bytes, and below them launch latency.
 //
-// The design is the simple one, f32 FMAs on staged tiles, no tensor
-// cores (a later redesign's work). The forward writes no log-sum-exp,
-// so the backward recomputes it: two kernels on the stream, in order.
+// Two routes, chosen at the forward's gate:
 //
-// * `attention_bwd_dq_kernel`, one block a (batch, head) and a query
-//   tile of B rows. It stages q * scale and dO, forms D from dO and the
-//   forward's output, walks the key tiles that some row of the tile can
-//   see (all of them where a row sees no key) once for each row's max
-//   and denominator (an online softmax, as the forward's), writes them
-//   and D for the second kernel, then walks them again: recompute P,
-//   dP = dO V^T, dS, and dQ += dS K. dQ is the block's own.
-// * `attention_bwd_dkv_kernel`, one block a (batch, kv head) and a key
-//   tile of B keys. It stages K and V once and walks every query head
-//   of the group and every query tile that can see the key tile,
-//   recomputing P from the first kernel's row statistics: dV += P^T dO
-//   and dK += dS^T (q * scale). Each block owns its keys' dK and dV, so
-//   the group's sum is a loop in the block, not a race between blocks.
+// * sq > 16, dh <= 128, 16-byte aligned operands: the tensor cores
+//   (`mma.sync` from mma_tf32.cuh, m16n8k8 in 3xTF32 for f32, m16n8k16
+//   for bf16, whose P and dS are rounded to bf16 before their products;
+//   the tiles' staging and products of attention_tiles.cuh). The
+//   forward writes each row's log-sum-exp under grad, so P = exp(S -
+//   lse) needs no statistics pass. Two kernels, in order, and with GQA
+//   a third:
+//   - `attention_bwd_dq_mma_kernel`, one block of 4 warps a (batch,
+//     head) and 64 query rows (16 a warp), the forward's tile: q, dO
+//     and O staged once, and a prologue forms D = rowsum(dO o O) of its
+//     rows (for the second kernel too); then over the key tiles the
+//     forward walks (32 keys, double-buffered by `cp.async`): S = (q
+//     scale) K^T, P, dP = dO V^T, dS = P o (dP - D) where the mask lets
+//     the score through, and dQ += dS K, whose products go into a fresh
+//     fragment a tile added in f32 (the tensor cores truncate each sum);
+//     dq = scale dQ. The three products are taken again here rather than
+//     adding dQ by float atomics from the other kernel.
+//   - `attention_bwd_dkv_mma_kernel`, one block of 4 warps a (batch,
+//     query head) and 64 keys (16 a warp): K and V staged once; then
+//     every query tile (32 rows, double-buffered with its log-sum-exps
+//     and D) whose walk takes this key tile: S^T = K (q scale)^T and
+//     dP^T = V dO^T with the warp's keys as rows, P^T, dS^T, dV += P^T
+//     dO and dK += dS^T q in fresh fragments a step; dk = scale dK.
+//     With GQA each head's share goes to f32 scratch, and
+//     `attention_bwd_group_sum_kernel` adds the group's shares in
+//     order: a block of a whole group would give a causal grid's first
+//     key tile group times the mean block's work in a grid of one wave.
+//   Both kernels' tiles leave 3 blocks an SM at dh 64 in f32 (70 KB of
+//   shared memory, at most 168 registers). In f32 the products split
+//   their operands more cheaply than the forward (`split3`), since the
+//   splits and not the tensor cores bound the inner loops.
+//   A row that sees no key (a window shorter than sq - sk allows one)
+//   averages every key in the reference; its lse, -1e30 + log(sk),
+//   rounds to -1e30 in f32, so the dK / dV kernel knows such a row by
+//   position and gives each of its keys the weight 1 / sk (its dS is 0
+//   everywhere). Masked scores get dS = 0 and weight 0; keys past sk
+//   and query rows past sq (lse +inf) none. Tiles are skipped exactly
+//   where the forward's `key_tiles` skips them. Special values are not
+//   carried through: a NaN comes out NaN where it meets a product, an
+//   inf of v or k may give NaN where the plain VJP gives +-inf (its
+//   gradients are NaN in those rows and columns in either case).
+// * otherwise (the split-NN tower's 8 tokens, MLA's head dim 192): f32
+//   FMAs on staged tiles, which recompute the softmax statistics (this
+//   route ignores the lse), two kernels in order:
+//   - `attention_bwd_dq_kernel`, one block a (batch, head) and a query
+//     tile of B rows. It stages q * scale and dO, forms D from dO and
+//     the forward's output, walks the key tiles that some row of the
+//     tile can see (all of them where a row sees no key) once for each
+//     row's max and denominator (an online softmax, as the forward's),
+//     writes them and D for the second kernel, then walks them again:
+//     recompute P, dP = dO V^T, dS, and dQ += dS K. dQ is the block's
+//     own.
+//   - `attention_bwd_dkv_kernel`, one block a (batch, kv head) and a key
+//     tile of B keys. It stages K and V once and walks every query head
+//     of the group and every query tile that can see the key tile,
+//     recomputing P from the first kernel's row statistics: dV += P^T
+//     dO and dK += dS^T (q * scale). Each block owns its keys' dK and
+//     dV, so the group's sum is a loop in the block, not a race between
+//     blocks.
+//   Tiles are skipped exactly where the forward skips them: a (query
+//   tile, key tile) pair in which no pair of positions is visible adds
+//   exp(-1e30 - m) = 0 to every row's softmax, unless a row of the
+//   query tile sees no key at all (then every tile is walked, as in the
+//   forward). A block has 256 threads as 16 x 16; a thread holds the
+//   (ty + 16 i, tx + 16 j) entries of a B x B score tile and the (ty +
+//   16 i, tx + 16 j) entries of a B x DH accumulator. Staged rows are
+//   padded by one float, so a column read by neighbouring threads
+//   spreads over the banks. B is 64 for head dims up to 128, 32 to 256,
+//   16 to 512 (a block's staged tiles then stay near 130-170 KB), and 16
+//   wherever sq <= 16 (the split-NN tower's 8 tokens: a 64-row tile
+//   would compute 8x the rows).
 //
-// Tiles are skipped exactly where the forward skips them: a (query
-// tile, key tile) pair in which no pair of positions is visible adds
-// exp(-1e30 - m) = 0 to every row's softmax, unless a row of the query
-// tile sees no key at all (then every tile is walked, as in the
-// forward). A block has 256 threads as 16 x 16; a thread holds the
-// (ty + 16 i, tx + 16 j) entries of a B x B score tile and the (ty +
-// 16 i, tx + 16 j) entries of a B x DH accumulator. Staged rows are
-// padded by one float, so a column read by neighbouring threads spreads
-// over the banks. B is 64 for head dims up to 128, 32 to 256, 16 to 512
-// (a block's staged tiles then stay near 130-170 KB). Every sum is taken
-// in f32 in a fixed order: the row statistics over the key tiles, dQ
-// over the key tiles, dK and dV over the group's heads and query tiles.
+// No float atomics in either route: every sum is taken in f32 in a
+// fixed order (the row statistics and dQ over the key tiles, dK and dV
+// over the group's heads and query tiles), so two runs give the same
+// bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -69,9 +118,16 @@ constexpr int kThreads = 256;      // 16 x 16
 constexpr float kNegInf = -1e30f;  // the reference's masked score
 constexpr int kMaxDh = 512;
 
-template <int DH>
+// B: the tile's rows and keys; 64 for head dims up to 128, 32 to 256, 16
+// to 512, and 16 for queries of 16 rows or fewer (the split-NN tower's 8
+// tokens, VFL x LLM's 16), whose rows a 64-row tile would mostly waste
+constexpr int wide_tile(int dh) {
+  return dh <= 128 ? 64 : (dh <= 256 ? 32 : 16);
+}
+
+template <int DH, int BT>
 struct Tile {
-  static constexpr int B = DH <= 128 ? 64 : (DH <= 256 ? 32 : 16);
+  static constexpr int B = BT;
   static constexpr int R = B / 16;   // score rows (and columns) a thread
   static constexpr int CD = DH / 16; // head dims of a row a thread holds
   static constexpr int LD = DH + 1;  // a staged row of q, dO, k or v
@@ -114,10 +170,10 @@ __device__ __forceinline__ float max16(float x) {
 
 // rows x dh of `src` (row stride dh) into a B x DH tile times `mul`,
 // zero past the rows and the head dim
-template <int DH, typename T>
+template <int DH, int BT, typename T>
 __device__ __forceinline__ void stage(float* dst, const T* src, int rows,
                                       int dh, float mul) {
-  using Tl = Tile<DH>;
+  using Tl = Tile<DH, BT>;
   for (int e = threadIdx.x; e < Tl::B * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
     dst[r * Tl::LD + d] =
@@ -126,12 +182,12 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int rows,
 }
 
 // s[i][j] = a[ty + 16 i] . b[tx + 16 j] over the tiles' DH columns
-template <int DH>
+template <int DH, int BT>
 __device__ __forceinline__ void products(const float* a, const float* b,
-                                         float (&s)[Tile<DH>::R]
-                                                   [Tile<DH>::R],
+                                         float (&s)[Tile<DH, BT>::R]
+                                                   [Tile<DH, BT>::R],
                                          int ty, int tx) {
-  using Tl = Tile<DH>;
+  using Tl = Tile<DH, BT>;
 #pragma unroll
   for (int i = 0; i < Tl::R; ++i)
 #pragma unroll
@@ -151,7 +207,7 @@ __device__ __forceinline__ void products(const float* a, const float* b,
 }
 
 // stats: [3][b * h * sq] f32, each row's max, 1 / denominator and D
-template <int DH, typename T>
+template <int DH, int BT, typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
@@ -159,7 +215,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float* __restrict__ stats, int h, int kvh, int sq,
                         int sk, int dh, int causal, int window, float scale,
                         int64_t n_rows) {
-  using Tl = Tile<DH>;
+  using Tl = Tile<DH, BT>;
   constexpr int B = Tl::B, R = Tl::R, CD = Tl::CD, LD = Tl::LD,
                 LP = Tl::LP;
   extern __shared__ float smem[];
@@ -176,8 +232,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t qoff = ((int64_t)bh * sq + i0) * dh;
   const int64_t kvoff = ((int64_t)bi * kvh + kh) * sk * dh;
 
-  stage<DH>(qs, q + qoff, rows, dh, scale);
-  stage<DH>(dos, dout + qoff, rows, dh, 1.f);
+  stage<DH, BT>(qs, q + qoff, rows, dh, scale);
+  stage<DH, BT>(dos, dout + qoff, rows, dh, 1.f);
   // D = rowsum(dO o O), a row over the 16 lanes of its ty
   float dr[R];
 #pragma unroll
@@ -204,9 +260,9 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int j0 = kt * B, cols = min(B, sk - j0);
     if (!tile_active(i0, i1, j0, j0 + cols, causal, window, sk)) continue;
     __syncthreads();
-    stage<DH>(ks, k + kvoff + (int64_t)j0 * dh, cols, dh, 1.f);
+    stage<DH, BT>(ks, k + kvoff + (int64_t)j0 * dh, cols, dh, 1.f);
     __syncthreads();
-    products<DH>(qs, ks, s, ty, tx);
+    products<DH, BT>(qs, ks, s, ty, tx);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int qi = i0 + ty + 16 * i;
@@ -252,11 +308,11 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int j0 = kt * B, cols = min(B, sk - j0);
     if (!tile_active(i0, i1, j0, j0 + cols, causal, window, sk)) continue;
     __syncthreads();
-    stage<DH>(ks, k + kvoff + (int64_t)j0 * dh, cols, dh, 1.f);
-    stage<DH>(vs, v + kvoff + (int64_t)j0 * dh, cols, dh, 1.f);
+    stage<DH, BT>(ks, k + kvoff + (int64_t)j0 * dh, cols, dh, 1.f);
+    stage<DH, BT>(vs, v + kvoff + (int64_t)j0 * dh, cols, dh, 1.f);
     __syncthreads();
-    products<DH>(qs, ks, s, ty, tx);
-    products<DH>(dos, vs, dp, ty, tx);
+    products<DH, BT>(qs, ks, s, ty, tx);
+    products<DH, BT>(dos, vs, dp, ty, tx);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int qi = i0 + ty + 16 * i;
@@ -294,7 +350,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DH, typename T>
+template <int DH, int BT, typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
@@ -303,7 +359,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          T* __restrict__ dk, T* __restrict__ dv, int h,
                          int kvh, int sq, int sk, int dh, int causal,
                          int window, float scale, int64_t n_rows) {
-  using Tl = Tile<DH>;
+  using Tl = Tile<DH, BT>;
   constexpr int B = Tl::B, R = Tl::R, CD = Tl::CD, LD = Tl::LD,
                 LP = Tl::LP;
   extern __shared__ float smem[];
@@ -323,8 +379,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int64_t kvoff = ((int64_t)bk * sk + j0) * dh;
 
-  stage<DH>(ks, k + kvoff, cols, dh, 1.f);
-  stage<DH>(vs, v + kvoff, cols, dh, 1.f);
+  stage<DH, BT>(ks, k + kvoff, cols, dh, 1.f);
+  stage<DH, BT>(vs, v + kvoff, cols, dh, 1.f);
   float acc_k[R][CD], acc_v[R][CD];
 #pragma unroll
   for (int i = 0; i < R; ++i)
@@ -341,8 +397,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         continue;
       __syncthreads();
       const int64_t qoff = ((int64_t)bh * sq + i0) * dh;
-      stage<DH>(qs, q + qoff, rows, dh, scale);
-      stage<DH>(dos, dout + qoff, rows, dh, 1.f);
+      stage<DH, BT>(qs, q + qoff, rows, dh, scale);
+      stage<DH, BT>(dos, dout + qoff, rows, dh, 1.f);
       for (int r = threadIdx.x; r < B; r += kThreads) {
         const int64_t row = (int64_t)bh * sq + i0 + r;
         // a padding row gets weight 0: P = exp(.) * 0
@@ -351,8 +407,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         rd[r] = r < rows ? stats[2 * n_rows + row] : 0.f;
       }
       __syncthreads();
-      products<DH>(qs, ks, s, ty, tx);
-      products<DH>(dos, vs, dp, ty, tx);
+      products<DH, BT>(qs, ks, s, ty, tx);
+      products<DH, BT>(dos, vs, dp, ty, tx);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const int r = ty + 16 * i, qi = i0 + r;
@@ -400,25 +456,25 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DH, typename T>
+template <int DH, int BT, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, void* dq, void* dk,
                    void* dv, float* stats, int b, int h, int kvh, int sq,
                    int sk, int dh, int causal, int window, float scale,
                    cudaStream_t stream) {
-  using Tl = Tile<DH>;
+  using Tl = Tile<DH, BT>;
   static bool done_dq[64] = {}, done_dkv[64] = {};
-  cudaError_t err = mma::allow_smem(attention_bwd_dq_kernel<DH, T>,
+  cudaError_t err = mma::allow_smem(attention_bwd_dq_kernel<DH, BT, T>,
                                     Tl::kDqSmem, done_dq);
   if (err != cudaSuccess) return err;
-  err = mma::allow_smem(attention_bwd_dkv_kernel<DH, T>, Tl::kDkvSmem,
+  err = mma::allow_smem(attention_bwd_dkv_kernel<DH, BT, T>, Tl::kDkvSmem,
                         done_dkv);
   if (err != cudaSuccess) return err;
   const int q_tiles = (sq + Tl::B - 1) / Tl::B;
   const int k_tiles = (sk + Tl::B - 1) / Tl::B;
   if (q_tiles > 65535 || k_tiles > 65535) return cudaErrorInvalidValue;
   const int64_t n_rows = (int64_t)b * h * sq;
-  attention_bwd_dq_kernel<DH, T>
+  attention_bwd_dq_kernel<DH, BT, T>
       <<<dim3(b * h, q_tiles), kThreads, Tl::kDqSmem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(o),
@@ -426,7 +482,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
           sq, sk, dh, causal, window, scale, n_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkv_kernel<DH, T>
+  attention_bwd_dkv_kernel<DH, BT, T>
       <<<dim3(b * kvh, k_tiles), kThreads, Tl::kDkvSmem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout), stats,
@@ -444,15 +500,573 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      int sk, int dh, int causal, int window, float scale,
                      cudaStream_t st) {
 #define REPRO_ATT_BWD(DH)                                                  \
-  if (dh <= DH)                                                            \
-  return launch<DH, T>(q, k, v, o, dout, dq, dk, dv, stats, b, h, kvh, sq, \
-                       sk, dh, causal, window, scale, st)
+  if (dh <= DH) {                                                          \
+    if (sq <= 16)                                                          \
+      return launch<DH, 16, T>(q, k, v, o, dout, dq, dk, dv, stats, b, h,  \
+                               kvh, sq, sk, dh, causal, window, scale, st); \
+    return launch<DH, wide_tile(DH), T>(q, k, v, o, dout, dq, dk, dv,      \
+                                        stats, b, h, kvh, sq, sk, dh,      \
+                                        causal, window, scale, st);        \
+  }
+  REPRO_ATT_BWD(16);
   REPRO_ATT_BWD(32);
   REPRO_ATT_BWD(64);
   REPRO_ATT_BWD(128);
   REPRO_ATT_BWD(256);
   REPRO_ATT_BWD(kMaxDh);
 #undef REPRO_ATT_BWD
+  return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------ tensor-core route
+// sq > 16 and dh <= 128 with 16-byte aligned operands (the forward's
+// tensor-core gate): `attention_bwd_dq_mma_kernel`, then
+// `attention_bwd_dkv_mma_kernel`, both 4 warps on `mma.sync`.
+constexpr int kTcThreads = attn::kTileThreads;  // 4 warps
+constexpr int kMaxMmaDh = 128;
+
+template <int DH, typename T>
+struct MmaBwdTile {
+  static constexpr int kLd = DH + 16 / static_cast<int>(sizeof(T));
+  // dQ kernel: 64 query rows a block (16 a warp), key tiles of BK
+  static constexpr int kBQ = 64;
+  static constexpr int kBK = 32;
+  static constexpr int kDqSmem =
+      (2 * kBQ + 4 * kBK) * kLd * static_cast<int>(sizeof(T));
+  // the prologue stages O in the key ring's second slot
+  static_assert(2 * kBK >= kBQ, "O's tile must fit a slot of the ring");
+  // dK / dV kernel: 64 keys a block (16 a warp), query tiles of BQKV
+  static constexpr int kBKV = 64;
+  static constexpr int kBQKV = 32;
+  static constexpr int kDkvSmem =
+      (2 * kBKV + 4 * kBQKV) * kLd * static_cast<int>(sizeof(T)) +
+      4 * kBQKV * static_cast<int>(sizeof(float));
+  static_assert(DH % 16 == 0, "head dim must be whole k-steps");
+  // blocks of the larger kernel that an SM's shared memory holds (up to
+  // 3: 12 warps an SM hide more of the loads' and products' latency),
+  // which bounds the registers a thread may take
+  static constexpr int kSmemMax = kDqSmem > kDkvSmem ? kDqSmem : kDkvSmem;
+  static constexpr int kFit = (228 * 1024) / (kSmemMax + 1024);
+  static constexpr int kBlocks = kFit > 3 ? 3 : (kFit < 1 ? 1 : kFit);
+};
+
+// The backward's f32 products: attention_tiles.cuh's `scores` and
+// `accumulate` with a cheaper 3xTF32 split. The inner loops split every
+// operand they load, and at 7 instructions an element (the forward's
+// split, which keeps NaN and rounds both parts) the splits and not the
+// tensor cores set the pace; here big is x rounded to TF32 by an integer
+// add and mask and small = x - big, exact in f32, whose 13 low bits the
+// tensor cores drop: 3 instructions, x - big - small below 2^-21 |x|
+// (2^-23 with small rounded). A NaN still comes out NaN (it lands in
+// small); an inf gives NaN, as the route's header says.
+template <int N>
+__device__ __forceinline__ mma::Split<N> split3(const float (&x)[N]) {
+  mma::Split<N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s.big[i] = mma::round_tf32(x[i]);
+    s.small[i] = __float_as_uint(x[i] - __uint_as_float(s.big[i]));
+  }
+  return s;
+}
+
+// `asm volatile` keeps the `mma`s in program order, and each of a
+// product's three passes waits for the one before it in the same
+// accumulator; so each pass is issued for every independent accumulator
+// before the next (the same sums in the same order as mma_3xtf32's).
+template <int DH, int NT, int LD>
+__device__ __forceinline__ void bscores(float (&s)[NT][4], const float* a_s,
+                                        const float* b_s, int g, int t,
+                                        float scale) {
+#pragma unroll
+  for (int kk = 0; kk < DH; kk += 8) {
+    float a[4];
+    mma::load_a_tf32(a, a_s + kk, LD, g, t, scale);
+    const mma::Split<4> as = split3(a);
+    mma::Split<2> bs[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float b[2];
+      mma::load_b_tf32_nk(b, b_s + j * 8 * LD + kk, LD, g, t);
+      bs[j] = split3(b);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma::mma_tf32(s[j], as.small, bs[j].big);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma::mma_tf32(s[j], as.big, bs[j].small);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma::mma_tf32(s[j], as.big, bs[j].big);
+  }
+}
+
+template <int DH, int NT, int LD>
+__device__ __forceinline__ void bscores(float (&s)[NT][4],
+                                        const __nv_bfloat16* a_s,
+                                        const __nv_bfloat16* b_s, int g,
+                                        int t, float scale) {
+  attn::scores<DH, NT, LD>(s, a_s, b_s, g, t, scale);
+}
+
+// fresh partials a call, NG output column tiles at a time
+template <int DT, int NT, int LD>
+__device__ __forceinline__ void baccumulate(float (&acc)[DT][4],
+                                            const float (&p)[NT][4],
+                                            const float* v_s, int g, int t) {
+  constexpr int NG = DT % 4 == 0 ? 4 : 2;
+  mma::Split<4> ps[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+    ps[j] = split3(a);
+  }
+  const float* vr = v_s + 2 * t * LD + g;
+#pragma unroll
+  for (int n0 = 0; n0 < DT; n0 += NG) {
+    float part[NG][4];
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mma::Split<2> bs[NG];
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const float* vj = vr + 8 * j * LD + 8 * (n0 + i);
+        const float b[2] = {vj[0], vj[LD]};
+        bs[i] = split3(b);
+      }
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+        mma::mma_tf32(part[i], ps[j].small, bs[i].big);
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+        mma::mma_tf32(part[i], ps[j].big, bs[i].small);
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+        mma::mma_tf32(part[i], ps[j].big, bs[i].big);
+    }
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + i][e] += part[i][e];
+  }
+}
+
+template <int DT, int NT, int LD>
+__device__ __forceinline__ void baccumulate(float (&acc)[DT][4],
+                                            const float (&p)[NT][4],
+                                            const __nv_bfloat16* v_s, int g,
+                                            int t) {
+  attn::accumulate<false, DT, NT, LD>(acc, p, v_s, g, t);
+}
+
+// dq = scale dS K over the key tiles the forward walks. grid: (b * h,
+// query tiles), blockIdx.y = 0 the last query tile. Also writes D =
+// rowsum(dO o O) of its rows to `dvec`, for the dK / dV kernel after it.
+template <int DH, typename T>
+__global__ void __launch_bounds__(kTcThreads, (MmaBwdTile<DH, T>::kBlocks))
+attention_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ o,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            float* __restrict__ dvec, T* __restrict__ dq,
+                            int h, int kvh, int sq, int sk, int dh,
+                            int causal, int window, float scale) {
+  using Tl = MmaBwdTile<DH, T>;
+  constexpr int BQ = Tl::kBQ, BK = Tl::kBK, LD = Tl::kLd;
+  constexpr int NT = BK / 8;   // 8-key column tiles of the scores
+  constexpr int DT = DH / 8;   // 8-dim column tiles of dq
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* qs = reinterpret_cast<T*>(tc_smem);  // [BQ][LD]
+  T* dos = qs + BQ * LD;                // [BQ][LD]
+  T* ring = dos + BQ * LD;              // [2][K, V][BK][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int pair = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = pair / h;
+  const int kh = (pair % h) / (h / kvh);
+  const int64_t qoff = (int64_t)pair * sq * dh;
+  const int64_t kv_off = ((int64_t)b * kvh + kh) * sk * dh;
+  const T* kg = k + kv_off;
+  const T* vg = v + kv_off;
+  const int q_last = min(q0 + BQ, sq) - 1;
+  int t_lo, t_hi;
+  attn::key_tiles(q0, BQ, sq, sk, causal, window, BK, t_lo, t_hi);
+
+  // q, dO, and O in the ring's second slot (free until the key loop's
+  // first prefetch), then the first key tile in its first slot
+  T* os = ring + 2 * BK * LD;
+  attn::stage<DH, LD>(qs, q + qoff, q0, BQ, sq, dh);
+  attn::stage<DH, LD>(dos, dout + qoff, q0, BQ, sq, dh);
+  attn::stage<DH, LD>(os, o + qoff, q0, BQ, sq, dh);
+  mma::cp_async_commit();
+  attn::stage<DH, LD>(ring, kg, t_lo * BK, BK, sk, dh);
+  attn::stage<DH, LD>(ring + BK * LD, vg, t_lo * BK, BK, sk, dh);
+  mma::cp_async_commit();
+
+  const int wrow = warp * 16;
+  const int row_g = q0 + wrow + g;
+  // rows g and g + 8 of the warp: the log-sum-exp (+inf past sq, so that
+  // P = 0 there) and D
+  float lr[2], dr[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row_g + 8 * r;
+    lr[r] = qi < sq ? lse[(int64_t)pair * sq + qi] : INFINITY;
+  }
+  mma::cp_async_wait<1>();  // q, dO and O have landed
+  __syncthreads();
+  // D of the warp's 16 rows, a row over the warp's lanes: each lane's
+  // columns in order, then a butterfly (the same order every run; rows
+  // past sq are zero)
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = wrow + i;
+    float part = 0.f;
+#pragma unroll
+    for (int d = lane; d < DH; d += 32)
+      part = fmaf(to_f32(dos[r * LD + d]), to_f32(os[r * LD + d]), part);
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (i == g) dr[0] = part;
+    if (i == g + 8) dr[1] = part;
+    if (lane == 0 && q0 + r < sq) dvec[(int64_t)pair * sq + q0 + r] = part;
+  }
+  __syncthreads();  // O's slot is the key loop's to fill
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int kt = t_lo; kt < t_hi; ++kt) {
+    const int buf = (kt - t_lo) & 1;
+    const int k0 = kt * BK;
+    // the other buffer was last read before the previous iteration's
+    // closing barrier
+    if (kt + 1 < t_hi) {
+      T* next = ring + (buf ^ 1) * 2 * BK * LD;
+      attn::stage<DH, LD>(next, kg, k0 + BK, BK, sk, dh);
+      attn::stage<DH, LD>(next + BK * LD, vg, k0 + BK, BK, sk, dh);
+    }
+    mma::cp_async_commit();   // an empty group on the last tile
+    mma::cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const T* kb = ring + buf * 2 * BK * LD;
+    const T* vb = kb + BK * LD;
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    bscores<DH, NT, LD>(s, qs + wrow * LD, kb, g, t, scale);
+    bscores<DH, NT, LD>(dp, dos + wrow * LD, vb, g, t, 1.f);
+    // the mask, where some key of the tile is hidden from some row: dS =
+    // 0 there (and past sk)
+    const bool whole = k0 + BK <= sk && (!causal || k0 + BK - 1 <= q0) &&
+                       (!window || q_last - k0 < window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float ds = expf(s[j][e] - lr[r]) * (dp[j][e] - dr[r]);
+        if (!whole) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const int qi = row_g + 8 * r;
+          if (kp >= sk || (causal && kp > qi) ||
+              (window && qi - kp >= window))
+            ds = 0.f;
+        }
+        s[j][e] = ds;
+      }
+    baccumulate<DT, NT, LD>(acc, s, kb, g, t);
+    __syncthreads();
+  }
+
+  T* dqg = dq + qoff;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row_g + 8 * r;
+    if (qi >= sq) continue;
+    T* row = dqg + (int64_t)qi * dh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const float x0 = acc[n][2 * r] * scale, x1 = acc[n][2 * r + 1] * scale;
+      const int col = 8 * n + 2 * t;
+      if (dh % 2 == 0 && col + 1 < dh) {
+        mma::store2(row + 8 * n, x0, x1);
+      } else {
+        if (col < dh) store(row + 8 * n, x0);
+        if (col + 1 < dh) store(row + 8 * n + 1, x1);
+      }
+    }
+  }
+}
+
+// dk = scale dS^T q and dv = P^T dO of one key tile and one query
+// head, summed over the query tiles that walk the key tile in order.
+// grid: (b * h, key tiles), key tile 0 first (under a causal mask the
+// longest). Reads the dQ kernel's D. Where the kv group has one head the
+// block writes dk and dv; otherwise each head's share goes to f32
+// scratch (pk, pv: (b, h, sk, dh)), which
+// `attention_bwd_group_sum_kernel` adds over the group in order: blocks
+// of a whole group would leave a causal grid's key tile 0 with group
+// times the work of the mean block, one wave long.
+template <int DH, typename T>
+__global__ void __launch_bounds__(kTcThreads, (MmaBwdTile<DH, T>::kBlocks))
+attention_bwd_dkv_mma_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dvec,
+                             T* __restrict__ dk, T* __restrict__ dv,
+                             float* __restrict__ pk, float* __restrict__ pv,
+                             int h, int kvh, int sq, int sk, int dh,
+                             int causal, int window, float scale) {
+  using Tl = MmaBwdTile<DH, T>;
+  constexpr int BKV = Tl::kBKV, BQ = Tl::kBQKV, LD = Tl::kLd;
+  constexpr int NQ = BQ / 8;   // 8-query column tiles of S^T
+  constexpr int DT = DH / 8;   // 8-dim column tiles of dk and dv
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* ks = reinterpret_cast<T*>(tc_smem);  // [BKV][LD]
+  T* vs = ks + BKV * LD;                // [BKV][LD]
+  T* qs = vs + BKV * LD;                // [2][BQ][LD]
+  T* dos = qs + 2 * BQ * LD;            // [2][BQ][LD]
+  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ]
+  float* dd = ls + 2 * BQ;                                  // [2][BQ]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t bh = blockIdx.x;
+  const int b = blockIdx.x / h;
+  const int kh = (blockIdx.x % h) / (h / kvh);
+  const int kt = blockIdx.y, k0 = kt * BKV;
+  const int64_t kv_off = ((int64_t)b * kvh + kh) * sk * dh;
+  const int q_tiles = (sq + BQ - 1) / BQ;
+  const int wrow = warp * 16;
+
+  attn::stage<DH, LD>(ks, k + kv_off, k0, BKV, sk, dh);
+  attn::stage<DH, LD>(vs, v + kv_off, k0, BKV, sk, dh);
+
+  // whether query tile qt walks this key tile (the forward's rule at
+  // these tiles), and the first such tile from qt on
+  auto walks = [&](int qt) {
+    int lo, hi;
+    attn::key_tiles(qt * BQ, BQ, sq, sk, causal, window, BKV, lo, hi);
+    return kt >= lo && kt < hi;
+  };
+  auto next_qt = [&](int qt) {
+    while (qt < q_tiles && !walks(qt)) ++qt;
+    return qt;
+  };
+  // a step's q and dO tiles, log-sum-exps (+inf past sq: P = 0) and D
+  auto load = [&](int slot, int qt) {
+    const int i0 = qt * BQ;
+    attn::stage<DH, LD>(qs + slot * BQ * LD, q + bh * sq * dh, i0, BQ, sq,
+                        dh);
+    attn::stage<DH, LD>(dos + slot * BQ * LD, dout + bh * sq * dh, i0, BQ,
+                        sq, dh);
+    for (int r = threadIdx.x; r < BQ; r += kTcThreads) {
+      const int qi = i0 + r;
+      ls[slot * BQ + r] = qi < sq ? lse[bh * sq + qi] : INFINITY;
+      dd[slot * BQ + r] = qi < sq ? dvec[bh * sq + qi] : 0.f;
+    }
+  };
+  int qt = next_qt(0);
+  if (qt < q_tiles) load(0, qt);
+  mma::cp_async_commit();
+
+  float acc_k[DT][4], acc_v[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const float inv_sk = 1.f / static_cast<float>(sk);
+  for (int step = 0; qt < q_tiles; ++step) {
+    const int buf = step & 1;
+    const int nqt = next_qt(qt + 1);
+    // the other slot was last read before the previous step's closing
+    // barrier
+    if (nqt < q_tiles) load(buf ^ 1, nqt);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // this step's copies (and K, V) have landed
+    __syncthreads();
+
+    const int q0 = qt * BQ, q_last = min(q0 + BQ, sq) - 1;
+    const T* qb = qs + buf * BQ * LD;
+    const T* db = dos + buf * BQ * LD;
+    const float* lb = ls + buf * BQ;
+    const float* ddb = dd + buf * BQ;
+    // S^T and dP^T: the warp's 16 keys x the tile's BQ queries
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    bscores<DH, NQ, LD>(s, ks + wrow * LD, qb, g, t, scale);
+    bscores<DH, NQ, LD>(dp, vs + wrow * LD, db, g, t, 1.f);
+    const bool whole = k0 + BKV <= sk && (!causal || k0 + BKV - 1 <= q0) &&
+                       (!window || q_last - k0 < window);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);  // the query in the tile
+        float p = expf(s[j][e] - lb[c]);
+        float ds = p * (dp[j][e] - ddb[c]);
+        if (!whole) {
+          const int kp = k0 + wrow + g + 8 * (e >> 1);
+          const int qi = q0 + c;
+          if (kp >= sk) {
+            p = ds = 0.f;
+          } else if ((causal && kp > qi) || (window && qi - kp >= window)) {
+            // a hidden key: weight 0, or 1 / sk in a row that sees no
+            // key (all its scores are -1e30 and its lse rounds to -1e30
+            // in f32, so exp(S - lse) would give 1)
+            p = window && qi < sq && qi - (sk - 1) >= window ? inv_sk : 0.f;
+            ds = 0.f;
+          }
+        }
+        s[j][e] = p;
+        dp[j][e] = ds;
+      }
+    baccumulate<DT, NQ, LD>(acc_v, s, db, g, t);
+    baccumulate<DT, NQ, LD>(acc_k, dp, qb, g, t);
+    __syncthreads();
+    qt = nqt;
+  }
+  mma::cp_async_wait<0>();  // K and V, where no query tile walked them
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = k0 + wrow + g + 8 * r;
+    if (kp >= sk) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const float x[4] = {acc_k[n][2 * r] * scale,
+                          acc_k[n][2 * r + 1] * scale, acc_v[n][2 * r],
+                          acc_v[n][2 * r + 1]};
+      const int col = 8 * n + 2 * t;
+      if (pk != nullptr) {
+        const int64_t at = (bh * sk + kp) * dh + col;
+        if (dh % 2 == 0 && col + 1 < dh) {
+          mma::store2(pk + at, x[0], x[1]);
+          mma::store2(pv + at, x[2], x[3]);
+        } else {
+          if (col < dh) pk[at] = x[0], pv[at] = x[2];
+          if (col + 1 < dh) pk[at + 1] = x[1], pv[at + 1] = x[3];
+        }
+        continue;
+      }
+      T* krow = dk + kv_off + (int64_t)kp * dh + col;
+      T* vrow = dv + kv_off + (int64_t)kp * dh + col;
+      if (dh % 2 == 0 && col + 1 < dh) {
+        mma::store2(krow, x[0], x[1]);
+        mma::store2(vrow, x[2], x[3]);
+      } else {
+        if (col < dh) store(krow, x[0]), store(vrow, x[2]);
+        if (col + 1 < dh) store(krow + 1, x[1]), store(vrow + 1, x[3]);
+      }
+    }
+  }
+}
+
+// dk and dv of a GQA group: each head's share from the dK / dV kernel's
+// scratch, added over the group's heads in order. One thread an element
+// of dk and of dv; memory bounds it (at granite's training shape 25 MB
+// read, 8 MB written).
+template <typename T>
+__global__ void __launch_bounds__(256)
+attention_bwd_group_sum_kernel(const float* __restrict__ pk,
+                               const float* __restrict__ pv,
+                               T* __restrict__ dk, T* __restrict__ dv,
+                               int group, int64_t per_head, int64_t n) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t src = (i / per_head) * group * per_head + i % per_head;
+    float sk_ = 0.f, sv = 0.f;
+    for (int j = 0; j < group; ++j) {
+      sk_ += pk[src + j * per_head];
+      sv += pv[src + j * per_head];
+    }
+    store(dk + i, sk_);
+    store(dv + i, sv);
+  }
+}
+
+template <int DH, typename T>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* dvec, float* part, void* dq, void* dk,
+                       void* dv, int b, int h, int kvh, int sq, int sk,
+                       int dh, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  using Tl = MmaBwdTile<DH, T>;
+  static bool done_dq[64] = {}, done_dkv[64] = {};
+  cudaError_t err = mma::allow_smem(attention_bwd_dq_mma_kernel<DH, T>,
+                                    Tl::kDqSmem, done_dq);
+  if (err != cudaSuccess) return err;
+  err = mma::allow_smem(attention_bwd_dkv_mma_kernel<DH, T>, Tl::kDkvSmem,
+                        done_dkv);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (sq + Tl::kBQ - 1) / Tl::kBQ;
+  const int k_tiles = (sk + Tl::kBKV - 1) / Tl::kBKV;
+  if (q_tiles > 65535 || k_tiles > 65535) return cudaErrorInvalidValue;
+  attention_bwd_dq_mma_kernel<DH, T>
+      <<<dim3(b * h, q_tiles), kTcThreads, Tl::kDqSmem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(o),
+          static_cast<const T*>(dout), lse, dvec, static_cast<T*>(dq), h,
+          kvh, sq, sk, dh, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // one head a block: the group's shares to scratch where it has more
+  const int group = h / kvh;
+  const int64_t per_head = (int64_t)sk * dh;
+  float* pk = group > 1 ? part : nullptr;
+  float* pv = group > 1 ? part + (int64_t)b * h * per_head : nullptr;
+  attention_bwd_dkv_mma_kernel<DH, T>
+      <<<dim3(b * h, k_tiles), kTcThreads, Tl::kDkvSmem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse, dvec,
+          static_cast<T*>(dk), static_cast<T*>(dv), pk, pv, h, kvh, sq, sk,
+          dh, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || group == 1) return err;
+  const int64_t n = (int64_t)b * kvh * per_head;
+  const int64_t blocks = (n + 255) / 256;
+  attention_bwd_group_sum_kernel<T>
+      <<<blocks < 1056 ? blocks : 1056, 256, 0, stream>>>(
+          pk, pv, static_cast<T*>(dk), static_cast<T*>(dv), group, per_head,
+          n);
+  return cudaGetLastError();
+}
+
+// Each dh runs in the narrowest compiled width DH >= dh (16, 32, 64, 80,
+// 128: the forward's), its columns past dh zero and never stored.
+template <typename T>
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const float* lse,
+                         float* dvec, float* part, void* dq, void* dk,
+                         void* dv, int b, int h, int kvh, int sq, int sk,
+                         int dh, int causal, int window, float scale,
+                         cudaStream_t st) {
+#define REPRO_ATT_BWD_MMA(DH)                                              \
+  if (dh <= DH)                                                            \
+  return launch_mma<DH, T>(q, k, v, o, dout, lse, dvec, part, dq, dk, dv,  \
+                           b, h, kvh, sq, sk, dh, causal, window, scale, st)
+  REPRO_ATT_BWD_MMA(16);
+  REPRO_ATT_BWD_MMA(32);
+  REPRO_ATT_BWD_MMA(64);
+  REPRO_ATT_BWD_MMA(80);
+  REPRO_ATT_BWD_MMA(kMaxMmaDh);
+#undef REPRO_ATT_BWD_MMA
   return cudaErrorInvalidValue;
 }
 
@@ -478,5 +1092,33 @@ extern "C" int repro_flash_attention_bwd(
     return dispatch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, ws, b, h,
                                    kvh, sq, sk, dh, causal, window, scale,
                                    st);
+  return cudaErrorInvalidValue;
+}
+
+// The tensor-core route (sq > 16, dh <= 128, 16-byte aligned operands;
+// the forward's gate). lse: the forward's b * h * sq log-sum-exps; dvec:
+// b * h * sq f32 of scratch for D; part: where h > kvh, 2 * b * h * sk *
+// dh f32 of scratch for each head's share of dk and dv (else unused).
+// Other arguments as above.
+extern "C" int repro_flash_attention_bwd_mma(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dvec, void* part, void* dq,
+    void* dk, void* dv, int b, int h, int kvh, int sq, int sk, int dh,
+    int dtype, int causal, int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh || sq <= 16 || sk <= 0 ||
+      dh <= 0 || dh > kMaxMmaDh)
+    return cudaErrorInvalidValue;
+  if (h > kvh && part == nullptr) return cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(dvec);
+  float* pt = static_cast<float*>(part);
+  if (dtype == 0)
+    return dispatch_mma<float>(q, k, v, o, dout, l, d, pt, dq, dk, dv, b, h,
+                               kvh, sq, sk, dh, causal, window, scale, st);
+  if (dtype == 1)
+    return dispatch_mma<__nv_bfloat16>(q, k, v, o, dout, l, d, pt, dq, dk,
+                                       dv, b, h, kvh, sq, sk, dh, causal,
+                                       window, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -152,9 +152,9 @@ def load(path: Path) -> ctypes.CDLL:
     """A built kernel library, loaded, with its entry points typed."""
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_flash_attention.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
-    lib.repro_flash_attention.restype = i
+    lib.repro_flash_attention_lse.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+    lib.repro_flash_attention_lse.restype = i
     lib.repro_quantize_int8.argtypes = [
         p, p, p, ctypes.c_int64, i, i, p]
     lib.repro_quantize_int8.restype = i
@@ -166,6 +166,9 @@ def load(path: Path) -> ctypes.CDLL:
     lib.repro_flash_attention_bwd.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
     lib.repro_flash_attention_bwd.restype = i
+    lib.repro_flash_attention_bwd_mma.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+    lib.repro_flash_attention_bwd_mma.restype = i
     lib.repro_flash_attention_variant.argtypes = [p, p, p, i, i]
     lib.repro_flash_attention_variant.restype = i
     lib.repro_moe_gmm.argtypes = [p, p, p, p, i, i, i, i, i, p]

@@ -3,7 +3,9 @@
 ``repro/kernels/flash_attention.py``) and its backward
 (``csrc/flash_attention_bwd.cu``), joined by :class:`FlashAttention`,
 the ``torch.autograd.Function`` that ``ops.flash_attention`` applies to
-CUDA tensors.
+CUDA tensors under grad. Under grad the forward also writes each row's
+log-sum-exp (``return_lse``), which the backward's tensor-core route
+reads in place of recomputing the softmax statistics.
 
 On a CUDA tensor each launches its kernel, or raises; on a CPU tensor
 it computes the plain version (``ref.attention_ref``, and for the
@@ -16,7 +18,8 @@ compiled, other dims run in the next wider width with the extra
 columns zero). GQA by head grouping. The kernel runs its products on
 the tensor cores (3xTF32 for f32) where sq > 16 and dh <= 128, and on
 f32 FMAs for short queries (the split-NN tower's 8 tokens) and wider
-heads.
+heads; the backward takes the same two routes at the same gate
+(:func:`bwd_variant`).
 """
 from __future__ import annotations
 
@@ -36,36 +39,46 @@ bwd_launches = _build.LaunchCounter()
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q: (b, h, sq, dh); k/v: (b, kvh, sk, dh) -> (b, h, sq, dh)."""
+                    scale: Optional[float] = None, return_lse: bool = False):
+    """q: (b, h, sq, dh); k/v: (b, kvh, sk, dh) -> o (b, h, sq, dh), and
+    with ``return_lse`` (o, lse), lse f32 (b, h, sq): each row's
+    log-sum-exp of its masked, scaled scores (``ref.attention_ref``'s).
+    ``o`` is the same to the bit either way."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+                             scale=scale, return_lse=return_lse)
     _check(q, k, v)
     b, h, sq, dh = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     scale = dh ** -0.5 if scale is None else scale
     o = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention(
+        err = lib.repro_flash_attention_lse(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, h, kvh, sq, sk, dh, DTYPES[q.dtype], int(bool(causal)),
-            int(window), float(scale), stream)
+            None if lse is None else lse.data_ptr(), b, h, kvh, sq, sk, dh,
+            DTYPES[q.dtype], int(bool(causal)), int(window), float(scale),
+            stream)
     _build.check(err, "flash_attention")
     launches.add()
-    return o
+    return (o, lse) if return_lse else o
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None,
+                        lse: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the attention at (q, k, v), whose output is ``o``,
-    for the output cotangent ``do`` (both shaped as q). The kernel
-    recomputes each row's softmax statistics: the forward keeps none."""
+    for the output cotangent ``do`` (both shaped as q). ``lse``: the
+    forward's (``flash_attention(..., return_lse=True)``), which the
+    tensor-core route (:func:`bwd_variant`) needs and reads in place of
+    the softmax statistics; the FMA route recomputes them and ignores
+    it."""
     if q.device.type == "cpu":
         return attention_vjp_ref(q, k, v, do, causal=causal, window=window,
                                  scale=scale)
@@ -81,18 +94,44 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvh, sk = k.shape[1], k.shape[2]
     scale = dh ** -0.5 if scale is None else scale
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # each row's max, 1 / denominator and rowsum(do * o), from the first
-    # kernel to the second
-    stats = torch.empty(3 * b * h * sq, dtype=torch.float32,
-                        device=q.device)
-    lib = _build.library()
+    route = bwd_variant(q, k, v)
+    if route != "simt":
+        if lse is None or lse.shape != (b, h, sq) \
+                or lse.dtype != torch.float32 or lse.device != q.device \
+                or not lse.is_contiguous():
+            raise ValueError(
+                f"flash_attention_bwd: the {route} route needs the "
+                f"forward's lse, a contiguous float32 {(b, h, sq)} on "
+                f"{q.device} (flash_attention(..., return_lse=True)), got "
+                f"{None if lse is None else (lse.dtype, tuple(lse.shape))}")
+        # the route stages O and dO by 16-byte copies
+        o, do = (t.clone() if t.data_ptr() % 16 else t for t in (o, do))
+        # D = rowsum(do * o), from the dq kernel to the dk / dv kernel;
+        # with GQA each query head's share of dk and dv, which a third
+        # kernel adds over the group
+        dvec = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        part = (torch.empty((2, b, h, sk, dh), dtype=torch.float32,
+                            device=q.device) if h > kvh else None)
+        entry = _build.library().repro_flash_attention_bwd_mma
+        before = (lse.data_ptr(), dvec.data_ptr(),
+                  None if part is None else part.data_ptr())
+        after = ()
+    else:
+        # each row's max, 1 / denominator and rowsum(do * o), from the
+        # first kernel to the second
+        stats = torch.empty(3 * b * h * sq, dtype=torch.float32,
+                            device=q.device)
+        entry = _build.library().repro_flash_attention_bwd
+        before, after = (), (stats.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), b, h, kvh, sq, sk, dh, DTYPES[q.dtype],
-            int(bool(causal)), int(window), float(scale), stream)
+        # the routes' scratch goes before dq (lse, D, GQA shares) or
+        # after dv (the statistics)
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), *before, dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), *after, b, h, kvh, sq, sk, dh,
+                    DTYPES[q.dtype], int(bool(causal)), int(window),
+                    float(scale), stream)
     _build.check(err, "flash_attention_bwd")
     bwd_launches.add()
     return dq, dk, dv
@@ -100,24 +139,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """The attention with the backward kernel as its gradient: it saves
-    q, k, v and the output, and the backward recomputes the softmax from
-    them (on a CPU tensor both directions are the plain versions)."""
+    q, k, v, the output and each row's log-sum-exp, from which the
+    backward recomputes the softmax (on a CPU tensor both directions are
+    the plain versions). ``ops.flash_attention`` applies it only under
+    grad, so calls outside grad write no log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o = flash_attention(q, k, v, causal=causal, window=window,
-                            scale=scale)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         causal, window, scale = ctx.mask
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
                                          causal=causal, window=window,
-                                         scale=scale)
+                                         scale=scale, lse=lse)
         return dq, dk, dv, None, None, None
 
 
@@ -131,6 +172,14 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if not mma:
         return "simt"
     return "mma_3xtf32" if q.dtype == torch.float32 else "mma_bf16"
+
+
+def bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which route :func:`flash_attention_bwd` runs for these CUDA
+    tensors: the forward's gate (sq > 16, dh <= 128, aligned q, k, v)
+    takes the tensor cores, "mma_3xtf32" / "mma_bf16"; the rest "simt",
+    the f32-FMA kernels."""
+    return variant(q, k, v)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -47,13 +47,26 @@ def default_backend(x: torch.Tensor) -> str:
     return "cuda" if x.device.type == "cuda" else "ref"
 
 
-def _use_ref(kernel: str, x: torch.Tensor, op: str) -> bool:
+def needs_grad(*xs: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``xs``: grad mode is on and
+    one of them requires grad. Outside grad, attention runs its forward
+    kernel alone and writes no log-sum-exp for a backward."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def check_kernel(kernel: str, x: torch.Tensor, op: str) -> None:
+    """Raise where ``kernel`` is no spelling of ``KERNELS``, or asks for
+    the hand-written kernel (``pallas``) on a tensor off the card."""
     if kernel not in KERNELS:
         raise ValueError(f"{op}: kernel must be auto|pallas|ref, got "
                          f"{kernel!r}")
     if kernel == "pallas" and x.device.type != "cuda":
         raise ValueError(f"{op}: kernel='pallas' runs the hand-written "
                          f"CUDA kernel, but the tensor is on {x.device}")
+
+
+def _use_ref(kernel: str, x: torch.Tensor, op: str) -> bool:
+    check_kernel(kernel, x, op)
     return kernel == "ref" or default_backend(x) == "ref"
 
 
@@ -65,7 +78,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _use_ref(kernel, q, "flash_attention"):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale)
-    return _fa.FlashAttention.apply(q, k, v, causal, window, scale)
+    if needs_grad(q, k, v):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, scale)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, *, kernel: str = "auto"

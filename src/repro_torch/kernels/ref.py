@@ -38,8 +38,12 @@ def _as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """q: (b, h, sq, dh); k/v: (b, kvh, sk, dh). GQA by head grouping."""
+                  scale: Optional[float] = None, return_lse: bool = False):
+    """q: (b, h, sq, dh); k/v: (b, kvh, sk, dh). GQA by head grouping.
+    With ``return_lse`` also each row's log-sum-exp of its masked,
+    scaled scores, (b, h, sq) in the compute type (float32, or float64
+    for float64 inputs): the forward kernel's ``lse``. A row that sees
+    no key has -1e30 + log(sk), which rounds to -1e30."""
     b, h, sq, dh = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     g = h // kvh
@@ -56,7 +60,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngqk,bnkd->bngqd", p, _f32(v))
-    return o.reshape(b, h, sq, dh).to(q.dtype)
+    o = o.reshape(b, h, sq, dh).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    return o
 
 
 def attention_vjp_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -7,8 +7,8 @@ turns, on one card.
 ``OTHER_CSRC`` is the ``csrc`` directory of another checkout (unpack one
 with ``git archive <commit> src/repro_torch/csrc | tar -x -C DIR``). Its
 ``flash_attention.cu`` is built into a library of its own with this
-package's nvcc flags; its entry point must take the arguments this
-checkout's does. At the zoo's causal f32 prefill shapes (granite-moe-3b-a800m, h2o-danube-1.8b
+package's nvcc flags, and called through ``repro_flash_attention_lse``
+with a null lse, or ``repro_flash_attention`` where it is older. At the zoo's causal f32 prefill shapes (granite-moe-3b-a800m, h2o-danube-1.8b
 with its window of 4096, jamba-1.5-large-398b) it checks that the two
 give the same output bit for bit on random finite inputs, times each
 with CUDA events as the median over 15 replays of a CUDA graph of 100
@@ -57,16 +57,23 @@ def build_other(csrc: Path, out_dir: Path) -> ctypes.CDLL:
 
 
 def other_call(lib: ctypes.CDLL):
+    """The other build's forward, without the log-sum-exp: its
+    ``repro_flash_attention_lse`` given a null lse, or, in a build from
+    before that entry, its ``repro_flash_attention``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_flash_attention.argtypes = [p, p, p, p] + [i] * 9 + [f, p]
-    lib.repro_flash_attention.restype = i
+    try:
+        entry, lse = lib.repro_flash_attention_lse, (None,)
+    except AttributeError:
+        entry, lse = lib.repro_flash_attention, ()
+    entry.argtypes = [p] * (4 + len(lse)) + [i] * 9 + [f, p]
+    entry.restype = i
 
     def run(q, k, v, window):
         b, h, sq, dh = q.shape
         o = torch.empty_like(q)
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
-            k.shape[1], sq, k.shape[2], dh, fa.DTYPES[q.dtype], 1, window,
+        err = entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *lse, b,
+            h, k.shape[1], sq, k.shape[2], dh, fa.DTYPES[q.dtype], 1, window,
             dh ** -0.5, torch.cuda.current_stream().cuda_stream)
         _build.check(err, "other flash_attention")
         return o

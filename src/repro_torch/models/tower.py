@@ -18,9 +18,10 @@ the hand-written flash-attention kernel and ``quantize`` the
 hand-written int8 kernel on a CUDA tensor, their plain versions on a
 CPU tensor (``kernel=auto|pallas|ref``, see ``kernels/ops.py``). Both
 are ``torch.autograd.Function``s with the JAX package's ``custom_vjp``
-contracts: attention's backward is the VJP of the plain attention
-recomputed from the saved q, k, v (the JAX package has no backward
-kernel either), the quantizer's is the identity (straight-through).
+contracts: attention's backward is the VJP of the plain attention at
+the saved q, k, v, which on a CUDA tensor the backward kernel computes
+(the JAX package differentiates ``attention_ref``: the TPU has no
+backward kernel), the quantizer's is the identity (straight-through).
 
 Sharding (``logical_axes``, ``make_tower_rules``, ``shard_tower``,
 ``apply(..., rules)``) is explicit tensor parallelism over the mesh's
@@ -44,6 +45,7 @@ from typing import Any, Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import mesh as M
 from repro_torch.models.params import resolve_device
@@ -261,28 +263,20 @@ def legacy_dims_tower(dims: Sequence[int],
 # ---------------------------------------------------------------------------
 
 
-class _Attention(torch.autograd.Function):
-    """Bidirectional attention through ``ops.flash_attention``; its
-    backward is the plain attention's VJP at the saved inputs, as the
-    JAX package's ``_attention_bwd`` (``attention_ref`` under
-    ``jax.vjp``)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kernel):
-        ctx.save_for_backward(q, k, v)
-        return ops.flash_attention(q, k, v, causal=False, kernel=kernel)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = ref.attention_ref(q, k, v, causal=False)
-        return (*torch.autograd.grad(out, (q, k, v), g), None)
-
-
 def _attention(q, k, v, kernel: str = "ref"):
-    """Bidirectional multi-head attention, (b, h, s, dh) layout."""
-    return _Attention.apply(q, k, v, kernel)
+    """Bidirectional multi-head attention, (b, h, s, dh) layout. Under
+    grad, for every ``kernel`` but ``"ref"``, ``FlashAttention``: the
+    forward kernel with each row's log-sum-exp and the backward kernel as
+    its gradient; on a CPU tensor both are the plain versions, the
+    backward the plain attention's VJP, as the JAX package's
+    ``_attention_bwd`` (``attention_ref`` under ``jax.vjp``). Outside
+    grad the forward alone; ``"ref"`` differentiates ``attention_ref``."""
+    if kernel == "ref":
+        return ref.attention_ref(q, k, v, causal=False)
+    ops.check_kernel(kernel, q, "flash_attention")
+    if ops.needs_grad(q, k, v):
+        return fa.FlashAttention.apply(q, k, v, False, 0, None)
+    return fa.flash_attention(q, k, v, causal=False)
 
 
 class _FakeQuant(torch.autograd.Function):

@@ -9,6 +9,11 @@
   key tile. In float64 it must give the plain version's VJP
   (``ref.attention_vjp_ref``) to 1e-12, causal, windowed, GQA, sq != sk,
   and rows that see no key.
+* The tensor-core route's algorithm (the same file's
+  ``attention_bwd_*_mma_kernel``s), modelled the same way: P from the
+  forward's log-sum-exp and D, the dq and the dk / dv walks over the
+  tiles the forward's ``key_tiles`` gives, in float64 against the same
+  VJP to 1e-12.
 * ``torch.autograd.gradcheck`` in float64 of the two
   ``torch.autograd.Function``s (``FlashAttention``, ``MoeGmm``), whose
   CPU path is the plain version in both directions: the wiring of the
@@ -126,7 +131,80 @@ def _bwd_model(q, k, v, o, do, causal, window, scale, tile):
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("b,h,kvh,sq,sk,dh,causal,window,tile", [
+def _key_tiles(q0, bq, sq, sk, causal, window, bk):
+    """The forward's ``key_tiles`` (``csrc/attention_tiles.cuh``): the
+    key tiles [lo, hi) of ``bk`` keys that the query tile of ``bq`` rows
+    from ``q0`` walks, all of them where its last row sees no key."""
+    q_last = min(q0 + bq, sq) - 1
+    lo = q0 - window + 1 if window and q0 - window + 1 > 0 else 0
+    hi = q_last + 1 if causal and q_last + 1 < sk else sk
+    if window and max(q_last - window + 1, 0) >= hi:
+        lo, hi = 0, sk
+    return lo // bk, -(-hi // bk)
+
+
+def _mma_bwd_model(q, k, v, do, lse, dd, causal, window, scale, bq, bk,
+                   bkv, bqkv):
+    """dq, dk, dv as the tensor-core route's two kernels compute them,
+    from the forward's ``lse`` and D = rowsum(dO o O): P = exp(S - lse)
+    with no statistics pass, and a hidden key's weight 1 / sk in a row
+    that sees no key (its lse rounds to -1e30, so exp(S - lse) would give
+    1), else 0."""
+    b, h, sq, _ = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    zero = torch.zeros((), dtype=q.dtype)
+
+    def weights(hd, bi, kh, i0, i1, j0, j1):
+        qi = torch.arange(i0, i1)[:, None]
+        ki = torch.arange(j0, j1)[None]
+        vis = _visible(qi, ki, causal, window)
+        s = (q[bi, hd, i0:i1] * scale) @ k[bi, kh, j0:j1].T
+        p = torch.exp(s - lse[bi, hd, i0:i1, None])
+        blind = (window > 0) & (qi - (sk - 1) >= window)
+        p = torch.where(vis, p, torch.where(blind, 1.0 / sk, zero))
+        dp = do[bi, hd, i0:i1] @ v[bi, kh, j0:j1].T
+        ds = torch.where(vis, p * (dp - dd[bi, hd, i0:i1, None]), zero)
+        return p, ds
+
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    # the dq kernel: a (batch, head) and a query tile of bq rows a block,
+    # over the key tiles of bk that the query tile walks
+    for bi in range(b):
+        for hd in range(h):
+            for i0 in range(0, sq, bq):
+                i1 = min(sq, i0 + bq)
+                lo, hi = _key_tiles(i0, bq, sq, sk, causal, window, bk)
+                acc = torch.zeros(i1 - i0, q.shape[3], dtype=q.dtype)
+                for kt in range(lo, hi):
+                    j0, j1 = kt * bk, min(sk, kt * bk + bk)
+                    _, ds = weights(hd, bi, hd // g, i0, i1, j0, j1)
+                    acc += ds @ k[bi, hd // g, j0:j1]
+                dq[bi, hd, i0:i1] = acc * scale
+    # the dk / dv kernel: a (batch, query head) and a key tile of bkv
+    # keys a block, over the query tiles of bqkv that walk the key tile;
+    # then each head's share added over its kv group in order
+    parts = torch.zeros((2, b, h) + k.shape[2:], dtype=q.dtype)
+    for bi in range(b):
+        for hd in range(h):
+            for kt in range(-(-sk // bkv)):
+                j0, j1 = kt * bkv, min(sk, kt * bkv + bkv)
+                for i0 in range(0, sq, bqkv):
+                    lo, hi = _key_tiles(i0, bqkv, sq, sk, causal, window,
+                                        bkv)
+                    if not lo <= kt < hi:
+                        continue
+                    i1 = min(sq, i0 + bqkv)
+                    p, ds = weights(hd, bi, hd // g, i0, i1, j0, j1)
+                    parts[1, bi, hd, j0:j1] += p.T @ do[bi, hd, i0:i1]
+                    parts[0, bi, hd, j0:j1] += ds.T @ q[bi, hd, i0:i1]
+    for j in range(g):
+        dk += parts[0, :, j::g] * scale
+        dv += parts[1, :, j::g]
+    return dq, dk, dv
+
+
+_BWD_CASES = [
     (1, 4, 2, 37, 37, 8, True, 0, 8),       # GQA 2:1, ragged last tile
     (1, 4, 2, 37, 37, 8, True, 5, 8),       # a window inside a tile
     (2, 2, 1, 30, 20, 4, False, 0, 8),      # bidirectional, sq > sk
@@ -134,17 +212,50 @@ def _bwd_model(q, k, v, o, do, causal, window, scale, tile):
     (1, 2, 1, 40, 10, 4, False, 3, 8),      # the same, bidirectional
     (1, 3, 1, 33, 33, 6, False, 7, 16),     # GQA 3:1 with a window
     (1, 2, 2, 17, 33, 5, True, 0, 8),       # sq < sk
-])
-def test_backward_kernel_algorithm_matches_plain_vjp(b, h, kvh, sq, sk, dh,
-                                                     causal, window, tile):
+    (1, 2, 1, 12, 40, 8, True, 5, 16),      # sq <= 16: one 16-row tile
+]
+
+
+def _bwd_inputs(b, h, kvh, sq, sk, dh, causal, window):
     g = torch.Generator().manual_seed(sq * 100 + sk)
     q = torch.randn(b, h, sq, dh, generator=g, dtype=F64)
     k, v = (torch.randn(b, kvh, sk, dh, generator=g, dtype=F64)
             for _ in range(2))
     do = torch.randn(b, h, sq, dh, generator=g, dtype=F64)
+    exp = ref.attention_vjp_ref(q, k, v, do, causal=causal, window=window)
+    return q, k, v, do, exp
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,dh,causal,window,tile", _BWD_CASES)
+def test_backward_kernel_algorithm_matches_plain_vjp(b, h, kvh, sq, sk, dh,
+                                                     causal, window, tile):
+    q, k, v, do, exp = _bwd_inputs(b, h, kvh, sq, sk, dh, causal, window)
     o = ref.attention_ref(q, k, v, causal=causal, window=window)
     got = _bwd_model(q, k, v, o, do, causal, window, dh ** -0.5, tile)
-    exp = ref.attention_vjp_ref(q, k, v, do, causal=causal, window=window)
+    for a, e in zip(got, exp):
+        torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,dh,causal,window,tile", _BWD_CASES)
+def test_mma_backward_algorithm_matches_plain_vjp(b, h, kvh, sq, sk, dh,
+                                                  causal, window, tile):
+    """The tensor-core route's algorithm (``attention_bwd_dq_mma_kernel``
+    and ``attention_bwd_dkv_mma_kernel``): the forward's lse and D in
+    place of a statistics pass, a dq walk over the key tiles each query
+    tile walks, a dk / dv walk of each query head over the query tiles
+    that walk each key tile with its shares added over the kv group
+    (``attention_bwd_group_sum_kernel``), at the kernels' tile ratios:
+    the dq walk's query tiles twice its key tiles (64 rows against 32
+    keys), the dk / dv walk's key tiles twice its query tiles (64 keys
+    against 32 rows). Without the 1 / sk rule
+    the rows that see no key would be wrong, which the cases with them
+    check."""
+    q, k, v, do, exp = _bwd_inputs(b, h, kvh, sq, sk, dh, causal, window)
+    o, lse = ref.attention_ref(q, k, v, causal=causal, window=window,
+                               return_lse=True)
+    dd = (do * o).sum(-1)
+    got = _mma_bwd_model(q, k, v, do, lse, dd, causal, window, dh ** -0.5,
+                         bq=2 * tile, bk=tile, bkv=2 * tile, bqkv=tile)
     for a, e in zip(got, exp):
         torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12)
 
