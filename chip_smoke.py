@@ -245,8 +245,11 @@ NVIDIA GPU.
    require grad, against autograd through the plain versions in float64
    at rwkv6-7b's (4, 64, 511, 64) and jamba's (4, 512, 16384, 16), every
    gradient within 1e-4 of its largest magnitude, and at edges (ragged
-   lengths, masked head and state dims, bf16 within 1e-2); their times
-   beside the plain VJPs; then ``rwkv6-7b`` cut in depth 32 -> 8 (AdamW)
+   lengths, masked head and state dims, bf16 within 1e-2), two backward
+   runs the same to the bit; their times beside the plain VJPs, the
+   bound and the design's own byte floor (checkpoint reads included),
+   and the forwards with and without the checkpoints they write under
+   grad; then ``rwkv6-7b`` cut in depth 32 -> 8 (AdamW)
    and jamba's first two layers (mamba + mlp, mamba + MoE of 4 experts;
    its adafactor) trained at full width as granite is: a kernel step
    against a plain step (gradients within 1e-4 of each leaf's largest),
@@ -3804,9 +3807,10 @@ def check_recurrence_grads(torch, dev) -> dict:
     (WKV_GRAD_CASES, SCAN_GRAD_CASES: ragged lengths and widths, masked
     head and state dims, bf16 within 1e-2, the gradients' own rounding).
     The forward under grad, which also writes the checkpoints, must
-    give the no-grad forward's outputs bit for bit, and each call must
-    launch its forward and its backward kernel once. Returns the path
-    shapes' errors."""
+    give the no-grad forward's outputs bit for bit, each call must
+    launch its forward and its backward kernel once, and a second
+    backward through the same graph must give the first one's gradients
+    to the bit (no float atomics). Returns the path shapes' errors."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.kernels import selective_scan as ssm
@@ -3819,11 +3823,15 @@ def check_recurrence_grads(torch, dev) -> dict:
         mod.launches.reset()
         mod.bwd_launches.reset()
         outs = fn(*leaves)
-        got = torch.autograd.grad(outs, leaves, cots)
+        got = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
         if (mod.launches.count, mod.bwd_launches.count) != (1, 1):
             raise AssertionError(f"{name}: {mod.launches.count} forward "
                                  f"and {mod.bwd_launches.count} backward "
                                  f"launches, expected 1 and 1")
+        again = torch.autograd.grad(outs, leaves, cots)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two backward runs differ")
+        del again
         with torch.no_grad():
             plain_outs = fn(*ins)
         if not all(torch.equal(a.detach(), b)
@@ -3838,7 +3846,8 @@ def check_recurrence_grads(torch, dev) -> dict:
                       for a, e in zip(got, exp))
         tol = 1e-2 if ins[0].dtype == torch.bfloat16 else 1e-4
         log(f"{name} backward {case}: max err / max grad {errs}, "
-            f"max_abs_err {abs_err:.3e} (tol {tol} of the largest)")
+            f"max_abs_err {abs_err:.3e} (tol {tol} of the largest); two "
+            f"runs the same to the bit")
         if not max(errs.values()) <= tol:
             raise AssertionError(f"{name}'s backward kernel disagrees with "
                                  f"the plain version's VJP at {case}")
@@ -3878,13 +3887,31 @@ def time_recurrence_bwd(torch, dev) -> dict:
     its bound: the function's inputs read once and its gradients written
     once, or its operations at the f32 FMA rate (WKV: 12 dh^2 a (pair,
     step), the recomputed update and five products with a vector; the
-    scan: 20 a state element and step). No PyTorch call computes either
-    gradient: library_ms is None."""
+    scan: 20 a state element and step). Beside the bound, the design's
+    own byte floor: the function's bytes plus the checkpoints it reads
+    and its per-block partials written and read again by the second
+    pass. The forward is timed with and without the checkpoints it
+    writes under grad. No PyTorch call computes either gradient:
+    library_ms is None."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.kernels import selective_scan as ssm
     g = torch.Generator().manual_seed(20)
     out = {}
+
+    def forward_ms(fwd, ins, chk_bytes) -> dict:
+        with_ck = graph_ms(lambda: fwd(*ins, checkpoints=True), reps=20,
+                           trials=10)
+        return {"forward_ms": graph_ms(lambda: fwd(*ins), reps=20,
+                                       trials=10),
+                "forward_with_checkpoints_ms": with_ck,
+                "checkpoint_mb": chk_bytes / 1e6,
+                "checkpoint_write_floor_ms": chk_bytes / HBM_BYTES_S * 1e3}
+
+    def design_floor(nbytes, extra) -> dict:
+        return {"design_bytes_mb": (nbytes + extra) / 1e6,
+                "design_floor_ms": (nbytes + extra) / HBM_BYTES_S * 1e3}
+
     b, h, s, dh, _ = WKV_GRAD_CASES[0]
     ins = wkv_inputs(torch, dev, b, h, s, dh, torch.float32, g)
     dy = torch.randn((b, h, s, dh), generator=g).to(dev)
@@ -3896,13 +3923,20 @@ def time_recurrence_bwd(torch, dev) -> dict:
     # r, k, v, w, dy read, dr, dk, dv, dw written; dS read; u, du
     n_el = b * h * s * dh
     nbytes = (9 * n_el + b * h * dh * dh + 2 * h * dh) * 4
+    chk_bytes = chk.numel() * 4
     t = {"ms": graph_ms(wkv_kernel, reps=20, trials=10),
          "eager_ms": eager_ms(wkv_kernel, reps=20, trials=10),
          "plain_ms": eager_ms(lambda: ref.rwkv6_vjp_ref(*ins, dy, ds),
                               reps=2, trials=3),
          "library_ms": None, "shape": [b, h, s, dh],
-         **_bound(nbytes, 12.0 * dh * dh * b * h * s)}
-    log(f"rwkv6_wkv_bwd at {(b, h, s, dh)} f32: {nbytes / 1e6:.1f} MB; {t}")
+         **_bound(nbytes, 12.0 * dh * dh * b * h * s),
+         # the checkpoints read; du's per-pair partials written and read
+         **design_floor(nbytes, chk_bytes + 2 * b * h * dh * 4),
+         **forward_ms(wkv.wkv_forward, ins, chk_bytes)}
+    log(f"rwkv6_wkv_bwd at {(b, h, s, dh)} f32: {nbytes / 1e6:.1f} MB "
+        f"(bound {t['bound_ms']:.4f} ms), with the checkpoints and "
+        f"partials {t['design_bytes_mb']:.1f} MB (the design's floor "
+        f"{t['design_floor_ms']:.4f} ms); {t}")
     out["rwkv6_wkv_bwd"] = t
     del ins, dy, ds, chk
     b, s, di, n, _, _ = SCAN_GRAD_CASES[0]
@@ -3918,19 +3952,29 @@ def time_recurrence_bwd(torch, dev) -> dict:
     # read, dA written; dh read
     nbytes = (5 * b * s * di + 4 * b * s * n + 2 * di * n
               + b * di * n) * 4
+    chk_bytes = chk.numel() * 4
+    # dB / dC per 128-channel block, dA per batch row: written, read back
+    parts = (-(-di // ssm.BLOCK) * 2 * b * s * n + b * di * n) * 4 * 2
     t = {"ms": graph_ms(scan_kernel, reps=20, trials=10),
          "eager_ms": eager_ms(scan_kernel, reps=20, trials=10),
          "plain_ms": eager_ms(
              lambda: ref.selective_scan_vjp_ref(*ins, dy, dh_),
              reps=2, trials=3),
          "library_ms": None, "shape": [b, s, di, n],
-         **_bound(nbytes, 20.0 * b * s * di * n)}
+         **_bound(nbytes, 20.0 * b * s * di * n),
+         **design_floor(nbytes, chk_bytes + parts),
+         **forward_ms(ssm.scan_forward, ins, chk_bytes)}
     clock, top = sm_clock_mhz()
-    # the kernel's exponentials: the recomputed decay and the walked one
-    ex2 = 2 * b * s * di * n / (SFU_EX2_PER_CLK * SMS)
+    # the kernel's exponentials: the walked decay every step, the
+    # recomputed one at 3 steps of 4 (4 in the sequence's last group)
+    groups = -(-s // ssm.CHECKPOINT)
+    per_state = s + 3 * (groups - 1) + (s - (groups - 1) * ssm.CHECKPOINT)
+    ex2 = per_state * b * di * n / (SFU_EX2_PER_CLK * SMS)
     t.update(sm_clock_mhz=clock, ex2_floor_ms=ex2 / (clock * 1e6) * 1e3)
-    log(f"selective_scan_bwd at {(b, s, di, n)} f32: {nbytes / 1e6:.1f} MB;"
-        f" {t}")
+    log(f"selective_scan_bwd at {(b, s, di, n)} f32: {nbytes / 1e6:.1f} MB "
+        f"(bound {t['bound_ms']:.4f} ms), with the checkpoints and "
+        f"partials {t['design_bytes_mb']:.1f} MB (the design's floor "
+        f"{t['design_floor_ms']:.4f} ms); {t}")
     out["selective_scan_bwd"] = t
     del ins, dy, dh_, chk
     gc.collect()

@@ -15,8 +15,13 @@ namespace {
 
 // Under grad the WKV forward writes the state S before every
 // kWkvCheckpoint-th step (b, h, ceil(s / 8), dh, dh), the scan forward
-// h before every kScanCheckpoint-th step (b, ceil(s / 4), di, n), both
+// h before every kScanCheckpoint-th step (b, ceil(s / 4), n, di), both
 // f32. The backward kernels recompute the states in between from these.
+// A sparser spacing would move fewer bytes (at rwkv6-7b's training shape
+// the WKV checkpoints are 268 MB, at jamba's the scan's 537 MB, each
+// written once and read once) for more recomputation and a longer
+// history held on chip; neither backward kernel is bound by its bytes
+// (PERF.md).
 constexpr int kWkvCheckpoint = 8;
 constexpr int kScanCheckpoint = 4;
 

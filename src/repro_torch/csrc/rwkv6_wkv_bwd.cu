@@ -29,26 +29,53 @@
 // and reads dS: 305.6 MB, 0.091 ms at 3.35 TB/s; it does ~12 dh^2 flops
 // a (pair, step) (the recomputed update, the G update, four products
 // with a vector), 6.4 GFLOP, 0.096 ms at 67 TFLOP/s of f32 FMAs: the
-// operations bound it.
+// operations bound it. This design also reads the forward's checkpoints
+// (268 MB at that shape), so its own byte floor is ~0.17 ms.
 //
-// The design, the simple one (speed is later work): one block a pair,
-// DH * DH / 8 threads at a compiled width DH (32 or 64; any dh up to 64
-// runs in the next wider one with the rows and columns past dh zero).
-// Thread (j, cg) holds row j of S and G at the 8 value columns
-// [8 cg, 8 cg + 8); the DH / 8 threads of a row are neighbouring lanes.
-// The chunks are walked last to first. A chunk's r, k, w, v and dy are
-// staged in shared memory, with vdy_t and beta_t (a warp's dot products);
-// then its two halves of 4 steps, last first: the states of the half are
-// recomputed from the chunk's checkpoint into registers (the second
-// half's first 4 steps again without keeping them: 12 state updates for
-// 8 steps, and 32 registers of history instead of 64) and walked back.
-// A step's sums over the columns (dr, dk, dw) are a thread's 8 terms
-// and a shuffle tree over the row's lanes; dv's sum over the rows is a
-// halving butterfly over the warp's rows, each warp's sums put in shared
-// memory and added over the warps in a fixed order once a chunk. du's
-// sum over t is a thread's register, its sum over the batch a second
-// pass over per-pair partials (no atomics: two runs give the same bits).
-// Head dims above 64 are refused (no config has them).
+// The first design (a block of 512 threads a pair, a thread one
+// key row at 8 value columns, its history in registers) ran at 13.7x the
+// bound: 95 registers a thread left one block, 16 warps, an SM and two
+// waves of 256 pairs on 132 SMs; every step paid ~24 shuffles against 40
+// FMAs a thread, and each chunk's loads waited for nothing to overlap.
+//
+// The design: one block of DH * DH / 16 threads a pair (256 at DH 64),
+// two blocks an SM, so the 256 pairs of rwkv6-7b's shape run in one
+// wave. Thread (rg, cg) owns a 2-row x 8-column tile of G, rows
+// [2 rg, 2 rg + 2) and columns [8 cg, 8 cg + 8), in registers for the
+// whole walk; the DH / 8 threads of a row group are neighbouring lanes.
+// A chunk's S history is recomputed from its checkpoint into shared
+// memory, not registers (a half's states in float4 slots only their
+// thread reads; the state walked first stays in registers, so 3 slots,
+// 48 KB): the second half first (S_4..S_7 after 7 updates), then the
+// first (S_0..S_3 after 3), 10 updates for 8 steps. Per step and
+// element the walk is six f32 operations: S dy, G v, G S and G k
+// products and the G update's two. A thread's 16 elements make its
+// partial sums 2-row and 8-column wide, so a step's cross-lane work is
+// small: dr, dk and dw halve over the row group's lanes once (6 values
+// -> 3) and add over the rest; dv adds each quad of rows as (row 0 +
+// row 2) + (row 1 + row 3), a lane pair trading half its columns, and
+// the quads in order; du is one register a row over the steps, last
+// first. These are the first design's orders, so at DH 64 every
+// gradient is the first design's bit for bit: a 10-step rwkv6-7b run
+// is chaotic enough that another rounding of dv and du ended it above
+// its first loss. dr, dk, dw land in shared memory a chunk at a time;
+// the block adds the bonus terms (u o k vdy, u o r vdy, beta dy) and
+// writes the chunk coalesced. The chunks are walked last to first; the
+// next chunk's r, k, w, v, dy are loaded into registers while this one
+// is walked, and stored into the other of two shared buffers (two
+// barriers a chunk). du's sum over the batch is a second pass over
+// per-pair partials: no float atomics, two runs give the same bits.
+//
+// Not taken: splitting a pair's value columns over a thread-block
+// cluster. S and G evolve column by column, but every column tile needs
+// all of r, k, w, so the tiles' staging repeats them, and dr, dk, dw
+// become partials summed through distributed shared memory; the pair's
+// history would then have to live in registers to fit 8 blocks an SM.
+// A block a pair gets the one wave without either.
+//
+// Any dh up to 64 runs in the next wider compiled width (32 or 64) with
+// the rows and columns past dh zero. Head dims above 64 are refused (no
+// config has them).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,12 +84,14 @@
 
 namespace {
 
+using recurrence::add_lanes;
 using recurrence::halve_sum;
-using recurrence::halved_first;
 
 constexpr int kCk = recurrence::kWkvCheckpoint;  // steps a chunk
 constexpr int kHalf = kCk / 2;                   // steps a walked half
-constexpr int kEl = 8;                           // value columns a thread
+constexpr int kJT = 2;                           // key rows a thread
+constexpr int kCT = 8;                           // value columns a thread
+constexpr int kEl = kJT * kCT;                   // elements a thread
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -71,17 +100,40 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 
 template <int DH>
 struct Bwd {
-  static constexpr int kCg = DH / kEl;     // lanes of a row
-  static constexpr int kNt = DH * kCg;     // threads
+  static constexpr int kCg = DH / kCT;     // column groups, a row's lanes
+  static constexpr int kRg = DH / kJT;     // row groups
+  static constexpr int kNt = kCg * kRg;    // threads
   static constexpr int kNw = kNt / 32;     // warps
-  static constexpr int kRw = 32 / kCg;     // rows a warp
-  static constexpr int kNv = kEl / kRw;    // dv sums a lane ends with
-  static_assert(kNt % 32 == 0 && kRw <= kEl && kNv >= 1, "tile");
+  static constexpr int kRgw = 32 / kCg;    // row groups a warp
+  static constexpr int kNq = DH / 4;       // quads of rows
+  // a staged row of DH values, a 4-float pad after each 32 so that the 8
+  // column groups' float4 loads fall in different banks
+  static constexpr int kRow = DH + DH / 32 * 4;
+  static constexpr int kSteps = kNt / DH;  // steps one staging pass covers
+  static constexpr int kPer = 5 * kCk / kSteps;  // staged values a thread
+  // shared memory, in floats: two buffers of a chunk's r, k, w, v, dy;
+  // a half's history (3 states: the fourth stays in registers); dr, dk,
+  // dw of a chunk; dv's sums a quad of rows; vdy and beta a step; u
+  static constexpr int kStage = 5 * kCk * kRow;
+  static constexpr int kHist = (kHalf - 1) * kEl * kNt;
+  static constexpr int kPart = 3 * kCk * DH;
+  static constexpr int kDvp = kCk * kNq * DH;
+  static constexpr int kFloats =
+      2 * kStage + kHist + kPart + kDvp + 2 * kCk + DH;
+  static constexpr int kBlocksPerSm = DH == 64 ? 2 : 8;
+  static_assert(kNt % 32 == 0 && kRgw * kCg == 32 && kRgw % 2 == 0 &&
+                    kNt % DH == 0 && kCk % kSteps == 0 &&
+                    (kCk / kSteps) * kSteps == kCk,
+                "tile");
 };
 
-// grid: (b * h); block: Bwd<DH>::kNt threads. EXACT: dh == DH.
+// padded column index within a staged row
+__device__ __forceinline__ int col(int i) { return i + (i >> 5) * 4; }
+
+// grid: (b * h); block: Bwd<DH>::kNt threads, Bwd<DH>::kFloats floats of
+// dynamic shared memory. EXACT: dh == DH.
 template <typename T, int DH, bool EXACT>
-__global__ void __launch_bounds__(Bwd<DH>::kNt)
+__global__ void __launch_bounds__(Bwd<DH>::kNt, Bwd<DH>::kBlocksPerSm)
 rwkv6_wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ w,
                      const float* __restrict__ u,
@@ -92,143 +144,291 @@ rwkv6_wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                      float* __restrict__ dw, float* __restrict__ du_part,
                      int h, int s, int dh_arg) {
   using B = Bwd<DH>;
-  constexpr int CG = B::kCg, NT = B::kNt, NW = B::kNw, NV = B::kNv;
+  constexpr int CG = B::kCg, NT = B::kNt, NW = B::kNw, NQ = B::kNq;
+  constexpr int ROW = B::kRow, STEPS = B::kSteps, PER = B::kPer;
   const int dh = EXACT ? DH : dh_arg;
-  // a chunk's r, k, w, v, dy (zero past dh and past s)
-  __shared__ __align__(16) float xs[5][kCk][DH];
-  __shared__ float vdy[kCk], beta[kCk];
-  // dv's sums over each warp's rows, a step and column
-  __shared__ __align__(16) float dvp[kCk][NW][DH];
-  __shared__ float us[DH];
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;                       // [2][5][kCk][ROW]
+  float4* hist = reinterpret_cast<float4*>(stage + 2 * B::kStage);
+  //   [kHalf - 1][kEl / 4][NT]: slot (q, c4) of thread tid
+  float* part = stage + 2 * B::kStage + B::kHist;  // [kCk][3][DH]
+  float* dvp = part + B::kPart;              // [kCk][NQ][DH]
+  float* vdy = dvp + B::kDvp;                // [kCk]
+  float* beta = vdy + kCk;                   // [kCk]
+  float* us = beta + kCk;                    // [DH]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cg = tid % CG, j = tid / CG, i0 = cg * kEl;
+  const int cg = lane % CG, rg = warp * B::kRgw + lane / CG;
+  const int j0 = rg * kJT, i0 = cg * kCT;
   const int pair = blockIdx.x;
   const size_t base = (size_t)pair * s * dh;
   const int nck = (s + kCk - 1) / kCk;
-  const bool row_in = j < dh;
   for (int e = tid; e < DH; e += NT)
     us[e] = e < dh ? u[(size_t)(pair % h) * dh + e] : 0.f;
-  const float uj = row_in ? u[(size_t)(pair % h) * dh + j] : 0.f;
 
-  // G at this thread's row and columns, from dS
-  float g[kEl];
-  const float* dsp = ds + (size_t)pair * dh * dh + (size_t)j * dh;
+  // this thread's tile of a (dh, dh) matrix at `src` (dS, a checkpoint)
+  auto load_tile = [&](float (&x)[kJT][kCT], const float* src) {
 #pragma unroll
-  for (int e = 0; e < kEl; ++e)
-    g[e] = row_in && i0 + e < dh ? dsp[i0 + e] : 0.f;
-  float du_acc = 0.f;
-  // the dv sums a lane holds after the butterfly: columns i0 + first + q
-  const int first = halved_first<kEl, 16, CG>(lane);
-
-  // the state update of staged step c, on this thread's row and columns
-  auto advance = [&](float (&st)[kEl], int c) {
-    const float wj = xs[2][c][j], kj = xs[1][c][j];
+    for (int jj = 0; jj < kJT; ++jj)
 #pragma unroll
-    for (int e = 0; e < kEl; ++e)
-      st[e] = fmaf(wj, st[e], kj * xs[3][c][i0 + e]);
+      for (int e = 0; e < kCT; ++e)
+        x[jj][e] = EXACT || (j0 + jj < dh && i0 + e < dh)
+                       ? src[(size_t)(j0 + jj) * dh + i0 + e]
+                       : 0.f;
   };
 
-  for (int c = nck - 1; c >= 0; --c) {
+  // G at this thread's rows and columns, from dS
+  float g[kJT][kCT];
+  load_tile(g, ds + (size_t)pair * dh * dh);
+
+  // Staging: thread tid loads column jj = tid % DH of the staged rows
+  // tid / DH + STEPS m of a chunk (coalesced: a pair's steps are
+  // contiguous rows of dh); staged row q * kCk + cc is array q (r, k, w,
+  // v, dy) at step cc.
+  const int sj = tid % DH, sq = tid / DH;
+  float pre[PER];
+  auto fetch = [&](int t0) {
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const int rr = sq + STEPS * m, q = (STEPS * m) / kCk, cc = rr % kCk;
+      const bool in = sj < dh && t0 + cc < s;
+      const size_t o = base + (size_t)(t0 + cc) * dh + sj;
+      float x = 0.f;
+      if (in) {
+        x = q == 0   ? to_f32(r[o])
+            : q == 1 ? to_f32(k[o])
+            : q == 2 ? to_f32(w[o])
+            : q == 3 ? to_f32(v[o])
+                     : dy[o];
+      }
+      pre[m] = x;
+    }
+  };
+  auto stage_row = [&](int buf, int q, int cc) {
+    return stage + ((buf * 5 + q) * kCk + cc) * ROW;
+  };
+
+  // a staged step's values for this thread: 2 rows of r, k or w; 8
+  // columns of v or dy
+  auto rows = [&](float (&x)[kJT], const float* row) {
+    const float2 a = *reinterpret_cast<const float2*>(row + col(j0));
+    x[0] = a.x;
+    x[1] = a.y;
+  };
+  auto cols = [&](float (&x)[kCT], const float* row) {
+    const float4 a = *reinterpret_cast<const float4*>(row + col(i0));
+    const float4 b = *reinterpret_cast<const float4*>(row + col(i0) + 4);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  };
+  // S <- diag(w) S + k v^T at staged step cc, on this thread's tile (the
+  // forward kernel's arithmetic: the same states bit for bit)
+  auto advance = [&](float (&st)[kJT][kCT], int buf, int cc) {
+    float kk[kJT], ww[kJT], vv[kCT];
+    rows(kk, stage_row(buf, 1, cc));
+    rows(ww, stage_row(buf, 2, cc));
+    cols(vv, stage_row(buf, 3, cc));
+#pragma unroll
+    for (int jj = 0; jj < kJT; ++jj)
+#pragma unroll
+      for (int e = 0; e < kCT; ++e)
+        st[jj][e] = fmaf(ww[jj], st[jj][e], kk[jj] * vv[e]);
+  };
+  auto put = [&](int q, const float (&st)[kJT][kCT]) {
+#pragma unroll
+    for (int c4 = 0; c4 < kEl / 4; ++c4) {
+      const int jj = c4 / 2, e = (c4 % 2) * 4;
+      hist[(q * (kEl / 4) + c4) * NT + tid] =
+          make_float4(st[jj][e], st[jj][e + 1], st[jj][e + 2], st[jj][e + 3]);
+    }
+  };
+  auto get = [&](int q, float (&st)[kJT][kCT]) {
+#pragma unroll
+    for (int c4 = 0; c4 < kEl / 4; ++c4) {
+      const int jj = c4 / 2, e = (c4 % 2) * 4;
+      const float4 a = hist[(q * (kEl / 4) + c4) * NT + tid];
+      st[jj][e] = a.x; st[jj][e + 1] = a.y; st[jj][e + 2] = a.z;
+      st[jj][e + 3] = a.w;
+    }
+  };
+
+  // dv's quad of rows: this thread's two and those of the lane at
+  // lane ^ CG; this lane keeps the quad's sums of half its columns
+  const bool dv_up = (lane & CG) != 0;
+  const int quad = rg / 2, qcol = i0 + (dv_up ? kCT / 2 : 0);
+  // after the dr / dk / dw butterfly, lane cg holds row j0 + (1 if its
+  // top column-group bit is set); the lanes with the other bits 0 write
+  const int prow = j0 + ((cg & (CG / 2)) ? 1 : 0);
+  const bool pwriter = (cg & (CG / 2 - 1)) == 0;
+  float du_acc = 0.f;  // row sj (threads sq == 0), the steps last first
+
+  fetch((nck - 1) * kCk);
+  int buf = 0;
+  for (int c = nck - 1; c >= 0; --c, buf ^= 1) {
     const int t0 = c * kCk;
     const int n = min(kCk, s - t0);
-    for (int e = tid; e < 5 * kCk * DH; e += NT) {
-      const int q = e / (kCk * DH), cc = (e / DH) % kCk, jj = e % DH;
-      float val = 0.f;
-      if (jj < dh && cc < n) {
-        const size_t o = base + (size_t)(t0 + cc) * dh + jj;
-        val = q == 0   ? to_f32(r[o])
-              : q == 1 ? to_f32(k[o])
-              : q == 2 ? to_f32(w[o])
-              : q == 3 ? to_f32(v[o])
-                       : dy[o];
-      }
-      xs[q][cc][jj] = val;
+    // stage[buf] was last read before the previous chunk's second
+    // barrier, so writing it now needs no barrier of its own
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const int rr = sq + STEPS * m;
+      stage_row(buf, (STEPS * m) / kCk, rr % kCk)[col(sj)] = pre[m];
     }
+    // the previous chunk's loads are in flight while this one is walked
+    if (c > 0) fetch(t0 - kCk);
+    float chk[kJT][kCT];
+    load_tile(chk, s_chk + ((size_t)pair * nck + c) * dh * dh);
     __syncthreads();
     for (int cc = warp; cc < kCk; cc += NW) {
       float a = 0.f, bt = 0.f;
       for (int jj = lane; jj < DH; jj += 32) {
-        a = fmaf(xs[3][cc][jj], xs[4][cc][jj], a);
-        bt = fmaf(xs[0][cc][jj] * us[jj], xs[1][cc][jj], bt);
+        const int p = col(jj);
+        a = fmaf(stage_row(buf, 3, cc)[p], stage_row(buf, 4, cc)[p], a);
+        bt = fmaf(stage_row(buf, 0, cc)[p] * us[jj],
+                  stage_row(buf, 1, cc)[p], bt);
       }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) {
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-        bt += __shfl_xor_sync(0xffffffffu, bt, off);
-      }
+      add_lanes<16>(a);
+      add_lanes<16>(bt);
       if (lane == 0) {
         vdy[cc] = a;
         beta[cc] = bt;
       }
     }
-    __syncthreads();
 
-    const float* sc = s_chk + ((size_t)pair * nck + c) * dh * dh
-                      + (size_t)j * dh;
+#pragma unroll 1
     for (int half = kCk / kHalf - 1; half >= 0; --half) {
       const int c0 = half * kHalf;
       if (c0 >= n) continue;  // the same for every thread
-      float st[kEl];
+      // S before steps c0 .. c0 + 3 of the chunk into this thread's
+      // slots, but for the two that stay in registers: the second half's
+      // last state (walked first) and the first half's checkpoint (walked
+      // last)
+      float st[kJT][kCT];
 #pragma unroll
-      for (int e = 0; e < kEl; ++e)
-        st[e] = row_in && i0 + e < dh ? sc[i0 + e] : 0.f;
-      for (int cc = 0; cc < c0; ++cc) advance(st, cc);
-      float hist[kHalf][kEl];  // S before each step of the half
+      for (int jj = 0; jj < kJT; ++jj)
 #pragma unroll
-      for (int q = 0; q < kHalf; ++q) {
+        for (int e = 0; e < kCT; ++e) st[jj][e] = chk[jj][e];
 #pragma unroll
-        for (int e = 0; e < kEl; ++e) hist[q][e] = st[e];
-        if (c0 + q < n) advance(st, c0 + q);
+      for (int cc = 0; cc < c0; ++cc) advance(st, buf, cc);
+      const int nq = min(kHalf, n - c0);
+      // the second half's states 0..2 in slots 0..2, the first half's
+      // 1..3 in slots 0..2
+      const int slot0 = half > 0 ? 0 : -1;
+      if (half > 0 && nq > 1) put(0, st);
+#pragma unroll
+      for (int q = 1; q < kHalf; ++q) {
+        if (q < nq) {
+          advance(st, buf, c0 + q - 1);
+          if (half == 0 || q + 1 < nq) put(q + slot0, st);
+        }
       }
 #pragma unroll
       for (int q = kHalf - 1; q >= 0; --q) {
+        if (q >= nq) continue;  // the same for every thread
         const int cc = c0 + q;
-        if (cc >= n) continue;  // the same for every thread
-        const float rj = xs[0][cc][j], kj = xs[1][cc][j],
-                    wj = xs[2][cc][j];
-        float pr = 0.f, pk = 0.f, pw = 0.f, pv[kEl];
+        float sp[kJT][kCT];
+        if (half > 0 && q == nq - 1) {
 #pragma unroll
-        for (int e = 0; e < kEl; ++e) {
-          const float vi = xs[3][cc][i0 + e], yi = xs[4][cc][i0 + e];
-          pr = fmaf(hist[q][e], yi, pr);
-          pk = fmaf(g[e], vi, pk);
-          pw = fmaf(g[e], hist[q][e], pw);
-          pv[e] = g[e] * kj;
-          g[e] = fmaf(wj, g[e], rj * yi);  // G_{t-1}
-        }
+          for (int jj = 0; jj < kJT; ++jj)
 #pragma unroll
-        for (int off = CG / 2; off > 0; off /= 2) {
-          pr += __shfl_xor_sync(0xffffffffu, pr, off);
-          pk += __shfl_xor_sync(0xffffffffu, pk, off);
-          pw += __shfl_xor_sync(0xffffffffu, pw, off);
-        }
-        if (cg == 0 && row_in) {
-          const size_t o = base + (size_t)(t0 + cc) * dh + j;
-          dr[o] = fmaf(uj * kj, vdy[cc], pr);
-          dk[o] = fmaf(uj * rj, vdy[cc], pk);
-          dw[o] = pw;
-          du_acc = fmaf(rj * kj, vdy[cc], du_acc);
-        }
-        halve_sum<kEl, 16, CG>(pv, lane);
+            for (int e = 0; e < kCT; ++e) sp[jj][e] = st[jj][e];
+        } else if (half == 0 && q == 0) {
 #pragma unroll
-        for (int qq = 0; qq < NV; ++qq)
-          dvp[cc][warp][i0 + first + qq] = pv[qq];
+          for (int jj = 0; jj < kJT; ++jj)
+#pragma unroll
+            for (int e = 0; e < kCT; ++e) sp[jj][e] = chk[jj][e];
+        } else {
+          get(q + slot0, sp);
+        }
+        float rr[kJT], kk[kJT], ww[kJT], vv[kCT], yy[kCT];
+        rows(rr, stage_row(buf, 0, cc));
+        rows(kk, stage_row(buf, 1, cc));
+        rows(ww, stage_row(buf, 2, cc));
+        cols(vv, stage_row(buf, 3, cc));
+        cols(yy, stage_row(buf, 4, cc));
+        // [dr, dk, dw] of row j0, then of row j0 + 1; dv's row products
+        float p3[2 * 3], pv[kJT][kCT];
+#pragma unroll
+        for (int jj = 0; jj < kJT; ++jj) {
+          float pr = 0.f, pk = 0.f, pw = 0.f;
+#pragma unroll
+          for (int e = 0; e < kCT; ++e) {
+            const float gg = g[jj][e], sv = sp[jj][e];
+            pr = fmaf(sv, yy[e], pr);
+            pk = fmaf(gg, vv[e], pk);
+            pw = fmaf(gg, sv, pw);
+            pv[jj][e] = gg * kk[jj];
+            g[jj][e] = fmaf(ww[jj], gg, rr[jj] * yy[e]);  // G_{t-1}
+          }
+          p3[3 * jj] = pr;
+          p3[3 * jj + 1] = pk;
+          p3[3 * jj + 2] = pw;
+        }
+        // over the row group's CG lanes: halve on the top bit (each lane
+        // keeps one row's three sums), then add over the rest
+        halve_sum<6, CG / 2, CG / 2>(p3, lane);
+        add_lanes<CG / 4>(p3[0]);
+        add_lanes<CG / 4>(p3[1]);
+        add_lanes<CG / 4>(p3[2]);
+        if (pwriter) {
+          float* pp = part + cc * 3 * DH + prow;
+          pp[0] = p3[0];
+          pp[DH] = p3[1];
+          pp[2 * DH] = p3[2];
+        }
+        // dv over the quad: (row 0 + row 2) + (row 1 + row 3), the
+        // lanes trading the other half of their columns; rounded adds,
+        // never fused with the products (the first design's sums, bit
+        // for bit)
+        float qs[kCT / 2];
+#pragma unroll
+        for (int e = 0; e < kCT / 2; ++e) {
+          const int lo = e, hi = e + kCT / 2;
+          const float r0 = __shfl_xor_sync(
+              0xffffffffu, dv_up ? pv[0][lo] : pv[0][hi], CG);
+          const float r1 = __shfl_xor_sync(
+              0xffffffffu, dv_up ? pv[1][lo] : pv[1][hi], CG);
+          const float k0 = dv_up ? pv[0][hi] : pv[0][lo];
+          const float k1 = dv_up ? pv[1][hi] : pv[1][lo];
+          qs[e] = __fadd_rn(__fadd_rn(k0, r0), __fadd_rn(k1, r1));
+        }
+        *reinterpret_cast<float4*>(dvp + (cc * NQ + quad) * DH + qcol) =
+            make_float4(qs[0], qs[1], qs[2], qs[3]);
       }
     }
     __syncthreads();
-    for (int e = tid; e < n * DH; e += NT) {
-      const int cc = e / DH, i = e % DH;
+    // the chunk's outputs: column sums over the warps in order and the
+    // bonus terms; thread tid takes row / column sj of the steps
+    // sq + STEPS m (the same rows it staged)
+#pragma unroll
+    for (int m = 0; m < kCk / STEPS; ++m) {
+      const int cc = sq + STEPS * m;
+      if (cc >= n) continue;
+      const size_t o = base + (size_t)(t0 + cc) * dh + sj;
       float acc = 0.f;
-#pragma unroll 4
-      for (int wi = 0; wi < NW; ++wi) acc += dvp[cc][wi][i];
-      if (i < dh)
-        dv[base + (size_t)(t0 + cc) * dh + i] =
-            fmaf(beta[cc], xs[4][cc][i], acc);
+#pragma unroll
+      for (int qd = 0; qd < NQ; ++qd) acc += dvp[(cc * NQ + qd) * DH + sj];
+      const float rj = stage_row(buf, 0, cc)[col(sj)];
+      const float kj = stage_row(buf, 1, cc)[col(sj)];
+      const float yj = stage_row(buf, 4, cc)[col(sj)];
+      const float* pp = part + cc * 3 * DH + sj;
+      const float uj = us[sj];
+      if (EXACT || sj < dh) {
+        dv[o] = fmaf(beta[cc], yj, acc);
+        dr[o] = fmaf(uj * kj, vdy[cc], pp[0]);
+        dk[o] = fmaf(uj * rj, vdy[cc], pp[DH]);
+        dw[o] = pp[2 * DH];
+      }
     }
-    __syncthreads();  // before the next chunk is staged over these
+    // du over the chunk's steps, last first, one thread a row
+    if (sq == 0) {
+      for (int cc = n - 1; cc >= 0; --cc)
+        du_acc = fmaf(stage_row(buf, 0, cc)[col(sj)] *
+                          stage_row(buf, 1, cc)[col(sj)],
+                      vdy[cc], du_acc);
+    }
   }
-  if (cg == 0 && row_in) du_part[(size_t)pair * dh + j] = du_acc;
+  if (tid < dh) du_part[(size_t)pair * dh + tid] = du_acc;
 }
 
 template <typename T, int DH, bool EXACT>
@@ -237,15 +437,20 @@ cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* dy, const void* ds, void* dr, void* dk,
                    void* dv, void* dw, void* du_part, int b, int h, int s,
                    int dh, cudaStream_t stream) {
-  rwkv6_wkv_bwd_kernel<T, DH, EXACT>
-      <<<(unsigned)(b * h), Bwd<DH>::kNt, 0, stream>>>(
-          static_cast<const T*>(r), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(w),
-          static_cast<const float*>(u), static_cast<const float*>(s_chk),
-          static_cast<const float*>(dy), static_cast<const float*>(ds),
-          static_cast<float*>(dr), static_cast<float*>(dk),
-          static_cast<float*>(dv), static_cast<float*>(dw),
-          static_cast<float*>(du_part), h, s, dh);
+  constexpr size_t bytes = Bwd<DH>::kFloats * sizeof(float);
+  auto kernel = rwkv6_wkv_bwd_kernel<T, DH, EXACT>;
+  // above 48 KB a block's shared memory must be asked for (per device)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<(unsigned)(b * h), Bwd<DH>::kNt, bytes, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(w),
+      static_cast<const float*>(u), static_cast<const float*>(s_chk),
+      static_cast<const float*>(dy), static_cast<const float*>(ds),
+      static_cast<float*>(dr), static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(dw),
+      static_cast<float*>(du_part), h, s, dh);
   return cudaGetLastError();
 }
 

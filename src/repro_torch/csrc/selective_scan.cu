@@ -62,9 +62,15 @@
 // exponentials.
 //
 // Under grad (h_chk not null) the kernel also writes h before every 4th
-// step to h_chk (b, ceil(s / 4), di, n) f32, from which the backward
+// step to h_chk (b, ceil(s / 4), n, di) f32, from which the backward
 // kernel (selective_scan_bwd.cu) recomputes the states between (four
 // checkpoints a staged chunk, from the registers that hold h anyway).
+// The layout is state-major so that each store of a warp is 128
+// contiguous bytes: with a thread's n states contiguous (..., di, n),
+// as first written, a warp's store touched 32 sectors for 128 bytes,
+// and the forward under grad took 1.366 ms at jamba's shape against
+// 0.209 without; state-major it takes 0.376
+// (launch/recurrence_turns.py, PERF.md).
 // The writes are a template parameter (CKPT): serving runs a kernel
 // without them (a null test in the step loop cost 3.4% at jamba's
 // shape, measured in turns). State dims above 16 have no backward
@@ -208,12 +214,13 @@ selective_scan_kernel(const TX* __restrict__ dt, const TX* __restrict__ bm,
     for (int c = 0; c < kChunk; ++c) {
       if (c < steps) {
         if (CKPT && c % kCk == 0 && active) {
-          // h before step t0 + c
-          float* hc = h_chk + (((size_t)blockIdx.y * ((s + kCk - 1) / kCk)
-                                + (t0 + c) / kCk) * di + ch) * n;
+          // h before step t0 + c, state-major: a warp's 32 channels of
+          // one state are 128 contiguous bytes
+          float* hc = h_chk + ((size_t)blockIdx.y * ((s + kCk - 1) / kCk)
+                               + (t0 + c) / kCk) * n * di + ch;
 #pragma unroll
           for (int k = 0; k < N; ++k)
-            if (EXACT || k < n) hc[k] = h[k];
+            if (EXACT || k < n) hc[(size_t)k * di] = h[k];
         }
         const float d = cdt[c];
         const float du = d * cu[c];
@@ -369,7 +376,7 @@ cudaError_t by_u(const void* dt, const void* bm, const void* cm,
 // x_dtype (dt, B, C alike) and u_dtype: 0 = float32, 1 = bfloat16; A is
 // float32. dt, u (b, s, di), B, C (b, s, n), A (di, n), y (b, s, di),
 // h_final (b, di, n), all contiguous; any n >= 1. h_chk: null, or (under
-// grad; n <= 16) the backward's checkpoints, (b, ceil(s / 4), di, n)
+// grad; n <= 16) the backward's checkpoints, (b, ceil(s / 4), n, di)
 // f32. Returns the launch's cudaError_t.
 extern "C" int repro_selective_scan(const void* dt, const void* bm,
                                     const void* cm, const void* u,

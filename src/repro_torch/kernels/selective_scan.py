@@ -61,8 +61,8 @@ def scan_forward(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor,
                             Optional[torch.Tensor]]:
     """One launch of the forward kernel on CUDA tensors: (y, h_final, h
-    before every CHECKPOINT-th step (b, ceil(s / 4), di, n) f32 where
-    ``checkpoints``, else None)."""
+    before every CHECKPOINT-th step, state-major (b, ceil(s / 4), n, di)
+    f32, where ``checkpoints``, else None)."""
     _check(dt, bmat, cmat, u, a)
     b, s, di = dt.shape
     n = a.shape[1]
@@ -70,7 +70,7 @@ def scan_forward(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         _check_grad_state(n)
     y = torch.empty((b, s, di), dtype=torch.float32, device=dt.device)
     h_final = torch.empty((b, di, n), dtype=torch.float32, device=dt.device)
-    chk = (torch.empty((b, -(-s // CHECKPOINT), di, n), dtype=torch.float32,
+    chk = (torch.empty((b, -(-s // CHECKPOINT), n, di), dtype=torch.float32,
                        device=dt.device) if checkpoints else None)
     lib = _build.library()
     with torch.cuda.device(dt.device):
@@ -101,7 +101,7 @@ def selective_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor,
     n = a.shape[1]
     _check_grad_state(n)
     for name, t, shape in (
-            ("chk", chk, (b, -(-s // CHECKPOINT), di, n)),
+            ("chk", chk, (b, -(-s // CHECKPOINT), n, di)),
             ("dy", dy, (b, s, di)), ("dh", dh, (b, di, n))):
         if t is None or t.device != dt.device \
                 or t.dtype != torch.float32 or tuple(t.shape) != shape \
