@@ -254,7 +254,24 @@ NVIDIA GPU.
    its adafactor) trained at full width as granite is: a kernel step
    against a plain step (gradients within 1e-4 of each leaf's largest),
    ``train()`` for 10 steps with a falling loss and exact launches, a
-   profiled step;
+   profiled step; then (phase 10k) attention's backward kernel at the
+   training shapes of the encoder-decoder and the vision prefix
+   (whisper's bidirectional encoder (4, 20, 1500, 64), its decoder's
+   causal (4, 20, 448, 64) and its cross-attention, q of 448 against
+   1,500 keys; internvl2's q (4, 64, 768, 128) against k/v (4, 8, 768,
+   128), causal), each on the ``mma_3xtf32`` route (asserted), within
+   1e-4 of the plain VJP's largest gradient, its lse within 1e-5, two
+   runs the same to the bit, and timed beside the plain VJP and SDPA's
+   backward alone; then ``whisper-large-v3`` (AdamW, (4, 448) tokens and
+   (4, 1500, 1280) frames) and ``internvl2-76b`` cut 80 -> 4 layers
+   (Adafactor, (4, 512) tokens behind (4, 256, 8192) patches) trained at
+   full width as granite is: a kernel step against a plain step
+   (whisper's at 8 + 8 layers; gradients within 1e-4 of each leaf's
+   largest), exact launches (whisper: 160 attention and 96 of its
+   backward a step, an encoder layer's once, a decoder layer's self- and
+   cross-attention twice each), ``train()`` for 10 steps (whisper at 32
+   + 32 layers) with a falling loss, frames/s or patches/s beside
+   tokens/s, and a profiled step;
 11. runs the sharded paths with every mesh position on this card
    (``cuda:0`` repeated: every split, partial product and combine runs,
    in one process, no ``torch.distributed``): the bench tower
@@ -445,6 +462,22 @@ SCAN_GRAD_CASES = [(4, 512, 16384, 16, "float32", "float32"),
 TRAIN_LM_STEPS = 8
 # phase 10i: rwkv6-7b trained at depth 32 -> 8 (~42 GB with AdamW's state)
 RWKV_TRAIN_LAYERS = 8
+# phase 10k: whisper-large-v3 trained at full width and depth (32 + 32)
+# at LM_LR, its kernel-vs-plain step at 8 + 8 layers (the plain attention
+# keeps (4, 20, 1500, 1500) f32 probabilities for each encoder layer,
+# which no remat wraps: 32 of them do not fit beside the params);
+# internvl2-76b at full width cut 80 -> 4 layers (~22 GB of params,
+# untied 4.2 GB embed and lm_head)
+WHISPER_CHECK_LAYERS = 8
+INTERNVL_TRAIN_LAYERS = 4
+# internvl2's rate: LM_LR scaled by granite's widest fan-in over
+# internvl2's (1,536 / 28,672). Adafactor's first updates move every
+# weight by about lr whatever its gradient, so a matmul's output moves by
+# about lr x its fan-in of its size (more for wq, whose init takes d x
+# heads as its fan-in); at LM_LR, and at 5.625e-5 and 3e-5, internvl2's
+# 10-step loss rose or spiked above its batches' initial losses, at this
+# rate and at 1e-5 it stayed below them (PERF.md, PR 28)
+INTERNVL_TRAIN_LR = 1.6e-5
 # attention's gradient checks at granite's training shapes: causal, a
 # window shorter than the sequence, and a head dim of no power of two
 ATT_GRAD_CASES = [
@@ -1785,20 +1818,22 @@ def kernel_times(torch, fn, calls: int = 20) -> dict:
 
 
 def sdpa_backward_ms(torch, q, k, v, do, causal: bool, reps: int,
-                     trials: int) -> dict:
+                     trials: int, gqa: bool = False) -> dict:
     """SDPA's backward alone: one forward of
     ``scaled_dot_product_attention`` with k and v expanded to q's heads
-    (not every backend takes GQA), then only its backward op,
+    (not every backend takes GQA), or with ``gqa`` as they are under
+    ``enable_gqa``, then only its backward op,
     ``autograd.grad`` with the graph retained. ``library_ms``: its
     kernels' device time under ``torch.profiler`` (``kernel_times``
     summed), as the kernel's own ``ms`` is device time;
     ``library_eager_ms``: the eager call, the autograd engine's host
     time included."""
     import torch.nn.functional as F
-    g = q.shape[1] // k.shape[1]
+    g = 1 if gqa else q.shape[1] // k.shape[1]
     leaves = [q.detach().clone().requires_grad_()] + [
         t.repeat_interleave(g, dim=1).requires_grad_() for t in (k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=gqa)
 
     def backward():
         return torch.autograd.grad(out, leaves, do, retain_graph=True)
@@ -3212,10 +3247,54 @@ def grad_rel_err(got, exp) -> float:
                 / e.float().abs().max()).item() for a, e in zip(got, exp))
 
 
+def attention_grad_case(torch, q, k, v, do, causal: bool, window: int,
+                        tol: float, case) -> dict:
+    """One case of attention's gradient on the card: the forward with and
+    without the log-sum-exp (``o`` the same to the bit), the backward
+    kernel's dq, dk, dv twice (the same to the bit) against autograd
+    through the plain attention (``ref.attention_vjp_ref``, in f32),
+    within ``tol`` of the largest gradient, the log-sum-exp within 1e-5
+    of the plain version's (relative, past 1); raises unless all hold.
+    Returns the error, the lse's error, the route and the kernel's o,
+    lse and gradients."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    o_alone = fa.flash_attention(q, k, v, causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                 window=window, lse=lse)
+    again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                   window=window, lse=lse)
+    _, lse_ref = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    exp = ref.attention_vjp_ref(*(t.float() for t in (q, k, v, do)),
+                                causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = grad_rel_err(got, exp)
+    lse_err = ((lse - lse_ref).abs()
+               / lse_ref.abs().clamp(min=1)).max().item()
+    same_o = torch.equal(o, o_alone)
+    same_bwd = all(torch.equal(a, c) for a, c in zip(got, again))
+    route = fa.bwd_variant(q, k, v)
+    log(f"flash_attention_bwd {case} ({route}): max err / max grad "
+        f"{err:.3e} (tol {tol}); lse rel err {lse_err:.3e} (tol 1e-5); "
+        f"o the same to the bit without lse {same_o}; two runs the same "
+        f"to the bit {same_bwd}")
+    if not err <= tol:
+        raise AssertionError("attention's backward kernel disagrees "
+                             f"with the plain version's VJP at {case}")
+    if not (lse_err <= 1e-5 and same_o and same_bwd):
+        raise AssertionError(f"attention at {case}: the log-sum-exp, "
+                             f"the output or a rerun differs")
+    return {"err": err, "lse_err": lse_err, "route": route, "o": o,
+            "lse": lse, "got": got}
+
+
 def check_attention_grads(torch, dev) -> tuple:
     """Phase 10a: the backward kernel's dq, dk, dv, from the forward's
     log-sum-exp, against autograd through the plain attention
-    (``ref.attention_vjp_ref``) at granite's training shapes, each
+    (``attention_grad_case``) at granite's training shapes, each
     within 1e-4 of the largest gradient: causal (the tensor-core route,
     ``mma_3xtf32``, asserted), causal with a window of 128, and head dim
     80; then at the kernel's edges (ATT_GRAD_EDGE_CASES), bf16 within
@@ -3226,7 +3305,6 @@ def check_attention_grads(torch, dev) -> tuple:
     4 bytes off 16-byte alignment). Returns (the training shapes' errors,
     the route of every case)."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(14)
     errs, routes = {}, {}
     cases = [(b, h, kvh, s, s, dh, True, window, "float32")
@@ -3238,37 +3316,12 @@ def check_attention_grads(torch, dev) -> tuple:
                  for _ in range(2))
         k, v = (torch.randn((b, kvh, sk, dh), generator=g).to(dtype).to(dev)
                 for _ in range(2))
-        o_alone = fa.flash_attention(q, k, v, causal=causal, window=window)
-        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                    return_lse=True)
-        got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                     window=window, lse=lse)
-        again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                       window=window, lse=lse)
-        _, lse_ref = ref.attention_ref(q, k, v, causal=causal, window=window,
-                                       return_lse=True)
-        exp = ref.attention_vjp_ref(*(t.float() for t in (q, k, v, do)),
-                                    causal=causal, window=window)
-        torch.cuda.synchronize()
-        err = grad_rel_err(got, exp)
-        lse_err = ((lse - lse_ref).abs()
-                   / lse_ref.abs().clamp(min=1)).max().item()
-        same_o = torch.equal(o, o_alone)
-        same_bwd = all(torch.equal(a, c) for a, c in zip(got, again))
-        route = fa.bwd_variant(q, k, v)
+        case = (b, h, kvh, sq, sk, dh, causal, window, dt)
         # bf16: the forward's bf16 tolerance
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        case = (b, h, kvh, sq, sk, dh, causal, window, dt)
-        log(f"flash_attention_bwd {case} ({route}): max err / max grad "
-            f"{err:.3e} (tol {tol}); lse rel err {lse_err:.3e} (tol 1e-5); "
-            f"o the same to the bit without lse {same_o}; two runs the same "
-            f"to the bit {same_bwd}")
-        if not err <= tol:
-            raise AssertionError("attention's backward kernel disagrees "
-                                 f"with the plain version's VJP at {case}")
-        if not (lse_err <= 1e-5 and same_o and same_bwd):
-            raise AssertionError(f"attention at {case}: the log-sum-exp, "
-                                 f"the output or a rerun differs")
+        r = attention_grad_case(torch, q, k, v, do, causal, window, tol,
+                                case)
+        route = r["route"]
         if i == 0 and route != "mma_3xtf32":
             raise AssertionError(f"granite's training shape took the {route} "
                                  f"route")
@@ -3277,18 +3330,19 @@ def check_attention_grads(torch, dev) -> tuple:
             # to 16-byte aligned memory for the route's staging
             o_off, do_off = (torch.empty(t.numel() + 1, dtype=t.dtype,
                                          device=dev)[1:].view(t.shape)
-                             .copy_(t) for t in (o, do))
+                             .copy_(t) for t in (r["o"], do))
             shifted = fa.flash_attention_bwd(q, k, v, o_off, do_off,
                                              causal=causal, window=window,
-                                             lse=lse)
-            if not all(torch.equal(a, c) for a, c in zip(got, shifted)):
+                                             lse=r["lse"])
+            if not all(torch.equal(a, c)
+                       for a, c in zip(r["got"], shifted)):
                 raise AssertionError("the backward differs on misaligned "
                                      "o and dO")
             del o_off, do_off, shifted
         routes[str(case)] = route
         if i < len(cases):
-            errs[f"dh{dh}_window{window}"] = err
-        del q, k, v, o, o_alone, lse, lse_ref, do, got, again, exp
+            errs[f"dh{dh}_window{window}"] = r["err"]
+        del q, k, v, do, r
     return errs, routes
 
 
@@ -3402,9 +3456,46 @@ def plain_versions():
     return ctx()
 
 
-def lm_batch(torch, dev, cfg, seed: int):
+def vision_prefix(cfg) -> int:
+    """The patch embeddings in front of each row: internvl2's 256, 0 for
+    a model without a vision prefix."""
+    from repro_torch.models import transformer as T
+    return cfg.frontend.num_tokens if T.has_vision_prefix(cfg) else 0
+
+
+def train_text_shape(cfg) -> tuple:
+    """(batch, text tokens a row) of a training step: (4, 448) for
+    whisper (its published decoder context), (4, 512) behind internvl2's
+    patches, and (LM_BATCH, LM_SEQ) for a decoder-only model."""
+    if cfg.encoder is not None:
+        return WHISPER_BATCH, WHISPER_TOKENS
+    if vision_prefix(cfg):
+        return SCORE_BATCH, INTERNVL_TEXT
+    return LM_BATCH, LM_SEQ
+
+
+def train_batches(cfg, steps: int, seed: int):
+    """``steps`` numpy batches of ``make_lm_batches`` at the model's
+    ``train_text_shape``; whisper's carry frames (b, 1500, d) and
+    internvl2's patches (b, 256, d), the stubs' inputs, drawn normal x
+    0.02 from a numpy generator of the same seed (as
+    tests/test_archs_smoke.py draws them)."""
+    import numpy as np
     from repro_torch.data.synthetic import make_lm_batches
-    batch = next(make_lm_batches(cfg.vocab, LM_BATCH, LM_SEQ, 1, seed=seed))
+    b, s = train_text_shape(cfg)
+    stub = ({"frames": cfg.encoder.n_frames} if cfg.encoder is not None
+            else {"patches": vision_prefix(cfg)} if vision_prefix(cfg)
+            else {})
+    rng = np.random.default_rng(seed)
+    for batch in make_lm_batches(cfg.vocab, b, s, steps, seed=seed):
+        for key, n in stub.items():
+            batch[key] = (rng.standard_normal((b, n, cfg.d_model),
+                                              dtype=np.float32) * 0.02)
+        yield batch
+
+
+def lm_batch(torch, dev, cfg, seed: int):
+    batch = next(train_batches(cfg, 1, seed))
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
@@ -3414,17 +3505,25 @@ def lm_launches_per_step(cfg) -> dict:
     its recomputation in the backward) and its backward kernel once; an
     MoE layer's three grouped matmuls twice and two for each in the
     backward (a prefix layer, which no remat wraps, runs its forward
-    kernels once)."""
+    kernels once). An encoder-decoder model adds its encoder layers'
+    attention once and its backward once (``encode`` wraps none), and
+    each decoder layer's cross-attention as many times as the layer's
+    mixer and its backward once."""
     assert cfg.remat_policy == "minimal"
     out = {name: 0 for name in all_counters()}
     layers = [(m, f, 1) for m, f in cfg.prefix_pattern] + \
         [(m, f, 2) for m, f in cfg.block_pattern * cfg.n_repeats]
-    for mixer, ffn, runs in layers:
+    enc = 0 if cfg.encoder is None else cfg.encoder.n_layers
+    for mixer, ffn, runs in layers + [("attn", "mlp", 1)] * enc:
         fwd, bwd = MIXER_KERNELS[mixer]
         out[fwd] += runs
         out[bwd] += 1
         if ffn == "moe":
             out["moe_gmm"] += 3 * runs + 2 * 3
+    if cfg.encoder is not None:
+        for _, _, runs in layers:
+            out["flash_attention"] += runs
+            out["flash_attention_bwd"] += 1
     return out
 
 
@@ -3499,7 +3598,8 @@ def lm_kernel_vs_plain(torch, dev, cfg, card: str,
            "routing_flips_replayed": routing.flips,
            "kernel_step_s": t_kernel, "plain_step_s": t_plain,
            "launches": launches, "launches_split": split}
-    log(f"{cfg.arch_id} {cfg.n_layers} layers, kernel vs plain step "
+    enc = f" + {cfg.encoder.n_layers} encoder" if cfg.encoder else ""
+    log(f"{cfg.arch_id} {cfg.n_layers}{enc} layers, kernel vs plain step "
         f"({card}): " + json.dumps(out))
     if missing:
         raise AssertionError(f"gradients missing: {missing}")
@@ -3512,17 +3612,21 @@ def lm_kernel_vs_plain(torch, dev, cfg, card: str,
     return out
 
 
-def lm_train(torch, dev, cfg, card: str, tag: str = "granite") -> dict:
-    """Phase 10d: ``train()`` from drawn params, 2 warm-up and 8 timed
-    steps of (4, 512) batches: step time (from the trainer's history,
-    whose float() of the metrics waits for the card each step),
-    tokens/s, peak device memory, launches a step, the loss finite and
-    lower after the steps; then one more step of ``make_train_step``
-    under ``torch.profiler`` for the busy share and where the device time
-    goes, and the model-FLOPs utilisation against the f32 FMA peak."""
+def lm_train(torch, dev, cfg, card: str, tag: str = "granite",
+             lr: float = LM_LR) -> dict:
+    """Phase 10d: ``train()`` at ``lr`` from drawn params, 2 warm-up and
+    8 timed steps of ``train_batches``: step time (from the
+    trainer's history, whose float() of the metrics waits for the card
+    each step), text tokens/s (and frames/s or patches/s beside them),
+    peak device memory, launches a step, the loss finite and lower after
+    the steps; then one more step of ``make_train_step`` under
+    ``torch.profiler`` for the busy share and where the device time goes,
+    and the model-FLOPs utilisation (``flops.model_flops`` over every
+    position the decoder runs: internvl2's patches too) against the f32
+    FMA peak, with the analytic count's (``flops.train_flops``, which
+    counts whisper's encoder over its frames) beside it."""
     import math
     from repro_torch.configs.base import InputShape
-    from repro_torch.data.synthetic import make_lm_batches
     from repro_torch.launch import flops as F
     from repro_torch.launch import steps as ST
     from repro_torch.train import optimizer as O
@@ -3532,10 +3636,9 @@ def lm_train(torch, dev, cfg, card: str, tag: str = "granite") -> dict:
     for c in counters.values():
         c.reset()
     torch.cuda.reset_peak_memory_stats()
-    job = TrainJob(cfg=cfg, lr=LM_LR, steps=steps, log_every=1, device=dev)
+    job = TrainJob(cfg=cfg, lr=lr, steps=steps, log_every=1, device=dev)
     t0 = time.perf_counter()
-    res = train(job, make_lm_batches(cfg.vocab, LM_BATCH, LM_SEQ, steps,
-                                     seed=0))
+    res = train(job, train_batches(cfg, steps, seed=0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -3552,31 +3655,44 @@ def lm_train(torch, dev, cfg, card: str, tag: str = "granite") -> dict:
     if not all(math.isfinite(x) for x in losses) \
             or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses {losses}")
-    tokens = LM_BATCH * LM_SEQ
-    shape = InputShape("lm_train", LM_SEQ, LM_BATCH, "train")
+    b, s = train_text_shape(cfg)
+    prefix = vision_prefix(cfg)
+    shape = InputShape("lm_train", s + prefix, b, "train")
     model_flops = F.model_flops(cfg, shape)
-    out = {"layers": cfg.n_layers, "steps": steps, "wall_s": wall,
+    train_flops = F.train_flops(cfg, shape)
+    out = {"layers": cfg.n_layers, "steps": steps, "lr": lr,
+           "wall_s": wall,
            "step_ms": step_s * 1e3, "step_ms_timed": [x * 1e3 for x in timed],
-           "tokens_per_s": tokens / step_s, "peak_gb": peak / 1e9,
+           "tokens_per_s": b * s / step_s, "peak_gb": peak / 1e9,
            "loss_first": losses[0], "loss_last": losses[-1],
            "losses": losses, "launches_per_step": per_step,
            "model_flops": model_flops,
-           "train_flops_analytic": F.train_flops(cfg, shape),
-           "mfu_f32": model_flops / step_s / F32_FLOP_S}
-    log(f"{cfg.arch_id} train(): {cfg.n_layers} layers, {steps} steps of "
-        f"({LM_BATCH}, {LM_SEQ}): step {out['step_ms']:.1f} ms (median of "
-        f"{LM_TIMED}), {out['tokens_per_s']:.1f} tokens/s, peak "
+           "train_flops_analytic": train_flops,
+           "mfu_f32": model_flops / step_s / F32_FLOP_S,
+           "mfu_f32_analytic": train_flops / step_s / F32_FLOP_S}
+    if cfg.encoder is not None:
+        out["encoder_layers"] = cfg.encoder.n_layers
+        out["frames_per_s"] = b * cfg.encoder.n_frames / step_s
+    if prefix:
+        out["patches_per_s"] = b * prefix / step_s
+    rates = ", ".join(f"{out[k]:.1f} {k[:-6]}/s" for k in (
+        "tokens_per_s", "frames_per_s", "patches_per_s") if k in out)
+    log(f"{cfg.arch_id} train(): {cfg.n_layers} layers"
+        + (f" (+ {cfg.encoder.n_layers} encoder)" if cfg.encoder else "")
+        + f", {steps} steps of ({b}, {s}): step {out['step_ms']:.1f} ms "
+        f"(median of {len(timed)}), {rates}, peak "
         f"{out['peak_gb']:.2f} GB, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
         f", model FLOPs {model_flops / 1e12:.2f} T a step, utilisation "
-        f"{out['mfu_f32']:.4f} of 67 TFLOP/s (f32, TF32 off); launches a "
+        f"{out['mfu_f32']:.4f} of 67 TFLOP/s (f32, TF32 off; "
+        f"{out['mfu_f32_analytic']:.4f} by the analytic count); launches a "
         f"step {per_step}; {card}")
-    # a profiled step: the trainer's params and a fresh AdamW state
+    # a profiled step: the trainer's params and a fresh optimizer state
     params = res["params"]
     del res
     gc.collect()
     opt = O.make_optimizer(cfg.optimizer)
     state = opt.init(params)
-    step = ST.make_train_step(cfg, opt, lr=LM_LR,
+    step = ST.make_train_step(cfg, opt, lr=lr,
                               compute_dtype=torch.float32)
     batch = lm_batch(torch, dev, cfg, seed=1)
     step(params, state, batch)          # the fresh state's first step
@@ -4034,6 +4150,160 @@ def recurrence_train_phase(torch, dev) -> tuple:
                                     trained["launches_per_step"].items()}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"recurrence training phase: {out['seconds']:.1f} s; {card}")
+    return launches, out
+
+
+def enc_vlm_attention_shapes() -> dict:
+    """name -> (q shape, k/v shape, causal) of attention in whisper's and
+    internvl2's training steps: the encoder's bidirectional
+    self-attention over 1,500 frames, the decoder's causal self-attention
+    and its cross-attention (448 queries, 1,500 keys) at (4, 448) tokens,
+    and internvl2's causal GQA (8 query heads a KV head, head dim 128)
+    over 256 patches and 512 tokens."""
+    w = whisper_attention_shapes(whisper_config())
+    qs, ks = internvl_attention_shapes(internvl_train_config())
+    return {"whisper_train_encoder": w["encoder"],
+            "whisper_train_decoder_self": w["decoder_self"],
+            "whisper_train_cross": w["cross_prefill"],
+            "internvl2_train": (qs, ks, True)}
+
+
+def sdpa_eager(t: dict) -> dict:
+    """``sdpa_backward_ms``'s numbers with the eager call's time as
+    ``library_ms`` and the profiler's sum as ``library_profiler_ms``."""
+    return dict(t, library_ms=t["library_eager_ms"],
+                library_profiler_ms=t["library_ms"])
+
+
+def enc_vlm_attention_grads(torch, dev, card: str) -> dict:
+    """Phase 10k(a): attention's gradient at the four training shapes
+    (``enc_vlm_attention_shapes``), f32: ``attention_grad_case`` within
+    1e-4 of the largest gradient, the lse within 1e-5, two runs the same
+    to the bit, the ``mma_3xtf32`` route asserted; then each timed: the
+    backward's device ms in a replayed graph, each of its kernels' device
+    time, eager ms, the bound, autograd through the plain attention, and
+    SDPA's backward alone (internvl2's with ``enable_gqa``, and with k
+    and v expanded to q's heads beside it): its ``library_ms`` is the
+    eager call's, from CUDA events (``library_eager_ms``), as late in
+    the script the profiler's sums can miss records; their sum is kept
+    as ``library_profiler_ms``. Returns the numbers by shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(29)
+    out = {}
+    for name, (qs, ks, causal) in enc_vlm_attention_shapes().items():
+        q, do = (torch.randn(qs, generator=g).to(dev) for _ in range(2))
+        k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+        r = attention_grad_case(torch, q, k, v, do, causal, 0, 1e-4,
+                                (name, qs, ks, causal))
+        if r["route"] != "mma_3xtf32":
+            raise AssertionError(f"{name} took the {r['route']} route")
+        o, lse = r["o"], r["lse"]
+
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                          lse=lse)
+        # max_abs_err: the largest of dq, dk, dv's errors over the
+        # largest gradient
+        t = {"route": r["route"], "q": list(qs), "kv": list(ks),
+             "causal": causal, "max_abs_err": r["err"],
+             "lse_rel_err": r["lse_err"],
+             "ms": graph_ms(kernel, reps=10, trials=5),
+             "kernels_ms": kernel_times(torch, kernel, calls=10),
+             "eager_ms": eager_ms(kernel, reps=10, trials=5),
+             "plain_ms": eager_ms(
+                 lambda: ref.attention_vjp_ref(q, k, v, do, causal=causal),
+                 reps=3, trials=3),
+             **sdpa_eager(sdpa_backward_ms(torch, q, k, v, do, causal, 10,
+                                           3, gqa=qs[1] != ks[1])),
+             **attention_bwd_bound(q, k, causal)}
+        if qs[1] != ks[1]:
+            t["library_expanded"] = sdpa_eager(sdpa_backward_ms(
+                torch, q, k, v, do, causal, 10, 3))
+        log(f"flash_attention_bwd {name} q {qs} k/v {ks} causal {causal} "
+            f"f32 ({card}): {json.dumps(t)}")
+        out[name] = t
+        del q, k, v, do, o, lse, r, kernel
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def whisper_train_configs():
+    """whisper-large-v3 at full width and depth (its AdamW and remat
+    policy), and the same cut to WHISPER_CHECK_LAYERS encoder and decoder
+    layers for the kernel-vs-plain step."""
+    cfg = whisper_config()
+    assert (cfg.optimizer, cfg.remat_policy) == ("adamw", "minimal")
+    cut = dataclasses.replace(
+        cfg, n_layers=WHISPER_CHECK_LAYERS,
+        encoder=dataclasses.replace(cfg.encoder,
+                                    n_layers=WHISPER_CHECK_LAYERS))
+    return cfg, cut
+
+
+def internvl_train_config():
+    """internvl2-76b at full width cut to INTERNVL_TRAIN_LAYERS layers;
+    its Adafactor and remat policy."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(INTERNVL_ARCH),
+                              n_layers=INTERNVL_TRAIN_LAYERS)
+    assert (cfg.optimizer, cfg.remat_policy) == ("adafactor", "minimal")
+    return cfg
+
+
+def enc_vlm_train_phase(torch, dev) -> tuple:
+    """Phase 10k: the encoder-decoder and the vision prefix trained on
+    the card, f32, remat "minimal". (a) Attention's gradient at their
+    four training shapes (``enc_vlm_attention_grads``). (b)
+    whisper-large-v3 with (4, 448) tokens and (4, 1500, 1280) frames, its
+    AdamW: one step's loss and gradients with the kernels against the
+    plain versions' at 8 + 8 layers (``lm_kernel_vs_plain``: loss within
+    rtol 1e-5, every gradient within 1e-4 of its leaf's largest, launches
+    as ``lm_launches_per_step`` gives them), then ``train()`` at 32 + 32
+    layers for 2 warm-up and 8 timed steps with a falling
+    loss and exact launches (160 forward and 96 backward attention
+    launches a step), and a profiled step (``lm_train``). (c)
+    internvl2-76b at INTERNVL_TRAIN_LAYERS layers, (4, 512) tokens behind
+    (4, 256, 8192) patches, its Adafactor at INTERNVL_TRAIN_LR: the same
+    three. Returns (the launches of the counted runs, the measured
+    numbers)."""
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    log(f"phase 10k(a): attention's gradient at whisper's and internvl2's "
+        f"training shapes ({card})")
+    out = {"attention_bwd": enc_vlm_attention_grads(torch, dev, card)}
+    mark("phase 10k(a) attention's gradient at the training shapes")
+    launches = {}
+    steps = LM_WARMUP + LM_TIMED
+    whisper, whisper_cut = whisper_train_configs()
+    internvl = internvl_train_config()
+    for tag, cfg, check, lr in (
+            ("whisper", whisper, whisper_cut, LM_LR),
+            ("internvl2", internvl, internvl, INTERNVL_TRAIN_LR)):
+        t0 = time.perf_counter()
+        card = gpu_line()
+        b, s = train_text_shape(cfg)
+        log(f"{cfg.arch_id} training ({card}): {cfg.n_layers} layers"
+            + (f" + {cfg.encoder.n_layers} encoder layers over "
+               f"{cfg.encoder.n_frames} frames" if cfg.encoder else "")
+            + (f" behind {vision_prefix(cfg)} patch embeddings"
+               if vision_prefix(cfg) else "")
+            + f", every width as published; the kernel-vs-plain step at "
+            f"{check.n_layers}"
+            + (f" + {check.encoder.n_layers}" if check.encoder else "")
+            + f" layers; {cfg.optimizer}, remat {cfg.remat_policy!r}, f32, "
+            f"({b}, {s}) token batches, lr {lr}")
+        versus = lm_kernel_vs_plain(torch, dev, check, card, grad_tol=1e-4)
+        trained = lm_train(torch, dev, cfg, card, tag, lr)
+        out[tag] = {"kernel_vs_plain": versus, "train": trained,
+                    "seconds": time.perf_counter() - t0}
+        launches[f"{tag}_train"] = {k: n * steps for k, n in
+                                    trained["launches_per_step"].items()}
+        mark(f"phase 10k {tag} training")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"whisper and internvl2 training phase: {out['seconds']:.1f} s; "
+        f"{card}")
     return launches, out
 
 
@@ -4707,6 +4977,10 @@ def main() -> int:
     # the recurrences' backward kernels; rwkv6 and jamba trained
     rec_launches, rec = recurrence_train_phase(torch, dev)
     mark('recurrence training')
+    # the encoder-decoder and the vision prefix trained: attention's
+    # gradient at their shapes, whisper at full depth, internvl2 cut
+    ev_launches, ev = enc_vlm_train_phase(torch, dev)
+    mark('whisper and internvl2 training')
     # sharding on the device path: the sharded tower, mesh-mode VFL, the
     # sequence-sharded decode and the VFL x LLM example, every mesh
     # position on this card
@@ -4726,7 +5000,8 @@ def main() -> int:
             by_path[name][run] = c
     zoo_runs = (zoo_launches | moe_launches | h2o_launches | jamba_launches
                 | mla_launches | whisper_launches | internvl_launches
-                | lm_launches | rec_launches | shard_launches)
+                | lm_launches | rec_launches | ev_launches
+                | shard_launches)
     for run, got in zoo_runs.items():
         for name, c in got.items():
             by_path[name][run] = c
@@ -4734,7 +5009,8 @@ def main() -> int:
                           gmm_path_shapes(moe_cfg))
     errs["flash_attention_bwd"] = max(
         *lm["attention_grad_errs"].values(),
-        train["attention_backward"]["max_abs_err"])
+        train["attention_backward"]["max_abs_err"],
+        *(t["max_abs_err"] for t in ev["attention_bwd"].values()))
     for name in ("rwkv6_wkv", "selective_scan"):
         errs[f"{name}_bwd"] = rec["grad"][name]["max_abs_err"]
     extra = {
@@ -4790,7 +5066,14 @@ def main() -> int:
                 "flash_attention_bwd"],
             "routes": lm["attention_grad_routes"],
             "split_nn_tower": train["attention_backward"],
-            "vfl_llm": shard["vfl_llm_kernels"]["attention_bwd"]},
+            "vfl_llm": shard["vfl_llm_kernels"]["attention_bwd"],
+            # whisper's encoder, decoder self- and cross-attention and
+            # internvl2's GQA at their training shapes
+            **ev["attention_bwd"],
+            "launches_per_whisper_train_step": ev["whisper"]["train"][
+                "launches_per_step"]["flash_attention_bwd"],
+            "launches_per_internvl2_train_step": ev["internvl2"]["train"][
+                "launches_per_step"]["flash_attention_bwd"]},
         # each gradient's largest difference over its largest magnitude
         # at the path's shape, against the plain VJP in float64
         **{f"{name}_bwd": {
@@ -4848,7 +5131,10 @@ def main() -> int:
         f"prefill {internvl['served']['prefill_tok_s']:.1f} tokens/s, decode "
         f"{internvl['served']['decode_tok_s']:.1f} tokens/s; rwkv6 training "
         f"{rec['rwkv6']['train']['step_ms']:.1f} ms a step, jamba "
-        f"{rec['jamba']['train']['step_ms']:.1f} ms; VFL x LLM "
+        f"{rec['jamba']['train']['step_ms']:.1f} ms; whisper training "
+        f"{ev['whisper']['train']['step_ms']:.1f} ms a step, internvl2 "
+        f"({INTERNVL_TRAIN_LAYERS} layers) "
+        f"{ev['internvl2']['train']['step_ms']:.1f} ms; VFL x LLM "
         f"{shard['vfl_llm']['step_ms']:.1f} ms a step; mesh-mode VFL "
         f"{shard['mesh_vfl']['masked_step_ms']:.1f} ms a step; sharded "
         f"decode {shard['sharded_decode']['sharded_step_ms']:.1f} ms a "

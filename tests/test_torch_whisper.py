@@ -18,7 +18,10 @@ on the CPU, where attention takes its plain version.
   ``decode_step`` logits and cache over 8 steps with memory within
   1e-4; greedy ``generate`` tokens equal; ``score`` raising as the JAX
   engine's does; the analytic FLOPs equal; decode against the port's own
-  prefill; the loss's gradients exact under each remat policy; the serve CLI and ``python -m repro_torch.examples.asr_serve``
+  prefill; the loss's gradients exact under each remat policy and, the
+  encoder's and cross-attention's included, within 1e-4 of each leaf's
+  largest against ``jax.value_and_grad``; the serve CLI and ``python -m
+  repro_torch.examples.asr_serve``
   on the CPU.
 
 The JAX side comes from one module-scoped fixture: one jitted encode and
@@ -375,6 +378,37 @@ def test_remat_policies_exact_under_grad(model):
         assert torch.equal(got[policy][0], got["none"][0])
         for (p1, g1), (p2, g2) in zip(got[policy][1], got["none"][1]):
             assert p1 == p2 and torch.equal(g1, g2), p1
+
+
+def test_grads_match_jax():
+    """The loss with frames at rtol 1e-5, and every gradient, the
+    encoder's and each decoder layer's cross-attention's included, within
+    1e-4 of its leaf's largest, against ``jax.value_and_grad`` of the JAX
+    package's ``loss_fn`` (under the config's remat policy in both). Its
+    own params and batch, out of the module's fixture, whose compiles it
+    does not need."""
+    cfg, jcfg = _both()
+    jp, tp = _params(jT.model_spec(jcfg), 7)
+    toks = _tokens(cfg, B, S + 1, 5)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "frames": _frames(cfg, B, 8)}
+    (want, _), jg = jax.jit(jax.value_and_grad(
+        lambda p, b: jT.loss_fn(jcfg, p, b, jnp.float32), has_aux=True))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    loss, _, grads = tST.loss_and_grads(
+        cfg, tp, {k: torch.from_numpy(v) for k, v in batch.items()},
+        torch.float32)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    got = tP.tree_items(grads)
+    exp = tP.tree_items(jax.tree.map(np.asarray, jg))
+    assert [p for p, _ in got] == [p for p, _ in exp]
+    assert any(p[0] == "encoder" for p, _ in got)
+    assert any("cross" in p for p, _ in got)
+    for (path, g), (_, e) in zip(got, exp):
+        assert g is not None, path
+        np.testing.assert_allclose(g.numpy(), e, rtol=0,
+                                   atol=1e-4 * np.abs(e).max(),
+                                   err_msg="/".join(path))
 
 
 @pytest.mark.parametrize("reduced", [False, True])
