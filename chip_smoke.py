@@ -357,6 +357,9 @@ ZOO_ARCH = "rwkv6-7b"
 SCORE_BATCH, SCORE_TOKENS = 4, 512        # score() prefills 511 of them
 CONSIST_TOKENS = 64
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 16, 16
+# the profiled decode window: prompt tokens and new tokens, 7 decode steps
+# of the timed generate's 31
+PROFILE_GEN = (4, 4)
 # substrings of the cuBLAS / CUTLASS kernel names the profile counts as
 # matmuls
 MATMUL_MARKS = ("gemm", "gemv", "cutlass", "xmma")
@@ -2232,9 +2235,18 @@ def serve_model(torch, dev, cfg, tag: str, kernels: dict,
         f"{out[:, GEN_PROMPT:GEN_PROMPT + 4].tolist()}")
     log(f"{cfg.arch_id} decode tokens/s: {decode_tok / gen_s:.1f}")
     mark(f"{tag} generate")
+    # the decode profile's window: PROFILE_GEN of the prompts' tokens and
+    # new ones, timed alone; tracing the whole generate (~140k launches
+    # at granite) took ~40 s
+    short = prompts[:, :PROFILE_GEN[0]]
+    t0 = time.perf_counter()
+    eng.generate(short, PROFILE_GEN[1])
+    torch.cuda.synchronize()
+    short_s = time.perf_counter() - t0
     prof_decode = profile_window(
-        torch, lambda: eng.generate(prompts, GEN_NEW), gen_s)
-    log(f"{tag} profile decode " + json.dumps(prof_decode))
+        torch, lambda: eng.generate(short, PROFILE_GEN[1]), short_s)
+    log(f"{tag} profile decode ({PROFILE_GEN[0]} prompt tokens and "
+        f"{PROFILE_GEN[1]} new) " + json.dumps(prof_decode))
     mark(f"{tag} decode profile")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{cfg.arch_id} peak device memory {peak:.2f} GiB")
@@ -3417,10 +3429,22 @@ class Routing:
         return self._patched(rec)
 
     def replay(self):
-        it = iter(self.picks)
+        """The recorded picks, call for call; a sharded step's router
+        runs once a row (a batch position) where the recorded step ran
+        once a layer, so each call takes the recorded picks' next tokens
+        in order, as many as its rows hold (all of a recorded call's in
+        an unsharded step)."""
+        flat = [p.reshape(-1, p.shape[-1]) for p in self.picks]
+        at = {"call": 0, "token": 0}
 
         def rep(probs, k):
-            sel = next(it)
+            n = probs[..., 0].numel()
+            src = flat[at["call"]]
+            sel = src[at["token"]:at["token"] + n].to(probs.device)
+            sel = sel.reshape(probs.shape[:-1] + (k,))
+            at["token"] += n
+            if at["token"] == src.shape[0]:
+                at["call"], at["token"] = at["call"] + 1, 0
             own = self.orig(probs, k)[1]
             self.flips += int((own.sort(-1).values != sel.sort(-1).values
                                ).any(-1).sum())
@@ -4618,52 +4642,80 @@ def vfl_llm_shapes(cfg):
 
 
 def vfl_llm_kernels(torch, dev, cfg, card: str) -> dict:
-    """Phase 11d: the attention kernel (forward and backward) and the
-    grouped matmul (forward, dx and dw) at the VFL x LLM path's shapes
-    against their plain versions (2e-5; 1e-4 of the largest gradient;
-    2e-4), then timed beside them, SDPA and ``torch.bmm``."""
+    """Phase 11d: the kernels at the VFL x LLM path's shapes
+    (``path_kernels``)."""
+    qs, ks, gmm_shapes = vfl_llm_shapes(cfg)
+    return path_kernels(torch, dev, cfg, card, qs, ks, gmm_shapes,
+                        "VFL x LLM", 51)
+
+
+def attention_bwd_at(torch, dev, qs, ks, window: int, g, tag: str,
+                     card: str) -> dict:
+    """The attention backward kernel (causal, ``window``) at q ``qs`` and
+    k/v ``ks`` against the plain version's VJP, within 1e-4 of the
+    largest gradient, then timed beside it and SDPA's backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
-    g = torch.Generator().manual_seed(51)
-    qs, ks, gmm_shapes = vfl_llm_shapes(cfg)
-    out = {"attention": time_attention(torch, dev, cfg, qs, ks, 0, g,
-                                       dict(reps=50, trials=10))}
-    out["attention"]["max_abs_err"] = check_attention(torch, dev, qs, ks,
-                                                      0, g)
     q, do = (torch.randn(qs, generator=g).to(dev) for _ in range(2))
     k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
-    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    got = fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
-    exp = ref.attention_vjp_ref(q, k, v, do, causal=True)
+    o, lse = fa.flash_attention(q, k, v, causal=True, window=window,
+                                return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                 window=window, lse=lse)
+    exp = ref.attention_vjp_ref(q, k, v, do, causal=True, window=window)
     torch.cuda.synchronize()
     bwd_err = grad_rel_err(got, exp)
     if not bwd_err <= 1e-4:
         raise AssertionError("attention's backward kernel disagrees with "
-                             "the plain VJP at the VFL x LLM shape")
+                             f"the plain VJP at the {tag} shape")
 
     def kernel():
-        return fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+        return fa.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                      window=window, lse=lse)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
 
     def sdpa_fwd_bwd():
         y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
                                            enable_gqa=True)
         return torch.autograd.grad(y, (qr, kr, vr), do)
-    out["attention_bwd"] = {
-        "shape": [list(qs), list(ks)], "max_abs_err": bwd_err,
-        "variant": fa.bwd_variant(q, k, v),
+    out = {
+        "shape": [list(qs), list(ks)], "window": window,
+        "max_abs_err": bwd_err, "variant": fa.bwd_variant(q, k, v),
         "ms": graph_ms(kernel, reps=50, trials=10),
         "eager_ms": eager_ms(kernel, reps=50, trials=10),
         "plain_ms": eager_ms(
-            lambda: ref.attention_vjp_ref(q, k, v, do, causal=True),
+            lambda: ref.attention_vjp_ref(q, k, v, do, causal=True,
+                                          window=window),
             reps=20, trials=5),
         **sdpa_backward_ms(torch, q, k, v, do, True, 50, 10),
         "sdpa_fwd_bwd_ms": eager_ms(sdpa_fwd_bwd, reps=20, trials=5),
         **attention_bwd_bound(q, k, True)}
-    log(f"flash_attention_bwd VFL x LLM q {qs} k/v {ks} causal f32 "
-        f"({card}): {out['attention_bwd']}")
+    log(f"flash_attention_bwd {tag} q {qs} k/v {ks} causal window "
+        f"{window} f32 ({card}): {out}")
+    return out
+
+
+def path_kernels(torch, dev, cfg, card: str, qs, ks, gmm_shapes,
+                 tag: str, seed: int, window: int = 0,
+                 bwd: bool = True) -> dict:
+    """The attention kernel (forward and, where ``bwd``, backward; causal,
+    ``window`` as the path passes it, which must mask nothing for SDPA's
+    sake) at q ``qs`` and k/v ``ks``, and the grouped matmul (forward, dx
+    and dw) at each of ``gmm_shapes`` ((name, (e, c, d, f))), against
+    their plain versions (2e-5; 1e-4 of the largest gradient; 2e-4), then
+    timed beside them, SDPA and ``torch.bmm``."""
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(seed)
+    out = {"attention": time_attention(torch, dev, cfg, qs, ks, window, g,
+                                       dict(reps=50, trials=10))}
+    out["attention"]["max_abs_err"] = check_attention(torch, dev, qs, ks,
+                                                      window, g)
+    out["attention"]["shape"] = [list(qs), list(ks)]
+    if bwd:
+        out["attention_bwd"] = attention_bwd_at(torch, dev, qs, ks, window,
+                                                g, tag, card)
     for name, (e, c, d, f) in gmm_shapes:
         x = torch.randn((e, c, d), generator=g).to(dev)
         w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
@@ -4689,7 +4741,7 @@ def vfl_llm_kernels(torch, dev, cfg, card: str) -> dict:
         t.update(shape=[list(x.shape), list(w.shape)],
                  variant=gmm.variant(x, w), max_abs_err=err)
         out[f"gmm_{name}"] = t
-        log(f"moe_gmm VFL x LLM {name} {(e, c, d, f)} f32, forward, dx "
+        log(f"moe_gmm {tag} {name} {(e, c, d, f)} f32, forward, dx "
             f"and dw ({card}): {t}")
         del x, w, dy, xg, wg, xr, wr, grads, want
     return out
@@ -4831,6 +4883,441 @@ def sharding_phase(torch, dev) -> tuple:
            "vfl_llm_kernels": kernels,
            "seconds": time.perf_counter() - t_phase}
     log(f"sharding phase: {out['seconds']:.1f} s; {card}")
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the zoo's train and prefill steps on a mesh of more than one
+# device, every mesh position on this card
+# ---------------------------------------------------------------------------
+
+# 12a: granite-moe-3b-a800m trained on a data 2 x model 2 mesh at full
+# width: the sharded step held to the unsharded one at SHARD_CMP_LAYERS
+# layers, where both sit on the card, then alone at its full 32 layers
+# 12b: h2o-danube-1.8b trained on data 2 x model 2 at full width and
+# depth (the dense gated MLP's split and the loss over 32,000 / 2 vocab)
+# 12c: glm4-9b prefill on a 1 x 4 mesh (its 2 KV heads fall back to
+# replication on model 4) at full width, depth 40 -> SHARD_GLM4_LAYERS
+# so that the unsharded reference sits beside the sharded params
+SHARD_MESH = (2, 2)
+SHARD_CMP_LAYERS = 8
+SHARD_GLM4_MESH = (1, 4)
+SHARD_GLM4_LAYERS = 20
+SHARD_TIMED = 2
+
+
+def sharded_launches_per_step(cfg, shape, train: bool = True) -> dict:
+    """Each hand kernel's launches in one step on a (data, model) mesh
+    of ``shape``, each row (data position) its share of the batch. An
+    attention layer runs one kernel a row and model position (where the
+    heads split over model, else one a row); an MoE layer's three
+    grouped matmuls once a model position over the experts' split (one
+    where they do not split), on every row's tokens at once. A training
+    step under remat "minimal" runs each forward kernel twice (the
+    forward and its recomputation) and each backward once, the grouped
+    matmul two a call in the backward; a prefill runs the forwards
+    once."""
+    assert not train or cfg.remat_policy == "minimal"
+    rows, model = shape
+    att = rows * (model if cfg.eff_heads % model == 0 else 1)
+    ep = model if cfg.moe and cfg.moe.num_experts % model == 0 else 1
+    layers = cfg.prefix_pattern + cfg.block_pattern * cfg.n_repeats
+    out = {name: 0 for name in all_counters()}
+    for _, ffn in layers:
+        out["flash_attention"] += att * (2 if train else 1)
+        if train:
+            out["flash_attention_bwd"] += att
+        if ffn == "moe":
+            out["moe_gmm"] += 3 * ep * (2 + 2 if train else 1)
+    return out
+
+
+def capture_optimizer():
+    """An optimizer whose update keeps the gradients the step hands it
+    (each placed leaf gathered whole) and leaves params and state be:
+    a train step's gradients through ``make_train_step`` itself."""
+    from repro_torch.models import params as PRM
+    from repro_torch.train import optimizer as O
+    got = []
+
+    def update(grads, state, params, lr):
+        got.append(PRM.whole_tree(grads))
+        return params, state
+    return O.Optimizer("capture", lambda p: {}, update, lambda a: {}), got
+
+
+def to_host(torch, tree):
+    from repro_torch.models import params as PRM
+    return PRM.tree_map(lambda t: t.detach().to("cpu"), tree)
+
+
+def adamw_update_err(torch, got, exp, g_got, g_exp, lr: float,
+                     eps: float = 1e-8) -> float:
+    """The largest difference of an updated param, beyond AdamW's own
+    share of it, over its leaf's largest param: the share that
+    ``assert_adamw_updates`` of tests/test_torch_sharded_steps.py states
+    and allows."""
+    from repro_torch.models import params as PRM
+    worst = 0.0
+    for (_, a), (_, e), (_, g1), (_, g2) in zip(
+            PRM.tree_items(got), PRM.tree_items(exp),
+            PRM.tree_items(g_got), PRM.tree_items(g_exp)):
+        e, g2 = e.to(a.device), g2.to(a.device)
+        same = torch.sign(g1) == torch.sign(g2)
+        moved = torch.where(same, (g1 - g2).abs() * eps / (
+            (g1.abs() + eps) * (g2.abs() + eps)), 2.0)
+        scale = e.abs().max().clamp(min=1e-30)
+        rest = ((a - e).abs() - lr * moved * (1 + 1e-3)).clamp(min=0)
+        worst = max(worst, float((rest / scale).max()))
+    return worst
+
+
+def _time_steps(torch, fn, n: int) -> list:
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _counted(counters) -> dict:
+    return {name: c.count for name, c in counters.items()}
+
+
+def sharded_train_check(torch, dev, cfg, card: str) -> dict:
+    """Phases 12a (at SHARD_CMP_LAYERS) and 12b: one training step of
+    ``cfg`` on a SHARD_MESH mesh of this card against the unsharded
+    step, from the same params (seed 0) and batch, the routing held
+    alike (``Routing.replay``): the loss within 1e-5 relative,
+    every gradient (``capture_optimizer``) within 1e-4 of its leaf's
+    largest, every AdamW-updated param within 1e-4 of its leaf's
+    largest beyond AdamW's own share of the gradients' difference
+    (``adamw_update_err``); two sharded runs the same to the bit;
+    launches exact at ``sharded_launches_per_step``; then step ms of
+    both (SHARD_TIMED steps after one warm-up, each on its own params),
+    peak memory and a profiled sharded step's busy share. The unsharded
+    side's gradients and updated params wait on the host and come back
+    a leaf at a time to be compared."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import params as PRM
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import MeshRules
+    from repro_torch.train import optimizer as O
+
+    def draw():
+        with torch.no_grad():
+            return PRM.init_tree(T.model_spec(cfg),
+                                 torch.Generator(dev).manual_seed(0),
+                                 torch.float32, dev)
+    counters = all_counters()
+    batch = lm_batch(torch, dev, cfg, seed=0)
+    out = {"layers": cfg.n_layers, "mesh": list(SHARD_MESH)}
+    # the unsharded step's time, on its own params
+    params = draw()
+    opt = O.adamw()
+    state = opt.init(params)
+    step_u = ST.make_train_step(cfg, opt, lr=LM_LR,
+                                compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    times = _time_steps(torch, lambda: step_u(params, state, batch),
+                        1 + SHARD_TIMED)
+    out["unsharded_step_ms"] = statistics.median(times[1:])
+    out["unsharded_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the compared step
+    params = draw()
+    routing = Routing(torch)
+    with routing.record():
+        loss_u, _, g_u = ST.loss_and_grads(cfg, params, batch,
+                                           torch.float32)
+    p_u = PRM.tree_map(torch.clone, params)
+    with torch.no_grad():
+        opt.update(g_u, opt.init(p_u), p_u, LM_LR)
+    g_u, p_u = to_host(torch, g_u), to_host(torch, p_u)
+    rules = MeshRules(repeated_mesh(dev, SHARD_MESH, ("data", "model")))
+    placed = ST.place_params(cfg, params, rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap, grads = capture_optimizer()
+    step_c = ST.make_train_step(cfg, cap, lr=0.0, rules=rules,
+                                compute_dtype=torch.float32)
+    for c in counters.values():
+        c.reset()
+    with routing.replay():
+        _, _, m_s = step_c(placed, {}, batch)
+    launches = _counted(counters)
+    want = sharded_launches_per_step(cfg, SHARD_MESH)
+    with routing.replay():
+        step_c(placed, {}, batch)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        PRM.tree_items(grads[0]), PRM.tree_items(grads[1])))
+    g_s = grads[0]
+    del grads[:]
+    gc.collect()
+    step_s = ST.make_train_step(cfg, opt, lr=LM_LR, rules=rules,
+                                compute_dtype=torch.float32)
+    state = opt.init(placed)
+    with routing.replay():
+        placed, state, _ = step_s(placed, state, batch)
+    p_s = PRM.whole_tree(placed)
+    loss_err = abs(m_s["total_loss"].item() - loss_u.item()) \
+        / abs(loss_u.item())
+    grad_err, grad_leaf = 0.0, None
+    for (path, a), (_, b) in zip(PRM.tree_items(g_s), PRM.tree_items(g_u)):
+        err = grad_rel_err((a,), (b.to(a.device),))
+        if err > grad_err:
+            grad_err, grad_leaf = err, "/".join(path)
+    upd_err = adamw_update_err(torch, p_s, p_u, g_s, g_u, LM_LR)
+    out.update({"loss_unsharded": loss_u.item(),
+                "loss_sharded": m_s["total_loss"].item(),
+                "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                "grad_rel_err_leaf": grad_leaf,
+                "updated_rel_err": upd_err,
+                "routing_flips_replayed": routing.flips,
+                "two_runs_same_bits": same, "launches": launches,
+                "launches_expected": want, "fallbacks": rules.fallbacks})
+    del g_s, g_u, p_s, p_u
+    gc.collect()
+    # the sharded step's time, on from the compared step
+    torch.cuda.reset_peak_memory_stats()
+    times = _time_steps(torch, lambda: step_s(placed, state, batch),
+                        SHARD_TIMED)
+    out["sharded_step_ms"] = statistics.median(times)
+    out["sharded_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_window(torch, lambda: step_s(placed, state, batch),
+                          min(times) / 1e3)
+    out["sharded_busy_share"] = prof["device_busy_share"]
+    out["sharded_profile"] = prof
+    log(f"{cfg.arch_id} {cfg.n_layers} layers, sharded training step on "
+        f"a {SHARD_MESH} data x model mesh of {dev} vs unsharded ({card}): "
+        + json.dumps(out))
+    del placed, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != want:
+        raise AssertionError(f"the sharded step launched {launches}, "
+                             f"expected {want}")
+    if not (loss_err <= 1e-5 and grad_err <= 1e-4 and upd_err <= 1e-4
+            and same):
+        raise AssertionError("the sharded training step disagrees with "
+                             "the unsharded one, or with itself")
+    return out
+
+
+def sharded_train_alone(torch, dev, cfg, card: str) -> dict:
+    """Phase 12a at full depth: the sharded training step alone (its
+    unsharded twin does not fit beside it): launches exact, loss
+    finite, step ms (SHARD_TIMED after one warm-up), peak memory, a
+    profiled step's busy share."""
+    import math
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import params as PRM
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import MeshRules
+    from repro_torch.train import optimizer as O
+    rules = MeshRules(repeated_mesh(dev, SHARD_MESH, ("data", "model")))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        params = PRM.init_tree(T.model_spec(cfg),
+                               torch.Generator(dev).manual_seed(0),
+                               torch.float32, dev)
+        placed = ST.place_params(cfg, params, rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = O.adamw()
+    state = opt.init(placed)
+    step = ST.make_train_step(cfg, opt, lr=LM_LR, rules=rules,
+                              compute_dtype=torch.float32)
+    batch = lm_batch(torch, dev, cfg, seed=0)
+    counters = all_counters()
+    for c in counters.values():
+        c.reset()
+    losses = []
+
+    def run():
+        nonlocal placed, state
+        placed, state, m = step(placed, state, batch)
+        losses.append(m["total_loss"].item())
+    run()
+    launches = _counted(counters)
+    times = _time_steps(torch, run, SHARD_TIMED)
+    out = {"layers": cfg.n_layers, "mesh": list(SHARD_MESH),
+           "sharded_step_ms": statistics.median(times),
+           "step_ms_timed": times,
+           "tokens_per_s": LM_BATCH * LM_SEQ / statistics.median(times)
+           * 1e3,
+           "sharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": launches,
+           "launches_expected": sharded_launches_per_step(cfg, SHARD_MESH)}
+    prof = profile_window(torch, run, min(times) / 1e3)
+    out["sharded_busy_share"] = prof["device_busy_share"]
+    out["sharded_profile"] = prof
+    log(f"{cfg.arch_id} {cfg.n_layers} layers, sharded training step "
+        f"alone on a {SHARD_MESH} data x model mesh of {dev} ({card}): "
+        + json.dumps(out))
+    del placed, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != out["launches_expected"]:
+        raise AssertionError(f"the full-depth sharded step launched "
+                             f"{launches}, expected "
+                             f"{out['launches_expected']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"sharded training losses {losses}")
+    return out
+
+
+def sharded_prefill_check(torch, dev, cfg, card: str) -> dict:
+    """Phase 12c: ``make_prefill_step`` of ``cfg`` on a SHARD_GLM4_MESH
+    mesh of this card against the unsharded step on the same params
+    (seed 0) and (4, 512) tokens: the last position's logits within 1e-5
+    of their largest, two sharded runs the same to the bit, launches
+    exact, the rules' fallbacks; prefill ms of both (median of
+    SHARD_TIMED), peak memory, a profiled sharded prefill's busy
+    share."""
+    from repro_torch.data.synthetic import make_lm_batches
+    from repro_torch.launch import steps as ST
+    from repro_torch.sharding.rules import MeshRules
+    params = draw_params(torch, dev, cfg)
+    tokens = torch.as_tensor(next(make_lm_batches(
+        cfg.vocab, LM_BATCH, LM_SEQ, 1, seed=0))["tokens"], device=dev)
+    batch = {"tokens": tokens}
+    step_u = ST.make_prefill_step(cfg, None, torch.float32)
+    exp = step_u(params, batch)
+    t_u = _time_steps(torch, lambda: step_u(params, batch), SHARD_TIMED)
+    rules = MeshRules(repeated_mesh(dev, SHARD_GLM4_MESH,
+                                    ("data", "model")))
+    with torch.no_grad():
+        placed = ST.place_params(cfg, params, rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = ST.make_prefill_step(cfg, rules, torch.float32)
+    counters = all_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    got = step_s(placed, batch)
+    launches = _counted(counters)
+    again = step_s(placed, batch)
+    torch.cuda.synchronize()
+    err = ((got - exp).abs().max() / exp.abs().max()).item()
+    t_s = _time_steps(torch, lambda: step_s(placed, batch), SHARD_TIMED)
+    want = sharded_launches_per_step(cfg, SHARD_GLM4_MESH, train=False)
+    out = {"layers": cfg.n_layers, "mesh": list(SHARD_GLM4_MESH),
+           "shape": [LM_BATCH, LM_SEQ], "logits_rel_err": err,
+           "two_runs_same_bits": torch.equal(got, again),
+           "finite": bool(torch.isfinite(got).all()),
+           "fallbacks": rules.fallbacks,
+           "unsharded_prefill_ms": statistics.median(t_u),
+           "sharded_prefill_ms": statistics.median(t_s),
+           "sharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_expected": want}
+    prof = profile_window(torch, lambda: step_s(placed, batch),
+                          min(t_s) / 1e3)
+    out["sharded_busy_share"] = prof["device_busy_share"]
+    out["sharded_profile"] = prof
+    log(f"{cfg.arch_id} {cfg.n_layers} layers, sharded prefill on a "
+        f"{SHARD_GLM4_MESH} data x model mesh of {dev} vs unsharded "
+        f"({card}): " + json.dumps(out))
+    del placed, got, again, exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != want:
+        raise AssertionError(f"the sharded prefill launched {launches}, "
+                             f"expected {want}")
+    if not (err <= 1e-5 and out["two_runs_same_bits"] and out["finite"]
+            and any("kv_heads" in f for f in rules.fallbacks)):
+        raise AssertionError("the sharded prefill disagrees with the "
+                             "unsharded one, or with itself")
+    return out
+
+
+def shard_attention_shapes(cfg, mesh):
+    """q and k/v of the attention kernel's call in a row's and model
+    position's share of a (LM_BATCH, LM_SEQ) step on a (data, model)
+    ``mesh``: the batch over data, the q heads over model, and the KV
+    heads that position's q heads read (``kv_heads_of``: a split's share,
+    or, where the KV heads fall back to replication, the few that serve,
+    as ``self_attention_sharded`` passes them)."""
+    from repro_torch.models.attention import kv_heads_of
+    rows, model = mesh
+    b, h = LM_BATCH // rows, cfg.eff_heads // model
+    lo, hi, idx = kv_heads_of(cfg.eff_heads, cfg.n_kv_heads, h, 0)
+    kvh = hi - lo if idx is None else h
+    return ((b, h, LM_SEQ, cfg.head_dim), (b, kvh, LM_SEQ, cfg.head_dim))
+
+
+def sharded_shapes(cfg):
+    """q, k/v and the grouped matmul's shapes of a row's and model
+    position's share of a (LM_BATCH, LM_SEQ) training step on
+    SHARD_MESH: the batch over data, the heads and the experts over
+    model, the capacity the global batch's."""
+    from repro_torch.models import moe
+    model = SHARD_MESH[1]
+    c = moe._capacity(LM_BATCH * LM_SEQ, cfg)
+    e, d, f = cfg.moe.num_experts // model, cfg.d_model, cfg.moe.d_expert
+    return (*shard_attention_shapes(cfg, SHARD_MESH),
+            [("gate_up", (e, c, d, f)), ("down", (e, c, f, d))])
+
+
+def sharded_steps_phase(torch, dev) -> tuple:
+    """Phase 12: the zoo's train and prefill steps on meshes of more
+    than one device, every position on this card (``cuda:0`` repeated:
+    every split, gather, partial product and reduce-scatter runs, one
+    process, no ``torch.distributed``). Returns (the launches of the
+    counted runs, the measured numbers)."""
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    log(f"sharded steps phase: every mesh position on {dev} repeated "
+        f"({card})")
+    granite = moe_config()
+    qs, ks, gmm_shapes = sharded_shapes(granite)
+    out = {"kernels": path_kernels(torch, dev, granite, card, qs, ks,
+                                   gmm_shapes, "granite shard", 61)}
+    # h2o-danube's share (dh 80, its window passed as the path passes
+    # it) forward and backward; glm4's prefill share, one replicated KV
+    # head serving a position's 8 q heads at dh 128, forward
+    h2o = h2o_config()
+    from repro_torch.configs import get_config
+    glm4 = dataclasses.replace(get_config("glm4-9b"),
+                               n_layers=SHARD_GLM4_LAYERS)
+    out["kernels_h2o"] = path_kernels(
+        torch, dev, h2o, card, *shard_attention_shapes(h2o, SHARD_MESH), [],
+        "h2o-danube shard", 62, window=h2o.window)
+    out["kernels_glm4"] = path_kernels(
+        torch, dev, glm4, card, *shard_attention_shapes(glm4,
+                                                        SHARD_GLM4_MESH),
+        [], "glm4 prefill shard", 63, bwd=False)
+    mark("phase 12 kernels at the shard shapes")
+    out["granite"] = sharded_train_check(
+        torch, dev, dataclasses.replace(granite,
+                                        n_layers=SHARD_CMP_LAYERS), card)
+    mark("phase 12a granite compared")
+    out["granite_full"] = sharded_train_alone(torch, dev, granite, card)
+    mark("phase 12a granite at full depth")
+    out["h2o"] = sharded_train_check(torch, dev, h2o, card)
+    mark("phase 12b h2o-danube")
+    out["glm4"] = sharded_prefill_check(torch, dev, glm4, card)
+    mark("phase 12c glm4 prefill")
+    launches = {
+        "sharded_granite_train": {k: v for k, v in out["granite_full"][
+            "launches"].items() if v},
+        "sharded_granite_train_compared": {k: v for k, v in out["granite"][
+            "launches"].items() if v},
+        "sharded_h2o_train": {k: v for k, v in out["h2o"][
+            "launches"].items() if v},
+        "sharded_glm4_prefill": {k: v for k, v in out["glm4"][
+            "launches"].items() if v}}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded steps phase: {out['seconds']:.1f} s; {card}")
     return launches, out
 
 
@@ -4986,6 +5473,11 @@ def main() -> int:
     # position on this card
     shard_launches, shard = sharding_phase(torch, dev)
     mark('sharding')
+    # the zoo's train and prefill steps on meshes of more than one
+    # device: granite and h2o-danube trained on data 2 x model 2, glm4's
+    # prefill on 1 x 4, every mesh position on this card
+    steps_launches, steps = sharded_steps_phase(torch, dev)
+    mark('sharded train and prefill steps')
 
     # launches of each kernel on each path's counted run
     by_path = {
@@ -5001,7 +5493,7 @@ def main() -> int:
     zoo_runs = (zoo_launches | moe_launches | h2o_launches | jamba_launches
                 | mla_launches | whisper_launches | internvl_launches
                 | lm_launches | rec_launches | ev_launches
-                | shard_launches)
+                | shard_launches | steps_launches)
     for run, got in zoo_runs.items():
         for name, c in got.items():
             by_path[name][run] = c
@@ -5041,7 +5533,15 @@ def main() -> int:
             # the sharded bench tower's per-shard shapes, model 2 and 4
             "sharded_tower": shard["tower_shard_attention"],
             # VFL x LLM: granite at full width, B 8, 16 soft tokens
-            "vfl_llm": shard["vfl_llm_kernels"]["attention"]},
+            "vfl_llm": shard["vfl_llm_kernels"]["attention"],
+            # a row's and model position's share of granite's training
+            # step on a data 2 x model 2 mesh
+            "sharded_granite_train": steps["kernels"]["attention"],
+            # h2o-danube's share on data 2 x model 2 (dh 80, window
+            # 4096), glm4's prefill share on 1 x 4 (8 q heads on the one
+            # replicated KV head they read, dh 128)
+            "sharded_h2o_train": steps["kernels_h2o"]["attention"],
+            "sharded_glm4_prefill": steps["kernels_glm4"]["attention"]},
         # the grouped matmul's at each of its four shapes of each MoE
         # model; the top-level times are those of granite's prefill
         # gate/up
@@ -5057,6 +5557,11 @@ def main() -> int:
             # VFL x LLM: forward, dx and dw held at each shape
             "vfl_llm_shapes": {
                 name: shard["vfl_llm_kernels"][f"gmm_{name}"]
+                for name in ("gate_up", "down")},
+            # granite's training step on data 2 x model 2: a model
+            # position's 20 experts at the global batch's capacity
+            "sharded_granite_train_shapes": {
+                name: steps["kernels"][f"gmm_{name}"]
                 for name in ("gate_up", "down")}},
         # max_abs_err: the largest of dq, dk, dv's errors over the
         # largest gradient, at the three checked cases
@@ -5067,6 +5572,8 @@ def main() -> int:
             "routes": lm["attention_grad_routes"],
             "split_nn_tower": train["attention_backward"],
             "vfl_llm": shard["vfl_llm_kernels"]["attention_bwd"],
+            "sharded_granite_train": steps["kernels"]["attention_bwd"],
+            "sharded_h2o_train": steps["kernels_h2o"]["attention_bwd"],
             # whisper's encoder, decoder self- and cross-attention and
             # internvl2's GQA at their training shapes
             **ev["attention_bwd"],
@@ -5138,7 +5645,16 @@ def main() -> int:
         f"{shard['vfl_llm']['step_ms']:.1f} ms a step; mesh-mode VFL "
         f"{shard['mesh_vfl']['masked_step_ms']:.1f} ms a step; sharded "
         f"decode {shard['sharded_decode']['sharded_step_ms']:.1f} ms a "
-        f"step; build "
+        f"step; on data 2 x model 2 granite training "
+        f"{steps['granite_full']['sharded_step_ms']:.1f} ms a step (32 "
+        f"layers; {steps['granite']['sharded_step_ms']:.1f} against "
+        f"{steps['granite']['unsharded_step_ms']:.1f} unsharded at "
+        f"{SHARD_CMP_LAYERS}), h2o-danube "
+        f"{steps['h2o']['sharded_step_ms']:.1f} against "
+        f"{steps['h2o']['unsharded_step_ms']:.1f}; glm4 prefill on 1 x 4 "
+        f"{steps['glm4']['sharded_prefill_ms']:.1f} against "
+        f"{steps['glm4']['unsharded_prefill_ms']:.1f} ms "
+        f"({SHARD_GLM4_LAYERS} layers); build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

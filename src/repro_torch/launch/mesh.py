@@ -5,7 +5,8 @@ The JAX package is single-controller: one process, ``jax.devices()`` and
 a ``Mesh`` of named axes run every sharded path. The port keeps that
 shape. A :class:`Mesh` is an n-d array of ``torch.device``s with axis
 names; the modules that shard (``models/tower.py``'s tensor parallelism,
-``core/vfl_step.py``, ``models/decode_sharded.py``) place each mesh
+``core/vfl_step.py``, ``models/decode_sharded.py``, the zoo's train and
+prefill steps through ``sharding/rules.py``'s ``Layout``) place each mesh
 position's share of a tensor on that position's device themselves and
 combine the shares with the explicit collectives below, all from one
 process: no ``torch.distributed``, no spawned process.
@@ -22,7 +23,7 @@ the card's own (``chip_smoke.py``).
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -154,3 +155,79 @@ def broadcast(x: torch.Tensor, devices: Sequence[DeviceLike]
     """``x`` on each of ``devices`` (the same tensor where it is there
     already: read it, do not write it)."""
     return tuple(x.to(d) for d in devices)
+
+
+def reduce_scatter(parts: Sequence[torch.Tensor],
+                   devices: Sequence[DeviceLike],
+                   slices: Sequence[Tuple[slice, ...]]
+                   ) -> List[torch.Tensor]:
+    """The sum of ``parts`` (added in order), and of it ``slices[i]`` on
+    ``devices[i]``, a contiguous tensor each (an FSDP gradient's
+    reduce-scatter: each position keeps its own chunk of the sum)."""
+    total = psum(parts, devices[0])
+    return [total[sl].to(d).contiguous() for sl, d in zip(slices, devices)]
+
+
+def exclusive_prefix(parts: Sequence[torch.Tensor],
+                     devices: Sequence[DeviceLike]) -> List[torch.Tensor]:
+    """Position i gets the sum of ``parts[:i]`` (zeros at 0), added in
+    order, on ``devices[i]``: an exclusive prefix sum over an axis."""
+    acc = torch.zeros_like(parts[0])
+    out = []
+    for p, d in zip(parts, devices):
+        out.append(acc.to(d))
+        acc = acc + p.to(acc.device)
+    return out
+
+
+def _cat_dim(slices: Sequence[Tuple[slice, ...]]) -> int:
+    """The dim along which ``slices`` cut a whole into consecutive
+    chunks, in order."""
+    dims = {d for sl in slices for d, s in enumerate(sl)
+            if s != slice(None)}
+    starts = [sl[min(dims)].start for sl in slices] if dims else []
+    if len(dims) != 1 or starts != sorted(starts):
+        raise ValueError("spread takes parts split along one dim")
+    return dims.pop()
+
+
+class _Spread(torch.autograd.Function):
+    """Parts assembled into one whole on each target device (fresh
+    tensors: a copy of a lone part, else one ``cat``); the backward sums
+    the targets' gradients in target order and gives each part its
+    slice of the sum (``reduce_scatter``), so no gradient is left to
+    autograd's accumulation across positions."""
+
+    @staticmethod
+    def forward(ctx, slices, targets, *parts):
+        ctx.set_materialize_grads(False)
+        ctx.slices, ctx.devices = slices, [p.device for p in parts]
+        if len(parts) == 1:
+            return tuple(parts[0].to(d, copy=True) for d in targets)
+        dim = _cat_dim(slices)
+        return tuple(torch.cat([p.to(d) for p in parts], dim)
+                     for d in targets)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        got = [g for g in grads if g is not None]
+        none = (None, None)
+        if not got:
+            return none + (None,) * len(ctx.devices)
+        return none + tuple(reduce_scatter(got, ctx.devices, ctx.slices))
+
+
+def spread(parts: Sequence[torch.Tensor], slices: Sequence[Tuple[slice, ...]],
+           targets: Sequence[DeviceLike]) -> Tuple[torch.Tensor, ...]:
+    """``parts`` (part i at ``slices[i]`` of the whole, split along one
+    dim) assembled on each of ``targets``: an all-gather under autograd
+    whose backward is the ordered reduce-scatter."""
+    return _Spread.apply(tuple(slices),
+                         tuple(torch.device(d) for d in targets), *parts)
+
+
+def fan_out(x: torch.Tensor, targets: Sequence[DeviceLike]
+            ) -> Tuple[torch.Tensor, ...]:
+    """``x`` copied onto each of ``targets``; its gradient the targets'
+    gradients added in order."""
+    return spread([x], [(slice(None),) * x.dim()], targets)

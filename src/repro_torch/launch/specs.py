@@ -12,7 +12,8 @@ and allocate nothing.
 ``cache_axes`` names each cache dim as the JAX package does. With mesh
 rules (``rules``) the stand-ins come beside a tree like theirs of the
 ``PartitionSpec``s their logical axes resolve to, as the JAX package's
-carry a sharding.
+carry a sharding; ``place_batch`` splits a real batch by those specs
+(``tokens``, ``labels`` and a ``loss_mask`` over ``pod x data``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import transformer
-from repro_torch.sharding.rules import map_in_tree_order
+from repro_torch.sharding.rules import Parts, map_in_tree_order, place
 
 META = torch.device("meta")
 
@@ -58,6 +59,24 @@ def batch_specs(cfg: ModelConfig, shape: InputShape, rules=None,
         return batch
     return batch, {k: rules.act_spec(ax, sh)
                    for k, (sh, _, ax) in items.items()}
+
+
+# the logical axes of each text batch key a sharded step splits
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "loss_mask": ("batch", "seq")}
+
+
+def place_batch(batch: Dict[str, Any], rules, specs=None
+                ) -> Dict[str, Parts]:
+    """A real text batch (tensors or arrays by key, ``BATCH_AXES``'s
+    keys) split over ``rules.mesh`` by ``specs`` (by key), else by the
+    specs its logical axes resolve to: the batch dim over ``pod x data``
+    where it divides."""
+    batch = {k: torch.as_tensor(x) for k, x in batch.items()}
+    if specs is None:
+        specs = {k: rules.act_spec(BATCH_AXES[k], tuple(t.shape))
+                 for k, t in batch.items()}
+    return {k: place(t, specs[k], rules.mesh) for k, t in batch.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,20 @@ package: every step runs under ``use_rules(rules)``, and
 optimizer slot to its ``PartitionSpec``. A decode step takes any mesh:
 under rules, ``cfg.decode_partial_softmax`` splits the KV cache's
 sequence over the mesh's ``model`` axis (``models/decode_sharded.py``).
-A train or prefill step on a mesh of more than one device needs tensor-
-and data-parallel layers for every family, which the port does not have
-yet: it raises, naming the ROADMAP item. On a one-device mesh it gives
-the values of no mesh.
+
+A train or prefill step on a mesh of more than one device runs the
+dense-attention and MoE families sharded: ``place_params`` splits the
+params by their resolved specs (``sharding.rules.Parts``; the
+optimizer's ``init`` of placed params places its slots alike), the step
+splits the whole batch
+it is given over ``pod x data`` (``specs.place_batch``), and
+``models/transformer.py``'s ``loss_fn_sharded`` / ``last_logits_sharded``
+combine the positions' shares with ``launch/mesh.py``'s collectives in
+axis order. Its values are those of the unsharded step. The other
+families (MLA, RWKV-6, Mamba, an encoder, a vision prefix), Adafactor,
+and a sequence split (``act_rules["seq"]``, the dry-run's ``seqshard``)
+still raise there, naming the ROADMAP item. On a one-device mesh a step
+gives the values of no mesh.
 """
 from __future__ import annotations
 
@@ -25,28 +35,52 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import mesh_chips
 from repro_torch.models import params as PRM
 from repro_torch.models import transformer as T
 from repro_torch.models.params import tree_leaves, tree_map
-from repro_torch.sharding.rules import (MeshRules, map_in_tree_order,
-                                        param_shardings, use_rules)
+from repro_torch.sharding.rules import (SHARDED_STEPS, Layout, MeshRules,
+                                        map_in_tree_order, param_shardings,
+                                        use_rules)
 from repro_torch.train import optimizer as O
 
-# the ROADMAP Queue 1 item that ports train and prefill steps on a mesh
-# of more than one device
-_SHARDED_STEPS = ("ROADMAP Queue 1 item 10b (zoo train and prefill steps "
-                  "on a mesh of more than one device)")
+
+def sharded(rules: Optional[MeshRules]) -> bool:
+    """Does a step under ``rules`` run on more than one mesh position?"""
+    return rules is not None and mesh_chips(rules.mesh) > 1
 
 
-def check_rules(rules: Optional[MeshRules], what: str = "this step"
-                ) -> None:
-    """Raise unless ``rules`` is None or its mesh is one device."""
-    if rules is not None and mesh_chips(rules.mesh) > 1:
+def _unported(cfg: ModelConfig, rules: MeshRules,
+              opt: Optional[O.Optimizer]) -> Optional[str]:
+    """What of ``cfg`` (and ``opt``) a sharded step does not run yet."""
+    mixers = {m for m, _ in cfg.prefix_pattern + cfg.block_pattern}
+    for cond, what in (
+            (cfg.attention == "mla", "MLA"),
+            ("rwkv" in mixers, "an RWKV-6 time-mix"),
+            ("mamba" in mixers, "a Mamba mixer"),
+            (cfg.encoder is not None, "an encoder"),
+            (T.has_vision_prefix(cfg), "a vision prefix"),
+            (opt is not None and opt.name == "adafactor", "Adafactor"),
+            (rules.act_rules.get("seq") is not None,
+             "a sequence split (act_rules['seq'])")):
+        if cond:
+            return what
+    return None
+
+
+def check_rules(cfg: ModelConfig, rules: Optional[MeshRules], what: str,
+                opt: Optional[O.Optimizer] = None) -> None:
+    """Raise where ``rules``'s mesh has more than one device and ``cfg``
+    (or ``opt``) is of a family whose sharded step is not ported."""
+    if not sharded(rules):
+        return
+    why = _unported(cfg, rules, opt)
+    if why is not None:
         raise NotImplementedError(
-            f"{what} on a mesh of {dict(rules.mesh.shape)} needs tensor- "
-            f"and data-parallel layers, not ported to repro_torch yet: "
-            f"{_SHARDED_STEPS}")
+            f"{what} of {why} on a mesh of {dict(rules.mesh.shape)} needs "
+            f"tensor- and data-parallel layers, not ported to repro_torch "
+            f"yet: {SHARDED_STEPS}")
 
 
 def resolve_param_shardings(cfg: ModelConfig, rules: Optional[MeshRules],
@@ -75,17 +109,52 @@ def opt_state_specs(opt: O.Optimizer, abstract_params, axes,
         abstract_state, opt.state_axes(axes))
 
 
+def place_params(cfg: ModelConfig, params, rules: MeshRules):
+    """Whole params split over ``rules.mesh`` by their resolved specs
+    (``PRM.whole_tree`` is the inverse)."""
+    _, _, specs = resolve_param_shardings(cfg, rules)
+    return PRM.place_tree(params, specs, rules.mesh)
+
+
+class _Rows:
+    """A sharded step's batch placement, resolved once a batch shape
+    (so ``MeshRules.fallbacks`` records it once, as a trace would)."""
+
+    def __init__(self, rules: MeshRules):
+        self.rules, self.specs = rules, {}
+
+    def __call__(self, batch: Dict[str, Any]):
+        """(the ``Layout`` of the batch's rows, each key's rows)."""
+        key = tuple((k, tuple(v.shape)) for k, v in batch.items())
+        if key not in self.specs:
+            self.specs[key] = {
+                k: self.rules.act_spec(S.BATCH_AXES[k], tuple(v.shape))
+                for k, v in batch.items()}
+        specs = self.specs[key]
+        parts = S.place_batch(batch, self.rules, specs)
+        lay = Layout(self.rules.mesh, specs["tokens"][0])
+        return lay, {k: [p.part(**row) for row in lay.rows]
+                     for k, p in parts.items()}
+
+
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-                   compute_dtype: torch.dtype = torch.bfloat16
+                   compute_dtype: torch.dtype = torch.bfloat16, rows=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """(total loss, metrics, grads) of ``T.loss_fn`` at ``params``: grads
     a tree like ``params``, None at a param that does not reach the loss.
-    ``params`` is not changed; the values are detached."""
+    ``params`` is not changed; the values are detached. With ``rows``
+    (a sharded step's batch placement) ``params`` are placed and the
+    loss is ``T.loss_fn_sharded``'s."""
     leaf = {id(t): t.detach().requires_grad_()
             for t in tree_leaves(params) if t.is_floating_point()}
     tracked = tree_map(lambda t: leaf.get(id(t), t), params)
     with torch.enable_grad():
-        loss, metrics = T.loss_fn(cfg, tracked, batch, compute_dtype)
+        if rows is None:
+            loss, metrics = T.loss_fn(cfg, tracked, batch, compute_dtype)
+        else:
+            lay, by_row = rows(batch)
+            loss, metrics = T.loss_fn_sharded(cfg, lay, tracked, by_row,
+                                              compute_dtype)
         wrt = [t for t in tree_leaves(tracked) if t.requires_grad]
         got = torch.autograd.grad(loss, wrt, allow_unused=True)
     by_leaf = {id(t): g for t, g in zip(wrt, got)}
@@ -112,8 +181,15 @@ def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
     over the microbatches, in order, as the JAX package's ``lax.scan``
     does. The optimizer update runs under ``torch.no_grad`` and writes
     the params and state it is given (``train/optimizer.py``); the step
-    returns them with the metrics."""
-    check_rules(rules, "a train step")
+    returns them with the metrics.
+
+    On a mesh of more than one device ``params`` and ``opt_state`` are
+    placed (``place_params``; ``opt.init`` of placed params) and
+    ``batch`` is
+    whole: each microbatch is the unsharded step's, split over the
+    rows, so accumulation gives the unsharded step's values."""
+    check_rules(cfg, rules, "a train step", opt)
+    rows = _Rows(rules) if sharded(rules) else None
 
     def train_step(params, opt_state, batch
                    ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
@@ -123,7 +199,7 @@ def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
     def _train_step(params, opt_state, batch):
         if accum_steps == 1:
             _, metrics, grads = loss_and_grads(cfg, params, batch,
-                                               compute_dtype)
+                                               compute_dtype, rows)
             grads = tree_map(lambda g, p: torch.zeros_like(p)
                              if g is None else g, grads, params)
         else:
@@ -132,7 +208,7 @@ def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
             per_micro = []
             for mb in _microbatches(batch, accum_steps):
                 _, metrics, grads = loss_and_grads(cfg, params, mb,
-                                                   compute_dtype)
+                                                   compute_dtype, rows)
                 tree_map(lambda a, g: None if g is None
                          else a.add_(g.float() / accum_steps), acc, grads)
                 per_micro.append(metrics)
@@ -152,11 +228,18 @@ def make_prefill_step(cfg: ModelConfig, rules=None,
     model ``batch["frames"]`` (b, n_frames, d), which the step encodes
     before the decoder attends to them, or for a vision-prefix model
     ``batch["patches"]`` (b, num_tokens, d), prepended to the tokens;
-    returns the last position's logits (b, vocab)."""
-    check_rules(rules, "a prefill step")
+    returns the last position's logits (b, vocab). On a mesh of more
+    than one device ``params`` are placed, the whole batch is split over
+    the rows, and the logits come back whole."""
+    check_rules(cfg, rules, "a prefill step")
+    rows = _Rows(rules) if sharded(rules) else None
 
     def prefill_step(params, batch) -> torch.Tensor:
         with torch.no_grad(), use_rules(rules):
+            if rows is not None:
+                lay, by_row = rows(batch)
+                return T.last_logits_sharded(cfg, lay, params,
+                                             by_row["tokens"], compute_dtype)
             logits, _ = T.forward(cfg, params, batch, compute_dtype)
         # serving returns only the last-position logits
         return logits[:, -1, :]

@@ -14,6 +14,18 @@ attention in its (b, s, h, hd) layout, the plain path. Decode
 (``decode_attention``) reads the KV cache in plain torch, as the JAX
 package computes it outside any kernel, and returns a new cache; the
 one it was given is not changed.
+
+The projections are 2-D matmuls (``_proj``: ``aten.mm``), so remat
+``minimal`` keeps their outputs, as the JAX package's
+``dots_with_no_batch_dims_saveable`` keeps its projections'.
+
+``self_attention_sharded`` runs the layer on a mesh of more than one
+device (``models/layers.py``'s ``*_sharded`` conventions): model
+position j projects its heads' columns of ``wq`` (and of ``wk`` /
+``wv`` over ``kv_heads``), attends with the kernel, and multiplies by
+its rows of ``wo``; the partial outputs are summed at the row's home.
+Where the KV heads fall back to replication (glm4's 2 on a model axis
+of 4), position j passes the kernel only the KV heads its q heads use.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers
 from repro_torch.models.params import Spec
 
@@ -83,10 +96,25 @@ def attend(q, k, v, q_pos, k_pos, *, window=0, causal=True):
     return out.reshape(b, sq, h, v.shape[-1])
 
 
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., d) against ``w`` (d, ...) as one 2-D matmul: (...,
+    w.shape[1:])."""
+    d = w.shape[0]
+    y = x.reshape(-1, d) @ w.reshape(d, -1)
+    return y.reshape(x.shape[:-1] + w.shape[1:])
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(b, s, h, hd) heads against ``wo`` (h, hd, d): (b, s, d)."""
+    b, s = out.shape[:2]
+    return (out.reshape(b * s, -1) @ wo.reshape(-1, wo.shape[-1])
+            ).reshape(b, s, wo.shape[-1])
+
+
 def _qkv(cfg: ModelConfig, params, x, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", x, params["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", x, params["wv"])
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
     if cfg.qk_norm:
         q = _qk_norm(params["q_norm"], q, cfg.norm_eps)
         k = _qk_norm(params["k_norm"], k, cfg.norm_eps)
@@ -116,7 +144,7 @@ def _attend_out(params, q, k, v, causal: bool, window: int) -> torch.Tensor:
     out = ops.flash_attention(
         *(t.transpose(1, 2).contiguous() for t in (q, k, v)),
         causal=causal, window=window)
-    return torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params["wo"])
+    return _out_proj(out.transpose(1, 2), params["wo"])
 
 
 def cross_attention(cfg: ModelConfig, params, x, memory) -> torch.Tensor:
@@ -126,10 +154,56 @@ def cross_attention(cfg: ModelConfig, params, x, memory) -> torch.Tensor:
     ``ops.flash_attention`` call with ``causal=False`` (sq != sk in
     prefill, sq = 1 in a decode step). k and v are recomputed from
     ``memory`` on every call, as the JAX package recomputes them."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bfd,dnk->bfnk", memory, params["wk"])
-    v = torch.einsum("bfd,dnk->bfnk", memory, params["wv"])
+    q = _proj(x, params["wq"])
+    k = _proj(memory, params["wk"])
+    v = _proj(memory, params["wv"])
     return _attend_out(params, q, k, v, False, 0)
+
+
+def kv_heads_of(n_heads: int, n_kv: int, h_local: int, j: int):
+    """The KV heads model position j's q heads ``[j h_local, (j + 1)
+    h_local)`` read, as (lo, hi, index): the kernel maps q head i of a
+    call to KV head i // (q heads / KV heads), so a slice ``lo:hi``
+    serves where that map holds (index None), else ``index`` gives each
+    q head its own KV head."""
+    g = n_heads // n_kv
+    want = [(j * h_local + i) // g for i in range(h_local)]
+    lo, hi = want[0], want[-1] + 1
+    if h_local % (hi - lo) == 0 and want == [
+            lo + i // (h_local // (hi - lo)) for i in range(h_local)]:
+        return lo, hi, None
+    return lo, hi, torch.tensor(want)
+
+
+def self_attention_sharded(cfg: ModelConfig, lay, params, hs, positions,
+                           causal: bool = True):
+    """:func:`self_attention` of each row (``hs``, at the rows' homes)
+    over ``heads`` split across ``model``; see the module's doc.
+    ``positions`` is the list of the rows' (s,) positions."""
+    n = lay.n_tp(params["wq"])
+    kv_split = n > 1 and lay.n_tp(params["wk"]) == n
+    h_l = cfg.eff_heads // n
+    window = cfg.window if cfg.attention == "swa" else 0
+    w = {k: lay.weights(params[k], n) for k in ("wq", "wk", "wv", "wo")}
+    norms = {k: lay.weights(params[k]["scale"], n)
+             for k in ("q_norm", "k_norm") if k in params}
+    out = []
+    for r, h in enumerate(hs):
+        xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
+        partial = []
+        for j in range(n):
+            p = {k: v[j][r] for k, v in w.items()}
+            p.update({k: {"scale": v[j][r]} for k, v in norms.items()})
+            if n > 1 and not kv_split:
+                lo, hi, idx = kv_heads_of(cfg.eff_heads, cfg.n_kv_heads,
+                                          h_l, j)
+                for k in ("wk", "wv"):
+                    p[k] = p[k][:, lo:hi] if idx is None \
+                        else p[k][:, idx.to(p[k].device)]
+            q, k, v = _qkv(cfg, p, xs[j], positions[r].to(xs[j].device)[None])
+            partial.append(_attend_out(p, q, k, v, causal, window))
+        out.append(M.psum(partial, lay.home(r)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -175,5 +249,4 @@ def decode_attention(cfg: ModelConfig, params, x, cache, index: int
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bnqgk,bknd->bqngd", probs.to(v.dtype), v)
     out = out.reshape(b, 1, h_eff, cfg.head_dim)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, {"k": k, "v": v}
+    return _out_proj(out, params["wo"]), {"k": k, "v": v}

@@ -9,14 +9,24 @@ promote a mixed product as ``jnp.einsum`` does), and the f32 casts sit
 where the JAX package puts them.
 Without mesh rules the JAX package's ``reduce_dtype`` is ``None``, so it
 has no counterpart here.
+
+The ``*_sharded`` functions run a layer on a mesh of more than one
+device (``sharding.rules.Layout``): activations are lists, one tensor a
+row (a batch position) at the row's home; params are ``Parts``, which
+``Layout.weights`` gathers whole over ``data`` (FSDP) on each position
+that uses them; a split over ``model`` is tensor parallelism, its
+partial products summed with ``launch/mesh.py``'s ``psum`` in axis
+order. Where a param's dim falls back to replication, the layer runs
+whole at the row's home.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as M
 from repro_torch.models.params import Spec
 
 # ---------------------------------------------------------------------------
@@ -165,4 +175,126 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom
     acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+# ---------------------------------------------------------------------------
+# on a mesh of more than one device (a list a row; see the module's doc)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_sharded(lay, params, xs: Sequence[torch.Tensor], eps: float
+                    ) -> List[torch.Tensor]:
+    """:func:`rmsnorm` of each row at its home, the scale gathered
+    there."""
+    scales = lay.weights(params["scale"], 1)[0]
+    return [rmsnorm({"scale": s}, x, eps) for s, x in zip(scales, xs)]
+
+
+def gated_mlp_sharded(lay, params, hs: Sequence[torch.Tensor],
+                      act: str = "silu") -> List[torch.Tensor]:
+    """The gated MLP over ``mlp``'s split: model position j takes the
+    columns j of ``w_gate`` / ``w_up`` and the rows j of ``w_down``; the
+    partial outputs are summed at each row's home."""
+    n = lay.n_tp(params["w_gate"])
+    w = {k: lay.weights(params[k], n) for k in ("w_gate", "w_up", "w_down")}
+    out = []
+    for r, h in enumerate(hs):
+        xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
+        out.append(M.psum([gated_mlp({k: v[j][r] for k, v in w.items()},
+                                     xs[j], act) for j in range(n)],
+                          lay.home(r)))
+    return out
+
+
+def embed_sharded(lay, params, tokens: Sequence[torch.Tensor],
+                  dtype: torch.dtype = torch.bfloat16
+                  ) -> List[torch.Tensor]:
+    """The lookup with the table's ``vocab`` split over ``model``: each
+    position looks up the ids in its range (zero elsewhere) and the
+    rows' results are summed, in f32, then cast."""
+    table = params["table"]
+    n = lay.n_tp(table)
+    tabs = lay.weights(table, n)
+    if n == 1:
+        return [embed({"table": tabs[0][r]}, t, dtype)
+                for r, t in enumerate(tokens)]
+    v_l = table.shape[0] // n
+    out = []
+    for r, tok in enumerate(tokens):
+        parts = []
+        for j in range(n):
+            t = tabs[j][r]
+            ids = tok.to(t.device).long() - j * v_l
+            inside = (ids >= 0) & (ids < v_l)
+            rows = t[ids.clamp(0, v_l - 1)]
+            parts.append(torch.where(inside[..., None], rows,
+                                     rows.new_zeros(())))
+        out.append(M.psum(parts, lay.home(r)).to(dtype))
+    return out
+
+
+def head_sharded(lay, w, xs: Sequence[torch.Tensor], tied: bool
+                 ) -> List[List[torch.Tensor]]:
+    """Each row's logits as its model positions' columns over
+    ``vocab`` (one whole part where the vocab falls back): ``x @ w``
+    for an ``unembed`` weight (embed, vocab), ``x @ table.T`` for a tied
+    embedding table (vocab, embed)."""
+    n = lay.n_tp(w)
+    ws = lay.weights(w, n)
+    out = []
+    for r, x in enumerate(xs):
+        xj = M.fan_out(x, [lay.dev(r, j) for j in range(n)])
+        out.append([xj[j] @ (ws[j][r].T if tied else ws[j][r])
+                    for j in range(n)])
+    return out
+
+
+def softmax_xent_sharded(lay, logits: Sequence[Sequence[torch.Tensor]],
+                         labels: Sequence[torch.Tensor],
+                         masks: Optional[Sequence[torch.Tensor]] = None):
+    """:func:`softmax_xent` of logits split over ``vocab`` (a list a
+    row of the model positions' columns, in order) and the batch split
+    over rows. The log-sum-exp through a ``pmax`` of the parts' maxima
+    and a ``psum`` of their shifted sums; the label's logit from the
+    position whose range holds it; accuracy's argmax global, a tie going
+    to the lowest index as ``torch.argmax``'s; the mask's denominator
+    and every sum over all rows. Returns (mean loss, metrics) on the
+    first row's home."""
+    home0 = lay.home(0)
+    nll_sums, dens, hits = [], [], []
+    for r, parts in enumerate(logits):
+        home = lay.home(r)
+        ls = [p.float() for p in parts]
+        v_l = ls[0].shape[-1]
+        m = M.pmax([x.max(-1).values for x in ls], home).detach()
+        se = M.psum([torch.exp(x - m.to(x.device)[..., None]).sum(-1)
+                     for x in ls], home)
+        lse = m + torch.log(se)
+        lab = labels[r].to(home).long()
+        tgt, best_v, best_i = [], None, None
+        for j, x in enumerate(ls):
+            ids = lab.to(x.device) - j * v_l
+            inside = (ids >= 0) & (ids < v_l)
+            got = x.gather(-1, ids.clamp(0, v_l - 1)[..., None])[..., 0]
+            tgt.append(torch.where(inside, got, got.new_zeros(())))
+            i = x.argmax(-1)
+            v = x.gather(-1, i[..., None])[..., 0].to(home)
+            i = i.to(home) + j * v_l
+            if best_v is None:
+                best_v, best_i = v, i
+            else:
+                # strictly larger: a tie keeps the lower position's index
+                take = v > best_v
+                best_v = torch.where(take, v, best_v)
+                best_i = torch.where(take, i, best_i)
+        nll = lse - M.psum(tgt, home)
+        mask = (torch.ones_like(nll) if masks is None
+                else masks[r].to(home).float())
+        nll_sums.append((nll * mask).sum())
+        dens.append(mask.sum())
+        hits.append(((best_i == lab) * mask).sum())
+    denom = torch.clamp(M.psum(dens, home0), min=1.0)
+    loss = M.psum(nll_sums, home0) / denom
+    acc = M.psum(hits, home0) / denom
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}

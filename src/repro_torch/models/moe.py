@@ -10,16 +10,28 @@ XLA. Shared experts (DeepSeek style) run densely on every token.
 Aux losses: GShard load-balance loss and router z-loss, returned per call
 and averaged over layers by the caller. The JAX package's sharding
 constraints are the identity on one device and are dropped.
+
+``moe_ffn_sharded`` runs the layer on a mesh of more than one device
+(``models/layers.py``'s ``*_sharded`` conventions) with the values of
+the unsharded layer: each row routes its own tokens; the load-balance
+and z losses come from sums over every row; the global dispatch keeps a
+global capacity and a token-major priority over the whole batch (each
+row's slots offset by the exclusive prefix, over the rows before it, of
+their per-expert counts), the grouped dispatch is local to a sequence
+row as it is unsharded. Model position j runs the grouped matmul once,
+on its experts' rows of the capacity buffer, which hold every row's
+tokens; each row gathers its own tokens' outputs.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers
 from repro_torch.models.params import Spec
 
@@ -63,23 +75,35 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.topk(probs, k, dim=-1)
 
 
+def _router(cfg: ModelConfig, x32: torch.Tensor, router: torch.Tensor):
+    """Top-k routing of the f32 tokens ``x32`` (..., d). Returns (gate
+    values renormalized over the k picks, the picks, the router's
+    logits, its probabilities)."""
+    logits = x32 @ router                                       # (..., E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, sel = _top_k(probs, cfg.moe.top_k)               # (..., k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)              # renormalize
+    return gate_vals, sel, logits, probs
+
+
+def _aux(cfg: ModelConfig, me, ce, z) -> Dict[str, torch.Tensor]:
+    """GShard's load balance from the mean router probability ``me``
+    and top-1 share ``ce`` of each expert, and the mean squared
+    log-sum-exp ``z``."""
+    return {"load_balance": cfg.moe.num_experts * torch.sum(me * ce),
+            "router_z": z}
+
+
 def _route(cfg: ModelConfig, x32: torch.Tensor, router: torch.Tensor):
     """Top-k routing of the f32 tokens ``x32`` (..., d). Returns (gate
     values renormalized over the k picks, the picks, aux losses)."""
-    m = cfg.moe
-    logits = x32 @ router                                       # (..., E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, sel = _top_k(probs, m.top_k)                     # (..., k)
-    gate_vals = gate_vals / torch.clamp(
-        gate_vals.sum(-1, keepdim=True), min=1e-9)              # renormalize
+    gate_vals, sel, logits, probs = _router(cfg, x32, router)
     lead = tuple(range(probs.dim() - 1))
     me = probs.mean(dim=lead)                                   # (E,)
-    ce = F.one_hot(sel[..., 0], m.num_experts).float().mean(dim=lead)
-    aux = {
-        "load_balance": m.num_experts * torch.sum(me * ce),
-        "router_z": torch.logsumexp(logits, -1).square().mean(),
-    }
-    return gate_vals, sel, aux
+    ce = F.one_hot(sel[..., 0], cfg.moe.num_experts).float().mean(dim=lead)
+    return gate_vals, sel, _aux(
+        cfg, me, ce, torch.logsumexp(logits, -1).square().mean())
 
 
 def _experts(params, buf: torch.Tensor, act: str) -> torch.Tensor:
@@ -136,16 +160,11 @@ def moe_ffn_global(cfg: ModelConfig, params, x, act: str = "silu"
     return y.reshape(b, s, d), aux
 
 
-def moe_ffn_grouped(cfg: ModelConfig, params, x, act: str = "silu"
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """GROUP-LOCAL one-hot einsum dispatch (GShard grouping, chunked):
-    capacity is enforced within each chunk of ``MOE_DISPATCH_CHUNK``
-    tokens of a sequence row, and an assignment past it gets an all-zero
-    one-hot row, which drops it."""
+def _group_dispatch(cfg: ModelConfig, x, gate_vals, sel):
+    """The grouped dispatch of ``x`` (b, s, d): (the combine weights,
+    the capacity buffer in the kernel's (e, b g cap, d) layout)."""
     m = cfg.moe
     b, s, d = x.shape
-    gate_vals, sel, aux = _route(cfg, x.float(), params["router"])
-
     chunk = min(MOE_DISPATCH_CHUNK, s)
     if s % chunk:
         chunk = s
@@ -167,13 +186,130 @@ def moe_ffn_grouped(cfg: ModelConfig, params, x, act: str = "silu"
     x_rep = x.reshape(b, g, chunk, d).repeat_interleave(m.top_k, dim=2)
     buf = torch.einsum("bgtec,bgtd->begcd", disp, x_rep)
     # fold (b, e, g*cap, d) into the kernel's (e, b*g*cap, d) and back
-    buf = buf.permute(1, 0, 2, 3, 4).reshape(m.num_experts, b * g * cap, d)
-    out = _experts(params, buf, act)
+    return comb, buf.permute(1, 0, 2, 3, 4).reshape(m.num_experts,
+                                                    b * g * cap, d)
+
+
+def _group_combine(cfg: ModelConfig, comb, out, shape):
+    """The grouped combine of the experts' ``out`` (e, b g cap, d) into
+    (b, s, d)."""
+    m = cfg.moe
+    b, s, d = shape
+    _, g, _, _, cap = comb.shape
     out = out.reshape(m.num_experts, b, g, cap, d).permute(1, 0, 2, 3, 4)
-
     y = torch.einsum("bgtec,begcd->bgtd", comb, out)
-    y = y.reshape(b, g, chunk, m.top_k, d).sum(dim=3).reshape(b, s, d)
+    return y.reshape(b, g, s // g, m.top_k, d).sum(dim=3).reshape(b, s, d)
 
+
+def moe_ffn_grouped(cfg: ModelConfig, params, x, act: str = "silu"
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """GROUP-LOCAL one-hot einsum dispatch (GShard grouping, chunked):
+    capacity is enforced within each chunk of ``MOE_DISPATCH_CHUNK``
+    tokens of a sequence row, and an assignment past it gets an all-zero
+    one-hot row, which drops it."""
+    m = cfg.moe
+    gate_vals, sel, aux = _route(cfg, x.float(), params["router"])
+    comb, buf = _group_dispatch(cfg, x, gate_vals, sel)
+    y = _group_combine(cfg, comb, _experts(params, buf, act), x.shape)
     if m.num_shared:
         y = y + layers.gated_mlp(params["shared"], x, act)
     return y, aux
+
+
+# ---------------------------------------------------------------------------
+# on a mesh of more than one device (a list a row; see the module's doc)
+# ---------------------------------------------------------------------------
+
+
+def _global_dispatch(cfg: ModelConfig, lay, sels):
+    """Each row's (expert, slot, kept) of its token-major assignments
+    under one capacity over all rows' tokens: a row's slots continue
+    the counts of the rows before it (``exclusive_prefix``), so the
+    drops are the unsharded dispatch's."""
+    m = cfg.moe
+    flat = [s.reshape(-1) for s in sels]
+    cap = _capacity(sum(f.shape[0] for f in flat) // m.top_k, cfg)
+    hots = [F.one_hot(f, m.num_experts) for f in flat]
+    offsets = M.exclusive_prefix([h.sum(0) for h in hots], lay.homes())
+    out = []
+    for f, h, off in zip(flat, hots, offsets):
+        pos = torch.cumsum(h, dim=0) - h + off[None]
+        pos = pos.gather(1, f[:, None])[:, 0]
+        keep = pos < cap
+        out.append((torch.where(keep, f, m.num_experts),
+                    torch.where(keep, pos, 0), keep))
+    return cap, out
+
+
+def _experts_sharded(lay, params, bufs, act: str) -> List[torch.Tensor]:
+    """Model position j's experts on ``bufs[j]`` (its experts' rows of
+    the buffer, every row's tokens), at row 0's position j, with its
+    experts' weights gathered there."""
+    n = len(bufs)
+    w = {k: lay.weights(params[k], n, rows=[0])
+         for k in ("w_gate", "w_up", "w_down")}
+    return [_experts({k: v[j][0] for k, v in w.items()}, buf, act)
+            for j, buf in enumerate(bufs)]
+
+
+def moe_ffn_sharded(cfg: ModelConfig, lay, params, hs, act: str = "silu"
+                    ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """:func:`moe_ffn` of each row (``hs`` (b_r, s, d) at the rows'
+    homes); see the module's doc. Returns (the rows' outputs, aux)."""
+    m = cfg.moe
+    home0 = lay.home(0)
+    routers = lay.weights(params["router"], 1)[0]
+    routed = [_router(cfg, h.float(), w) for h, w in zip(hs, routers)]
+    n_tok = sum(h.shape[0] * h.shape[1] for h in hs)
+    me = M.psum([p.reshape(-1, m.num_experts).sum(0)
+                 for _, _, _, p in routed], home0) / n_tok
+    ce = M.psum([F.one_hot(s[..., 0].reshape(-1), m.num_experts).float()
+                 .sum(0) for _, s, _, _ in routed], home0) / n_tok
+    z = M.psum([torch.logsumexp(lg, -1).square().sum()
+                for _, _, lg, _ in routed], home0) / n_tok
+    aux = _aux(cfg, me, ce, z)
+
+    n = lay.n_tp(params["w_gate"])
+    e_l = m.num_experts // n
+    ep_devs = [lay.dev(0, j) for j in range(n)]
+    ys = []
+    if cfg.moe_group_dispatch:
+        disp = [_group_dispatch(cfg, h, gv, s)
+                for h, (gv, s, _, _) in zip(hs, routed)]
+        # position j's buffer: its experts' rows of each row's buffer,
+        # the rows' tokens in order along the capacity dim
+        chunks = [buf.split(e_l, dim=0) for _, buf in disp]
+        outs = _experts_sharded(lay, params, [
+            M.all_gather([c[j] for c in chunks], 1, ep_devs[j])
+            for j in range(n)], act)
+        widths = [buf.shape[1] for _, buf in disp]
+        pieces = [o.split(widths, dim=1) for o in outs]
+        for r, (h, (comb, _)) in enumerate(zip(hs, disp)):
+            out = M.all_gather([p[r] for p in pieces], 0, lay.home(r))
+            ys.append(_group_combine(cfg, comb, out, h.shape))
+    else:
+        cap, idx = _global_dispatch(cfg, lay, [s for _, s, _, _ in routed])
+        chunks = []
+        for h, (e, c, _) in zip(hs, idx):
+            xf = h.reshape(-1, h.shape[-1])
+            buf = xf.new_zeros((m.num_experts + 1, cap, xf.shape[-1]))
+            buf.index_put_((e, c), xf.repeat_interleave(m.top_k, dim=0),
+                           accumulate=True)
+            chunks.append(buf[:m.num_experts].split(e_l, dim=0))
+        # each slot holds one row's token at most: the sum is exact
+        outs = _experts_sharded(lay, params, [
+            M.psum([c[j] for c in chunks], ep_devs[j]) for j in range(n)],
+            act)
+        fanned = [M.fan_out(o, lay.homes()) for o in outs]
+        for r, (h, (gv, _, _, _), (e, c, keep)) in enumerate(
+                zip(hs, routed, idx)):
+            b, s, d = h.shape
+            out = torch.cat([f[r] for f in fanned]
+                            + [h.new_zeros((1, cap, d))])
+            w = (gv.reshape(-1) * keep).to(h.dtype)
+            ys.append((out[e, c] * w[:, None]).reshape(b * s, m.top_k, d)
+                      .sum(dim=1).reshape(b, s, d))
+    if m.num_shared:
+        shared = layers.gated_mlp_sharded(lay, params["shared"], hs, act)
+        ys = [y + sh for y, sh in zip(ys, shared)]
+    return ys, aux

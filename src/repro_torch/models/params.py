@@ -17,6 +17,14 @@ spec is described, never built), ``axes_tree`` the logical axes, both
 equal to the JAX package's. ``tree_map`` and ``tree_items`` walk a
 param tree (nested dicts, and lists for the split-NN towers) in the JAX
 package's flattening order: dict keys sorted, list entries in order.
+
+On a mesh of more than one device a param tree is *placed*:
+``place_tree`` turns each leaf and its ``PartitionSpec`` (from
+``launch.steps.resolve_param_shardings``) into a ``sharding.rules.Parts``
+of per-position parts, and ``whole_tree`` is its inverse. ``tree_map``,
+``tree_items`` and ``tree_leaves`` walk into a ``Parts``: each part is a
+leaf, so autograd and the elementwise optimizers treat the parts as
+they treat whole leaves.
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.rules import PartitionSpec, Parts, place
 
 PyTree = Any
 Device = Union[str, torch.device]
@@ -77,6 +87,9 @@ def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
+    if isinstance(tree, Parts):
+        return tree.with_parts([fn(p, *(r.parts[i] for r in rest))
+                                for i, p in enumerate(tree.parts)])
     return fn(tree, *rest)
 
 
@@ -90,6 +103,8 @@ def tree_items(tree: PyTree, path: Tuple[str, ...] = ()
     if isinstance(tree, (list, tuple)):
         return [item for i, v in enumerate(tree)
                 for item in tree_items(v, path + (str(i),))]
+    if isinstance(tree, Parts):
+        return [(path + (str(i),), p) for i, p in enumerate(tree.parts)]
     return [(path, tree)]
 
 
@@ -172,6 +187,14 @@ def unstack(tree: PyTree, n: int) -> List[PyTree]:
     if isinstance(tree, dict):
         parts = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, Parts):
+        if tree.spec[0] is not None:
+            raise ValueError(f"a stacked leaf's layer dim is split: "
+                             f"{tree.spec}")
+        per = [p.unbind(0) for p in tree.parts]
+        spec = PartitionSpec(*tree.spec[1:])
+        return [Parts(spec, tree.shape[1:], tree.mesh, [u[i] for u in per])
+                for i in range(n)]
     return list(tree.unbind(0))
 
 
@@ -187,3 +210,36 @@ def from_numpy(tree: PyTree, device: Device = "cuda") -> PyTree:
 def to_numpy(tree: PyTree) -> PyTree:
     """The inverse of :func:`from_numpy`: the tree as numpy arrays."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def place_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """``tree`` with each leaf of one dim or more split by its spec
+    (a tree like it of ``PartitionSpec``) over ``mesh`` as a ``Parts``;
+    a scalar (an optimizer's ``count``) goes whole to the mesh's first
+    device."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if tree.dim() == 0:
+        return tree.to(mesh.devices.reshape(-1)[0])
+    return place(tree, specs, mesh)
+
+
+def whole_tree(tree: PyTree, device: Optional[Device] = None) -> PyTree:
+    """The inverse of :func:`place_tree`: each ``Parts`` assembled whole
+    (on ``device``, else its first part's); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: whole_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(whole_tree(v, device) for v in tree)
+    if isinstance(tree, Parts):
+        return tree.whole(device)
+    return tree
+
+
+def is_placed(tree: PyTree) -> bool:
+    """Does ``tree`` hold a ``Parts``?"""
+    if isinstance(tree, dict):
+        return any(is_placed(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(is_placed(v) for v in tree)
+    return isinstance(tree, Parts)

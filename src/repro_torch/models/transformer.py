@@ -38,6 +38,16 @@ layout hints whose values do not depend on them, and are dropped; its
 step under mesh rules with that flag and full attention splits the KV
 cache's sequence over the ``model`` axis
 (``models/decode_sharded.py``).
+
+On a mesh of more than one device, ``loss_fn_sharded`` and
+``last_logits_sharded`` run the dense-attention and MoE families with
+placed params (``sharding.rules.Parts``) and the batch split into rows
+(``sharding.rules.Layout``; ``models/layers.py``'s ``*_sharded``
+conventions), with the values of ``loss_fn`` and ``forward``. A
+repeat's FSDP gathers run inside the unit ``_maybe_remat`` wraps, so
+under remat the gathered weights are recomputed in the backward and
+are not kept across the step. The loss's mask denominator, its metrics
+and the router losses are sums over every row.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as M
 from repro_torch.models import attention, layers, mamba, mla, moe
 from repro_torch.models import params as P, rwkv
 from repro_torch.models.decode_sharded import sharded_decode_attention
@@ -188,29 +199,27 @@ def _maybe_remat(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
-def _stack_forward(cfg: ModelConfig, params, x, positions, memory=None
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _stack(cfg: ModelConfig, params, x, block, device):
     """Prefix blocks, then the pattern blocks, repeat by repeat, each
-    attending to the encoder's ``memory`` where it is given. The router
-    losses are summed over the MoE layers and averaged."""
-    aux_losses = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+    through ``block(mixer, ffn, p, x) -> (x, aux)``; one repeat is the
+    unit ``_maybe_remat`` wraps. The router losses (on ``device``) are
+    summed over the MoE layers and averaged."""
+    aux_losses = {k: torch.zeros((), dtype=torch.float32, device=device)
                   for k in _AUX}
 
     def add(aux):
         for k in aux:
             aux_losses[k] = aux_losses[k] + aux[k]
 
-    def unit(x, unit_params) -> Tuple[torch.Tensor, List[Dict]]:
+    def unit(x, unit_params) -> Tuple[Any, List[Dict]]:
         auxes = []
         for i, (mixer, ffn) in enumerate(cfg.block_pattern):
-            x, aux = _apply_block(cfg, mixer, ffn, unit_params[f"pos{i}"],
-                                  x, positions, memory)
+            x, aux = block(mixer, ffn, unit_params[f"pos{i}"], x)
             auxes.append(aux)
         return x, auxes
 
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
-        x, aux = _apply_block(cfg, mixer, ffn, params[f"prefix{i}"], x,
-                              positions, memory)
+        x, aux = block(mixer, ffn, params[f"prefix{i}"], x)
         add(aux)
     unit = _maybe_remat(cfg, unit)
     per_layer = {pos: P.unstack(p, cfg.n_repeats)
@@ -226,11 +235,102 @@ def _stack_forward(cfg: ModelConfig, params, x, positions, memory=None
     return x, aux_losses
 
 
+def _stack_forward(cfg: ModelConfig, params, x, positions, memory=None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`_stack` of ``x``, each block attending to the encoder's
+    ``memory`` where it is given."""
+    return _stack(cfg, params, x, lambda mixer, ffn, p, x: _apply_block(
+        cfg, mixer, ffn, p, x, positions, memory), x.device)
+
+
+def _with_router_losses(cfg: ModelConfig, loss, metrics, aux):
+    """``loss`` plus, for an MoE model, the weighted router losses, as
+    the JAX package's ``loss_fn`` adds them; ``metrics`` gains the
+    total (and the load balance)."""
+    total = loss
+    if cfg.moe is not None:
+        total = (total
+                 + cfg.moe.router_aux_weight * aux["load_balance"]
+                 + cfg.moe.router_z_weight * aux["router_z"])
+        metrics["load_balance"] = aux["load_balance"]
+    metrics["total_loss"] = total
+    return total, metrics
+
+
 def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
     x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].T
     return layers.unembed(params["lm_head"], x)
+
+
+# ---------------------------------------------------------------------------
+# on a mesh of more than one device (a list a row; see the module's doc)
+# ---------------------------------------------------------------------------
+
+
+def _apply_block_sharded(cfg: ModelConfig, lay, ffn: str, p, xs, positions
+                         ) -> Tuple[List[torch.Tensor], Dict]:
+    hs = layers.rmsnorm_sharded(lay, p["norm1"], xs, cfg.norm_eps)
+    hs = attention.self_attention_sharded(cfg, lay, p["mixer"], hs,
+                                          positions)
+    xs = [x + h for x, h in zip(xs, hs)]
+    hs = layers.rmsnorm_sharded(lay, p["norm2"], xs, cfg.norm_eps)
+    if ffn == "moe":
+        hs, aux = moe.moe_ffn_sharded(cfg, lay, p["ffn"], hs, cfg.act)
+    else:
+        hs, aux = layers.gated_mlp_sharded(lay, p["ffn"], hs, cfg.act), {}
+    return [x + h for x, h in zip(xs, hs)], aux
+
+
+def _stack_forward_sharded(cfg: ModelConfig, lay, params, xs, positions
+                           ) -> Tuple[List[torch.Tensor], Dict]:
+    """:func:`_stack` of the rows ``xs``: every row goes through a
+    repeat together (the MoE dispatch spans the rows)."""
+    return _stack(cfg, params, xs, lambda mixer, ffn, p, xs:
+                  _apply_block_sharded(cfg, lay, ffn, p, xs, positions),
+                  lay.home(0))
+
+
+def _hidden_sharded(cfg: ModelConfig, lay, params, tokens, dtype):
+    """The rows' final-normed hidden states and the router losses."""
+    xs = layers.embed_sharded(lay, params["embed"], tokens, dtype)
+    positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
+    xs, aux = _stack_forward_sharded(cfg, lay, params, xs, positions)
+    return layers.rmsnorm_sharded(lay, params["final_norm"], xs,
+                                  cfg.norm_eps), aux
+
+
+def _head_sharded(cfg: ModelConfig, lay, params, xs):
+    if cfg.tie_embeddings:
+        return layers.head_sharded(lay, params["embed"]["table"], xs, True)
+    return layers.head_sharded(lay, params["lm_head"]["w"], xs, False)
+
+
+def loss_fn_sharded(cfg: ModelConfig, lay, params,
+                    batch: Dict[str, List[torch.Tensor]],
+                    dtype: torch.dtype = torch.bfloat16
+                    ) -> Tuple[torch.Tensor, Dict]:
+    """:func:`loss_fn` on a mesh: ``batch`` maps each key to its rows
+    (``tokens``, ``labels`` and an optional ``loss_mask``)."""
+    xs, aux = _hidden_sharded(cfg, lay, params, batch["tokens"], dtype)
+    loss, metrics = layers.softmax_xent_sharded(
+        lay, _head_sharded(cfg, lay, params, xs), batch["labels"],
+        batch.get("loss_mask"))
+    return _with_router_losses(cfg, loss, metrics, aux)
+
+
+def last_logits_sharded(cfg: ModelConfig, lay, params,
+                        tokens: List[torch.Tensor],
+                        dtype: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
+    """The last position's logits (b, vocab) of :func:`forward` on a
+    mesh, whole on the first row's home: each row's vocab parts
+    gathered, the rows concatenated in order."""
+    xs, _ = _hidden_sharded(cfg, lay, params, tokens, dtype)
+    logits = _head_sharded(cfg, lay, params, [x[:, -1] for x in xs])
+    return M.all_gather([M.all_gather(parts, -1, lay.home(0))
+                         for parts in logits], 0, lay.home(0))
 
 
 # ---------------------------------------------------------------------------
@@ -314,14 +414,7 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
               ).float().expand(labels.shape)
         mask = pm if mask is None else mask * pm
     loss, metrics = layers.softmax_xent(logits, labels, mask)
-    total = loss
-    if cfg.moe is not None:
-        total = (total
-                 + cfg.moe.router_aux_weight * aux["load_balance"]
-                 + cfg.moe.router_z_weight * aux["router_z"])
-        metrics["load_balance"] = aux["load_balance"]
-    metrics["total_loss"] = total
-    return total, metrics
+    return _with_router_losses(cfg, loss, metrics, aux)
 
 
 # ---------------------------------------------------------------------------

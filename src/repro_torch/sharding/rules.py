@@ -14,20 +14,33 @@ drives: the JAX package hands specs to XLA, which partitions the
 program; in the port the modules that shard read the resolved specs and
 place each mesh position's share on its device themselves
 (``models/tower.py``, ``models/decode_sharded.py``,
-``core/vfl_step.py``). So the JAX package's ``constrain``, a layout
-hint to XLA whose values never depend on it, has no counterpart, and
-neither has its ``shard_map`` wrapper: the port writes its collectives
-out (``launch/mesh.py``). Nor has ``reduce_dtype``: it asks a promoting
-``jnp.einsum`` for a bf16 result, and a product of bf16 tensors in torch
-is bf16 already (the port's weights and activations share a dtype,
-``models/layers.py``).
+``core/vfl_step.py``, and the zoo's train and prefill steps through
+:class:`Parts`, which :func:`place` makes of a whole tensor and its
+spec: params, optimizer slots and the batch alike). So the JAX
+package's ``constrain``, a layout hint to XLA whose values never depend
+on it, has no counterpart, and neither has its ``shard_map`` wrapper:
+the port writes its collectives out (``launch/mesh.py``). Nor has
+``reduce_dtype``: it asks a promoting ``jnp.einsum`` for a bf16 result,
+and a product of bf16 tensors in torch is bf16 already (the port's
+weights and activations share a dtype, ``models/layers.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.launch import mesh as M
+
+# the ROADMAP Queue 1 item that ports the other families' train and
+# prefill steps on a mesh of more than one device
+SHARDED_STEPS = ("ROADMAP Queue 1 item 10b (zoo train and prefill steps "
+                 "on a mesh of more than one device)")
+
 
 class PartitionSpec(tuple):
     """One entry a dim: None (replicated), a mesh axis name, or a tuple
@@ -188,3 +201,192 @@ def param_shardings(rules: MeshRules, axes_tree, abstract_params):
     return map_in_tree_order(
         lambda ax, ab: rules.param_spec(ax, tuple(ab.shape)),
         axes_tree, abstract_params, is_leaf=is_axes)
+
+
+# ---------------------------------------------------------------------------
+# placement: a whole tensor as its parts over a mesh, by its spec
+# ---------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry: () for None, a name's 1-tuple,
+    a joint entry's names in its order."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def positions(mesh, axes: Sequence[str]) -> List[Dict[str, int]]:
+    """Every position over ``axes`` (name -> index), row-major in the
+    order given: the order a joint spec entry numbers its chunks."""
+    sizes = [mesh.shape[a] for a in axes]
+    return [dict(zip(axes, idx))
+            for idx in itertools.product(*(range(n) for n in sizes))]
+
+
+def _joint_index(axes: Sequence[str], pos: Dict[str, int], mesh) -> int:
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + pos[a]
+    return i
+
+
+class Parts:
+    """A whole tensor of ``shape`` split by ``spec`` over ``mesh``: one
+    part for each position over the mesh axes the spec uses (``axes``,
+    in mesh order), ``parts[i]`` the chunk of position ``keys[i]``, on
+    that position's device (index 0 on the axes the spec does not use).
+    A tensor the spec replicates is one part, on the mesh's first
+    device. The tree walks of ``models/params.py`` treat each part as a
+    leaf, so autograd and the elementwise optimizers see the parts."""
+
+    def __init__(self, spec: PartitionSpec, shape: Sequence[int], mesh,
+                 parts: Optional[Sequence[torch.Tensor]] = None):
+        self.spec, self.shape, self.mesh = spec, tuple(shape), mesh
+        used = {a for e in spec for a in entry_axes(e)}
+        self.axes = tuple(a for a in mesh.axis_names if a in used)
+        self.keys = positions(mesh, self.axes)
+        if parts is not None and len(parts) != len(self.keys):
+            raise ValueError(f"{len(parts)} parts for {len(self.keys)} "
+                             f"positions of {spec}")
+        self.parts = None if parts is None else list(parts)
+
+    def with_parts(self, parts: Sequence) -> "Parts":
+        return Parts(self.spec, self.shape, self.mesh, parts)
+
+    def slices(self, pos: Dict[str, int], skip: Sequence[str] = ()
+               ) -> Tuple[slice, ...]:
+        """The part at ``pos`` as slices of the whole; a dim split over
+        an axis in ``skip`` is left whole (its slices are those of the
+        tensor the other axes' parts assemble)."""
+        out = []
+        for entry, n in zip(self.spec, self.shape):
+            axes = entry_axes(entry)
+            if not axes or set(axes) & set(skip):
+                out.append(slice(None))
+                continue
+            size = 1
+            for a in axes:
+                size *= self.mesh.shape[a]
+            c = n // size
+            i = _joint_index(axes, pos, self.mesh)
+            out.append(slice(i * c, (i + 1) * c))
+        return tuple(out) + (slice(None),) * (len(self.shape)
+                                              - len(self.spec))
+
+    def part(self, **pos: int) -> torch.Tensor:
+        """The part of the position ``pos`` (axes the spec does not use
+        are ignored)."""
+        return self.parts[self.keys.index(
+            {a: pos.get(a, 0) for a in self.axes})]
+
+    def whole(self, device=None) -> torch.Tensor:
+        """The parts assembled on ``device`` (the first part's when
+        None), a fresh tensor."""
+        first = self.parts[0]
+        out = torch.empty(self.shape, dtype=first.dtype,
+                          device=device or first.device)
+        for key, p in zip(self.keys, self.parts):
+            out[self.slices(key)] = p.detach().to(out.device)
+        return out
+
+
+def place(t: torch.Tensor, spec: PartitionSpec, mesh) -> Parts:
+    """``t`` split by ``spec`` over ``mesh``, each part a contiguous
+    copy on its position's device; ``Parts.whole`` is the inverse."""
+    spec = PartitionSpec(*(tuple(spec) + (None,) * (t.dim() - len(spec))))
+    for entry, n in zip(spec, t.shape):
+        size = 1
+        for a in entry_axes(entry):
+            size *= mesh.shape[a]
+        if n % size:
+            raise ValueError(f"dim {n} of {tuple(t.shape)} does not split "
+                             f"over {entry} ({size})")
+    out = Parts(spec, t.shape, mesh)
+    src = t.detach()
+    out.parts = []
+    for key in out.keys:
+        chunk = src[out.slices(key)]
+        out.parts.append(torch.empty(chunk.shape, dtype=chunk.dtype,
+                                     device=mesh.device(**key)).copy_(chunk))
+    return out
+
+
+class Layout:
+    """Where a sharded train or prefill step runs: its rows, the batch's
+    positions over the mesh axes the batch's spec splits (row-major in
+    the spec's order, so row r holds the r-th chunk of the batch), and
+    each row's positions over the ``model`` axis. Row r's activations
+    between layers live at its home, its model position 0."""
+
+    def __init__(self, mesh, batch_entry=None):
+        self.mesh = mesh
+        self.rows = positions(mesh, entry_axes(batch_entry))
+        self.n_model = mesh.shape.get("model", 1)
+
+    def dev(self, r: int, j: int = 0) -> torch.device:
+        pos = dict(self.rows[r])
+        if "model" in self.mesh.shape:
+            pos["model"] = j
+        return self.mesh.device(**pos)
+
+    def home(self, r: int) -> torch.device:
+        return self.dev(r, 0)
+
+    def homes(self) -> List[torch.device]:
+        return [self.home(r) for r in range(len(self.rows))]
+
+    def n_tp(self, w: Parts) -> int:
+        """How many model positions share ``w``'s work: the model
+        axis's size where ``w`` is split over it, else 1."""
+        return self.n_model if "model" in w.axes else 1
+
+    def model_dim(self, w: Parts) -> Optional[int]:
+        """The dim of ``w`` split over ``model`` (None if none)."""
+        for i, e in enumerate(w.spec):
+            axes = entry_axes(e)
+            if "model" in axes:
+                if len(axes) > 1:
+                    raise ValueError(f"a joint entry {e} with the model "
+                                     f"axis is not taken here")
+                return i
+        return None
+
+    def weights(self, w: Parts, n: int,
+                rows: Optional[Sequence[int]] = None
+                ) -> List[List[torch.Tensor]]:
+        """``[j][r]``: what position (r, j) holds of ``w``, for the
+        first ``n`` model positions and each r in ``rows`` (every row by
+        default): its part of the model axis (all of it where ``w`` is
+        not split there), gathered whole over every other axis on that
+        position's device. One ``launch/mesh.py`` ``spread`` serves
+        every position that holds the same parts, so a gradient is
+        summed over them in mesh order and reduce-scattered back to the
+        parts, never left to autograd's accumulation. A whole part
+        asked for by one position, on its own device, is the part
+        itself."""
+        rows = list(range(len(self.rows)) if rows is None else rows)
+        md = self.model_dim(w)
+        if md is None:
+            targets = [(r, j) for r in rows for j in range(n)]
+            got = self._spread(w, w.keys, w.parts, targets)
+            return [[got[i * n + j] for i in range(len(rows))]
+                    for j in range(n)]
+        if n != self.n_model:
+            raise ValueError(f"{w.spec} splits over all {self.n_model} "
+                             f"model positions, {n} asked for")
+        out = []
+        for j in range(n):
+            keys = [(k, p) for k, p in zip(w.keys, w.parts)
+                    if k["model"] == j]
+            out.append(self._spread(w, [k for k, _ in keys],
+                                    [p for _, p in keys],
+                                    [(r, j) for r in rows]))
+        return out
+
+    def _spread(self, w: Parts, keys, parts, targets) -> List[torch.Tensor]:
+        devs = [self.dev(r, j) for r, j in targets]
+        if len(parts) == 1 and len(devs) == 1 and parts[0].device == devs[0]:
+            return [parts[0]]
+        return list(M.spread(parts, [w.slices(k, skip=("model",))
+                                     for k in keys], devs))

@@ -8,7 +8,10 @@ under its key plus ``|bf16``. ``step_XXXXXXXX.npz`` beside a
 ``manifest.json`` of ``{"step", "extra"}``. A checkpoint written by
 either package restores into the other, bit for bit. Restore rebuilds
 the structure of the trees it is given, each leaf a tensor on its
-counterpart's device.
+counterpart's device. A tree placed on a mesh (``models/params.py``'s
+``place_tree``) is saved gathered whole, and a placed leaf of the tree
+restore is given is split the same way again: one checkpoint drives
+either package and any mesh.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.params import tree_items
+from repro_torch.models.params import tree_items, whole_tree
+from repro_torch.sharding.rules import Parts, place
 
 BF16 = "|bf16"
 
@@ -45,7 +49,7 @@ def save(path: str, step: int, params, opt_state=None, extra=None) -> None:
     for prefix, tree in (("params", params), ("opt", opt_state)):
         if tree is None:
             continue
-        for k, v in _flatten(tree).items():
+        for k, v in _flatten(whole_tree(tree)).items():
             arr, bf16 = _to_numpy(v)
             blobs[f"{prefix}/{k}{BF16 if bf16 else ''}"] = arr
     np.savez(p / f"step_{step:08d}.npz", **blobs)
@@ -83,6 +87,8 @@ def restore(path: str, step: int, params_like, opt_like=None
         if isinstance(node, (list, tuple)):
             return type(node)(rebuild(v, path + (str(i),))
                               for i, v in enumerate(node))
+        if isinstance(node, Parts):
+            return place(loaded["/".join(path)], node.spec, node.mesh)
         meta = not isinstance(node, torch.Tensor) or node.is_meta
         return loaded["/".join(path)].to("cpu" if meta else node.device)
 

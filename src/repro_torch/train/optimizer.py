@@ -16,6 +16,12 @@ and AdamW, elementwise, update a large leaf in slices of ``CHUNK``
 elements, so their temporaries stay small; Adafactor's slots and its
 update clip need a whole leaf. Call ``update`` under ``torch.no_grad``.
 
+Placed trees (``models/params.py``'s ``place_tree``: a leaf as per-position
+parts on a mesh of more than one device) go through SGD-momentum and
+AdamW part by part, as whole leaves do. Adafactor's row and column
+statistics and its RMS clip need whole leaves: on a placed tree it
+raises.
+
 AdamW for <=20B archs; Adafactor (factored second moment, no first
 moment) for jamba-398B / internvl-76B, as in the JAX package.
 """
@@ -27,7 +33,8 @@ from typing import Any, Callable, Iterator, Tuple
 
 import torch
 
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import is_placed, tree_leaves, tree_map
+from repro_torch.sharding.rules import SHARDED_STEPS
 
 PyTree = Any
 # elements of a leaf updated at once by the elementwise optimizers
@@ -138,7 +145,16 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
     def _factored(p) -> bool:
         return p.dim() >= 2
 
+    def whole_leaves(params):
+        if is_placed(params):
+            raise NotImplementedError(
+                f"Adafactor's factored statistics and update clip need "
+                f"whole leaves, not a tree placed on a mesh: "
+                f"{SHARDED_STEPS}")
+
     def init(params):
+        whole_leaves(params)
+
         def slot(p):
             f32 = dict(dtype=torch.float32, device=p.device)
             if _factored(p):
@@ -152,6 +168,7 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                                      device=leaf.device)}
 
     def update(grads, state, params, lr):
+        whole_leaves(params)
         beta2 = 1.0 - _count(state) ** (-decay)
 
         def upd(p, g, slot):

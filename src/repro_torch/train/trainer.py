@@ -1,7 +1,11 @@
 """Training loop of the port: any ported architecture, checkpointing +
 metrics; the counterpart of the JAX package's ``repro/train/trainer.py``.
-``rules`` (a ``MeshRules``) runs each step under them; a mesh of more
-than one device raises in ``launch.steps.make_train_step``.
+``rules`` (a ``MeshRules``) runs each step under them. On a mesh of more
+than one device the drawn params and the optimizer state are placed over
+it (``launch.steps.place_params``) and each step splits its batch, for
+the dense-attention and MoE families; the other families raise in
+``launch.steps.make_train_step``. The history, the checkpoints and the
+returned params are whole.
 """
 from __future__ import annotations
 
@@ -50,15 +54,17 @@ def train(job: TrainJob, batches: Iterator[Dict[str, np.ndarray]]
     params = PRM.init_tree(spec, torch.Generator(dev).manual_seed(job.seed),
                            job.param_dtype, dev)
     opt = O.make_optimizer(cfg.optimizer)
+    step_fn = ST.make_train_step(cfg, opt, lr=job.lr, rules=job.rules,
+                                 compute_dtype=job.compute_dtype,
+                                 accum_steps=job.accum_steps)
+    if ST.sharded(job.rules):
+        params = ST.place_params(cfg, params, job.rules)
     opt_state = opt.init(params)
     # As in the JAX package (src/repro/train/trainer.py:47-50): the
     # schedule is built but the step gets the constant ``job.lr``, so
     # training runs at a constant rate; kept for parity.
     sched = O.warmup_cosine(job.lr, warmup=max(1, job.steps // 10),
                             total=job.steps)
-    step_fn = ST.make_train_step(cfg, opt, lr=job.lr, rules=job.rules,
-                                 compute_dtype=job.compute_dtype,
-                                 accum_steps=job.accum_steps)
 
     logger = MetricsLogger(job.metrics_dir, run=f"train_{cfg.arch_id}")
     t0 = time.perf_counter()
@@ -79,5 +85,5 @@ def train(job: TrainJob, batches: Iterator[Dict[str, np.ndarray]]
     if job.ckpt_dir:
         CKPT.save(job.ckpt_dir, job.steps, params, opt_state)
     logger.close()
-    return {"params": params, "metrics": last_metrics,
+    return {"params": PRM.whole_tree(params), "metrics": last_metrics,
             "history": logger.records}

@@ -20,8 +20,10 @@ from ``make_lm_batches`` go through both packages:
 * ``train()`` on reduced ``h2o-danube-1.8b`` lowers the loss and serves
   its params, as ``tests/test_system.py``'s trainer test; the CLI with
   ``--device cpu`` in a subprocess, and with ``--mesh`` (the (1, 1)
-  mesh) the same final metrics; train and prefill steps on a larger
-  mesh raise naming ROADMAP Queue 1 item 10b.
+  mesh) the same final metrics; train and prefill steps of a family not
+  ported to a larger mesh yet (rwkv6-7b), and a train step with
+  Adafactor there, raise naming ROADMAP Queue 1 item 10b
+  (``tests/test_torch_sharded_steps.py`` holds the ported ones).
 """
 import dataclasses
 import os
@@ -298,12 +300,16 @@ def test_train_cli_on_cpu(tmp_path):
 
 
 def test_mesh_rules_raise():
-    """Train and prefill steps on a mesh of more than one device raise
-    naming the ROADMAP item; a decode step takes any mesh."""
-    cfg = get_config("qwen3-14b").reduced()
+    """Train and prefill steps of RWKV-6 on a mesh of more than one
+    device, and a train step with Adafactor there, raise naming the
+    ROADMAP item; a decode step takes any mesh."""
+    cfg = get_config("rwkv6-7b").reduced()
+    qwen = get_config("qwen3-14b").reduced()
     rules = MeshRules(make_local_mesh(1, 2, devices=["cpu"] * 2))
     for make in (lambda: tST.make_train_step(cfg, tO.adamw(), rules=rules),
-                 lambda: tST.make_prefill_step(cfg, rules=rules)):
+                 lambda: tST.make_prefill_step(cfg, rules=rules),
+                 lambda: tST.make_train_step(qwen, tO.adafactor(),
+                                             rules=rules)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 10b"):
             make()

@@ -1,0 +1,525 @@
+"""The port's train and prefill steps on a mesh of more than one device,
+on the CPU device repeated, against the port's unsharded steps and the
+JAX package's.
+
+* Parity: reduced qwen3 (qk-norm, untied and tied embeddings, the
+  ``noweightfsdp`` lever), h2o-danube with a window shorter than the
+  sequence, glm4 (its KV heads fall back to replication on a model axis
+  of 4), granite with the global and the grouped dispatch, expert data
+  parallelism (``moedp``) and a vocab that falls back, on (2, 2), (1, 4),
+  (4, 1) and a ``pod x data x model`` (2, 1, 2), with ``accum_steps`` 1
+  and 2 and remat ``none`` / ``minimal`` / ``full``: one AdamW step of
+  ``make_train_step`` from the same numpy-made params and batch gives
+  the unsharded step's loss within 1e-6 relative and its metrics, every
+  gradient the step hands its optimizer within 1e-5 of its leaf's
+  largest, and every updated param within 1e-5 of its leaf's largest
+  plus what AdamW's first step makes of the gradients' difference
+  (``assert_adamw_updates``); ``make_prefill_step``'s last logits
+  within 1e-5 of their largest. Two sharded runs agree to the bit.
+* The JAX package's unsharded ``make_train_step`` (its gradients as it
+  hands them to its optimizer) and ``make_prefill_step`` hold the
+  sharded steps at ``tests/test_torch_lm_train.py``'s tolerances:
+  metrics at rtol 1e-5, gradients within 1e-4 of each leaf's largest,
+  logits within 1e-5 of their largest; on every mesh shape at
+  ``accum_steps`` 1 and 2, dense and each MoE dispatch, and glm4's
+  prefill over its replicated KV heads. One JAX run serves every mesh
+  it is held to.
+* The MoE dispatch over rows keeps global capacity and token-major
+  priority: a batch that overflows an expert drops the unsharded
+  step's assignments, and the load balance is the unsharded value.
+* The families not ported yet (MLA, RWKV-6, Mamba, an encoder, a vision
+  prefix), Adafactor and a sequence split raise naming ROADMAP Queue 1
+  item 10b; decode takes any mesh.
+* Remat ``minimal``: the backward recomputes no matmul without batch
+  dims (the attention projections included).
+* Checkpoints: a sharded ``train()`` saves whole arrays that restore
+  into the unsharded port and into the JAX package bit for bit, and a
+  run resumed on the mesh gives the uninterrupted run's history.
+* The placement helpers and the new collectives.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.launch import steps as jST  # noqa: E402
+from repro.train import checkpoint as jC  # noqa: E402
+from repro.train import optimizer as jO  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.synthetic import make_lm_batches  # noqa: E402
+from repro_torch.launch import mesh as M  # noqa: E402
+from repro_torch.launch import steps as tST  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import params as tP  # noqa: E402
+from repro_torch.models import transformer as tT  # noqa: E402
+from repro_torch.sharding import rules as R  # noqa: E402
+from repro_torch.train import checkpoint as tC  # noqa: E402
+from repro_torch.train import optimizer as tO  # noqa: E402
+from repro_torch.train.trainer import TrainJob, train  # noqa: E402
+
+LR = 1e-3
+AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def _rules(shape, **param_rules):
+    mesh = M.make_mesh(shape, AXES[len(shape)], ["cpu"] * int(
+        np.prod(shape)))
+    rules = R.MeshRules(mesh)
+    rules.param_rules.update(param_rules)
+    return rules
+
+
+def _np_params(cfg, seed=0):
+    """Params drawn with numpy: each matrix normal over the square root
+    of its fan-in, each vector around 1 (norm scales)."""
+    rng = np.random.default_rng(seed)
+    abstract = tP.abstract_tree(tT.model_spec(cfg), torch.float32)
+
+    def leaf(t):
+        shape = tuple(t.shape)
+        if len(shape) == 1:
+            return (1 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+        fan = int(np.prod(shape[:-1]))
+        return (rng.standard_normal(shape) / np.sqrt(fan)).astype(
+            np.float32)
+    return tP.tree_map(leaf, abstract)
+
+
+def _batch(cfg, b, s=16, seed=0):
+    return {k: torch.as_tensor(v) for k, v in
+            next(make_lm_batches(cfg.vocab, b, s, 1, seed=seed)).items()}
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _capture(inner=None):
+    """An optimizer that keeps the gradients the step hands it (whole),
+    then updates as ``inner`` does, or leaves the params as they are."""
+    got = []
+
+    def update(grads, state, params, lr):
+        got.append(tP.tree_map(lambda t: t.detach().clone(),
+                               tP.whole_tree(grads)))
+        if inner is None:
+            return params, state
+        return inner.update(grads, state, params, lr)
+    if inner is None:
+        return tO.Optimizer("capture", lambda p: {}, update,
+                            lambda a: {}), got
+    return dataclasses.replace(inner, update=update), got
+
+
+def _port_step(cfg, np_params, batch, rules, accum, inner=None):
+    """One ``make_train_step`` from the numpy params: (the params after
+    it, whole; its metrics; the gradients it handed its optimizer,
+    whole). ``inner`` makes the update, else the params stay."""
+    opt, got = _capture(inner)
+    params = tP.from_numpy(np_params, "cpu")
+    if tST.sharded(rules):
+        params = tST.place_params(cfg, params, rules)
+    step = tST.make_train_step(cfg, opt, lr=LR, rules=rules,
+                               compute_dtype=torch.float32,
+                               accum_steps=accum)
+    params, _, metrics = step(params, opt.init(params), batch)
+    return tP.whole_tree(params), metrics, got[0]
+
+
+def _prefill(cfg, np_params, tokens, rules):
+    params = tP.from_numpy(np_params, "cpu")
+    if tST.sharded(rules):
+        params = tST.place_params(cfg, params, rules)
+    return tST.make_prefill_step(cfg, rules, torch.float32)(
+        params, {"tokens": tokens})
+
+
+# the JAX package's step hands its optimizer the gradients; this one
+# returns them as the new params
+_JAX_CAPTURE = jO.Optimizer("capture", lambda p: {},
+                            lambda g, s, p, lr: (g, s), lambda a: {})
+# config changes that choose only where a value lives (the experts' mesh
+# axis), not what it is: the unsharded JAX reference runs without them
+_PLACEMENT_ONLY = ("moe_expert_parallel",)
+_JAX_RUNS = {}
+
+
+def _jax_ref(arch, changes, b, seed, accum):
+    """The JAX package's unsharded ``make_train_step`` (its metrics and
+    the gradients it hands its optimizer) and ``make_prefill_step`` (the
+    last logits), in one jit, on ``_np_params(cfg, seed)`` and
+    ``_batch(cfg, b, seed)``; run once a module for each key, since the
+    reference does not depend on the mesh it is held to."""
+    changes = {k: v for k, v in changes.items() if k not in _PLACEMENT_ONLY}
+    key = (arch, tuple(sorted(changes.items())), b, seed, accum)
+    if key not in _JAX_RUNS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+        jcfg = dataclasses.replace(jget_config(arch).reduced(), **changes)
+        train = jST.make_train_step(jcfg, _JAX_CAPTURE, lr=0.0,
+                                    compute_dtype=jnp.float32,
+                                    accum_steps=accum)
+        prefill = jST.make_prefill_step(jcfg, compute_dtype=jnp.float32)
+        both = jax.jit(lambda p, bt: (train(p, {}, bt), prefill(
+            p, {"tokens": bt["tokens"]})))
+        batch = _batch(cfg, b, seed=seed)
+        (grads, _, metrics), logits = both(
+            jax.tree.map(jnp.asarray, _np_params(cfg, seed)),
+            {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+        _JAX_RUNS[key] = (
+            tP.tree_map(torch.as_tensor, jax.tree.map(np.array, grads)),
+            {k: float(v) for k, v in metrics.items()},
+            torch.as_tensor(np.array(logits)))
+    return _JAX_RUNS[key]
+
+
+def _check_against_jax(arch, changes, shape, accum, b, seed):
+    """The port's sharded train step on a ``shape`` mesh against the JAX
+    package's unsharded one at ``tests/test_torch_lm_train.py``'s
+    tolerances: metrics at rtol 1e-5, gradients within 1e-4 of each
+    leaf's largest; its prefill's last logits within 1e-5 of their
+    largest."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    np_params = _np_params(cfg, seed=seed)
+    batch = _batch(cfg, b, seed=seed)
+    rules = _rules(shape)
+    jg, jm, jl = _jax_ref(arch, changes, b, seed, accum)
+    _, tm, tg = _port_step(cfg, np_params, batch, rules, accum)
+    assert tm.keys() == jm.keys()
+    for k, v in tm.items():
+        np.testing.assert_allclose(float(v), jm[k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    for (path, a), (_, e) in zip(tP.tree_items(tg), tP.tree_items(jg)):
+        assert _rel(a, e) <= 1e-4, path
+    assert _rel(_prefill(cfg, np_params, batch["tokens"], rules), jl) \
+        <= 1e-5
+
+
+def assert_adamw_updates(got, exp, g_got, g_exp, lr, tol=1e-5, eps=1e-8):
+    """Every param after one AdamW step within ``tol`` of its leaf's
+    largest, plus what the step makes of the two runs' gradient
+    difference (held within 1e-5 of the largest gradient on its own):
+    the first step moves an entry by lr g / (|g| + eps), whose two
+    values differ by lr |g1 - g2| eps / ((|g1| + eps)(|g2| + eps)) where
+    the signs agree and by at most 2 lr where they do not, so near
+    |g| = eps a rounding of the gradient moves the entry by O(lr)
+    (``tests/test_torch_lm_train.py``'s LR)."""
+    for (path, a), (_, e), (_, g1), (_, g2) in zip(
+            tP.tree_items(got), tP.tree_items(exp), tP.tree_items(g_got),
+            tP.tree_items(g_exp)):
+        same = torch.sign(g1) == torch.sign(g2)
+        moved = torch.where(
+            same, (g1 - g2).abs() * eps / ((g1.abs() + eps)
+                                           * (g2.abs() + eps)), 2.0)
+        allow = tol * e.abs().max() + lr * moved * (1 + 1e-3)
+        assert bool(((a - e).abs() <= allow).all()), ("updated", path)
+
+
+# (id, arch, mesh shape, config changes, param-rule changes, batch,
+# accum_steps)
+CASES = [
+    ("qwen3-2x2", "qwen3-14b", (2, 2), {}, {}, 4, 1),
+    ("qwen3-tied-4x1-accum2", "qwen3-14b", (4, 1),
+     {"tie_embeddings": True}, {}, 8, 2),
+    ("qwen3-noweightfsdp-2x2-minimal", "qwen3-14b", (2, 2),
+     {"remat_policy": "minimal"}, {"embed": None}, 4, 1),
+    ("h2o-window-pod2x1x2", "h2o-danube-1.8b", (2, 1, 2), {"window": 5},
+     {}, 4, 1),
+    ("glm4-kvfallback-1x4-accum2", "glm4-9b", (1, 4), {}, {}, 4, 2),
+    ("granite-global-2x2-minimal", "granite-moe-3b-a800m", (2, 2),
+     {"remat_policy": "minimal"}, {}, 4, 1),
+    ("granite-grouped-2x2-accum2-full", "granite-moe-3b-a800m", (2, 2),
+     {"moe_group_dispatch": True, "remat_policy": "full"}, {}, 8, 2),
+    ("granite-moedp-oddvocab-pod2x1x2", "granite-moe-3b-a800m", (2, 1, 2),
+     {"moe_expert_parallel": False, "vocab": 509}, {}, 4, 1),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_sharded_steps_match_unsharded(case):
+    _, arch, shape, changes, prules, b, accum = case
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    rules = _rules(shape, **prules)
+    np_params = _np_params(cfg)
+    batch = _batch(cfg, b)
+    exp_p, exp_m, exp_g = _port_step(cfg, np_params, batch, None, accum,
+                                     tO.adamw())
+    got_p, got_m, got_g = _port_step(cfg, np_params, batch, rules, accum,
+                                     tO.adamw())
+    assert got_m.keys() == exp_m.keys()
+    for k in exp_m:
+        np.testing.assert_allclose(float(got_m[k]), float(exp_m[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+    for (path, a), (_, e) in zip(tP.tree_items(got_g),
+                                 tP.tree_items(exp_g)):
+        assert _rel(a, e) <= 1e-5, ("grad", path)
+    assert_adamw_updates(got_p, exp_p, got_g, exp_g, LR)
+    exp = _prefill(cfg, np_params, batch["tokens"], None)
+    got = _prefill(cfg, np_params, batch["tokens"], rules)
+    assert got.shape == exp.shape and _rel(got, exp) <= 1e-5
+    # the same bits again
+    again = _prefill(cfg, np_params, batch["tokens"], rules)
+    assert torch.equal(got, again)
+    if cfg.n_kv_heads % shape[-1]:
+        assert any("kv_heads" in f for f in rules.fallbacks)
+
+
+@pytest.mark.parametrize("arch,shape,accum", [
+    ("qwen3-14b", (2, 2), 2), ("granite-moe-3b-a800m", (2, 2), 1)])
+def test_sharded_train_step_matches_jax(arch, shape, accum):
+    _check_against_jax(arch, {}, shape, accum, 8, 1)
+
+
+# (id, arch, config changes, mesh shape, accum_steps): with the test
+# above, every mesh shape at accum_steps 1 and 2, dense and each MoE
+# dispatch (global, grouped, experts over ``experts_dp``), on its batch
+# of 8 and seed, so that one JAX run serves several meshes
+JAX_MESH_CASES = [
+    ("qwen3-1x4-accum2", "qwen3-14b", {}, (1, 4), 2),
+    ("qwen3-4x1-accum2", "qwen3-14b", {}, (4, 1), 2),
+    ("qwen3-pod2x1x2-accum2", "qwen3-14b", {}, (2, 1, 2), 2),
+    ("granite-global-1x4", "granite-moe-3b-a800m", {}, (1, 4), 1),
+    ("granite-global-4x1", "granite-moe-3b-a800m", {}, (4, 1), 1),
+    ("granite-moedp-pod2x1x2", "granite-moe-3b-a800m",
+     {"moe_expert_parallel": False}, (2, 1, 2), 1),
+    ("granite-grouped-2x2-accum2", "granite-moe-3b-a800m",
+     {"moe_group_dispatch": True}, (2, 2), 2),
+]
+
+
+@pytest.mark.parametrize("case", JAX_MESH_CASES,
+                         ids=[c[0] for c in JAX_MESH_CASES])
+def test_sharded_steps_match_jax_on_every_mesh(case):
+    _, arch, changes, shape, accum = case
+    _check_against_jax(arch, changes, shape, accum, 8, 1)
+
+
+def test_sharded_prefill_matches_jax():
+    """glm4, whose 2 KV heads fall back to replication on model 4."""
+    cfg, jcfg = get_config("glm4-9b").reduced(), \
+        jget_config("glm4-9b").reduced()
+    np_params = _np_params(cfg, seed=2)
+    tokens = _batch(cfg, 4, seed=2)["tokens"]
+    exp = jax.jit(jST.make_prefill_step(jcfg, compute_dtype=jnp.float32))(
+        jax.tree.map(jnp.asarray, np_params),
+        {"tokens": jnp.asarray(tokens.numpy())})
+    got = _prefill(cfg, np_params, tokens, _rules((1, 4)))
+    exp = torch.as_tensor(np.asarray(exp))
+    assert _rel(got, exp) <= 1e-5
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_moe_dispatch_over_rows_is_global(grouped):
+    """At capacity factor 0.5 experts overflow: the sharded layer keeps
+    the unsharded layer's assignments (its output equal, the same
+    number dropped) and its load balance and z loss."""
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    cfg = dataclasses.replace(cfg, moe_group_dispatch=grouped, moe=(
+        dataclasses.replace(cfg.moe, capacity_factor=0.5)))
+    params = tP.from_numpy(_np_params(cfg, seed=3), "cpu")
+    p = tP.tree_slice(params["blocks"]["pos0"]["ffn"], 0)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (4, 16, cfg.d_model)).astype(np.float32))
+    rules = _rules((2, 2))
+    lay = R.Layout(rules.mesh, "data")
+    specs = tST.resolve_param_shardings(cfg, rules)[2]
+    placed = tP.unstack(tP.place_tree(
+        params["blocks"]["pos0"]["ffn"], specs["blocks"]["pos0"]["ffn"],
+        rules.mesh), cfg.n_repeats)[0]
+    with torch.no_grad():
+        exp, exp_aux = tmoe.moe_ffn(cfg, p, x, cfg.act)
+        got, got_aux = tmoe.moe_ffn_sharded(cfg, lay, placed,
+                                            list(x.chunk(2)), cfg.act)
+    torch.testing.assert_close(torch.cat(got), exp, rtol=1e-5, atol=1e-6)
+    for k in exp_aux:
+        torch.testing.assert_close(got_aux[k], exp_aux[k], rtol=1e-6,
+                                   atol=0)
+    if not grouped:
+        sel = tmoe._router(cfg, x.float(), p["router"])[1]
+        _, rows = tmoe._global_dispatch(cfg, lay, list(sel.chunk(2)))
+        kept = torch.cat([keep for _, _, keep in rows])
+        t = x.shape[0] * x.shape[1]
+        flat = sel.reshape(-1)
+        hot = torch.nn.functional.one_hot(flat, cfg.moe.num_experts)
+        pos = (torch.cumsum(hot, 0) - hot).gather(1, flat[:, None])[:, 0]
+        assert torch.equal(kept, pos < tmoe._capacity(t, cfg))
+        assert 0 < int((~kept).sum())
+
+
+@pytest.mark.parametrize("heads,kv,model", [(4, 2, 4), (32, 2, 4),
+                                              (6, 3, 2)])
+def test_attention_over_kv_heads_that_fall_back(heads, kv, model):
+    """Where the KV heads do not split over ``model``, each position's
+    q heads read their own KV heads: a slice where the kernel's grouping
+    maps them (glm4's 2 KV heads on 4 positions), else each q head's KV
+    head given to it (6 q heads over 3 KV heads on 2 positions)."""
+    from repro_torch.models import attention as tatt
+    lo_hi = [tatt.kv_heads_of(heads, kv, heads // model, j)
+             for j in range(model)]
+    for j, (lo, hi, idx) in enumerate(lo_hi):
+        want = [(j * (heads // model) + i) // (heads // kv)
+                for i in range(heads // model)]
+        got = (list(range(lo, hi)) if idx is None else idx.tolist())
+        if idx is None:
+            g = (heads // model) // (hi - lo)
+            got = [lo + i // g for i in range(heads // model)]
+        assert got == want
+    cfg = dataclasses.replace(get_config("qwen3-14b").reduced(),
+                              n_heads=heads, n_kv_heads=kv, head_dim=16)
+    rules = _rules((1, model))
+    np_params = _np_params(cfg, seed=6)
+    tokens = _batch(cfg, 2, seed=6)["tokens"]
+    exp = _prefill(cfg, np_params, tokens, None)
+    got = _prefill(cfg, np_params, tokens, rules)
+    assert _rel(got, exp) <= 1e-5
+    assert any("kv_heads" in f for f in rules.fallbacks)
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("deepseek-v2-lite-16b", {}), ("rwkv6-7b", {}),
+    ("jamba-1.5-large-398b", {}), ("whisper-large-v3", {}),
+    ("internvl2-76b", {}), ("qwen3-14b", {"adafactor": True}),
+    ("qwen3-14b", {"seqshard": True})])
+def test_unported_families_raise(arch, changes):
+    cfg = get_config(arch).reduced()
+    rules = _rules((1, 2))
+    if changes.get("seqshard"):
+        rules.act_rules["seq"] = ("model",)
+    opt = tO.adafactor() if changes.get("adafactor") else tO.adamw()
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 10b"):
+        tST.make_train_step(cfg, opt, rules=rules)
+    if not changes.get("adafactor"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 10b"):
+            tST.make_prefill_step(cfg, rules=rules)
+    else:
+        placed = tST.place_params(cfg, tP.from_numpy(_np_params(cfg),
+                                                     "cpu"), rules)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 10b"):
+            opt.init(placed)
+    tST.make_decode_step(cfg, rules=rules)          # any mesh
+
+
+def _matmuls_in_backward(cfg, params, batch):
+    """The matmuls without batch dims (``mm``, ``addmm``, a ``bmm`` of
+    one batch) that the backward of one loss runs, recomputation
+    included."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+
+    class Log(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (aten.mm.default, aten.addmm.default) or (
+                    func is aten.bmm.default and args[0].shape[0] == 1):
+                Log.n += 1
+            return func(*args, **(kwargs or {}))
+
+    tracked = tP.tree_map(lambda t: t.detach().requires_grad_(), params)
+    leaves = tP.tree_leaves(tracked)
+    loss, _ = tT.loss_fn(cfg, tracked, batch, torch.float32)
+    with Log():
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+    return Log.n
+
+
+def test_remat_minimal_recomputes_no_projection():
+    """Under ``minimal`` the backward runs the matmuls of ``none``'s
+    backward and no more: the q / k / v / o projections, the MLP's and
+    the head's outputs are kept; ``full`` recomputes them."""
+    base = get_config("qwen3-14b").reduced()
+    params = tP.from_numpy(_np_params(base, seed=5), "cpu")
+    batch = _batch(base, 2, seed=5)
+    n = {pol: _matmuls_in_backward(
+        dataclasses.replace(base, remat_policy=pol), params, batch)
+        for pol in ("none", "minimal", "full")}
+    assert n["minimal"] == n["none"] < n["full"], n
+
+
+def test_checkpoint_round_trip_across_meshes(tmp_path):
+    cfg = get_config("qwen3-14b").reduced()
+    rules = _rules((2, 2))
+    batches = list(make_lm_batches(cfg.vocab, 4, 16, 4, seed=0))
+
+    def job(steps, ckpt=None):
+        return TrainJob(cfg=cfg, lr=LR, steps=steps, seed=0, log_every=1,
+                        ckpt_dir=ckpt, rules=rules, device="cpu")
+    full = train(job(4), iter(batches))
+    ckpt = str(tmp_path / "ckpt")
+    half = train(job(2, ckpt), iter(batches[:2]))
+    opt = tO.adamw()
+    like = tP.abstract_tree(tT.model_spec(cfg), torch.float32)
+    params, state = tC.restore(ckpt, 2, like, opt.init(like))
+    for (path, a), (_, b) in zip(tP.tree_items(params),
+                                 tP.tree_items(half["params"])):
+        assert torch.equal(a, b), path
+    np_like = tP.to_numpy(params)
+    jparams, jstate = jC.restore(ckpt, 2, np_like, jax.tree.map(
+        np.asarray, jO.adamw().init(jax.tree.map(jnp.asarray, np_like))))
+    for (path, a), (_, b) in zip(
+            tP.tree_items(params), tP.tree_items(jax.tree.map(np.asarray,
+                                                             jparams))):
+        assert np.array_equal(a.numpy(), b), path
+    assert int(jstate["count"]) == int(state["count"]) == 2
+    # resumed on the mesh: the uninterrupted run's last two steps
+    placed = tST.place_params(cfg, params, rules)
+    _, placed_again = tC.restore(ckpt, 2, placed, opt.init(placed))
+    step = tST.make_train_step(cfg, opt, lr=LR, rules=rules,
+                               compute_dtype=torch.float32)
+    losses = []
+    for b in batches[2:]:
+        placed, placed_again, m = step(
+            placed, placed_again,
+            {k: torch.as_tensor(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    assert losses == [r["loss"] for r in full["history"][2:]]
+    for (path, a), (_, b) in zip(tP.tree_items(tP.whole_tree(placed)),
+                                 tP.tree_items(full["params"])):
+        assert torch.equal(a, b), path
+
+
+def test_placement_and_collectives():
+    mesh = M.make_mesh((2, 1, 2), AXES[3], ["cpu"] * 4)
+    x = torch.arange(4 * 8 * 2, dtype=torch.float32).reshape(4, 8, 2)
+    for spec in [R.P(("pod", "data"), "model"), R.P("model", None),
+                 R.P(None, ("pod", "model")), R.P()]:
+        parts = R.place(x, spec, mesh)
+        assert torch.equal(parts.whole(), x)
+    parts = R.place(x, R.P("pod", "model"), mesh)
+    assert len(parts.parts) == 4
+    assert torch.equal(parts.part(pod=1, model=0), x[2:, :4])
+    ps = [torch.tensor([1.0, 2.0]), torch.tensor([3.0, 4.0]),
+          torch.tensor([5.0, 6.0])]
+    assert [t.tolist() for t in M.exclusive_prefix(ps, ["cpu"] * 3)] == \
+        [[0.0, 0.0], [1.0, 2.0], [4.0, 6.0]]
+    got = M.reduce_scatter(ps, ["cpu"] * 2, [(slice(0, 1),),
+                                             (slice(1, 2),)])
+    assert [t.tolist() for t in got] == [[9.0], [12.0]]
+    # the all-gather's backward is the ordered reduce-scatter
+    a, b = (t.clone().requires_grad_() for t in ps[:2])
+    ga, gb = torch.autograd.grad(
+        sum((i + 1) * o.sum() for i, o in enumerate(
+            M.spread([a, b], [(slice(0, 2),), (slice(2, 4),)],
+                     ["cpu"] * 3))), (a, b))
+    assert ga.tolist() == gb.tolist() == [6.0, 6.0]
+    # a param the model axis does not split reaches every position it
+    # serves through one gather, whose backward sums them in mesh order
+    mesh = M.make_mesh((2, 2), AXES[2], ["cpu"] * 4)
+    lay = R.Layout(mesh, "data")
+    w = R.place(torch.ones(4, 3).requires_grad_(), R.P("data", None), mesh)
+    w.parts = [p.requires_grad_() for p in w.parts]
+    got = lay.weights(w, 2)
+    assert len({id(t.grad_fn) for col in got for t in col}) == 1
+    gs = torch.autograd.grad(sum((2 * j + r + 1) * t.sum()
+                                 for j, col in enumerate(got)
+                                 for r, t in enumerate(col)), w.parts)
+    assert [g[0, 0].item() for g in gs] == [10.0, 10.0]

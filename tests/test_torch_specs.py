@@ -73,7 +73,9 @@ def test_mesh_rules_raise():
     """Under mesh rules every stand-in comes beside its resolved spec
     (``tests/test_torch_sharding.py`` holds them to the JAX package's);
     the train and prefill steps those specs feed raise on a mesh of more
-    than one device, naming the ROADMAP item."""
+    than one device for a family not ported there yet (rwkv6-7b), naming
+    the ROADMAP item, and ``place_batch`` splits a real batch by the
+    batch's specs."""
     cfg, sh = get_config("qwen3-14b"), SHAPES["train_4k"]
     rules = MeshRules(make_local_mesh(1, 2, devices=["cpu"] * 2))
     batch, specs = tspecs.batch_specs(cfg, sh, rules, True)
@@ -85,11 +87,16 @@ def test_mesh_rules_raise():
     # the model axis, so the KV heads cannot
     assert tuple(specs["blocks"]["pos0"]["k"]) == \
         (None, "data", "model", None, None)
-    for call in (lambda: tST.make_train_step(cfg, tO.adamw(), rules=rules),
-                 lambda: tST.make_prefill_step(cfg, rules=rules)):
+    rwkv = get_config("rwkv6-7b")
+    for call in (lambda: tST.make_train_step(rwkv, tO.adamw(), rules=rules),
+                 lambda: tST.make_prefill_step(rwkv, rules=rules)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 10b"):
             call()
+    tokens = torch.arange(8 * 3).reshape(8, 3)
+    parts = tspecs.place_batch({"tokens": tokens}, rules)["tokens"]
+    assert tuple(parts.spec) == ("data", None) and len(parts.parts) == 1
+    assert torch.equal(parts.whole(), tokens)
 
 
 def test_train_lm_example_resumes_on_cpu(tmp_path, capsys):
