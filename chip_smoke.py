@@ -304,7 +304,19 @@ NVIDIA GPU.
    and the grouped matmul (forward, dx, dw) at that path's shapes
    against their plain versions, timed beside SDPA (attention's backward
    beside SDPA's backward alone) and ``torch.bmm``;
-12. prints all kernels in one ``kernels`` JSON line with each kernel's
+12. runs the zoo's train and prefill steps on meshes of more than one
+   device, every position on this card (``launch/steps.py`` with
+   ``MeshRules``; the kernels held to their plain versions and timed at
+   each shard's shapes first): granite-moe-3b-a800m on data 2 x model 2
+   against the unsharded step at 8 layers and alone at 16, h2o-danube
+   at full depth, glm4's prefill on 1 x 4 at 20 layers; rwkv6-7b at 8
+   layers, the jamba cut with Adafactor and deepseek-v2-lite-16b at 4
+   layers on 2 x 2 against their unsharded steps, rwkv6-7b's prefill on
+   1 x 4 at 16 layers against the unsharded step in float64: loss,
+   gradients, updated params and logits within their tolerances, two
+   sharded runs bit-equal, launches exact, step ms sharded and
+   unsharded, peak memory, busy share;
+13. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time (bytes over the memory rate, or operations over
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
    on the tensor cores in 3xTF32, 989 for bf16 on them, 67 for f32
@@ -1789,15 +1801,21 @@ def cluster_phase(torch, thread_losses, n_matched: int, items: int):
     return launches, measured
 
 
-def attention_bwd_bound(q, k, causal: bool) -> dict:
+def attention_bwd_bound(q, k, causal: bool, dv=None) -> dict:
     """The attention backward's bound: q, k, v, o, dO read once, dq, dk,
-    dv written once; five products of 2 dh a visible (query, key) pair
-    (S again, dP, dV, dK, dQ) at the rate of f32-accurate products."""
+    dv written once; five products a visible (query, key) pair at the
+    rate of f32-accurate products, S again, dK and dQ of 2 dh, dP and
+    dV of 2 ``dv`` (v's own width, dh where None). v, o, dO and dv count
+    at ``dv`` columns: a padded v's extra columns are the kernel's
+    cost, not the function's."""
     b, h, sq, dh = q.shape
     sk = k.shape[2]
+    dv = dh if dv is None else dv
     pairs = (sq * (sq + 1) / 2 if causal and sq == sk else sq * sk)
-    return _bound((4 * q.numel() + 4 * k.numel()) * q.element_size(),
-                  5 * 2.0 * dh * pairs * b * h, product_rate(q.dtype))
+    nbytes = (2 * b * h * sq * (dh + dv)
+              + 2 * b * k.shape[1] * sk * (dh + dv)) * q.element_size()
+    return _bound(nbytes, 2.0 * (3 * dh + 2 * dv) * pairs * b * h,
+                  product_rate(q.dtype))
 
 
 def kernel_times(torch, fn, calls: int = 20) -> dict:
@@ -2041,6 +2059,21 @@ def wkv_inputs(torch, dev, b, h, s, dh, dtype, g):
     u = torch.randn((h, dh), generator=g) * 0.3
     return ([t.to(dtype).to(dev) for t in (r, k, v, w)]
             + [u.to(dev)])
+
+
+def wkv_bound(b, h, s, dh) -> tuple:
+    """The WKV recurrence's least f32 work at (b, h, s, dh): (bytes, ops)
+    of the forward and of the backward. Forward: r, k, v, w and u read
+    once, y and S_final written once; 5 dh^2 flops a step of a (batch,
+    head) pair (read-out r.S: dh^2 FMAs; update w*S + k v^T: a multiply
+    and an FMA per element; the bonus term is O(dh)). Backward: r, k, v,
+    w, dy and dS read, dr, dk, dv, dw written, u read and du written;
+    12 dh^2 a step, the recomputed update and five products with a
+    vector."""
+    n_el = b * h * s * dh
+    return (((5 * n_el + h * dh + b * h * dh * dh) * 4, 5.0 * n_el * dh),
+            ((9 * n_el + b * h * dh * dh + 2 * h * dh) * 4,
+             12.0 * n_el * dh))
 
 
 def check_wkv(torch, dev):
@@ -2332,13 +2365,7 @@ def time_wkv(torch, dev):
                    SCORE_TOKENS - 1, cfg.rwkv.head_dim)
     g = torch.Generator().manual_seed(6)
     ins = wkv_inputs(torch, dev, b, h, s, dh, torch.float32, g)
-    # least time: r, k, v, w read once, y and S_final written once; and
-    # the least f32 work of a step of one (batch, head) pair, 5 * dh^2
-    # flops (read-out r.S: dh^2 FMAs; update w*S + k v^T: a multiply
-    # and an FMA per element; the bonus term is O(dh))
-    nbytes = 4 * ins[0].numel() * 4 + ins[4].numel() * 4 \
-        + b * h * s * dh * 4 + b * h * dh * dh * 4
-    flops = 5.0 * b * h * s * dh * dh
+    (nbytes, flops), _ = wkv_bound(b, h, s, dh)
     out = time_call(lambda: wkv.rwkv6_wkv(*ins), lambda: ref.rwkv6_ref(*ins),
                     None,        # no PyTorch call computes the recurrence
                     nbytes, flops,
@@ -2432,10 +2459,13 @@ def check_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
                       jax_cases: bool = True):
     """Phases 7a and 9a: the grouped-matmul kernel against its plain
     version at the MoE path's shapes (and the JAX kernel test's), and
-    the attention kernel at the model's prefill shape."""
+    the attention kernel at the model's prefill shape. The gmm's inputs
+    are drawn on the card: a jamba expert's 805 M weights take seconds
+    to draw on the host."""
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(8)
+    gd = torch.Generator(dev).manual_seed(8)
     errs = {}
     cases = [(name, shape + ("float32",))
              for name, shape in gmm_path_shapes(cfg, score_tokens)]
@@ -2444,13 +2474,13 @@ def check_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
     for name, case in cases:
         e, c, d, f, dt = case
         dtype = getattr(torch, dt)
-        x = torch.randn((e, c, d), generator=g)
-        w = torch.randn((e, d, f), generator=g)
+        x = torch.randn((e, c, d), generator=gd, device=dev)
+        w = torch.randn((e, d, f), generator=gd, device=dev)
         if name:
             # the path's magnitudes: rmsnorm-ed activations, weights of
             # std 1/sqrt(d) at most (the spec's std is smaller still)
             w = w * d ** -0.5
-        x, w = x.to(dtype).to(dev), w.to(dtype).to(dev)
+        x, w = x.to(dtype), w.to(dtype)
         out = gmm.moe_gmm(x, w)
         exp = ref.gmm_ref(x, w)
         torch.cuda.synchronize()
@@ -2527,15 +2557,18 @@ def time_moe_kernels(torch, dev, cfg, score_tokens: int = SCORE_TOKENS,
     """Phases 7c and 9c: the grouped matmul at the MoE path's four
     shapes and the attention kernel at its prefill shape, beside
     ``torch.bmm`` and SDPA (yardsticks only: the port calls neither).
-    ``prefill_timing`` sets the repetitions at the prefill shapes."""
+    ``prefill_timing`` sets the repetitions at the prefill shapes. The
+    gmm's inputs are drawn on the card, as ``check_moe_kernels``
+    draws them."""
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(9)
+    gd = torch.Generator(dev).manual_seed(9)
     few = dict(reps=20, trials=10)
     gmm_t = {}
     for name, (e, c, d, f) in gmm_path_shapes(cfg, score_tokens):
-        x = torch.randn((e, c, d), generator=g).to(dev)
-        w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
+        x = torch.randn((e, c, d), generator=gd, device=dev)
+        w = torch.randn((e, d, f), generator=gd, device=dev) * d ** -0.5
         # x and w read once, the output written once; 2 e c d f flops
         variant = gmm.variant(x, w)
         t = time_call(lambda: gmm.moe_gmm(x, w), lambda: ref.gmm_ref(x, w),
@@ -3146,6 +3179,20 @@ def scan_inputs(torch, dev, b, s, di, n, x_dtype, u_dtype, g, dt_shift):
             + [u.to(u_dtype).to(dev), a.to(dev)])
 
 
+def scan_bound(b, s, di, n) -> tuple:
+    """The selective scan's least f32 work at (b, s, di, n): (bytes, ops)
+    of the forward and of the backward. Forward: dt, B, C, u, A read
+    once, y and h_final written once; 7 operations a state element a
+    step (dt * A, its exp, the decay times h, du * B, the sum, h * C and
+    its sum) plus dt * u. Backward: dt, u, dy read, d(dt), du written;
+    B, C read, dB, dC written; A read, dA written; dh read; 20
+    operations a state element and step."""
+    return (((3 * b * s * di + 2 * b * s * n + di * n + b * di * n) * 4,
+             7.0 * b * s * di * n + b * s * di),
+            ((5 * b * s * di + 4 * b * s * n + 2 * di * n + b * di * n) * 4,
+             20.0 * b * s * di * n))
+
+
 def scan_path_shape(cfg):
     mb = cfg.mamba
     return (SCORE_BATCH, JAMBA_SCORE_TOKENS - 1, mb.d_inner(cfg.d_model),
@@ -3219,12 +3266,7 @@ def time_scan(torch, dev, cfg) -> dict:
     g = torch.Generator().manual_seed(12)
     ins = scan_inputs(torch, dev, b, s, di, n, torch.float32, torch.float32,
                       g, -4.6)
-    # least time: dt, B, C, u, A read once, y and h_final written once;
-    # and 7 f32 operations a state element a step (dt * A, its exp, the
-    # decay times h, du * B, the sum, h * C and its sum) plus dt * u
-    nbytes = sum(t.numel() * 4 for t in ins) + b * s * di * 4 \
-        + b * di * n * 4
-    ops = 7.0 * b * s * di * n + b * s * di
+    (nbytes, ops), _ = scan_bound(b, s, di, n)
     out = time_call(lambda: ssm.selective_scan(*ins),
                     lambda: ref.selective_scan_ref(*ins),
                     None,        # no PyTorch call computes the scan
@@ -4060,16 +4102,14 @@ def time_recurrence_bwd(torch, dev) -> dict:
 
     def wkv_kernel():
         return wkv.rwkv6_wkv_bwd(*ins, chk, dy, ds)
-    # r, k, v, w, dy read, dr, dk, dv, dw written; dS read; u, du
-    n_el = b * h * s * dh
-    nbytes = (9 * n_el + b * h * dh * dh + 2 * h * dh) * 4
+    _, (nbytes, ops) = wkv_bound(b, h, s, dh)
     chk_bytes = chk.numel() * 4
     t = {"ms": graph_ms(wkv_kernel, reps=20, trials=10),
          "eager_ms": eager_ms(wkv_kernel, reps=20, trials=10),
          "plain_ms": eager_ms(lambda: ref.rwkv6_vjp_ref(*ins, dy, ds),
                               reps=2, trials=3),
          "library_ms": None, "shape": [b, h, s, dh],
-         **_bound(nbytes, 12.0 * dh * dh * b * h * s),
+         **_bound(nbytes, ops),
          # the checkpoints read; du's per-pair partials written and read
          **design_floor(nbytes, chk_bytes + 2 * b * h * dh * 4),
          **forward_ms(wkv.wkv_forward, ins, chk_bytes)}
@@ -4088,10 +4128,7 @@ def time_recurrence_bwd(torch, dev) -> dict:
 
     def scan_kernel():
         return ssm.selective_scan_bwd(*ins, chk, dy, dh_)
-    # dt, u, dy read, d(dt), du written; B, C read, dB, dC written; A
-    # read, dA written; dh read
-    nbytes = (5 * b * s * di + 4 * b * s * n + 2 * di * n
-              + b * di * n) * 4
+    _, (nbytes, ops) = scan_bound(b, s, di, n)
     chk_bytes = chk.numel() * 4
     # dB / dC per 128-channel block, dA per batch row: written, read back
     parts = (-(-di // ssm.BLOCK) * 2 * b * s * n + b * di * n) * 4 * 2
@@ -4101,7 +4138,7 @@ def time_recurrence_bwd(torch, dev) -> dict:
              lambda: ref.selective_scan_vjp_ref(*ins, dy, dh_),
              reps=2, trials=3),
          "library_ms": None, "shape": [b, s, di, n],
-         **_bound(nbytes, 20.0 * b * s * di * n),
+         **_bound(nbytes, ops),
          **design_floor(nbytes, chk_bytes + parts),
          **forward_ms(ssm.scan_forward, ins, chk_bytes)}
     clock, top = sm_clock_mhz()
@@ -4650,15 +4687,24 @@ def vfl_llm_kernels(torch, dev, cfg, card: str) -> dict:
 
 
 def attention_bwd_at(torch, dev, qs, ks, window: int, g, tag: str,
-                     card: str) -> dict:
-    """The attention backward kernel (causal, ``window``) at q ``qs`` and
-    k/v ``ks`` against the plain version's VJP, within 1e-4 of the
-    largest gradient, then timed beside it and SDPA's backward."""
+                     card: str, dv=None, timing: dict | None = None,
+                     plain_timing: dict | None = None) -> dict:
+    """The attention backward kernel (causal, ``window``; v's columns
+    past ``dv`` zero, as MLA's call pads them) at q ``qs`` and k/v
+    ``ks`` against the plain version's VJP, within 1e-4 of the largest
+    gradient, then timed beside it and SDPA's backward (``timing``:
+    ``graph_ms`` keywords, 50 calls, 10 trials by default;
+    ``plain_timing`` the eager plain VJP's and SDPA's forward and
+    backward, 20 calls and 5 trials by default)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    timing = timing or dict(reps=50, trials=10)
+    slow = plain_timing or dict(reps=20, trials=5)
     q, do = (torch.randn(qs, generator=g).to(dev) for _ in range(2))
     k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
+    if dv is not None:
+        v[..., dv:] = 0
     o, lse = fa.flash_attention(q, k, v, causal=True, window=window,
                                 return_lse=True)
     got = fa.flash_attention_bwd(q, k, v, o, do, causal=True,
@@ -4682,15 +4728,15 @@ def attention_bwd_at(torch, dev, qs, ks, window: int, g, tag: str,
     out = {
         "shape": [list(qs), list(ks)], "window": window,
         "max_abs_err": bwd_err, "variant": fa.bwd_variant(q, k, v),
-        "ms": graph_ms(kernel, reps=50, trials=10),
-        "eager_ms": eager_ms(kernel, reps=50, trials=10),
+        "ms": graph_ms(kernel, **timing),
+        "eager_ms": eager_ms(kernel, **timing),
         "plain_ms": eager_ms(
             lambda: ref.attention_vjp_ref(q, k, v, do, causal=True,
-                                          window=window),
-            reps=20, trials=5),
-        **sdpa_backward_ms(torch, q, k, v, do, True, 50, 10),
-        "sdpa_fwd_bwd_ms": eager_ms(sdpa_fwd_bwd, reps=20, trials=5),
-        **attention_bwd_bound(q, k, True)}
+                                          window=window), **slow),
+        **sdpa_backward_ms(torch, q, k, v, do, True, timing["reps"],
+                           timing["trials"]),
+        "sdpa_fwd_bwd_ms": eager_ms(sdpa_fwd_bwd, **slow),
+        **attention_bwd_bound(q, k, True, dv)}
     log(f"flash_attention_bwd {tag} q {qs} k/v {ks} causal window "
         f"{window} f32 ({card}): {out}")
     return out
@@ -4698,28 +4744,40 @@ def attention_bwd_at(torch, dev, qs, ks, window: int, g, tag: str,
 
 def path_kernels(torch, dev, cfg, card: str, qs, ks, gmm_shapes,
                  tag: str, seed: int, window: int = 0,
-                 bwd: bool = True) -> dict:
+                 bwd: bool = True, dv=None,
+                 att_timing: dict | None = None,
+                 gmm_timing: dict | None = None) -> dict:
     """The attention kernel (forward and, where ``bwd``, backward; causal,
     ``window`` as the path passes it, which must mask nothing for SDPA's
-    sake) at q ``qs`` and k/v ``ks``, and the grouped matmul (forward, dx
-    and dw) at each of ``gmm_shapes`` ((name, (e, c, d, f))), against
-    their plain versions (2e-5; 1e-4 of the largest gradient; 2e-4), then
-    timed beside them, SDPA and ``torch.bmm``."""
+    sake; v's columns past ``dv`` zero, as MLA's call pads them) at q
+    ``qs`` and k/v ``ks`` (none where ``qs`` is None), and the grouped
+    matmul (forward, dx and dw) at each of ``gmm_shapes`` ((name, (e, c,
+    d, f))), against their plain versions (2e-5; 1e-4 of the largest
+    gradient; 2e-4), then timed beside them, SDPA and ``torch.bmm``
+    (``att_timing`` / ``gmm_timing``: ``graph_ms`` keywords, 50 calls and
+    10 trials by default)."""
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
     g = torch.Generator().manual_seed(seed)
-    out = {"attention": time_attention(torch, dev, cfg, qs, ks, window, g,
-                                       dict(reps=50, trials=10))}
-    out["attention"]["max_abs_err"] = check_attention(torch, dev, qs, ks,
-                                                      window, g)
-    out["attention"]["shape"] = [list(qs), list(ks)]
-    if bwd:
-        out["attention_bwd"] = attention_bwd_at(torch, dev, qs, ks, window,
-                                                g, tag, card)
+    out = {}
+    if qs is not None:
+        out["attention"] = time_attention(
+            torch, dev, cfg, qs, ks, window, g,
+            att_timing or dict(reps=50, trials=10), dv)
+        out["attention"]["max_abs_err"] = check_attention(
+            torch, dev, qs, ks, window, g, dv)
+        out["attention"]["shape"] = [list(qs), list(ks)]
+    if qs is not None and bwd:
+        out["attention_bwd"] = attention_bwd_at(
+            torch, dev, qs, ks, window, g, tag, card, dv, att_timing,
+            att_timing)
+    # the gmm's inputs drawn on the card, as ``check_moe_kernels``
+    # draws them
+    gd = torch.Generator(dev).manual_seed(seed)
     for name, (e, c, d, f) in gmm_shapes:
-        x = torch.randn((e, c, d), generator=g).to(dev)
-        w = (torch.randn((e, d, f), generator=g) * d ** -0.5).to(dev)
-        dy = torch.randn((e, c, f), generator=g).to(dev)
+        x = torch.randn((e, c, d), generator=gd, device=dev)
+        w = torch.randn((e, d, f), generator=gd, device=dev) * d ** -0.5
+        dy = torch.randn((e, c, f), generator=gd, device=dev)
         xg, wg = (t.clone().requires_grad_() for t in (x, w))
         grads = torch.autograd.grad(gmm.MoeGmm.apply(xg, wg), (xg, wg), dy)
         xr, wr = (t.clone().requires_grad_() for t in (x, w))
@@ -4736,7 +4794,8 @@ def path_kernels(torch, dev, cfg, card: str, qs, ks, gmm_shapes,
         t = time_call(lambda: gmm.moe_gmm(x, w), lambda: ref.gmm_ref(x, w),
                       lambda: torch.bmm(x, w),
                       (x.numel() + w.numel() + e * c * f) * 4,
-                      2.0 * e * c * d * f, dict(reps=50, trials=10),
+                      2.0 * e * c * d * f,
+                      gmm_timing or dict(reps=50, trials=10),
                       rate=product_rate(x.dtype))
         t.update(shape=[list(x.shape), list(w.shape)],
                  variant=gmm.variant(x, w), max_abs_err=err)
@@ -4744,6 +4803,105 @@ def path_kernels(torch, dev, cfg, card: str, qs, ks, gmm_shapes,
         log(f"moe_gmm {tag} {name} {(e, c, d, f)} f32, forward, dx "
             f"and dw ({card}): {t}")
         del x, w, dy, xg, wg, xr, wr, grads, want
+    return out
+
+
+def recurrence_at(torch, dev, name: str, shape, tag: str, card: str,
+                  seed: int, bwd: bool = True) -> dict:
+    """The WKV kernel (``name`` "rwkv6_wkv", ``shape`` (b, h, s, dh)) or
+    the scan's ("selective_scan", (b, s, di, n); dt around the model's
+    b_dt of -4.6) at a shard's shape, f32: the forward against its plain
+    version (WKV at atol = rtol = 5e-5 as phase 6a; the scan within
+    2e-5 of the output's largest magnitude as phase 9a), and where
+    ``bwd`` the backward kernel through the ``autograd.Function`` (one
+    forward and one backward launch; two backward runs the same to the
+    bit) against autograd through the plain version in float64, every
+    gradient within 1e-4 of its largest magnitude; then both timed
+    beside their plain versions and their bounds, as phases 6c / 9c and
+    10h count them (no PyTorch call computes either: library_ms
+    None)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.kernels import selective_scan as ssm
+    g = torch.Generator().manual_seed(seed)
+    if name == "rwkv6_wkv":
+        b, h, s, dh = shape
+        mod, fwd, plain, vjp = wkv, wkv.rwkv6_wkv, ref.rwkv6_ref, \
+            ref.rwkv6_vjp_ref
+        ck_fwd, bwd_kernel = wkv.wkv_forward, wkv.rwkv6_wkv_bwd
+        ins = wkv_inputs(torch, dev, b, h, s, dh, torch.float32, g)
+        cot_shapes = [(b, h, s, dh), (b, h, dh, dh)]
+        names = ("dr", "dk", "dv", "dw", "du")
+        (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = wkv_bound(b, h, s, dh)
+        fwd_tol = lambda ey, es: dict(atol=5e-5, rtol=5e-5)  # noqa: E731
+    else:
+        b, s, di, n = shape
+        mod, fwd, plain, vjp = ssm, ssm.selective_scan, \
+            ref.selective_scan_ref, ref.selective_scan_vjp_ref
+        ck_fwd, bwd_kernel = ssm.scan_forward, ssm.selective_scan_bwd
+        ins = scan_inputs(torch, dev, b, s, di, n, torch.float32,
+                          torch.float32, g, -4.6)
+        cot_shapes = [(b, s, di), (b, di, n)]
+        names = ("ddt", "dB", "dC", "du", "dA")
+        (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = scan_bound(b, s, di,
+                                                               n)
+
+        def fwd_tol(ey, es):
+            scale = max(ey.abs().max().item(), es.abs().max().item())
+            return dict(atol=2e-5 * scale, rtol=2e-5)
+    y, sf = fwd(*ins)
+    ey, es = plain(*ins)
+    torch.cuda.synchronize()
+    tol = fwd_tol(ey, es)
+    torch.testing.assert_close(y, ey, **tol)
+    torch.testing.assert_close(sf, es, **tol)
+    out = {"shape": list(shape),
+           "max_abs_err": max((y - ey).abs().max().item(),
+                              (sf - es).abs().max().item()),
+           **time_call(lambda: fwd(*ins), lambda: plain(*ins), None,
+                       fwd_bytes, fwd_ops, dict(reps=20, trials=10),
+                       plain_timing=dict(reps=1, trials=3))}
+    del y, sf, ey, es
+    log(f"{name} {tag} {tuple(shape)} f32 forward ({card}): {out}")
+    if bwd:
+        cots = [torch.randn(c, generator=g).to(dev) for c in cot_shapes]
+        leaves = [t.clone().requires_grad_() for t in ins]
+        mod.launches.reset()
+        mod.bwd_launches.reset()
+        outs = fwd(*leaves)
+        got = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+        if (mod.launches.count, mod.bwd_launches.count) != (1, 1):
+            raise AssertionError(f"{name} at {tag}: {mod.launches.count} "
+                                 f"forward and {mod.bwd_launches.count} "
+                                 f"backward launches, expected 1 and 1")
+        again = torch.autograd.grad(outs, leaves, cots)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        exp = vjp(*(t.double() for t in ins), *(c.double() for c in cots))
+        torch.cuda.synchronize()
+        errs = {k: grad_rel_err((a,), (e,))
+                for k, a, e in zip(names, got, exp)}
+        abs_err = max((a.double() - e).abs().max().item()
+                      for a, e in zip(got, exp))
+        del leaves, outs, got, again, exp
+        _, _, chk = ck_fwd(*ins, checkpoints=True)
+
+        def kernel():
+            return bwd_kernel(*ins, chk, *cots)
+        out["bwd"] = {
+            "shape": list(shape), "grad_rel_errs": errs,
+            "max_abs_err": abs_err, "two_runs_same_bits": same,
+            "ms": graph_ms(kernel, reps=20, trials=10),
+            "eager_ms": eager_ms(kernel, reps=20, trials=10),
+            "plain_ms": eager_ms(lambda: vjp(*ins, *cots), reps=1,
+                                 trials=3),
+            "library_ms": None, **_bound(bwd_bytes, bwd_ops)}
+        log(f"{name}_bwd {tag} {tuple(shape)} f32 ({card}): {out['bwd']}")
+        del chk, cots
+        if not (max(errs.values()) <= 1e-4 and same):
+            raise AssertionError(f"{name}'s backward kernel disagrees with "
+                                 f"the plain VJP at the {tag} shape, or "
+                                 f"with itself")
+    del ins
     return out
 
 
@@ -4893,42 +5051,79 @@ def sharding_phase(torch, dev) -> tuple:
 
 # 12a: granite-moe-3b-a800m trained on a data 2 x model 2 mesh at full
 # width: the sharded step held to the unsharded one at SHARD_CMP_LAYERS
-# layers, where both sit on the card, then alone at its full 32 layers
+# layers, where both sit on the card, then alone at SHARD_ALONE_LAYERS
+# (its full 32 until phases 12d-12g came, cut to keep the script's time)
 # 12b: h2o-danube-1.8b trained on data 2 x model 2 at full width and
 # depth (the dense gated MLP's split and the loss over 32,000 / 2 vocab)
 # 12c: glm4-9b prefill on a 1 x 4 mesh (its 2 KV heads fall back to
 # replication on model 4) at full width, depth 40 -> SHARD_GLM4_LAYERS
 # so that the unsharded reference sits beside the sharded params
+# 12d: rwkv6-7b trained on data 2 x model 2 at full width and
+# RWKV_TRAIN_LAYERS layers, AdamW (the WKV kernel and its backward on a
+# position's 32 heads)
+# 12e: the jamba cut (``jamba_train_config``: mamba + mlp, mamba + moe,
+# 4 experts) on data 2 x model 2, Adafactor (the scan on a position's
+# 8,192 channels, w_in's column map, 2 experts a position)
+# 12f: deepseek-v2-lite-16b on data 2 x model 2, depth 27 ->
+# SHARD_MLA_LAYERS (the dense prefix layer and three MoE layers), AdamW:
+# MLA's first training step on the card (8 heads a position at head dim
+# 192, v padded; 32 experts a position; a vocab of 51,200 a position)
+# 12g: rwkv6-7b prefill on a 1 x 4 mesh, depth 32 ->
+# SHARD_RWKV_PREFILL_LAYERS so that the unsharded reference sits beside
+# the sharded params
 SHARD_MESH = (2, 2)
 SHARD_CMP_LAYERS = 8
+SHARD_ALONE_LAYERS = 16
 SHARD_GLM4_MESH = (1, 4)
 SHARD_GLM4_LAYERS = 20
+SHARD_MLA_LAYERS = 4
+SHARD_RWKV_PREFILL_MESH = (1, 4)
+SHARD_RWKV_PREFILL_LAYERS = 16
 SHARD_TIMED = 2
+# the share of the card's memory the unsharded reference of a compared
+# step (its gradients and updated params) may take there: 24 GB of 80
+SHARD_REF_ON_CARD_SHARE = 0.3
+
+
+def mixer_split(cfg, mixer: str) -> int:
+    """The dim of a mixer that ``model`` splits: an RWKV-6 time-mix's
+    heads, a Mamba mixer's d_inner channels, attention's (and MLA's) q
+    heads."""
+    if mixer == "rwkv":
+        return cfg.d_model // cfg.rwkv.head_dim
+    if mixer == "mamba":
+        return cfg.mamba.d_inner(cfg.d_model)
+    return cfg.eff_heads
 
 
 def sharded_launches_per_step(cfg, shape, train: bool = True) -> dict:
     """Each hand kernel's launches in one step on a (data, model) mesh
-    of ``shape``, each row (data position) its share of the batch. An
-    attention layer runs one kernel a row and model position (where the
-    heads split over model, else one a row); an MoE layer's three
-    grouped matmuls once a model position over the experts' split (one
-    where they do not split), on every row's tokens at once. A training
-    step under remat "minimal" runs each forward kernel twice (the
-    forward and its recomputation) and each backward once, the grouped
-    matmul two a call in the backward; a prefill runs the forwards
-    once."""
+    of ``shape``, each row (data position) its share of the batch. A
+    mixer layer (attention, MLA, RWKV-6, Mamba) runs its kernel once a
+    row and model position where its split dim (``mixer_split``)
+    divides over model, else once a row; an MoE layer's three grouped
+    matmuls once a model position over the experts' split (one where
+    they do not split), on every row's tokens at once. A training step
+    under remat "minimal" runs each repeated layer's forward kernels
+    twice (the forward and its recomputation) and a prefix layer's once
+    (no remat wraps it), each backward kernel once, the grouped matmul
+    two a call in the backward; a prefill runs the forwards once."""
     assert not train or cfg.remat_policy == "minimal"
     rows, model = shape
-    att = rows * (model if cfg.eff_heads % model == 0 else 1)
     ep = model if cfg.moe and cfg.moe.num_experts % model == 0 else 1
-    layers = cfg.prefix_pattern + cfg.block_pattern * cfg.n_repeats
+    layers = [(m, f, 1) for m, f in cfg.prefix_pattern] + [
+        (m, f, 2 if train else 1)
+        for m, f in cfg.block_pattern * cfg.n_repeats]
     out = {name: 0 for name in all_counters()}
-    for _, ffn in layers:
-        out["flash_attention"] += att * (2 if train else 1)
+    for mixer, ffn, runs in layers:
+        fwd, bwd = MIXER_KERNELS[mixer]
+        calls = rows * (model if mixer_split(cfg, mixer) % model == 0
+                        else 1)
+        out[fwd] += calls * runs
         if train:
-            out["flash_attention_bwd"] += att
+            out[bwd] += calls
         if ffn == "moe":
-            out["moe_gmm"] += 3 * ep * (2 + 2 if train else 1)
+            out["moe_gmm"] += 3 * ep * (runs + 2 if train else 1)
     return out
 
 
@@ -4972,6 +5167,19 @@ def adamw_update_err(torch, got, exp, g_got, g_exp, lr: float,
     return worst
 
 
+def update_err(torch, opt_name: str, got, exp, g_got, g_exp,
+               lr: float) -> float:
+    """The largest difference of a param updated by one step of
+    ``opt_name`` over its leaf's largest param: beyond AdamW's own
+    share (``adamw_update_err``); plain for Adafactor, whose first step
+    is linear in the gradient (no sign of it taken)."""
+    if opt_name == "adamw":
+        return adamw_update_err(torch, got, exp, g_got, g_exp, lr)
+    from repro_torch.models import params as PRM
+    return max(grad_rel_err((a,), (e.to(a.device),)) for (_, a), (_, e)
+               in zip(PRM.tree_items(got), PRM.tree_items(exp)))
+
+
 def _time_steps(torch, fn, n: int) -> list:
     out = []
     for _ in range(n):
@@ -4988,19 +5196,21 @@ def _counted(counters) -> dict:
 
 
 def sharded_train_check(torch, dev, cfg, card: str) -> dict:
-    """Phases 12a (at SHARD_CMP_LAYERS) and 12b: one training step of
-    ``cfg`` on a SHARD_MESH mesh of this card against the unsharded
-    step, from the same params (seed 0) and batch, the routing held
-    alike (``Routing.replay``): the loss within 1e-5 relative,
-    every gradient (``capture_optimizer``) within 1e-4 of its leaf's
-    largest, every AdamW-updated param within 1e-4 of its leaf's
-    largest beyond AdamW's own share of the gradients' difference
-    (``adamw_update_err``); two sharded runs the same to the bit;
+    """Phases 12a (at SHARD_CMP_LAYERS), 12b, 12d, 12e and 12f: one
+    training step of ``cfg`` with its own optimizer on a SHARD_MESH mesh
+    of this card against the unsharded step, from the same params (seed
+    0) and batch, the routing held alike (``Routing.replay``): the loss
+    within 1e-5 relative, every gradient (``capture_optimizer``) within
+    1e-4 of its leaf's largest, every updated param within 1e-4 of its
+    leaf's largest (``update_err``: beyond AdamW's own share of the
+    gradients' difference); two sharded runs the same to the bit;
     launches exact at ``sharded_launches_per_step``; then step ms of
     both (SHARD_TIMED steps after one warm-up, each on its own params),
     peak memory and a profiled sharded step's busy share. The unsharded
-    side's gradients and updated params wait on the host and come back
-    a leaf at a time to be compared."""
+    side's gradients and updated params wait on the card where they
+    take at most SHARD_REF_ON_CARD_SHARE of it, else on the host, and
+    come back a leaf at a time to be compared; ``stage_seconds`` say
+    where the check's time goes."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import params as PRM
     from repro_torch.models import transformer as T
@@ -5013,11 +5223,18 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
                                  torch.Generator(dev).manual_seed(0),
                                  torch.float32, dev)
     counters = all_counters()
+    stages, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        stages[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
     batch = lm_batch(torch, dev, cfg, seed=0)
-    out = {"layers": cfg.n_layers, "mesh": list(SHARD_MESH)}
+    out = {"layers": cfg.n_layers, "mesh": list(SHARD_MESH),
+           "optimizer": cfg.optimizer}
     # the unsharded step's time, on its own params
     params = draw()
-    opt = O.adamw()
+    opt = O.make_optimizer(cfg.optimizer)
     state = opt.init(params)
     step_u = ST.make_train_step(cfg, opt, lr=LM_LR,
                                 compute_dtype=torch.float32)
@@ -5029,6 +5246,7 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
+    stage("unsharded_timed")
     # the compared step
     params = draw()
     routing = Routing(torch)
@@ -5038,7 +5256,17 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
     p_u = PRM.tree_map(torch.clone, params)
     with torch.no_grad():
         opt.update(g_u, opt.init(p_u), p_u, LM_LR)
-    g_u, p_u = to_host(torch, g_u), to_host(torch, p_u)
+    ref_bytes = sum(t.numel() * t.element_size()
+                    for t in PRM.tree_leaves(g_u) + PRM.tree_leaves(p_u))
+    # the unsharded gradients and updated params wait on the card where
+    # they take little of it, else on the host (a copy there runs at a
+    # few GB/s)
+    on_card = ref_bytes <= SHARD_REF_ON_CARD_SHARE \
+        * torch.cuda.get_device_properties(dev).total_memory
+    if not on_card:
+        g_u, p_u = to_host(torch, g_u), to_host(torch, p_u)
+    out["unsharded_reference_on_card"] = on_card
+    stage("unsharded_compared")
     rules = MeshRules(repeated_mesh(dev, SHARD_MESH, ("data", "model")))
     placed = ST.place_params(cfg, params, rules)
     del params
@@ -5060,11 +5288,18 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
     g_s = grads[0]
     del grads[:]
     gc.collect()
+    stage("sharded_captured_twice")
     step_s = ST.make_train_step(cfg, opt, lr=LM_LR, rules=rules,
                                 compute_dtype=torch.float32)
     state = opt.init(placed)
     with routing.replay():
         placed, state, _ = step_s(placed, state, batch)
+    # the slots make room for the comparison (a reference may sit on
+    # the card) and are drawn again for the timed steps, whose work does
+    # not depend on their values
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
     p_s = PRM.whole_tree(placed)
     loss_err = abs(m_s["total_loss"].item() - loss_u.item()) \
         / abs(loss_u.item())
@@ -5073,7 +5308,8 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
         err = grad_rel_err((a,), (b.to(a.device),))
         if err > grad_err:
             grad_err, grad_leaf = err, "/".join(path)
-    upd_err = adamw_update_err(torch, p_s, p_u, g_s, g_u, LM_LR)
+    upd_err = update_err(torch, opt.name, p_s, p_u, g_s, g_u, LM_LR)
+    stage("sharded_updated_and_compared")
     out.update({"loss_unsharded": loss_u.item(),
                 "loss_sharded": m_s["total_loss"].item(),
                 "loss_rel_err": loss_err, "grad_rel_err": grad_err,
@@ -5084,6 +5320,8 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
                 "launches_expected": want, "fallbacks": rules.fallbacks})
     del g_s, g_u, p_s, p_u
     gc.collect()
+    torch.cuda.empty_cache()
+    state = opt.init(placed)
     # the sharded step's time, on from the compared step
     torch.cuda.reset_peak_memory_stats()
     times = _time_steps(torch, lambda: step_s(placed, state, batch),
@@ -5094,6 +5332,8 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
                           min(times) / 1e3)
     out["sharded_busy_share"] = prof["device_busy_share"]
     out["sharded_profile"] = prof
+    stage("sharded_timed_and_profiled")
+    out["stage_seconds"] = stages
     log(f"{cfg.arch_id} {cfg.n_layers} layers, sharded training step on "
         f"a {SHARD_MESH} data x model mesh of {dev} vs unsharded ({card}): "
         + json.dumps(out))
@@ -5111,8 +5351,9 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
 
 
 def sharded_train_alone(torch, dev, cfg, card: str) -> dict:
-    """Phase 12a at full depth: the sharded training step alone (its
-    unsharded twin does not fit beside it): launches exact, loss
+    """Phase 12a at SHARD_ALONE_LAYERS: the sharded training step alone
+    (at full depth its unsharded twin does not fit beside it): launches
+    exact, loss
     finite, step ms (SHARD_TIMED after one warm-up), peak memory, a
     profiled step's busy share."""
     import math
@@ -5174,14 +5415,22 @@ def sharded_train_alone(torch, dev, cfg, card: str) -> dict:
     return out
 
 
-def sharded_prefill_check(torch, dev, cfg, card: str) -> dict:
-    """Phase 12c: ``make_prefill_step`` of ``cfg`` on a SHARD_GLM4_MESH
-    mesh of this card against the unsharded step on the same params
-    (seed 0) and (4, 512) tokens: the last position's logits within 1e-5
-    of their largest, two sharded runs the same to the bit, launches
-    exact, the rules' fallbacks; prefill ms of both (median of
+def sharded_prefill_check(torch, dev, cfg, card: str, mesh,
+                          fallback: str | None = None,
+                          float64_reference: bool = False) -> dict:
+    """Phases 12c and 12g: ``make_prefill_step`` of ``cfg`` on a
+    ``mesh`` (data, model) of this card against the unsharded step on
+    the same params (seed 0) and (4, 512) tokens: the last position's
+    logits within 1e-5 of their largest, two sharded runs the same to
+    the bit, launches exact, the rules' fallbacks (one naming
+    ``fallback`` where it is given); prefill ms of both (median of
     SHARD_TIMED), peak memory, a profiled sharded prefill's busy
-    share."""
+    share. With ``float64_reference`` the logits are held to the
+    unsharded step run in float64 (params cast, the plain versions of
+    the kernels): where the f32 unsharded step's own rounding is near
+    1e-5 of the largest logit (rwkv6-7b's at 16 layers), a sharded step
+    as accurate as it cannot be held to it within 1e-5; both f32 steps'
+    distances to it, and to each other, are logged."""
     from repro_torch.data.synthetic import make_lm_batches
     from repro_torch.launch import steps as ST
     from repro_torch.sharding.rules import MeshRules
@@ -5192,8 +5441,17 @@ def sharded_prefill_check(torch, dev, cfg, card: str) -> dict:
     step_u = ST.make_prefill_step(cfg, None, torch.float32)
     exp = step_u(params, batch)
     t_u = _time_steps(torch, lambda: step_u(params, batch), SHARD_TIMED)
-    rules = MeshRules(repeated_mesh(dev, SHARD_GLM4_MESH,
-                                    ("data", "model")))
+    exp32 = exp
+    if float64_reference:
+        from repro_torch.models import params as PRM
+        with torch.no_grad():
+            p64 = PRM.tree_map(lambda t: t.double(), params)
+        with plain_versions():
+            exp = ST.make_prefill_step(cfg, None, torch.float64)(p64, batch)
+        del p64
+        gc.collect()
+        torch.cuda.empty_cache()
+    rules = MeshRules(repeated_mesh(dev, mesh, ("data", "model")))
     with torch.no_grad():
         placed = ST.place_params(cfg, params, rules)
     del params
@@ -5208,11 +5466,16 @@ def sharded_prefill_check(torch, dev, cfg, card: str) -> dict:
     launches = _counted(counters)
     again = step_s(placed, batch)
     torch.cuda.synchronize()
-    err = ((got - exp).abs().max() / exp.abs().max()).item()
+    def rel(a, e):
+        return ((a.double() - e.double()).abs().max()
+                / e.double().abs().max()).item()
+    err = rel(got, exp)
     t_s = _time_steps(torch, lambda: step_s(placed, batch), SHARD_TIMED)
-    want = sharded_launches_per_step(cfg, SHARD_GLM4_MESH, train=False)
-    out = {"layers": cfg.n_layers, "mesh": list(SHARD_GLM4_MESH),
+    want = sharded_launches_per_step(cfg, mesh, train=False)
+    out = {"layers": cfg.n_layers, "mesh": list(mesh),
            "shape": [LM_BATCH, LM_SEQ], "logits_rel_err": err,
+           "reference": "unsharded, float64, plain versions"
+           if float64_reference else "unsharded, float32, kernels",
            "two_runs_same_bits": torch.equal(got, again),
            "finite": bool(torch.isfinite(got).all()),
            "fallbacks": rules.fallbacks,
@@ -5220,21 +5483,25 @@ def sharded_prefill_check(torch, dev, cfg, card: str) -> dict:
            "sharded_prefill_ms": statistics.median(t_s),
            "sharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches, "launches_expected": want}
+    if float64_reference:
+        out["sharded_vs_unsharded_f32_rel_err"] = rel(got, exp32)
+        out["unsharded_f32_vs_float64_rel_err"] = rel(exp32, exp)
     prof = profile_window(torch, lambda: step_s(placed, batch),
                           min(t_s) / 1e3)
     out["sharded_busy_share"] = prof["device_busy_share"]
     out["sharded_profile"] = prof
     log(f"{cfg.arch_id} {cfg.n_layers} layers, sharded prefill on a "
-        f"{SHARD_GLM4_MESH} data x model mesh of {dev} vs unsharded "
+        f"{mesh} data x model mesh of {dev} vs unsharded "
         f"({card}): " + json.dumps(out))
-    del placed, got, again, exp
+    del placed, got, again, exp, exp32
     gc.collect()
     torch.cuda.empty_cache()
     if launches != want:
         raise AssertionError(f"the sharded prefill launched {launches}, "
                              f"expected {want}")
     if not (err <= 1e-5 and out["two_runs_same_bits"] and out["finite"]
-            and any("kv_heads" in f for f in rules.fallbacks)):
+            and (fallback is None
+                 or any(fallback in f for f in rules.fallbacks))):
         raise AssertionError("the sharded prefill disagrees with the "
                              "unsharded one, or with itself")
     return out
@@ -5266,6 +5533,98 @@ def sharded_shapes(cfg):
     e, d, f = cfg.moe.num_experts // model, cfg.d_model, cfg.moe.d_expert
     return (*shard_attention_shapes(cfg, SHARD_MESH),
             [("gate_up", (e, c, d, f)), ("down", (e, c, f, d))])
+
+
+# the models of phases 12d-12f, trained on SHARD_MESH
+MIXER_SHARD_TAGS = ("rwkv6", "jamba", "deepseek")
+
+
+def mla_shard_config():
+    """deepseek-v2-lite-16b at full width, cut in depth 27 ->
+    SHARD_MLA_LAYERS: its dense prefix layer and three MoE layers."""
+    cfg = dataclasses.replace(mla_config(), n_layers=SHARD_MLA_LAYERS)
+    assert (cfg.optimizer, cfg.remat_policy, cfg.n_repeats) == \
+        ("adamw", "minimal", SHARD_MLA_LAYERS - 1)
+    return cfg
+
+
+def mixer_shard_shapes(cfg, mesh) -> dict:
+    """A row's and model position's share of a (LM_BATCH, LM_SEQ) step
+    of ``cfg`` on a (data, model) ``mesh``, by kernel: the WKV's (b, h,
+    s, dh), the scan's (b, s, di, n), MLA's attention q and k/v (b, h,
+    s, nope + rope; v of v_head_dim padded to it), the grouped matmul's
+    (name, (e, c, d, f)) at the global batch's capacity."""
+    from repro_torch.models import moe
+    rows, model = mesh
+    b = LM_BATCH // rows
+    out = {}
+    mixers = {m for m, _ in cfg.prefix_pattern + cfg.block_pattern}
+    if "rwkv" in mixers:
+        out["wkv"] = (b, mixer_split(cfg, "rwkv") // model, LM_SEQ,
+                      cfg.rwkv.head_dim)
+    if "mamba" in mixers:
+        out["scan"] = (b, LM_SEQ, mixer_split(cfg, "mamba") // model,
+                       cfg.mamba.d_state)
+    if cfg.attention == "mla":
+        a = cfg.mla
+        qs = (b, cfg.eff_heads // model, LM_SEQ,
+              a.nope_head_dim + a.rope_head_dim)
+        out["attention"] = (qs, qs)
+    if cfg.moe is not None:
+        c = moe._capacity(LM_BATCH * LM_SEQ, cfg)
+        e, d, f = cfg.moe.num_experts // model, cfg.d_model, \
+            cfg.moe.d_expert
+        out["gmm"] = [("gate_up", (e, c, d, f)), ("down", (e, c, f, d))]
+    return out
+
+
+def mixer_shards(torch, dev, card: str) -> dict:
+    """Phases 12d-12g: each kernel at its shard's shape (``recurrence_at``,
+    ``path_kernels``), then rwkv6-7b, the jamba cut and deepseek trained
+    on SHARD_MESH against their unsharded steps (``sharded_train_check``)
+    and rwkv6-7b's prefill on SHARD_RWKV_PREFILL_MESH
+    (``sharded_prefill_check``)."""
+    rwkv, jamba, mla = (rwkv_train_config(), jamba_train_config(),
+                        mla_shard_config())
+    rwkv_pre = dataclasses.replace(zoo_config(),
+                                   n_layers=SHARD_RWKV_PREFILL_LAYERS)
+    out = {}
+    sh = mixer_shard_shapes(rwkv, SHARD_MESH)
+    out["kernels_rwkv6"] = {"wkv": recurrence_at(
+        torch, dev, "rwkv6_wkv", sh["wkv"], "rwkv6 shard", card, 64)}
+    out["kernels_rwkv6"]["wkv_prefill"] = recurrence_at(
+        torch, dev, "rwkv6_wkv",
+        mixer_shard_shapes(rwkv_pre, SHARD_RWKV_PREFILL_MESH)["wkv"],
+        "rwkv6 prefill shard", card, 65, bwd=False)
+    mark("phase 12d, 12g WKV at the shard shapes")
+    sh = mixer_shard_shapes(jamba, SHARD_MESH)
+    out["kernels_jamba"] = {
+        "scan": recurrence_at(torch, dev, "selective_scan", sh["scan"],
+                              "jamba shard", card, 66),
+        # ~1 TFLOP a call: few repetitions
+        **path_kernels(torch, dev, jamba, card, None, None, sh["gmm"],
+                       "jamba shard", 67, gmm_timing=dict(reps=2,
+                                                          trials=3))}
+    mark("phase 12e scan and gmm at the shard shapes")
+    sh = mixer_shard_shapes(mla, SHARD_MESH)
+    # the SIMT kernels at head dim 192, the gmm at ~1 ms: fewer
+    # repetitions
+    out["kernels_deepseek"] = path_kernels(
+        torch, dev, mla, card, *sh["attention"], sh["gmm"], "deepseek shard",
+        68, dv=v_head_dim(mla), att_timing=dict(reps=10, trials=5),
+        gmm_timing=dict(reps=20, trials=5))
+    mark("phase 12f attention and gmm at the shard shapes")
+    for phase, tag, cfg in zip(("12d", "12e", "12f"), MIXER_SHARD_TAGS,
+                               (rwkv, jamba, mla)):
+        out[tag] = sharded_train_check(torch, dev, cfg, card)
+        mark(f"phase {phase} {tag}")
+    # the f32 unsharded step's own rounding is ~1.2e-5 of the largest
+    # logit at 16 layers (PERF.md): the reference is float64
+    out["rwkv6_prefill"] = sharded_prefill_check(
+        torch, dev, rwkv_pre, card, SHARD_RWKV_PREFILL_MESH,
+        float64_reference=True)
+    mark("phase 12g rwkv6 prefill")
+    return out
 
 
 def sharded_steps_phase(torch, dev) -> tuple:
@@ -5301,12 +5660,16 @@ def sharded_steps_phase(torch, dev) -> tuple:
         torch, dev, dataclasses.replace(granite,
                                         n_layers=SHARD_CMP_LAYERS), card)
     mark("phase 12a granite compared")
-    out["granite_full"] = sharded_train_alone(torch, dev, granite, card)
-    mark("phase 12a granite at full depth")
+    out["granite_full"] = sharded_train_alone(
+        torch, dev, dataclasses.replace(granite,
+                                        n_layers=SHARD_ALONE_LAYERS), card)
+    mark(f"phase 12a granite at {SHARD_ALONE_LAYERS} layers")
     out["h2o"] = sharded_train_check(torch, dev, h2o, card)
     mark("phase 12b h2o-danube")
-    out["glm4"] = sharded_prefill_check(torch, dev, glm4, card)
+    out["glm4"] = sharded_prefill_check(torch, dev, glm4, card,
+                                        SHARD_GLM4_MESH, "kv_heads")
     mark("phase 12c glm4 prefill")
+    out.update(mixer_shards(torch, dev, card))
     launches = {
         "sharded_granite_train": {k: v for k, v in out["granite_full"][
             "launches"].items() if v},
@@ -5315,6 +5678,10 @@ def sharded_steps_phase(torch, dev) -> tuple:
         "sharded_h2o_train": {k: v for k, v in out["h2o"][
             "launches"].items() if v},
         "sharded_glm4_prefill": {k: v for k, v in out["glm4"][
+            "launches"].items() if v},
+        **{f"sharded_{tag}_train": {k: v for k, v in out[tag][
+            "launches"].items() if v} for tag in MIXER_SHARD_TAGS},
+        "sharded_rwkv6_prefill": {k: v for k, v in out["rwkv6_prefill"][
             "launches"].items() if v}}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"sharded steps phase: {out['seconds']:.1f} s; {card}")
@@ -5474,8 +5841,9 @@ def main() -> int:
     shard_launches, shard = sharding_phase(torch, dev)
     mark('sharding')
     # the zoo's train and prefill steps on meshes of more than one
-    # device: granite and h2o-danube trained on data 2 x model 2, glm4's
-    # prefill on 1 x 4, every mesh position on this card
+    # device: granite, h2o-danube, rwkv6-7b, the jamba cut and deepseek
+    # trained on data 2 x model 2, glm4's and rwkv6-7b's prefill on 1 x
+    # 4, every mesh position on this card
     steps_launches, steps = sharded_steps_phase(torch, dev)
     mark('sharded train and prefill steps')
 
@@ -5541,7 +5909,11 @@ def main() -> int:
             # 4096), glm4's prefill share on 1 x 4 (8 q heads on the one
             # replicated KV head they read, dh 128)
             "sharded_h2o_train": steps["kernels_h2o"]["attention"],
-            "sharded_glm4_prefill": steps["kernels_glm4"]["attention"]},
+            "sharded_glm4_prefill": steps["kernels_glm4"]["attention"],
+            # MLA's share on data 2 x model 2: 8 heads at head dim 192,
+            # v of 128 padded (SIMT)
+            "sharded_deepseek_train": steps["kernels_deepseek"][
+                "attention"]},
         # the grouped matmul's at each of its four shapes of each MoE
         # model; the top-level times are those of granite's prefill
         # gate/up
@@ -5562,7 +5934,22 @@ def main() -> int:
             # position's 20 experts at the global batch's capacity
             "sharded_granite_train_shapes": {
                 name: steps["kernels"][f"gmm_{name}"]
-                for name in ("gate_up", "down")}},
+                for name in ("gate_up", "down")},
+            # deepseek's 32 experts and the jamba cut's 2 a position
+            **{f"sharded_{tag}_train_shapes": {
+                name: steps[f"kernels_{tag}"][f"gmm_{name}"]
+                for name in ("gate_up", "down")}
+               for tag in ("deepseek", "jamba")}},
+        # a row's and model position's share: rwkv6's 32 heads in
+        # training on data 2 x model 2, 16 in prefill on 1 x 4; jamba's
+        # 8,192 channels
+        "rwkv6_wkv": {
+            "sharded_rwkv6_train": {k: v for k, v in steps[
+                "kernels_rwkv6"]["wkv"].items() if k != "bwd"},
+            "sharded_rwkv6_prefill": steps["kernels_rwkv6"]["wkv_prefill"]},
+        "selective_scan": {
+            "sharded_jamba_train": {k: v for k, v in steps[
+                "kernels_jamba"]["scan"].items() if k != "bwd"}},
         # max_abs_err: the largest of dq, dk, dv's errors over the
         # largest gradient, at the three checked cases
         "flash_attention_bwd": {
@@ -5574,6 +5961,9 @@ def main() -> int:
             "vfl_llm": shard["vfl_llm_kernels"]["attention_bwd"],
             "sharded_granite_train": steps["kernels"]["attention_bwd"],
             "sharded_h2o_train": steps["kernels_h2o"]["attention_bwd"],
+            # MLA's share at head dim 192: the f32-FMA route
+            "sharded_deepseek_train": steps["kernels_deepseek"][
+                "attention_bwd"],
             # whisper's encoder, decoder self- and cross-attention and
             # internvl2's GQA at their training shapes
             **ev["attention_bwd"],
@@ -5586,9 +5976,11 @@ def main() -> int:
         **{f"{name}_bwd": {
             "grad_rel_errs": rec["grad"][name]["grad_rel_errs"],
             "launches_per_train_step": rec[tag]["train"][
-                "launches_per_step"][f"{name}_bwd"]}
-           for name, tag in (("rwkv6_wkv", "rwkv6"),
-                             ("selective_scan", "jamba"))}}
+                "launches_per_step"][f"{name}_bwd"],
+            # at the shard's shape of the step on data 2 x model 2
+            f"sharded_{tag}_train": steps[f"kernels_{tag}"][key]["bwd"]}
+           for name, tag, key in (("rwkv6_wkv", "rwkv6", "wkv"),
+                                  ("selective_scan", "jamba", "scan"))}}
     kernels = []
     for name, src, replaces, t in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -5646,7 +6038,8 @@ def main() -> int:
         f"{shard['mesh_vfl']['masked_step_ms']:.1f} ms a step; sharded "
         f"decode {shard['sharded_decode']['sharded_step_ms']:.1f} ms a "
         f"step; on data 2 x model 2 granite training "
-        f"{steps['granite_full']['sharded_step_ms']:.1f} ms a step (32 "
+        f"{steps['granite_full']['sharded_step_ms']:.1f} ms a step "
+        f"({SHARD_ALONE_LAYERS} "
         f"layers; {steps['granite']['sharded_step_ms']:.1f} against "
         f"{steps['granite']['unsharded_step_ms']:.1f} unsharded at "
         f"{SHARD_CMP_LAYERS}), h2o-danube "
@@ -5654,7 +6047,17 @@ def main() -> int:
         f"{steps['h2o']['unsharded_step_ms']:.1f}; glm4 prefill on 1 x 4 "
         f"{steps['glm4']['sharded_prefill_ms']:.1f} against "
         f"{steps['glm4']['unsharded_prefill_ms']:.1f} ms "
-        f"({SHARD_GLM4_LAYERS} layers); build "
+        f"({SHARD_GLM4_LAYERS} layers); rwkv6-7b "
+        f"({RWKV_TRAIN_LAYERS} layers) {steps['rwkv6']['sharded_step_ms']:.1f}"
+        f" against {steps['rwkv6']['unsharded_step_ms']:.1f}, the jamba cut "
+        f"{steps['jamba']['sharded_step_ms']:.1f} against "
+        f"{steps['jamba']['unsharded_step_ms']:.1f}, deepseek "
+        f"({SHARD_MLA_LAYERS} layers) "
+        f"{steps['deepseek']['sharded_step_ms']:.1f} against "
+        f"{steps['deepseek']['unsharded_step_ms']:.1f}; rwkv6-7b prefill on "
+        f"1 x 4 {steps['rwkv6_prefill']['sharded_prefill_ms']:.1f} against "
+        f"{steps['rwkv6_prefill']['unsharded_prefill_ms']:.1f} ms "
+        f"({SHARD_RWKV_PREFILL_LAYERS} layers); build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

@@ -15,18 +15,18 @@ under rules, ``cfg.decode_partial_softmax`` splits the KV cache's
 sequence over the mesh's ``model`` axis (``models/decode_sharded.py``).
 
 A train or prefill step on a mesh of more than one device runs the
-dense-attention and MoE families sharded: ``place_params`` splits the
-params by their resolved specs (``sharding.rules.Parts``; the
-optimizer's ``init`` of placed params places its slots alike), the step
-splits the whole batch
+decoder-only families sharded (GQA attention, MLA, RWKV-6, Mamba and the
+hybrid, dense and MoE): ``place_params`` splits the params by their
+resolved specs (``sharding.rules.Parts``; the optimizer's ``init`` of
+placed params places its slots alike, Adafactor's factored statistics
+by the specs their axes resolve to), the step splits the whole batch
 it is given over ``pod x data`` (``specs.place_batch``), and
 ``models/transformer.py``'s ``loss_fn_sharded`` / ``last_logits_sharded``
 combine the positions' shares with ``launch/mesh.py``'s collectives in
-axis order. Its values are those of the unsharded step. The other
-families (MLA, RWKV-6, Mamba, an encoder, a vision prefix), Adafactor,
-and a sequence split (``act_rules["seq"]``, the dry-run's ``seqshard``)
-still raise there, naming the ROADMAP item. On a one-device mesh a step
-gives the values of no mesh.
+axis order. Its values are those of the unsharded step. An encoder, a
+vision prefix and a sequence split (``act_rules["seq"]``, the dry-run's
+``seqshard``) still raise there, naming the ROADMAP item. On a
+one-device mesh a step gives the values of no mesh.
 """
 from __future__ import annotations
 
@@ -51,17 +51,11 @@ def sharded(rules: Optional[MeshRules]) -> bool:
     return rules is not None and mesh_chips(rules.mesh) > 1
 
 
-def _unported(cfg: ModelConfig, rules: MeshRules,
-              opt: Optional[O.Optimizer]) -> Optional[str]:
-    """What of ``cfg`` (and ``opt``) a sharded step does not run yet."""
-    mixers = {m for m, _ in cfg.prefix_pattern + cfg.block_pattern}
+def _unported(cfg: ModelConfig, rules: MeshRules) -> Optional[str]:
+    """What of ``cfg`` a sharded step does not run yet."""
     for cond, what in (
-            (cfg.attention == "mla", "MLA"),
-            ("rwkv" in mixers, "an RWKV-6 time-mix"),
-            ("mamba" in mixers, "a Mamba mixer"),
             (cfg.encoder is not None, "an encoder"),
             (T.has_vision_prefix(cfg), "a vision prefix"),
-            (opt is not None and opt.name == "adafactor", "Adafactor"),
             (rules.act_rules.get("seq") is not None,
              "a sequence split (act_rules['seq'])")):
         if cond:
@@ -69,13 +63,13 @@ def _unported(cfg: ModelConfig, rules: MeshRules,
     return None
 
 
-def check_rules(cfg: ModelConfig, rules: Optional[MeshRules], what: str,
-                opt: Optional[O.Optimizer] = None) -> None:
+def check_rules(cfg: ModelConfig, rules: Optional[MeshRules], what: str
+                ) -> None:
     """Raise where ``rules``'s mesh has more than one device and ``cfg``
-    (or ``opt``) is of a family whose sharded step is not ported."""
+    is of a family whose sharded step is not ported."""
     if not sharded(rules):
         return
-    why = _unported(cfg, rules, opt)
+    why = _unported(cfg, rules)
     if why is not None:
         raise NotImplementedError(
             f"{what} of {why} on a mesh of {dict(rules.mesh.shape)} needs "
@@ -184,11 +178,13 @@ def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
     returns them with the metrics.
 
     On a mesh of more than one device ``params`` and ``opt_state`` are
-    placed (``place_params``; ``opt.init`` of placed params) and
-    ``batch`` is
-    whole: each microbatch is the unsharded step's, split over the
-    rows, so accumulation gives the unsharded step's values."""
-    check_rules(cfg, rules, "a train step", opt)
+    placed (``place_params``; ``opt.init`` of placed params: SGD,
+    AdamW or Adafactor) and ``batch`` is whole: each microbatch is the
+    unsharded step's, split over the rows, so accumulation gives the
+    unsharded step's values. A model with an encoder or a vision
+    prefix, or rules that split the sequence, raise there
+    (``check_rules``)."""
+    check_rules(cfg, rules, "a train step")
     rows = _Rows(rules) if sharded(rules) else None
 
     def train_step(params, opt_state, batch

@@ -16,6 +16,20 @@ computes it.
 The JAX package's sharding constraints are the identity on one device,
 and its ``reduce_dtype`` is ``None`` without mesh rules: neither has a
 counterpart here.
+
+``mamba_mixer_sharded`` runs the mixer on a mesh of more than one
+device (``models/layers.py``'s ``*_sharded`` conventions) with
+``d_inner`` split over ``model``: position j takes the channels j of
+both halves of ``w_in`` (its u and its z columns: ``w_in``'s model
+parts are contiguous blocks of the joint 2 d_inner columns, so a
+column map, ``Layout.columns``, cuts them), its channels of the conv,
+``w_dt``, ``b_dt``, ``a_log``, ``d_skip``, its rows of ``w_x`` and
+``w_out``. ``u @ w_x`` is a partial product: its sum at the row's home
+gives every position the whole dt_rank input, B and C. The scan kernel
+runs on (b_row, s, d_inner / n) and the partial products with
+``w_out`` are summed at the home. Where ``d_inner`` does not split over
+``model`` (even where 2 d_inner does, so that ``w_in`` alone is split)
+the mixer runs whole at the home, ``w_in`` gathered whole.
 """
 from __future__ import annotations
 
@@ -26,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.models.params import Spec
 
 # the JAX package's ssm_scan chunk: a length must be a multiple of
@@ -63,11 +78,10 @@ def _conv1d(x, w, b):
     return out + b.to(x.dtype)
 
 
-def _dt_b_c(cfg: ModelConfig, params, u):
-    """u: (b, s, di) post-conv. Returns dt (b, s, di) fp32, B/C (b, s, N)
-    fp32."""
+def _split_proj(cfg: ModelConfig, params, proj):
+    """``u @ w_x`` (b, s, dt_rank + 2N) -> dt (b, s, di) fp32 and B/C
+    (b, s, N) fp32."""
     mb = cfg.mamba
-    proj = u @ params["w_x"]
     dt_r, bmat, cmat = torch.split(
         proj, [mb.dt_rank, mb.d_state, mb.d_state], dim=-1)
     # F.softplus returns x itself above its threshold of 20, where
@@ -76,24 +90,69 @@ def _dt_b_c(cfg: ModelConfig, params, u):
     return dt, bmat.float(), cmat.float()
 
 
-def mamba_mixer(cfg: ModelConfig, params, x) -> torch.Tensor:
-    """Training / prefill. x: (b, s, d) -> (b, s, d)."""
-    s = x.shape[1]
+def _dt_b_c(cfg: ModelConfig, params, u):
+    """u: (b, s, di) post-conv. Returns dt (b, s, di) fp32, B/C (b, s, N)
+    fp32."""
+    return _split_proj(cfg, params, u @ params["w_x"])
+
+
+def _check_length(s: int) -> None:
     if s % min(CHUNK, s):
         raise ValueError(f"mamba_mixer: sequence length {s} is not a "
                          f"multiple of min({CHUNK}, s), which the JAX "
                          f"package's ssm_scan requires")
+
+
+def _inner(params, x):
+    """x (b, s, d) -> u (post-conv, silu) and z, (b, s, di) each."""
     xz = x @ params["w_in"]
-    u, z = xz.chunk(2, dim=-1)                          # (b, s, di) each
-    u = F.silu(_conv1d(u, params["conv_w"], params["conv_b"]))
-    dt, bmat, cmat = _dt_b_c(cfg, params, u)
+    u, z = xz.chunk(2, dim=-1)
+    return F.silu(_conv1d(u, params["conv_w"], params["conv_b"])), z
+
+
+def _scan_out(params, dtype, u, z, dt, bmat, cmat):
+    """The scan of u, the skip and the z gate, then ``w_out``."""
     a_mat = -torch.exp(params["a_log"])
     # the kernel takes contiguous dt, u (b, s, di) and B, C (b, s, N)
     y, _ = ops.selective_scan(dt, bmat.contiguous(), cmat.contiguous(),
                               u.contiguous(), a_mat)
     y = y + params["d_skip"] * u.float()
-    y = y.to(x.dtype) * F.silu(z)
+    y = y.to(dtype) * F.silu(z)
     return y @ params["w_out"]
+
+
+def mamba_mixer(cfg: ModelConfig, params, x) -> torch.Tensor:
+    """Training / prefill. x: (b, s, d) -> (b, s, d)."""
+    _check_length(x.shape[1])
+    u, z = _inner(params, x)
+    return _scan_out(params, x.dtype, u, z, *_dt_b_c(cfg, params, u))
+
+
+def mamba_mixer_sharded(cfg: ModelConfig, lay, params, hs):
+    """:func:`mamba_mixer` of each row (``hs`` at the rows' homes) over
+    ``d_inner`` split across ``model``; see the module's doc."""
+    _check_length(hs[0].shape[1])
+    di = cfg.mamba.d_inner(cfg.d_model)
+    n = lay.n_tp(params["conv_w"])
+    c = di // n
+    w = {k: lay.weights(v, n) for k, v in params.items() if k != "w_in"}
+    if "model" in params["w_in"].axes:
+        w["w_in"] = lay.columns(params["w_in"], [
+            [(j * c, (j + 1) * c), (di + j * c, di + (j + 1) * c)]
+            for j in range(n)])
+    else:
+        w["w_in"] = lay.weights(params["w_in"], n)
+    out = []
+    for r, h in enumerate(hs):
+        devs = [lay.dev(r, j) for j in range(n)]
+        ps = [{k: v[j][r] for k, v in w.items()} for j in range(n)]
+        uz = [_inner(p, x) for p, x in zip(ps, M.fan_out(h, devs))]
+        proj = M.fan_out(M.psum([u @ p["w_x"] for p, (u, _) in zip(ps, uz)],
+                                lay.home(r)), devs)
+        out.append(M.psum([
+            _scan_out(p, h.dtype, u, z, *_split_proj(cfg, p, pr))
+            for p, (u, z), pr in zip(ps, uz, proj)], lay.home(r)))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,17 @@ key a token and runs the absorbed form (``w_uk`` folded into the query,
 ``w_uv`` applied after the latent read-out) in plain torch, as the JAX
 package computes it outside any kernel; it returns a new cache and
 leaves the one it was given as it was.
+
+``mla_self_attention_sharded`` runs the layer on a mesh of more than
+one device (``models/layers.py``'s ``*_sharded`` conventions): the
+weights without a head dim (``w_dkv``, ``w_kr``, ``kv_norm``, ``w_dq``,
+``q_norm``) are replicated over ``model``, so a row's latent, roped key
+and low-rank query are computed once, at its home, and sent to its
+model positions; position j holds its heads of ``w_uk``, ``w_uv``, the
+q projections and ``wo``, attends with the kernel (v padded as above)
+and multiplies by its rows of ``wo``; the partial outputs are summed at
+the home. Where the heads fall back to replication, the layer runs
+whole at the home.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers
 from repro_torch.models.attention import NEG_INF
 from repro_torch.models.params import Spec
@@ -67,19 +79,31 @@ def mla_spec(cfg: ModelConfig):
     return spec
 
 
-def _queries(cfg: ModelConfig, params, x, positions):
-    m = cfg.mla
-    if m.q_lora_rank:
-        cq = layers.rmsnorm(params["q_norm"],
-                            torch.einsum("bsd,dr->bsr", x, params["w_dq"]),
-                            cfg.norm_eps)
-        q_nope = torch.einsum("bsr,rhk->bshk", cq, params["w_uq_nope"])
-        q_rope = torch.einsum("bsr,rhk->bshk", cq, params["w_uq_rope"])
+def _q_source(cfg: ModelConfig, params, x):
+    """What the q heads project: the normed low-rank query (b, s,
+    q_lora) where the model has one, else ``x``."""
+    if cfg.mla.q_lora_rank:
+        return layers.rmsnorm(params["q_norm"],
+                              torch.einsum("bsd,dr->bsr", x, params["w_dq"]),
+                              cfg.norm_eps)
+    return x
+
+
+def _q_heads(cfg: ModelConfig, params, src, positions):
+    """(q_nope, roped q_rope), (b, s, h, .) each, of ``_q_source``'s
+    ``src``."""
+    if cfg.mla.q_lora_rank:
+        q_nope = torch.einsum("bsr,rhk->bshk", src, params["w_uq_nope"])
+        q_rope = torch.einsum("bsr,rhk->bshk", src, params["w_uq_rope"])
     else:
-        q_nope = torch.einsum("bsd,dhk->bshk", x, params["wq_nope"])
-        q_rope = torch.einsum("bsd,dhk->bshk", x, params["wq_rope"])
+        q_nope = torch.einsum("bsd,dhk->bshk", src, params["wq_nope"])
+        q_rope = torch.einsum("bsd,dhk->bshk", src, params["wq_rope"])
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
+
+
+def _queries(cfg: ModelConfig, params, x, positions):
+    return _q_heads(cfg, params, _q_source(cfg, params, x), positions)
 
 
 def _latent(cfg: ModelConfig, params, x, positions):
@@ -101,18 +125,15 @@ def _kernel_layout(t: torch.Tensor, width: int) -> torch.Tensor:
     return t.contiguous()
 
 
-def mla_self_attention(cfg: ModelConfig, params, x, *, positions=None
-                       ) -> torch.Tensor:
-    """Training / prefill. x: (b, s, d); ``positions`` (s,) the
-    consecutive token positions (``arange(s)`` when None)."""
+def _attend_heads(cfg: ModelConfig, params, src, ckv, k_rope, positions
+                  ) -> torch.Tensor:
+    """The heads of ``params`` (all of the model's, or a model
+    position's share) attending over the latent ``ckv`` and the roped
+    key ``k_rope``, then ``wo``: (b, s, d)."""
     m = cfg.mla
-    b, s, _ = x.shape
-    h = cfg.eff_heads
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    ckv, k_rope = _latent(cfg, params, x, positions[None])
-    q_nope, q_rope = _queries(cfg, params, x, positions[None])
-
+    b, s = ckv.shape[:2]
+    q_nope, q_rope = _q_heads(cfg, params, src, positions)
+    h = q_nope.shape[2]
     k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["w_uk"])
     v = torch.einsum("bsr,rhk->bshk", ckv, params["w_uv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -124,6 +145,49 @@ def mla_self_attention(cfg: ModelConfig, params, x, *, positions=None
         window=0)
     out = out[..., :m.v_head_dim].transpose(1, 2)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def mla_self_attention(cfg: ModelConfig, params, x, *, positions=None
+                       ) -> torch.Tensor:
+    """Training / prefill. x: (b, s, d); ``positions`` (s,) the
+    consecutive token positions (``arange(s)`` when None)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    ckv, k_rope = _latent(cfg, params, x, positions[None])
+    return _attend_heads(cfg, params, _q_source(cfg, params, x), ckv,
+                         k_rope, positions[None])
+
+
+# the weights with a head dim, split over ``model``
+_HEAD_WEIGHTS = ("w_uk", "w_uv", "wo", "wq_nope", "wq_rope", "w_uq_nope",
+                 "w_uq_rope")
+
+
+def mla_self_attention_sharded(cfg: ModelConfig, lay, params, hs,
+                               positions):
+    """:func:`mla_self_attention` of each row (``hs``, at the rows'
+    homes) over ``heads`` split across ``model``; see the module's doc.
+    ``positions`` is the list of the rows' (s,) positions."""
+    n = lay.n_tp(params["w_uk"])
+    w = {k: lay.weights(params[k], n) for k in _HEAD_WEIGHTS if k in params}
+    home = {k: lay.weights(params[k], 1)[0]
+            for k in ("w_dkv", "w_kr", "w_dq") if k in params}
+    norms = {k: lay.weights(params[k]["scale"], 1)[0]
+             for k in ("kv_norm", "q_norm") if k in params}
+    out = []
+    for r, h in enumerate(hs):
+        p0 = {k: v[r] for k, v in home.items()}
+        p0.update({k: {"scale": v[r]} for k, v in norms.items()})
+        pos = positions[r][None]
+        ckv, k_rope = _latent(cfg, p0, h, pos)
+        devs = [lay.dev(r, j) for j in range(n)]
+        fanned = [M.fan_out(t, devs)
+                  for t in (_q_source(cfg, p0, h), ckv, k_rope)]
+        out.append(M.psum([
+            _attend_heads(cfg, {k: v[j][r] for k, v in w.items()},
+                          *(f[j] for f in fanned), pos.to(devs[j]))
+            for j in range(n)], lay.home(r)))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -234,12 +234,3 @@ def whole_tree(tree: PyTree, device: Optional[Device] = None) -> PyTree:
     if isinstance(tree, Parts):
         return tree.whole(device)
     return tree
-
-
-def is_placed(tree: PyTree) -> bool:
-    """Does ``tree`` hold a ``Parts``?"""
-    if isinstance(tree, dict):
-        return any(is_placed(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return any(is_placed(v) for v in tree)
-    return isinstance(tree, Parts)

@@ -13,6 +13,16 @@ on a CPU tensor. ``wkv_scan`` is the recurrence in the mixer's
 (b, s, h, dh) layout with a starting state, as the JAX package keeps it.
 Decode (``rwkv_decode``) updates the state one step inline and launches
 no WKV kernel, as the JAX package does.
+
+``rwkv_mixer_sharded`` runs the time-mix on a mesh of more than one
+device (``models/layers.py``'s ``*_sharded`` conventions): model
+position j holds its heads' share of the projections, ``decay_b``, the
+per-head ``bonus`` / ``decay_base`` / group norm and the rows of
+``w_o``, and the whole ``decay_a`` and token-shift mixes; every head's
+work is its own, so each position runs ``rwkv_mixer`` on its heads (the
+WKV kernel on (b_row, h / n, s, dh)) and its output is that position's
+partial product with ``w_o``, summed at the row's home. Where the heads
+fall back to replication, the layer runs whole at the home.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rwkv6_ref
+from repro_torch.launch import mesh as M
 from repro_torch.models.params import Spec
 
 
@@ -112,6 +123,20 @@ def rwkv_mixer(cfg: ModelConfig, params, x) -> torch.Tensor:
         params["bonus"])
     y = _groupnorm(params, y.transpose(1, 2)).to(x.dtype) * g
     return _out(params, y)
+
+
+def rwkv_mixer_sharded(cfg: ModelConfig, lay, params, hs):
+    """:func:`rwkv_mixer` of each row (``hs`` at the rows' homes) over
+    ``heads`` split across ``model``; see the module's doc."""
+    n = lay.n_tp(params["w_r"])
+    w = {k: lay.weights(v, n) for k, v in params.items()}
+    out = []
+    for r, h in enumerate(hs):
+        xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
+        out.append(M.psum([rwkv_mixer(cfg, {k: v[j][r] for k, v in w.items()},
+                                      xs[j]) for j in range(n)],
+                          lay.home(r)))
+    return out
 
 
 # ---------------------------------------------------------------------------

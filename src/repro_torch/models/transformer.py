@@ -40,8 +40,9 @@ cache's sequence over the ``model`` axis
 (``models/decode_sharded.py``).
 
 On a mesh of more than one device, ``loss_fn_sharded`` and
-``last_logits_sharded`` run the dense-attention and MoE families with
-placed params (``sharding.rules.Parts``) and the batch split into rows
+``last_logits_sharded`` run the decoder-only families (GQA attention,
+MLA, RWKV-6 and Mamba mixers, the gated MLP and MoE, under rmsnorm)
+with placed params (``sharding.rules.Parts``) and the batch split into rows
 (``sharding.rules.Layout``; ``models/layers.py``'s ``*_sharded``
 conventions), with the values of ``loss_fn`` and ``forward``. A
 repeat's FSDP gathers run inside the unit ``_maybe_remat`` wraps, so
@@ -269,11 +270,19 @@ def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _apply_block_sharded(cfg: ModelConfig, lay, ffn: str, p, xs, positions
-                         ) -> Tuple[List[torch.Tensor], Dict]:
+def _apply_block_sharded(cfg: ModelConfig, lay, mixer: str, ffn: str, p, xs,
+                         positions) -> Tuple[List[torch.Tensor], Dict]:
     hs = layers.rmsnorm_sharded(lay, p["norm1"], xs, cfg.norm_eps)
-    hs = attention.self_attention_sharded(cfg, lay, p["mixer"], hs,
-                                          positions)
+    if _mla(cfg, mixer):
+        hs = mla.mla_self_attention_sharded(cfg, lay, p["mixer"], hs,
+                                            positions)
+    elif mixer == "attn":
+        hs = attention.self_attention_sharded(cfg, lay, p["mixer"], hs,
+                                              positions)
+    elif mixer == "mamba":
+        hs = mamba.mamba_mixer_sharded(cfg, lay, p["mixer"], hs)
+    else:
+        hs = rwkv.rwkv_mixer_sharded(cfg, lay, p["mixer"], hs)
     xs = [x + h for x, h in zip(xs, hs)]
     hs = layers.rmsnorm_sharded(lay, p["norm2"], xs, cfg.norm_eps)
     if ffn == "moe":
@@ -288,8 +297,8 @@ def _stack_forward_sharded(cfg: ModelConfig, lay, params, xs, positions
     """:func:`_stack` of the rows ``xs``: every row goes through a
     repeat together (the MoE dispatch spans the rows)."""
     return _stack(cfg, params, xs, lambda mixer, ffn, p, xs:
-                  _apply_block_sharded(cfg, lay, ffn, p, xs, positions),
-                  lay.home(0))
+                  _apply_block_sharded(cfg, lay, mixer, ffn, p, xs,
+                                       positions), lay.home(0))
 
 
 def _hidden_sharded(cfg: ModelConfig, lay, params, tokens, dtype):

@@ -274,6 +274,11 @@ class Parts:
         return tuple(out) + (slice(None),) * (len(self.shape)
                                               - len(self.spec))
 
+    def part_shape(self, pos: Dict[str, int]) -> Tuple[int, ...]:
+        """The shape of the part at ``pos``."""
+        return tuple(len(range(n)[sl])
+                     for sl, n in zip(self.slices(pos), self.shape))
+
     def part(self, **pos: int) -> torch.Tensor:
         """The part of the position ``pos`` (axes the spec does not use
         are ignored)."""
@@ -309,6 +314,17 @@ def place(t: torch.Tensor, spec: PartitionSpec, mesh) -> Parts:
         chunk = src[out.slices(key)]
         out.parts.append(torch.empty(chunk.shape, dtype=chunk.dtype,
                                      device=mesh.device(**key)).copy_(chunk))
+    return out
+
+
+def zeros(spec: PartitionSpec, shape: Sequence[int], mesh,
+          dtype: torch.dtype = torch.float32) -> Parts:
+    """A whole tensor of zeros split by ``spec`` over ``mesh``, made
+    part by part on each position's device (an optimizer slot of a
+    placed param)."""
+    out = Parts(spec, shape, mesh)
+    out.parts = [torch.zeros(out.part_shape(key), dtype=dtype,
+                             device=mesh.device(**key)) for key in out.keys]
     return out
 
 
@@ -382,6 +398,35 @@ class Layout:
             out.append(self._spread(w, [k for k, _ in keys],
                                     [p for _, p in keys],
                                     [(r, j) for r in rows]))
+        return out
+
+    def columns(self, w: Parts, cols: Sequence[Sequence[Tuple[int, int]]]
+                ) -> List[List[torch.Tensor]]:
+        """``[j][r]``: for model position j of each row, the ranges
+        ``cols[j]`` ((lo, hi) of the whole of ``w``'s dim split over
+        ``model``) cut from the model parts and concatenated in order,
+        on that position's device, each part first gathered over the
+        other axes (``weights``). A column map for a weight whose model
+        parts are not the columns a position computes with (Mamba's
+        ``w_in``, whose u and z halves each split over ``model``). The
+        pieces a part gives are disjoint, so their gradients add into it
+        exactly, in any order, before the gather's ordered
+        reduce-scatter."""
+        md = self.model_dim(w)
+        parts = self.weights(w, self.n_model)
+        c = w.shape[md] // self.n_model
+        out = []
+        for j, ranges in enumerate(cols):
+            at_j = []
+            for r in range(len(self.rows)):
+                pieces = []
+                for lo, hi in ranges:
+                    for p in range(lo // c, (hi - 1) // c + 1):
+                        a, b = max(lo, p * c), min(hi, (p + 1) * c)
+                        pieces.append(parts[p][r].narrow(md, a - p * c, b - a)
+                                      .to(self.dev(r, j)))
+                at_j.append(torch.cat(pieces, md))
+            out.append(at_j)
         return out
 
     def _spread(self, w: Parts, keys, parts, targets) -> List[torch.Tensor]:

@@ -18,9 +18,14 @@ update clip need a whole leaf. Call ``update`` under ``torch.no_grad``.
 
 Placed trees (``models/params.py``'s ``place_tree``: a leaf as per-position
 parts on a mesh of more than one device) go through SGD-momentum and
-AdamW part by part, as whole leaves do. Adafactor's row and column
-statistics and its RMS clip need whole leaves: on a placed tree it
-raises.
+AdamW part by part, as whole leaves do. Adafactor's slots of a placed
+leaf are placed by the specs their axes resolve to (``state_axes``: the
+param's spec without the dropped dim), each stored once, so a slot
+replicated over an axis is one tensor for every position there. Each
+mean of its update over a dim split over some axes (the row and column
+statistics, the row statistic's mean, the RMS clip's over the whole
+leaf) is the sum of the parts' sums over those axes, added in mesh
+order, over the whole length.
 
 AdamW for <=20B archs; Adafactor (factored second moment, no first
 moment) for jamba-398B / internvl-76B, as in the JAX package.
@@ -33,8 +38,10 @@ from typing import Any, Callable, Iterator, Tuple
 
 import torch
 
-from repro_torch.models.params import is_placed, tree_leaves, tree_map
-from repro_torch.sharding.rules import SHARDED_STEPS
+from repro_torch.launch import mesh as M
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding.rules import (Parts, PartitionSpec, entry_axes,
+                                        zeros)
 
 PyTree = Any
 # elements of a leaf updated at once by the elementwise optimizers
@@ -140,22 +147,47 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # ---------------------------------------------------------------------------
 
 
+def _leafwise(fn, tree, *rest):
+    """``fn`` over the leaves of a param tree (a ``Parts`` is one leaf)
+    and, leaf for leaf, the subtrees of ``rest`` facing them."""
+    if isinstance(tree, dict):
+        return {k: _leafwise(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_leafwise(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _summed(parts: Parts, values, axes):
+    """For each part of ``parts``, the sum of ``values`` (one a part)
+    over the parts that differ from it only on the mesh ``axes``, added
+    in mesh order, on that part's device: the same bits for each of
+    them."""
+    keep = [a for a in parts.axes if a not in axes]
+    return [M.psum([v for k, v in zip(parts.keys, values)
+                    if all(k[a] == key[a] for a in keep)], p.device)
+            for key, p in zip(parts.keys, parts.parts)]
+
+
 def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
               decay: float = 0.8) -> Optimizer:
     def _factored(p) -> bool:
-        return p.dim() >= 2
+        return len(p.shape) >= 2
 
-    def whole_leaves(params):
-        if is_placed(params):
-            raise NotImplementedError(
-                f"Adafactor's factored statistics and update clip need "
-                f"whole leaves, not a tree placed on a mesh: "
-                f"{SHARDED_STEPS}")
+    def _slot_specs(p: Parts):
+        spec = tuple(p.spec)
+        if _factored(p):
+            return {"v_row": (spec[:-1], p.shape[:-1]),
+                    "v_col": (spec[:-2] + spec[-1:],
+                              p.shape[:-2] + p.shape[-1:])}
+        return {"v": (spec, p.shape)}
 
     def init(params):
-        whole_leaves(params)
-
         def slot(p):
+            if isinstance(p, Parts):
+                return {k: zeros(PartitionSpec(*sp), shape, p.mesh)
+                        for k, (sp, shape) in _slot_specs(p).items()}
             f32 = dict(dtype=torch.float32, device=p.device)
             if _factored(p):
                 return {"v_row": torch.zeros(p.shape[:-1], **f32),
@@ -163,34 +195,88 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                                              **f32)}
             return {"v": torch.zeros(p.shape, **f32)}
         leaf = tree_leaves(params)[0]
-        return {"slots": tree_map(slot, params),
+        return {"slots": _leafwise(slot, params),
                 "count": torch.zeros((), dtype=torch.int32,
                                      device=leaf.device)}
 
+    def clip(u, norm):
+        return u / torch.clamp(norm / clip_threshold, min=1.0)
+
+    def upd(p, g, slot, beta2, lr):
+        g = g.float()
+        g2 = g.square() + eps
+        if _factored(p):
+            v_row = beta2 * slot["v_row"] + (1 - beta2) * g2.mean(-1)
+            v_col = beta2 * slot["v_col"] + (1 - beta2) * g2.mean(-2)
+            row_mean = v_row.mean(-1, keepdim=True)
+            r = (v_row / torch.clamp(row_mean, min=eps))[..., None]
+            u = g * torch.rsqrt(torch.clamp(r, min=eps)) \
+                * torch.rsqrt(torch.clamp(v_col, min=eps))[..., None, :]
+            slot["v_row"].copy_(v_row)
+            slot["v_col"].copy_(v_col)
+        else:
+            v = beta2 * slot["v"] + (1 - beta2) * g2
+            u = g * torch.rsqrt(torch.clamp(v, min=eps))
+            slot["v"].copy_(v)
+        u = clip(u, torch.sqrt(torch.mean(torch.square(u))))
+        p.copy_(p.float() - lr * u)
+
+    def upd_placed(p: Parts, g: Parts, slot, beta2, lr):
+        """``upd`` of a placed leaf: its means as sums over the parts
+        (see the module's doc)."""
+        spec = tuple(p.spec)
+        gs = [t.float() for t in g.parts]
+        if _factored(p):
+            g2 = [t.square() + eps for t in gs]
+            sums = {"v_row": _summed(p, [t.sum(-1) for t in g2],
+                                     entry_axes(spec[-1])),
+                    "v_col": _summed(p, [t.sum(-2) for t in g2],
+                                     entry_axes(spec[-2]))}
+            length = {"v_row": p.shape[-1], "v_col": p.shape[-2]}
+            new = {}
+            for name in ("v_row", "v_col"):
+                sl = slot[name]
+                # a slot part's statistic from the first param part
+                # at its position (the others' are the same bits)
+                src = [next(i for i, k in enumerate(p.keys)
+                            if _only(k, sl.axes) == key) for key in sl.keys]
+                new[name] = [_ema(beta2, old, sums[name][i].to(old.device)
+                                  / length[name])
+                             for old, i in zip(sl.parts, src)]
+            vr, vc = slot["v_row"], slot["v_col"]
+            means = _summed(vr, [t.sum(-1, keepdim=True)
+                                 for t in new["v_row"]], entry_axes(spec[-2]))
+            r = [t / torch.clamp(m / p.shape[-2], min=eps)
+                 for t, m in zip(new["v_row"], means)]
+            us = []
+            for key, gp in zip(p.keys, gs):
+                rp = r[vr.keys.index(_only(key, vr.axes))].to(gp.device)
+                cp = new["v_col"][vc.keys.index(_only(key, vc.axes))]
+                us.append(gp * torch.rsqrt(torch.clamp(rp, min=eps))[..., None]
+                          * torch.rsqrt(torch.clamp(cp.to(gp.device),
+                                                    min=eps))[..., None, :])
+        else:
+            new = {"v": [_ema(beta2, old, gp.square() + eps)
+                         for old, gp in zip(slot["v"].parts, gs)]}
+            us = [gp * torch.rsqrt(torch.clamp(v, min=eps))
+                  for gp, v in zip(gs, new["v"])]
+        for name, vals in new.items():
+            for old, v in zip(slot[name].parts, vals):
+                old.copy_(v)
+        squares = _summed(p, [u.square().sum() for u in us], p.axes)
+        n = math.prod(p.shape)
+        for pp, u, sq in zip(p.parts, us, squares):
+            pp.copy_(pp.float() - lr * clip(u, torch.sqrt(sq / n)))
+
     def update(grads, state, params, lr):
-        whole_leaves(params)
         beta2 = 1.0 - _count(state) ** (-decay)
 
-        def upd(p, g, slot):
-            g = g.float()
-            g2 = g.square() + eps
-            if _factored(p):
-                v_row = beta2 * slot["v_row"] + (1 - beta2) * g2.mean(-1)
-                v_col = beta2 * slot["v_col"] + (1 - beta2) * g2.mean(-2)
-                row_mean = v_row.mean(-1, keepdim=True)
-                r = (v_row / torch.clamp(row_mean, min=eps))[..., None]
-                u = g * torch.rsqrt(torch.clamp(r, min=eps)) \
-                    * torch.rsqrt(torch.clamp(v_col, min=eps))[..., None, :]
-                slot["v_row"].copy_(v_row)
-                slot["v_col"].copy_(v_col)
+        def leaf(p, g, slot):
+            if isinstance(p, Parts):
+                upd_placed(p, g, slot, beta2, lr)
             else:
-                v = beta2 * slot["v"] + (1 - beta2) * g2
-                u = g * torch.rsqrt(torch.clamp(v, min=eps))
-                slot["v"].copy_(v)
-            norm = torch.sqrt(torch.mean(torch.square(u)))
-            u = u / torch.clamp(norm / clip_threshold, min=1.0)
-            p.copy_(p.float() - lr * u)
-        tree_map(upd, params, grads, state["slots"])
+                upd(p, g, slot, beta2, lr)
+        _leafwise(leaf, params, grads, state["slots"])
         return params, state
 
     def state_axes(axes):
@@ -201,6 +287,16 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
         return {"slots": _map_axes(slot_axes, axes), "count": ()}
 
     return Optimizer("adafactor", init, update, state_axes)
+
+
+def _only(key, axes):
+    """``key`` (a position) on ``axes`` alone."""
+    return {a: key[a] for a in axes}
+
+
+def _ema(beta2, old, x):
+    b = beta2.to(old.device)
+    return b * old + (1 - b) * x
 
 
 def _map_axes(fn, axes):

@@ -21,8 +21,9 @@ from ``make_lm_batches`` go through both packages:
   its params, as ``tests/test_system.py``'s trainer test; the CLI with
   ``--device cpu`` in a subprocess, and with ``--mesh`` (the (1, 1)
   mesh) the same final metrics; train and prefill steps of a family not
-  ported to a larger mesh yet (rwkv6-7b), and a train step with
-  Adafactor there, raise naming ROADMAP Queue 1 item 10b
+  ported to a larger mesh yet (whisper-large-v3's encoder), and an
+  Adafactor train step of internvl2-76b's vision prefix there, raise
+  naming ROADMAP Queue 1 item 10b
   (``tests/test_torch_sharded_steps.py`` holds the ported ones).
 """
 import dataclasses
@@ -300,15 +301,16 @@ def test_train_cli_on_cpu(tmp_path):
 
 
 def test_mesh_rules_raise():
-    """Train and prefill steps of RWKV-6 on a mesh of more than one
-    device, and a train step with Adafactor there, raise naming the
-    ROADMAP item; a decode step takes any mesh."""
-    cfg = get_config("rwkv6-7b").reduced()
-    qwen = get_config("qwen3-14b").reduced()
+    """Train and prefill steps of an encoder-decoder (whisper) on a mesh
+    of more than one device, and an Adafactor train step of a vision
+    prefix (internvl2) there, raise naming the ROADMAP item; a decode
+    step takes any mesh."""
+    cfg = get_config("whisper-large-v3").reduced()
+    vlm = get_config("internvl2-76b").reduced()
     rules = MeshRules(make_local_mesh(1, 2, devices=["cpu"] * 2))
     for make in (lambda: tST.make_train_step(cfg, tO.adamw(), rules=rules),
                  lambda: tST.make_prefill_step(cfg, rules=rules),
-                 lambda: tST.make_train_step(qwen, tO.adafactor(),
+                 lambda: tST.make_train_step(vlm, tO.adafactor(),
                                              rules=rules)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 10b"):

@@ -27,9 +27,20 @@ JAX package's.
 * The MoE dispatch over rows keeps global capacity and token-major
   priority: a batch that overflows an expert drops the unsharded
   step's assignments, and the load balance is the unsharded value.
-* The families not ported yet (MLA, RWKV-6, Mamba, an encoder, a vision
-  prefix), Adafactor and a sequence split raise naming ROADMAP Queue 1
-  item 10b; decode takes any mesh.
+* The mixer families (ROADMAP Queue 1 item 10b's second part): reduced
+  rwkv6-7b, minicpm3-4b (a low-rank q), deepseek-v2-lite-16b (a dense
+  prefix layer, a shared expert) and jamba-1.5-large-398b (its first
+  two layers, mamba + mlp and mamba + moe) on (2, 2), (1, 4) and (4,
+  1), AdamW and Adafactor, against
+  the unsharded steps (Adafactor's updated params within 1e-5 of each
+  leaf's largest: its first step is linear in the gradient) and the JAX
+  package's; one case a family whose split dim falls back to
+  replication (heads, or d_inner where 2 d_inner still splits, so that
+  ``w_in`` alone is split); Mamba's ``w_in`` gradient in its columns
+  through the column map; Adafactor's placed slots by the specs
+  ``opt_state_specs`` resolves.
+* An encoder, a vision prefix and a sequence split raise naming ROADMAP
+  Queue 1 item 10b; decode takes any mesh.
 * Remat ``minimal``: the backward recomputes no matmul without batch
   dims (the attention projections included).
 * Checkpoints: a sharded ``train()`` saves whole arrays that restore
@@ -118,10 +129,12 @@ def _capture(inner=None):
     return dataclasses.replace(inner, update=update), got
 
 
-def _port_step(cfg, np_params, batch, rules, accum, inner=None):
-    """One ``make_train_step`` from the numpy params: (the params after
-    it, whole; its metrics; the gradients it handed its optimizer,
-    whole). ``inner`` makes the update, else the params stay."""
+def _port_steps(cfg, np_params, batch, rules, accum, inner=None, steps=1):
+    """``steps`` ``make_train_step`` steps on ``batch`` from the numpy
+    params: for each, (the params after it, whole; its metrics; the
+    gradients it handed its optimizer, whole; the optimizer's state
+    after it, whole). ``inner`` makes the updates, else the params
+    stay."""
     opt, got = _capture(inner)
     params = tP.from_numpy(np_params, "cpu")
     if tST.sharded(rules):
@@ -129,8 +142,22 @@ def _port_step(cfg, np_params, batch, rules, accum, inner=None):
     step = tST.make_train_step(cfg, opt, lr=LR, rules=rules,
                                compute_dtype=torch.float32,
                                accum_steps=accum)
-    params, _, metrics = step(params, opt.init(params), batch)
-    return tP.whole_tree(params), metrics, got[0]
+    state = opt.init(params)
+    out = []
+    for _ in range(steps):
+        params, state, metrics = step(params, state, batch)
+        # the next step updates the unsharded leaves in place
+        p_now, st_now = (tP.tree_map(lambda t: t.detach().clone(),
+                                     tP.whole_tree(tree))
+                         for tree in (params, state))
+        out.append((p_now, metrics, got[-1], st_now))
+    return out
+
+
+def _port_step(cfg, np_params, batch, rules, accum, inner=None):
+    """One step of ``_port_steps``: (the params after it, its metrics,
+    its gradients)."""
+    return _port_steps(cfg, np_params, batch, rules, accum, inner)[0][:3]
 
 
 def _prefill(cfg, np_params, tokens, rules):
@@ -382,11 +409,17 @@ def test_attention_over_kv_heads_that_fall_back(heads, kv, model):
 
 
 @pytest.mark.parametrize("arch,changes", [
-    ("deepseek-v2-lite-16b", {}), ("rwkv6-7b", {}),
-    ("jamba-1.5-large-398b", {}), ("whisper-large-v3", {}),
-    ("internvl2-76b", {}), ("qwen3-14b", {"adafactor": True}),
+    ("deepseek-v2-lite-16b", {"seqshard": True}),
+    ("rwkv6-7b", {"seqshard": True}),
+    ("jamba-1.5-large-398b", {"seqshard": True}), ("whisper-large-v3", {}),
+    ("internvl2-76b", {}), ("qwen3-14b", {"adafactor": True,
+                                          "seqshard": True}),
     ("qwen3-14b", {"seqshard": True})])
 def test_unported_families_raise(arch, changes):
+    """An encoder, a vision prefix and a sequence split raise on a mesh
+    of more than one device (MLA, RWKV-6, Mamba and Adafactor run there
+    since ROADMAP item 10b's second part: see the mixer cases below);
+    Adafactor's ``init`` takes placed params."""
     cfg = get_config(arch).reduced()
     rules = _rules((1, 2))
     if changes.get("seqshard"):
@@ -395,16 +428,14 @@ def test_unported_families_raise(arch, changes):
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue 1 item 10b"):
         tST.make_train_step(cfg, opt, rules=rules)
-    if not changes.get("adafactor"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10b"):
-            tST.make_prefill_step(cfg, rules=rules)
-    else:
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 10b"):
+        tST.make_prefill_step(cfg, rules=rules)
+    if changes.get("adafactor"):
         placed = tST.place_params(cfg, tP.from_numpy(_np_params(cfg),
                                                      "cpu"), rules)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10b"):
-            opt.init(placed)
+        assert isinstance(opt.init(placed)["slots"]["embed"]["table"][
+            "v_row"], R.Parts)
     tST.make_decode_step(cfg, rules=rules)          # any mesh
 
 
@@ -523,3 +554,186 @@ def test_placement_and_collectives():
                                  for j, col in enumerate(got)
                                  for r, t in enumerate(col)), w.parts)
     assert [g[0, 0].item() for g in gs] == [10.0, 10.0]
+
+
+# ---------------------------------------------------------------------------
+# the mixer families: RWKV-6, Mamba (and the jamba hybrid), MLA; Adafactor
+# ---------------------------------------------------------------------------
+
+# jamba's first two layers, mamba + mlp and mamba + moe
+JAMBA2 = {"n_layers": 2, "block_pattern": (("mamba", "mlp"),
+                                           ("mamba", "moe"))}
+_OPTS = {"adamw": tO.adamw, "adafactor": tO.adafactor}
+
+# (id, arch, mesh shape, config changes, optimizer, batch, accum_steps,
+# held to the JAX package's step too): every family on (2, 2), (1, 4)
+# and (4, 1), accum_steps 1 and 2; a JAX run a family serves its meshes
+MIXER_CASES = [
+    ("rwkv6-2x2", "rwkv6-7b", (2, 2), {}, "adamw", 8, 1, True),
+    ("rwkv6-1x4", "rwkv6-7b", (1, 4), {}, "adamw", 8, 1, True),
+    ("rwkv6-4x1-accum2", "rwkv6-7b", (4, 1), {}, "adamw", 8, 2, False),
+    # 6 heads of 32 do not split over model 4
+    ("rwkv6-headfallback-1x4", "rwkv6-7b", (1, 4), {"d_model": 192},
+     "adamw", 4, 1, False),
+    ("minicpm3-2x2-accum2", "minicpm3-4b", (2, 2), {}, "adamw", 8, 2, True),
+    ("minicpm3-4x1-accum2", "minicpm3-4b", (4, 1), {}, "adamw", 8, 2, True),
+    ("minicpm3-adafactor-1x4-accum2", "minicpm3-4b", (1, 4), {}, "adafactor",
+     8, 2, True),
+    ("deepseek-1x4", "deepseek-v2-lite-16b", (1, 4), {}, "adamw", 8, 1,
+     True),
+    ("deepseek-2x2", "deepseek-v2-lite-16b", (2, 2), {}, "adamw", 8, 1,
+     True),
+    ("deepseek-4x1-accum2", "deepseek-v2-lite-16b", (4, 1), {}, "adamw",
+     8, 2, False),
+    ("deepseek-headfallback-1x4", "deepseek-v2-lite-16b", (1, 4),
+     {"n_heads": 6}, "adamw", 4, 1, False),
+    ("jamba2-2x2-adafactor", "jamba-1.5-large-398b", (2, 2), JAMBA2,
+     "adafactor", 8, 1, True),
+    ("jamba2-4x1", "jamba-1.5-large-398b", (4, 1), JAMBA2, "adamw", 8, 1,
+     True),
+    ("jamba2-1x4-accum2-adafactor", "jamba-1.5-large-398b", (1, 4), JAMBA2,
+     "adafactor", 8, 2, False),
+    # d_inner 258 does not split over model 4, 2 d_inner does: w_in alone
+    # is split, the mixer runs whole at the row's home
+    ("jamba2-dinnerfallback-1x4", "jamba-1.5-large-398b", (1, 4),
+     dict(JAMBA2, d_model=129), "adafactor", 4, 1, False),
+    # nor 2 d_inner over model 3: w_in is replicated too
+    ("jamba2-winfallback-1x3", "jamba-1.5-large-398b", (1, 3), JAMBA2,
+     "adamw", 4, 1, False),
+]
+
+
+def _assert_updates(opt, got, exp, g_got, g_exp):
+    if opt == "adamw":
+        assert_adamw_updates(got, exp, g_got, g_exp, LR)
+        return
+    for (path, a), (_, e) in zip(tP.tree_items(got), tP.tree_items(exp)):
+        assert _rel(a, e) <= 1e-5, ("updated", path)
+
+
+@pytest.mark.parametrize("case", MIXER_CASES, ids=[c[0] for c in MIXER_CASES])
+def test_sharded_mixers_match_unsharded_and_jax(case):
+    _, arch, shape, changes, opt, b, accum, with_jax = case
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    rules = _rules(shape)
+    np_params = _np_params(cfg, seed=1)
+    batch = _batch(cfg, b, seed=1)
+    # Adafactor's first step reads no slot (beta2 = 0 at step 1): a
+    # second step reads back the slots the first wrote
+    steps = 2 if opt == "adafactor" else 1
+    exp = _port_steps(cfg, np_params, batch, None, accum, _OPTS[opt](),
+                      steps)
+    got = _port_steps(cfg, np_params, batch, rules, accum, _OPTS[opt](),
+                      steps)
+    (exp_p, exp_m, exp_g, exp_s), (got_p, got_m, got_g, got_s) = \
+        exp[0], got[0]
+    assert got_m.keys() == exp_m.keys()
+    for k in exp_m:
+        np.testing.assert_allclose(float(got_m[k]), float(exp_m[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+    for (path, a), (_, e) in zip(tP.tree_items(got_g),
+                                 tP.tree_items(exp_g)):
+        assert _rel(a, e) <= 1e-5, ("grad", path)
+    _assert_updates(opt, got_p, exp_p, got_g, exp_g)
+    if opt == "adafactor":
+        slots = [tP.tree_items(st["slots"]) for st in (got_s, exp_s)]
+        assert [k for k, _ in slots[0]] == [k for k, _ in slots[1]]
+        for (path, a), (_, e) in zip(*slots):
+            assert _rel(a, e) <= 1e-5, ("slot", path)
+        for (path, a), (_, e) in zip(tP.tree_items(got[1][0]),
+                                     tP.tree_items(exp[1][0])):
+            assert _rel(a, e) <= 1e-5, ("second step", path)
+    # a second sharded run: the same bits
+    _, again_m, again_g = _port_step(cfg, np_params, batch, rules, accum)
+    assert float(again_m["loss"]) == float(got_m["loss"])
+    for (path, a), (_, e) in zip(tP.tree_items(again_g),
+                                 tP.tree_items(got_g)):
+        assert torch.equal(a, e), ("rerun", path)
+    logits = _prefill(cfg, np_params, batch["tokens"], rules)
+    assert _rel(logits, _prefill(cfg, np_params, batch["tokens"], None)) \
+        <= 1e-5
+    assert torch.equal(logits, _prefill(cfg, np_params, batch["tokens"],
+                                        rules))
+    if "fallback" in case[0]:
+        assert any(("heads" in f or "d_inner" in f) and "replicated" in f
+                   for f in rules.fallbacks), rules.fallbacks
+    if "winfallback" in case[0]:
+        assert any(f"d_inner={2 * cfg.mamba.d_inner(cfg.d_model)}" in f
+                   for f in rules.fallbacks), rules.fallbacks
+    if with_jax:
+        jg, jm, jl = _jax_ref(arch, changes, b, 1, accum)
+        for k, v in got_m.items():
+            np.testing.assert_allclose(float(v), jm[k], rtol=1e-5,
+                                       atol=1e-7, err_msg=k)
+        for (path, a), (_, e) in zip(tP.tree_items(got_g),
+                                     tP.tree_items(jg)):
+            assert _rel(a, e) <= 1e-4, ("jax grad", path)
+        assert _rel(logits, jl) <= 1e-5
+
+
+def test_mamba_w_in_gradient_reaches_its_columns():
+    """On a model axis of 2, ``w_in``'s model parts are its first and
+    second 2 d_inner / 2 columns, all of u and all of z: position j
+    computes with the columns j of both halves (``Layout.columns``), and
+    the gradient the sharded mixer gives each part is the unsharded
+    mixer's at that part's columns."""
+    from repro_torch.models import mamba as tmamba
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                              **JAMBA2)
+    params = tP.from_numpy(_np_params(cfg, seed=4), "cpu")
+    p = tP.tree_slice(params["blocks"]["pos0"]["mixer"], 0)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal((2, 16, cfg.d_model))
+                        .astype(np.float32))
+    cot = torch.as_tensor(rng.standard_normal((2, 16, cfg.d_model))
+                          .astype(np.float32))
+    rules = _rules((1, 2))
+    lay = R.Layout(rules.mesh, "data")
+    specs = tST.resolve_param_shardings(cfg, rules)[2]
+    placed = tP.unstack(tP.place_tree(
+        params["blocks"]["pos0"]["mixer"], specs["blocks"]["pos0"]["mixer"],
+        rules.mesh), cfg.n_repeats)[0]
+    w_in = placed["w_in"]
+    assert tuple(w_in.spec)[-1] == "model"
+    w_in.parts = [t.detach().requires_grad_() for t in w_in.parts]
+    got = tmamba.mamba_mixer_sharded(cfg, lay, placed, [x])[0]
+    g_parts = torch.autograd.grad((got * cot).sum(), w_in.parts)
+    whole = p["w_in"].detach().requires_grad_()
+    exp = tmamba.mamba_mixer(cfg, dict(p, w_in=whole), x)
+    g_whole, = torch.autograd.grad((exp * cot).sum(), whole)
+    assert _rel(got.detach(), exp.detach()) <= 1e-5
+    di = cfg.mamba.d_inner(cfg.d_model)
+    for j, g in enumerate(g_parts):
+        assert g.shape == (cfg.d_model, di)
+        assert _rel(g, g_whole[:, j * di:(j + 1) * di]) <= 1e-5, j
+    # each half's gradient is nonzero: neither half was left out
+    assert all(float(g.abs().max()) > 0 for g in g_parts)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("jamba-1.5-large-398b", (2, 2)), ("deepseek-v2-lite-16b", (1, 4)),
+    ("rwkv6-7b", (4, 1)), ("granite-moe-3b-a800m", (2, 1, 2))])
+def test_adafactor_places_its_slots_by_their_specs(arch, shape):
+    """Adafactor's ``init`` of placed params gives each slot the spec
+    its axes resolve to (``opt_state_specs``), a part a position on its
+    device, all zero."""
+    cfg = get_config(arch).reduced()
+    rules = _rules(shape)
+    opt = tO.adafactor()
+    abstract, axes, _ = tST.resolve_param_shardings(cfg, rules,
+                                                    torch.float32)
+    _, want = tST.opt_state_specs(opt, abstract, axes, rules)
+    placed = tST.place_params(cfg, tP.from_numpy(_np_params(cfg), "cpu"),
+                              rules)
+    state = opt.init(placed)
+
+    def walk(got, spec, path=()):
+        if isinstance(got, dict):
+            for k in got:
+                walk(got[k], spec[k], path + (k,))
+            return
+        if isinstance(got, R.Parts):
+            assert tuple(got.spec) == tuple(spec), path
+            for key, t in zip(got.keys, got.parts):
+                assert t.shape == got.part_shape(key) and not t.any(), path
+    walk(state, want)

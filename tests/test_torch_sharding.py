@@ -18,8 +18,8 @@ package's own sharded functions.
   with ``tower_shard=2`` against ``tower_shard=1``.
 * ``--mesh`` training: the (1, 1) mesh gives the values of no mesh bit
   for bit; train and prefill steps of a family not ported to a larger
-  mesh yet (MLA: deepseek-v2-lite-16b) raise there naming ROADMAP Queue
-  1 item 10b; decode takes any mesh.
+  mesh yet (an encoder: whisper-large-v3) raise there naming ROADMAP
+  Queue 1 item 10b; decode takes any mesh.
 * One JAX subprocess with 8 forced host devices (the test worker has
   one device, ``tests/conftest.py``) runs the JAX package's sharded
   tower (model 2 and 4), ``make_mesh_vfl_step`` (2 pods, masked, 3
@@ -443,7 +443,7 @@ def test_one_device_mesh_trains_bit_equal_and_larger_meshes_raise():
     for (p, a), (_, b) in zip(TP.tree_items(got["params"]),
                               TP.tree_items(base["params"])):
         assert torch.equal(a, b), p
-    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    cfg = get_config("whisper-large-v3").reduced()
     big = R.MeshRules(M.make_local_mesh(1, 2, devices=["cpu"] * 2))
     for make in (lambda: ST.make_train_step(cfg, TO.adamw(), rules=big),
                  lambda: ST.make_prefill_step(cfg, rules=big)):

@@ -73,7 +73,8 @@ def test_mesh_rules_raise():
     """Under mesh rules every stand-in comes beside its resolved spec
     (``tests/test_torch_sharding.py`` holds them to the JAX package's);
     the train and prefill steps those specs feed raise on a mesh of more
-    than one device for a family not ported there yet (rwkv6-7b), naming
+    than one device for a family not ported there yet (internvl2-76b's
+    vision prefix), naming
     the ROADMAP item, and ``place_batch`` splits a real batch by the
     batch's specs."""
     cfg, sh = get_config("qwen3-14b"), SHAPES["train_4k"]
@@ -87,9 +88,9 @@ def test_mesh_rules_raise():
     # the model axis, so the KV heads cannot
     assert tuple(specs["blocks"]["pos0"]["k"]) == \
         (None, "data", "model", None, None)
-    rwkv = get_config("rwkv6-7b")
-    for call in (lambda: tST.make_train_step(rwkv, tO.adamw(), rules=rules),
-                 lambda: tST.make_prefill_step(rwkv, rules=rules)):
+    vlm = get_config("internvl2-76b")
+    for call in (lambda: tST.make_train_step(vlm, tO.adamw(), rules=rules),
+                 lambda: tST.make_prefill_step(vlm, rules=rules)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 10b"):
             call()
