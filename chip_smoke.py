@@ -308,14 +308,18 @@ NVIDIA GPU.
    device, every position on this card (``launch/steps.py`` with
    ``MeshRules``; the kernels held to their plain versions and timed at
    each shard's shapes first): granite-moe-3b-a800m on data 2 x model 2
-   against the unsharded step at 8 layers and alone at 16, h2o-danube
-   at full depth, glm4's prefill on 1 x 4 at 20 layers; rwkv6-7b at 8
+   against the unsharded step at 8 layers and alone at 8, h2o-danube
+   at 12 of 24 layers, glm4's prefill on 1 x 4 at 20 layers; rwkv6-7b at 8
    layers, the jamba cut with Adafactor and deepseek-v2-lite-16b at 4
    layers on 2 x 2 against their unsharded steps, rwkv6-7b's prefill on
-   1 x 4 at 16 layers against the unsharded step in float64: loss,
-   gradients, updated params and logits within their tolerances, two
-   sharded runs bit-equal, launches exact, step ms sharded and
-   unsharded, peak memory, busy share;
+   1 x 4 at 16 layers against the unsharded step in float64;
+   whisper-large-v3 at 8 + 8 layers (its encoder and cross-attention
+   over the rows) and internvl2-76b cut to 1 layer (its 256 patches
+   with their rows, Adafactor) on 2 x 2 against their unsharded steps,
+   and both models' prefill on 1 x 4 (whisper at full depth, internvl2
+   at 4 layers): loss, gradients, updated params and logits within
+   their tolerances, two sharded runs bit-equal, launches exact, step
+   ms sharded and unsharded, peak memory, busy share;
 13. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time (bytes over the memory rate, or operations over
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
@@ -4688,8 +4692,10 @@ def vfl_llm_kernels(torch, dev, cfg, card: str) -> dict:
 
 def attention_bwd_at(torch, dev, qs, ks, window: int, g, tag: str,
                      card: str, dv=None, timing: dict | None = None,
-                     plain_timing: dict | None = None) -> dict:
-    """The attention backward kernel (causal, ``window``; v's columns
+                     plain_timing: dict | None = None,
+                     causal: bool = True) -> dict:
+    """The attention backward kernel (causal unless ``causal`` is False,
+    ``window``; v's columns
     past ``dv`` zero, as MLA's call pads them) at q ``qs`` and k/v
     ``ks`` against the plain version's VJP, within 1e-4 of the largest
     gradient, then timed beside it and SDPA's backward (``timing``:
@@ -4705,11 +4711,11 @@ def attention_bwd_at(torch, dev, qs, ks, window: int, g, tag: str,
     k, v = (torch.randn(ks, generator=g).to(dev) for _ in range(2))
     if dv is not None:
         v[..., dv:] = 0
-    o, lse = fa.flash_attention(q, k, v, causal=True, window=window,
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
                                 return_lse=True)
-    got = fa.flash_attention_bwd(q, k, v, o, do, causal=True,
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                  window=window, lse=lse)
-    exp = ref.attention_vjp_ref(q, k, v, do, causal=True, window=window)
+    exp = ref.attention_vjp_ref(q, k, v, do, causal=causal, window=window)
     torch.cuda.synchronize()
     bwd_err = grad_rel_err(got, exp)
     if not bwd_err <= 1e-4:
@@ -4717,28 +4723,28 @@ def attention_bwd_at(torch, dev, qs, ks, window: int, g, tag: str,
                              f"the plain VJP at the {tag} shape")
 
     def kernel():
-        return fa.flash_attention_bwd(q, k, v, o, do, causal=True,
+        return fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                       window=window, lse=lse)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
 
     def sdpa_fwd_bwd():
-        y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+        y = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
                                            enable_gqa=True)
         return torch.autograd.grad(y, (qr, kr, vr), do)
     out = {
-        "shape": [list(qs), list(ks)], "window": window,
+        "shape": [list(qs), list(ks)], "window": window, "causal": causal,
         "max_abs_err": bwd_err, "variant": fa.bwd_variant(q, k, v),
         "ms": graph_ms(kernel, **timing),
         "eager_ms": eager_ms(kernel, **timing),
         "plain_ms": eager_ms(
-            lambda: ref.attention_vjp_ref(q, k, v, do, causal=True,
+            lambda: ref.attention_vjp_ref(q, k, v, do, causal=causal,
                                           window=window), **slow),
-        **sdpa_backward_ms(torch, q, k, v, do, True, timing["reps"],
+        **sdpa_backward_ms(torch, q, k, v, do, causal, timing["reps"],
                            timing["trials"]),
         "sdpa_fwd_bwd_ms": eager_ms(sdpa_fwd_bwd, **slow),
-        **attention_bwd_bound(q, k, True, dv)}
-    log(f"flash_attention_bwd {tag} q {qs} k/v {ks} causal window "
-        f"{window} f32 ({card}): {out}")
+        **attention_bwd_bound(q, k, causal, dv)}
+    log(f"flash_attention_bwd {tag} q {qs} k/v {ks} causal={causal} "
+        f"window {window} f32 ({card}): {out}")
     return out
 
 
@@ -4746,9 +4752,11 @@ def path_kernels(torch, dev, cfg, card: str, qs, ks, gmm_shapes,
                  tag: str, seed: int, window: int = 0,
                  bwd: bool = True, dv=None,
                  att_timing: dict | None = None,
-                 gmm_timing: dict | None = None) -> dict:
-    """The attention kernel (forward and, where ``bwd``, backward; causal,
-    ``window`` as the path passes it, which must mask nothing for SDPA's
+                 gmm_timing: dict | None = None,
+                 causal: bool = True) -> dict:
+    """The attention kernel (forward and, where ``bwd``, backward; causal
+    unless ``causal`` is False, ``window`` as the path passes it, which
+    must mask nothing for SDPA's
     sake; v's columns past ``dv`` zero, as MLA's call pads them) at q
     ``qs`` and k/v ``ks`` (none where ``qs`` is None), and the grouped
     matmul (forward, dx and dw) at each of ``gmm_shapes`` ((name, (e, c,
@@ -4763,14 +4771,15 @@ def path_kernels(torch, dev, cfg, card: str, qs, ks, gmm_shapes,
     if qs is not None:
         out["attention"] = time_attention(
             torch, dev, cfg, qs, ks, window, g,
-            att_timing or dict(reps=50, trials=10), dv)
+            att_timing or dict(reps=50, trials=10), dv, causal)
         out["attention"]["max_abs_err"] = check_attention(
-            torch, dev, qs, ks, window, g, dv)
+            torch, dev, qs, ks, window, g, dv, causal)
         out["attention"]["shape"] = [list(qs), list(ks)]
+        out["attention"]["causal"] = causal
     if qs is not None and bwd:
         out["attention_bwd"] = attention_bwd_at(
             torch, dev, qs, ks, window, g, tag, card, dv, att_timing,
-            att_timing)
+            att_timing, causal)
     # the gmm's inputs drawn on the card, as ``check_moe_kernels``
     # draws them
     gd = torch.Generator(dev).manual_seed(seed)
@@ -5052,9 +5061,12 @@ def sharding_phase(torch, dev) -> tuple:
 # 12a: granite-moe-3b-a800m trained on a data 2 x model 2 mesh at full
 # width: the sharded step held to the unsharded one at SHARD_CMP_LAYERS
 # layers, where both sit on the card, then alone at SHARD_ALONE_LAYERS
-# (its full 32 until phases 12d-12g came, cut to keep the script's time)
-# 12b: h2o-danube-1.8b trained on data 2 x model 2 at full width and
-# depth (the dense gated MLP's split and the loss over 32,000 / 2 vocab)
+# (its full 32 until phases 12d-12g came, 16 until phases 12h-12j came:
+# cut to keep the script's time)
+# 12b: h2o-danube-1.8b trained on data 2 x model 2 at full width, depth
+# 24 -> SHARD_H2O_LAYERS (its full depth until phases 12h-12j came, cut
+# to keep the script's time; the dense gated MLP's split and the loss
+# over 32,000 / 2 vocab)
 # 12c: glm4-9b prefill on a 1 x 4 mesh (its 2 KV heads fall back to
 # replication on model 4) at full width, depth 40 -> SHARD_GLM4_LAYERS
 # so that the unsharded reference sits beside the sharded params
@@ -5071,18 +5083,36 @@ def sharding_phase(torch, dev) -> tuple:
 # 12g: rwkv6-7b prefill on a 1 x 4 mesh, depth 32 ->
 # SHARD_RWKV_PREFILL_LAYERS so that the unsharded reference sits beside
 # the sharded params
+# 12h: whisper-large-v3 trained on data 2 x model 2 at full width and
+# WHISPER_CHECK_LAYERS encoder and decoder layers, AdamW (the encoder's
+# bidirectional attention and each decoder layer's cross-attention over
+# a position's 10 heads, the biased MLP over mlp, layernorm)
+# 12i: internvl2-76b on data 2 x model 2 at full width, depth 80 ->
+# SHARD_INTERNVL_LAYERS (2.96 B params: the untied embed and head take
+# 2.1 B), so that the unsharded reference waits on the card beside the
+# placed params and both sharded runs' gradients; its 256 patches go
+# with their rows and out of the loss, Adafactor at INTERNVL_TRAIN_LR
+# 12j: both models' prefill on a 1 x 4 mesh: whisper at full width and
+# depth (its vocab of 51,866 falls back to replication on model 4),
+# internvl2 at INTERNVL_TRAIN_LAYERS (16 q heads and 2 KV heads a
+# position)
 SHARD_MESH = (2, 2)
 SHARD_CMP_LAYERS = 8
-SHARD_ALONE_LAYERS = 16
+SHARD_ALONE_LAYERS = 8
+SHARD_H2O_LAYERS = 12
 SHARD_GLM4_MESH = (1, 4)
 SHARD_GLM4_LAYERS = 20
 SHARD_MLA_LAYERS = 4
 SHARD_RWKV_PREFILL_MESH = (1, 4)
 SHARD_RWKV_PREFILL_LAYERS = 16
+SHARD_INTERNVL_LAYERS = 1
+SHARD_ENC_VLM_PREFILL_MESH = (1, 4)
 SHARD_TIMED = 2
-# the share of the card's memory the unsharded reference of a compared
-# step (its gradients and updated params) may take there: 24 GB of 80
-SHARD_REF_ON_CARD_SHARE = 0.3
+# the share of the card's memory that four trees of a compared step's
+# params' size (the unsharded gradients, the placed params, the first
+# sharded run's gradients and the second's) may take: the unsharded
+# gradients wait on the card where they fit so, else on the host
+SHARD_REF_ON_CARD_SHARE = 0.85
 
 
 def mixer_split(cfg, mixer: str) -> int:
@@ -5107,7 +5137,11 @@ def sharded_launches_per_step(cfg, shape, train: bool = True) -> dict:
     under remat "minimal" runs each repeated layer's forward kernels
     twice (the forward and its recomputation) and a prefix layer's once
     (no remat wraps it), each backward kernel once, the grouped matmul
-    two a call in the backward; a prefill runs the forwards once."""
+    two a call in the backward; a prefill runs the forwards once. An
+    encoder-decoder adds its encoder layers' attention, once a row and
+    model position (no remat wraps the encoder) and its backward once,
+    and each decoder layer's cross-attention as many times as the
+    layer's self-attention."""
     assert not train or cfg.remat_policy == "minimal"
     rows, model = shape
     ep = model if cfg.moe and cfg.moe.num_experts % model == 0 else 1
@@ -5115,28 +5149,60 @@ def sharded_launches_per_step(cfg, shape, train: bool = True) -> dict:
         (m, f, 2 if train else 1)
         for m, f in cfg.block_pattern * cfg.n_repeats]
     out = {name: 0 for name in all_counters()}
+
+    def calls(mixer):
+        return rows * (model if mixer_split(cfg, mixer) % model == 0
+                       else 1)
+
+    def attention(runs):
+        out["flash_attention"] += calls("attn") * runs
+        if train:
+            out["flash_attention_bwd"] += calls("attn")
     for mixer, ffn, runs in layers:
         fwd, bwd = MIXER_KERNELS[mixer]
-        calls = rows * (model if mixer_split(cfg, mixer) % model == 0
-                        else 1)
-        out[fwd] += calls * runs
+        out[fwd] += calls(mixer) * runs
         if train:
-            out[bwd] += calls
+            out[bwd] += calls(mixer)
+        if cfg.encoder is not None:
+            attention(runs)
         if ffn == "moe":
             out["moe_gmm"] += 3 * ep * (runs + 2 if train else 1)
+    for _ in range(0 if cfg.encoder is None else cfg.encoder.n_layers):
+        attention(1)
     return out
 
 
-def capture_optimizer():
+def whole_items(tree, path=()):
+    """(path, tensor) of each leaf of a param-like tree in
+    ``tree_items``' order (dict keys sorted), a placed leaf (``Parts``)
+    gathered whole only when its turn comes, so that no whole tree sits
+    on the card at once."""
+    from repro_torch.sharding.rules import Parts
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from whole_items(tree[k], path + (str(k),))
+    else:
+        yield path, tree.whole() if isinstance(tree, Parts) else tree
+
+
+def capture_optimizer(against=None):
     """An optimizer whose update keeps the gradients the step hands it
     (each placed leaf gathered whole) and leaves params and state be:
-    a train step's gradients through ``make_train_step`` itself."""
+    a train step's gradients through ``make_train_step`` itself. With
+    ``against`` (a whole tree like them) it keeps instead whether every
+    leaf equals ``against``'s to the bit, each gathered whole in turn,
+    so that a second tree never sits whole on the card."""
+    import torch
     from repro_torch.models import params as PRM
     from repro_torch.train import optimizer as O
     got = []
 
     def update(grads, state, params, lr):
-        got.append(PRM.whole_tree(grads))
+        if against is None:
+            got.append(PRM.whole_tree(grads))
+        else:
+            got.append(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                whole_items(grads), whole_items(against))))
         return params, state
     return O.Optimizer("capture", lambda p: {}, update, lambda a: {}), got
 
@@ -5146,38 +5212,45 @@ def to_host(torch, tree):
     return PRM.tree_map(lambda t: t.detach().to("cpu"), tree)
 
 
-def adamw_update_err(torch, got, exp, g_got, g_exp, lr: float,
-                     eps: float = 1e-8) -> float:
-    """The largest difference of an updated param, beyond AdamW's own
-    share of it, over its leaf's largest param: the share that
-    ``assert_adamw_updates`` of tests/test_torch_sharded_steps.py states
-    and allows."""
-    from repro_torch.models import params as PRM
-    worst = 0.0
-    for (_, a), (_, e), (_, g1), (_, g2) in zip(
-            PRM.tree_items(got), PRM.tree_items(exp),
-            PRM.tree_items(g_got), PRM.tree_items(g_exp)):
-        e, g2 = e.to(a.device), g2.to(a.device)
-        same = torch.sign(g1) == torch.sign(g2)
-        moved = torch.where(same, (g1 - g2).abs() * eps / (
-            (g1.abs() + eps) * (g2.abs() + eps)), 2.0)
-        scale = e.abs().max().clamp(min=1e-30)
-        rest = ((a - e).abs() - lr * moved * (1 + 1e-3)).clamp(min=0)
-        worst = max(worst, float((rest / scale).max()))
-    return worst
+def reference_updates(opt, params, grads, lr: float):
+    """The params after one step of ``opt`` from ``params`` (updated in
+    place) by ``grads`` (on the card or the host), a leaf at a time in
+    ``tree_items``' order: each leaf updated as a one-leaf tree, as
+    every optimizer here updates each leaf on its own."""
+    for (path, p), (_, g) in zip(whole_items(params), whole_items(grads)):
+        one = {"w": p}
+        opt.update({"w": g.to(p.device)}, opt.init(one), one, lr)
+        yield path, p
 
 
 def update_err(torch, opt_name: str, got, exp, g_got, g_exp,
-               lr: float) -> float:
+               lr: float, eps: float = 1e-8) -> float:
     """The largest difference of a param updated by one step of
-    ``opt_name`` over its leaf's largest param: beyond AdamW's own
-    share (``adamw_update_err``); plain for Adafactor, whose first step
-    is linear in the gradient (no sign of it taken)."""
-    if opt_name == "adamw":
-        return adamw_update_err(torch, got, exp, g_got, g_exp, lr)
-    from repro_torch.models import params as PRM
-    return max(grad_rel_err((a,), (e.to(a.device),)) for (_, a), (_, e)
-               in zip(PRM.tree_items(got), PRM.tree_items(exp)))
+    ``opt_name`` over its leaf's largest param; each argument yields
+    (path, tensor) a leaf at a time (``whole_items``,
+    ``reference_updates``; the gradients are read for AdamW only).
+    AdamW's is taken beyond its own share of the gradients' difference,
+    the share that ``assert_adamw_updates`` of
+    tests/test_torch_sharded_steps.py states and allows; Adafactor's
+    plainly, its first step being linear in the gradient (no sign of it
+    taken)."""
+    import itertools
+    worst = 0.0
+    grads = zip(g_got, g_exp) if opt_name == "adamw" \
+        else itertools.repeat(None)
+    for (_, a), (_, e), gs in zip(got, exp, grads):
+        e = e.to(a.device)
+        scale = e.abs().max().clamp(min=1e-30)
+        if gs is None:
+            worst = max(worst, float(((a - e).abs() / scale).max()))
+            continue
+        g1, g2 = (g.to(a.device) for _, g in gs)
+        same = torch.sign(g1) == torch.sign(g2)
+        moved = torch.where(same, (g1 - g2).abs() * eps / (
+            (g1.abs() + eps) * (g2.abs() + eps)), 2.0)
+        rest = ((a - e).abs() - lr * moved * (1 + 1e-3)).clamp(min=0)
+        worst = max(worst, float((rest / scale).max()))
+    return worst
 
 
 def _time_steps(torch, fn, n: int) -> list:
@@ -5195,11 +5268,14 @@ def _counted(counters) -> dict:
     return {name: c.count for name, c in counters.items()}
 
 
-def sharded_train_check(torch, dev, cfg, card: str) -> dict:
-    """Phases 12a (at SHARD_CMP_LAYERS), 12b, 12d, 12e and 12f: one
-    training step of ``cfg`` with its own optimizer on a SHARD_MESH mesh
-    of this card against the unsharded step, from the same params (seed
-    0) and batch, the routing held alike (``Routing.replay``): the loss
+def sharded_train_check(torch, dev, cfg, card: str,
+                        lr: float = LM_LR) -> dict:
+    """Phases 12a (at SHARD_CMP_LAYERS), 12b, 12d-12f, 12h and 12i: one
+    training step of ``cfg`` with its own optimizer at ``lr`` on a
+    SHARD_MESH mesh of this card against the unsharded step, from the
+    same params (seed 0) and batch (``lm_batch``: whisper's frames and
+    internvl2's patches too), the routing held alike
+    (``Routing.replay``): the loss
     within 1e-5 relative, every gradient (``capture_optimizer``) within
     1e-4 of its leaf's largest, every updated param within 1e-4 of its
     leaf's largest (``update_err``: beyond AdamW's own share of the
@@ -5207,10 +5283,14 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
     launches exact at ``sharded_launches_per_step``; then step ms of
     both (SHARD_TIMED steps after one warm-up, each on its own params),
     peak memory and a profiled sharded step's busy share. The unsharded
-    side's gradients and updated params wait on the card where they
+    side's gradients wait on the card where four trees of their size
     take at most SHARD_REF_ON_CARD_SHARE of it, else on the host, and
-    come back a leaf at a time to be compared; ``stage_seconds`` say
-    where the check's time goes."""
+    come back a leaf at a time to be compared; its updated params are
+    made a leaf at a time from the params drawn again
+    (``reference_updates``), and the second sharded run is held to the
+    first a leaf at a time (``capture_optimizer(against=...)``), so no
+    whole reference tree but the gradients is kept; ``stage_seconds``
+    say where the check's time goes."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import params as PRM
     from repro_torch.models import transformer as T
@@ -5236,7 +5316,7 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
     params = draw()
     opt = O.make_optimizer(cfg.optimizer)
     state = opt.init(params)
-    step_u = ST.make_train_step(cfg, opt, lr=LM_LR,
+    step_u = ST.make_train_step(cfg, opt, lr=lr,
                                 compute_dtype=torch.float32)
     torch.cuda.reset_peak_memory_stats()
     times = _time_steps(torch, lambda: step_u(params, state, batch),
@@ -5253,19 +5333,16 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
     with routing.record():
         loss_u, _, g_u = ST.loss_and_grads(cfg, params, batch,
                                            torch.float32)
-    p_u = PRM.tree_map(torch.clone, params)
-    with torch.no_grad():
-        opt.update(g_u, opt.init(p_u), p_u, LM_LR)
     ref_bytes = sum(t.numel() * t.element_size()
-                    for t in PRM.tree_leaves(g_u) + PRM.tree_leaves(p_u))
-    # the unsharded gradients and updated params wait on the card where
-    # they take little of it, else on the host (a copy there runs at a
-    # few GB/s)
-    on_card = ref_bytes <= SHARD_REF_ON_CARD_SHARE \
+                    for t in PRM.tree_leaves(g_u))
+    # a copy to the host ran at ~2 GB/s beside the H100 (PERF.md): the
+    # reference waits there only where it does not fit on the card
+    on_card = 4 * ref_bytes <= SHARD_REF_ON_CARD_SHARE \
         * torch.cuda.get_device_properties(dev).total_memory
     if not on_card:
-        g_u, p_u = to_host(torch, g_u), to_host(torch, p_u)
+        g_u = to_host(torch, g_u)
     out["unsharded_reference_on_card"] = on_card
+    out["unsharded_reference_gb"] = ref_bytes / 1e9
     stage("unsharded_compared")
     rules = MeshRules(repeated_mesh(dev, SHARD_MESH, ("data", "model")))
     placed = ST.place_params(cfg, params, rules)
@@ -5281,26 +5358,13 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
         _, _, m_s = step_c(placed, {}, batch)
     launches = _counted(counters)
     want = sharded_launches_per_step(cfg, SHARD_MESH)
+    g_s = grads.pop()
+    cap, same = capture_optimizer(against=g_s)
     with routing.replay():
-        step_c(placed, {}, batch)
-    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
-        PRM.tree_items(grads[0]), PRM.tree_items(grads[1])))
-    g_s = grads[0]
-    del grads[:]
-    gc.collect()
-    stage("sharded_captured_twice")
-    step_s = ST.make_train_step(cfg, opt, lr=LM_LR, rules=rules,
-                                compute_dtype=torch.float32)
-    state = opt.init(placed)
-    with routing.replay():
-        placed, state, _ = step_s(placed, state, batch)
-    # the slots make room for the comparison (a reference may sit on
-    # the card) and are drawn again for the timed steps, whose work does
-    # not depend on their values
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    p_s = PRM.whole_tree(placed)
+        ST.make_train_step(cfg, cap, lr=0.0, rules=rules,
+                           compute_dtype=torch.float32)(placed, {}, batch)
+    same = same[0]
+    del cap
     loss_err = abs(m_s["total_loss"].item() - loss_u.item()) \
         / abs(loss_u.item())
     grad_err, grad_leaf = 0.0, None
@@ -5308,7 +5372,27 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
         err = grad_rel_err((a,), (b.to(a.device),))
         if err > grad_err:
             grad_err, grad_leaf = err, "/".join(path)
-    upd_err = update_err(torch, opt.name, p_s, p_u, g_s, g_u, LM_LR)
+    if opt.name != "adamw":
+        # only AdamW's update check reads the gradients again
+        g_s = None
+    gc.collect()
+    stage("sharded_captured_twice")
+    step_s = ST.make_train_step(cfg, opt, lr=lr, rules=rules,
+                                compute_dtype=torch.float32)
+    state = opt.init(placed)
+    with routing.replay():
+        placed, state, _ = step_s(placed, state, batch)
+    # the slots make room for the comparison and are drawn again for
+    # the timed steps, whose work does not depend on their values
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        upd_err = update_err(
+            torch, opt.name, whole_items(placed),
+            reference_updates(opt, draw(), g_u, lr),
+            None if g_s is None else whole_items(g_s), whole_items(g_u),
+            lr)
     stage("sharded_updated_and_compared")
     out.update({"loss_unsharded": loss_u.item(),
                 "loss_sharded": m_s["total_loss"].item(),
@@ -5318,7 +5402,7 @@ def sharded_train_check(torch, dev, cfg, card: str) -> dict:
                 "routing_flips_replayed": routing.flips,
                 "two_runs_same_bits": same, "launches": launches,
                 "launches_expected": want, "fallbacks": rules.fallbacks})
-    del g_s, g_u, p_s, p_u
+    del g_s, g_u
     gc.collect()
     torch.cuda.empty_cache()
     state = opt.init(placed)
@@ -5418,9 +5502,11 @@ def sharded_train_alone(torch, dev, cfg, card: str) -> dict:
 def sharded_prefill_check(torch, dev, cfg, card: str, mesh,
                           fallback: str | None = None,
                           float64_reference: bool = False) -> dict:
-    """Phases 12c and 12g: ``make_prefill_step`` of ``cfg`` on a
+    """Phases 12c, 12g and 12j: ``make_prefill_step`` of ``cfg`` on a
     ``mesh`` (data, model) of this card against the unsharded step on
-    the same params (seed 0) and (4, 512) tokens: the last position's
+    the same params (seed 0) and batch (``lm_batch`` without its labels:
+    (4, 512) tokens, whisper's (4, 448) with their frames, internvl2's
+    behind their patches): the last position's
     logits within 1e-5 of their largest, two sharded runs the same to
     the bit, launches exact, the rules' fallbacks (one naming
     ``fallback`` where it is given); prefill ms of both (median of
@@ -5431,13 +5517,11 @@ def sharded_prefill_check(torch, dev, cfg, card: str, mesh,
     1e-5 of the largest logit (rwkv6-7b's at 16 layers), a sharded step
     as accurate as it cannot be held to it within 1e-5; both f32 steps'
     distances to it, and to each other, are logged."""
-    from repro_torch.data.synthetic import make_lm_batches
     from repro_torch.launch import steps as ST
     from repro_torch.sharding.rules import MeshRules
     params = draw_params(torch, dev, cfg)
-    tokens = torch.as_tensor(next(make_lm_batches(
-        cfg.vocab, LM_BATCH, LM_SEQ, 1, seed=0))["tokens"], device=dev)
-    batch = {"tokens": tokens}
+    batch = {k: v for k, v in lm_batch(torch, dev, cfg, seed=0).items()
+             if k != "labels"}
     step_u = ST.make_prefill_step(cfg, None, torch.float32)
     exp = step_u(params, batch)
     t_u = _time_steps(torch, lambda: step_u(params, batch), SHARD_TIMED)
@@ -5473,7 +5557,7 @@ def sharded_prefill_check(torch, dev, cfg, card: str, mesh,
     t_s = _time_steps(torch, lambda: step_s(placed, batch), SHARD_TIMED)
     want = sharded_launches_per_step(cfg, mesh, train=False)
     out = {"layers": cfg.n_layers, "mesh": list(mesh),
-           "shape": [LM_BATCH, LM_SEQ], "logits_rel_err": err,
+           "shape": list(train_text_shape(cfg)), "logits_rel_err": err,
            "reference": "unsharded, float64, plain versions"
            if float64_reference else "unsharded, float32, kernels",
            "two_runs_same_bits": torch.equal(got, again),
@@ -5627,6 +5711,82 @@ def mixer_shards(torch, dev, card: str) -> dict:
     return out
 
 
+def enc_vlm_shard_config():
+    """internvl2-76b at full width, cut in depth 80 ->
+    SHARD_INTERNVL_LAYERS: its one layer, the untied embed and head;
+    its Adafactor and remat policy."""
+    cfg = dataclasses.replace(internvl_train_config(),
+                              n_layers=SHARD_INTERNVL_LAYERS)
+    assert (cfg.optimizer, cfg.remat_policy, cfg.n_repeats) == \
+        ("adafactor", "minimal", SHARD_INTERNVL_LAYERS)
+    return cfg
+
+
+def enc_vlm_shard_shapes(whisper, internvl) -> dict:
+    """name -> (q, k/v, causal) of the attention kernel's calls in a
+    row's and model position's share of a SHARD_MESH training step:
+    whisper's (4, 448) tokens and 1,500 frames, internvl2's 256 patches
+    before (4, 512) tokens; the batch over data, the heads (whisper's 20,
+    internvl2's 64 q and 8 KV heads) over model."""
+    rows, model = SHARD_MESH
+    b_w, s_w = train_text_shape(whisper)
+    b_w, h_w, n_f = b_w // rows, whisper.eff_heads // model, \
+        whisper.encoder.n_frames
+    dh = whisper.head_dim
+    b_i, s_i = train_text_shape(internvl)
+    b_i, s_i = b_i // rows, s_i + vision_prefix(internvl)
+    return {
+        "whisper_encoder": ((b_w, h_w, n_f, dh), (b_w, h_w, n_f, dh), False),
+        "whisper_decoder_self": ((b_w, h_w, s_w, dh), (b_w, h_w, s_w, dh),
+                                 True),
+        "whisper_cross": ((b_w, h_w, s_w, dh), (b_w, h_w, n_f, dh), False),
+        "internvl2": ((b_i, internvl.eff_heads // model, s_i,
+                       internvl.head_dim),
+                      (b_i, internvl.n_kv_heads // model, s_i,
+                       internvl.head_dim), True)}
+
+
+# the models of phases 12h-12j
+ENC_VLM_SHARD_TAGS = ("whisper", "internvl2")
+
+
+def enc_vlm_shards(torch, dev, card: str) -> dict:
+    """Phases 12h-12j: the attention kernel, forward and backward, at
+    whisper's and internvl2's shard shapes (``enc_vlm_shard_shapes``,
+    through ``path_kernels``), then whisper at WHISPER_CHECK_LAYERS +
+    WHISPER_CHECK_LAYERS layers (AdamW) and internvl2 at
+    SHARD_INTERNVL_LAYERS (Adafactor at INTERNVL_TRAIN_LR) trained on
+    SHARD_MESH against their unsharded steps (``sharded_train_check``),
+    and both models' prefill on SHARD_ENC_VLM_PREFILL_MESH
+    (``sharded_prefill_check``): whisper at full depth, its vocab
+    falling back on model 4, internvl2 at INTERNVL_TRAIN_LAYERS."""
+    _, whisper = whisper_train_configs()
+    internvl = enc_vlm_shard_config()
+    out = {"kernels": {}}
+    # the tensor-core kernels at 448-1,500 keys: fewer repetitions
+    timing = dict(reps=20, trials=5)
+    for i, (name, (qs, ks, causal)) in enumerate(
+            enc_vlm_shard_shapes(whisper, internvl).items()):
+        cfg = whisper if name.startswith("whisper") else internvl
+        out["kernels"][name] = path_kernels(
+            torch, dev, cfg, card, qs, ks, [], f"{name} shard", 69 + i,
+            att_timing=timing, causal=causal)
+    mark("phase 12h, 12i attention at the shard shapes")
+    out["whisper"] = sharded_train_check(torch, dev, whisper, card)
+    mark("phase 12h whisper")
+    out["internvl2"] = sharded_train_check(torch, dev, internvl, card,
+                                           INTERNVL_TRAIN_LR)
+    mark("phase 12i internvl2")
+    out["whisper_prefill"] = sharded_prefill_check(
+        torch, dev, whisper_config(), card, SHARD_ENC_VLM_PREFILL_MESH,
+        "vocab")
+    out["internvl2_prefill"] = sharded_prefill_check(
+        torch, dev, internvl_train_config(), card,
+        SHARD_ENC_VLM_PREFILL_MESH)
+    mark("phase 12j whisper and internvl2 prefill")
+    return out
+
+
 def sharded_steps_phase(torch, dev) -> tuple:
     """Phase 12: the zoo's train and prefill steps on meshes of more
     than one device, every position on this card (``cuda:0`` repeated:
@@ -5660,16 +5820,27 @@ def sharded_steps_phase(torch, dev) -> tuple:
         torch, dev, dataclasses.replace(granite,
                                         n_layers=SHARD_CMP_LAYERS), card)
     mark("phase 12a granite compared")
+    log(f"phase 12a: granite alone at {SHARD_ALONE_LAYERS} of "
+        f"{granite.n_layers} layers (16 before phases 12h-12j: cut to keep "
+        f"the script's time)")
     out["granite_full"] = sharded_train_alone(
         torch, dev, dataclasses.replace(granite,
                                         n_layers=SHARD_ALONE_LAYERS), card)
     mark(f"phase 12a granite at {SHARD_ALONE_LAYERS} layers")
-    out["h2o"] = sharded_train_check(torch, dev, h2o, card)
+    log(f"phase 12b: h2o-danube at {SHARD_H2O_LAYERS} of {h2o.n_layers} "
+        f"layers (all {h2o.n_layers} before phases 12h-12j: cut to keep "
+        f"the script's time)")
+    out["h2o"] = sharded_train_check(
+        torch, dev, dataclasses.replace(h2o, n_layers=SHARD_H2O_LAYERS),
+        card)
     mark("phase 12b h2o-danube")
     out["glm4"] = sharded_prefill_check(torch, dev, glm4, card,
                                         SHARD_GLM4_MESH, "kv_heads")
     mark("phase 12c glm4 prefill")
     out.update(mixer_shards(torch, dev, card))
+    ev = enc_vlm_shards(torch, dev, card)
+    out["kernels_enc_vlm"] = ev.pop("kernels")
+    out.update(ev)
     launches = {
         "sharded_granite_train": {k: v for k, v in out["granite_full"][
             "launches"].items() if v},
@@ -5682,7 +5853,12 @@ def sharded_steps_phase(torch, dev) -> tuple:
         **{f"sharded_{tag}_train": {k: v for k, v in out[tag][
             "launches"].items() if v} for tag in MIXER_SHARD_TAGS},
         "sharded_rwkv6_prefill": {k: v for k, v in out["rwkv6_prefill"][
-            "launches"].items() if v}}
+            "launches"].items() if v},
+        **{f"sharded_{tag}_train": {k: v for k, v in out[tag][
+            "launches"].items() if v} for tag in ENC_VLM_SHARD_TAGS},
+        **{f"sharded_{tag}_prefill": {k: v for k, v in out[
+            f"{tag}_prefill"]["launches"].items() if v}
+           for tag in ENC_VLM_SHARD_TAGS}}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"sharded steps phase: {out['seconds']:.1f} s; {card}")
     return launches, out
@@ -5841,9 +6017,10 @@ def main() -> int:
     shard_launches, shard = sharding_phase(torch, dev)
     mark('sharding')
     # the zoo's train and prefill steps on meshes of more than one
-    # device: granite, h2o-danube, rwkv6-7b, the jamba cut and deepseek
-    # trained on data 2 x model 2, glm4's and rwkv6-7b's prefill on 1 x
-    # 4, every mesh position on this card
+    # device: granite, h2o-danube, rwkv6-7b, the jamba cut, deepseek,
+    # whisper and internvl2 trained on data 2 x model 2, glm4's,
+    # rwkv6-7b's, whisper's and internvl2's prefill on 1 x 4, every mesh
+    # position on this card
     steps_launches, steps = sharded_steps_phase(torch, dev)
     mark('sharded train and prefill steps')
 
@@ -5870,7 +6047,9 @@ def main() -> int:
     errs["flash_attention_bwd"] = max(
         *lm["attention_grad_errs"].values(),
         train["attention_backward"]["max_abs_err"],
-        *(t["max_abs_err"] for t in ev["attention_bwd"].values()))
+        *(t["max_abs_err"] for t in ev["attention_bwd"].values()),
+        *(t["attention_bwd"]["max_abs_err"]
+          for t in steps["kernels_enc_vlm"].values()))
     for name in ("rwkv6_wkv", "selective_scan"):
         errs[f"{name}_bwd"] = rec["grad"][name]["max_abs_err"]
     extra = {
@@ -5913,7 +6092,12 @@ def main() -> int:
             # MLA's share on data 2 x model 2: 8 heads at head dim 192,
             # v of 128 padded (SIMT)
             "sharded_deepseek_train": steps["kernels_deepseek"][
-                "attention"]},
+                "attention"],
+            # a row's and model position's share on data 2 x model 2 of
+            # whisper's encoder, decoder self- and cross-attention (10
+            # heads) and of internvl2's GQA (32 q heads on 4 KV heads)
+            **{f"sharded_{name}_train": t["attention"]
+               for name, t in steps["kernels_enc_vlm"].items()}},
         # the grouped matmul's at each of its four shapes of each MoE
         # model; the top-level times are those of granite's prefill
         # gate/up
@@ -5964,6 +6148,8 @@ def main() -> int:
             # MLA's share at head dim 192: the f32-FMA route
             "sharded_deepseek_train": steps["kernels_deepseek"][
                 "attention_bwd"],
+            **{f"sharded_{name}_train": t["attention_bwd"]
+               for name, t in steps["kernels_enc_vlm"].items()},
             # whisper's encoder, decoder self- and cross-attention and
             # internvl2's GQA at their training shapes
             **ev["attention_bwd"],
@@ -6042,7 +6228,7 @@ def main() -> int:
         f"({SHARD_ALONE_LAYERS} "
         f"layers; {steps['granite']['sharded_step_ms']:.1f} against "
         f"{steps['granite']['unsharded_step_ms']:.1f} unsharded at "
-        f"{SHARD_CMP_LAYERS}), h2o-danube "
+        f"{SHARD_CMP_LAYERS}), h2o-danube ({SHARD_H2O_LAYERS} layers) "
         f"{steps['h2o']['sharded_step_ms']:.1f} against "
         f"{steps['h2o']['unsharded_step_ms']:.1f}; glm4 prefill on 1 x 4 "
         f"{steps['glm4']['sharded_prefill_ms']:.1f} against "
@@ -6057,7 +6243,18 @@ def main() -> int:
         f"{steps['deepseek']['unsharded_step_ms']:.1f}; rwkv6-7b prefill on "
         f"1 x 4 {steps['rwkv6_prefill']['sharded_prefill_ms']:.1f} against "
         f"{steps['rwkv6_prefill']['unsharded_prefill_ms']:.1f} ms "
-        f"({SHARD_RWKV_PREFILL_LAYERS} layers); build "
+        f"({SHARD_RWKV_PREFILL_LAYERS} layers); whisper "
+        f"({WHISPER_CHECK_LAYERS} + {WHISPER_CHECK_LAYERS} layers) "
+        f"{steps['whisper']['sharded_step_ms']:.1f} against "
+        f"{steps['whisper']['unsharded_step_ms']:.1f}, internvl2 "
+        f"({SHARD_INTERNVL_LAYERS} layer) "
+        f"{steps['internvl2']['sharded_step_ms']:.1f} against "
+        f"{steps['internvl2']['unsharded_step_ms']:.1f}; prefill on 1 x 4 "
+        f"whisper {steps['whisper_prefill']['sharded_prefill_ms']:.1f} "
+        f"against {steps['whisper_prefill']['unsharded_prefill_ms']:.1f}, "
+        f"internvl2 ({INTERNVL_TRAIN_LAYERS} layers) "
+        f"{steps['internvl2_prefill']['sharded_prefill_ms']:.1f} against "
+        f"{steps['internvl2_prefill']['unsharded_prefill_ms']:.1f} ms; build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

@@ -455,13 +455,64 @@ class SocketCommunicator(_TcpCommunicator):
             self._write_frames(msg.recipient, prefix, raw)
 
 
+# the kernel's ephemeral range where /proc does not give it (Linux's
+# default)
+_EPHEMERAL_DEFAULT = (32768, 60999)
+_LOWEST_PORT = 1024
+# ports drawn from the OS's entropy: no state a fork would share
+_PORTS = random.SystemRandom()
+
+
+def ephemeral_range() -> Tuple[int, int]:
+    """The kernel's ephemeral port range (lowest, highest): where a bind
+    of port 0 and an outgoing connection take their local ports."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return _EPHEMERAL_DEFAULT
+
+
+def _bindable(port: int) -> bool:
+    s = socket.socket()
+    try:
+        s.bind(("127.0.0.1", port))
+        return True
+    except OSError:
+        return False
+    finally:
+        s.close()
+
+
 def local_addresses(world: Sequence[str], base_port: int = 0
                     ) -> Dict[str, Tuple[str, int]]:
-    """Allocate loopback addresses with OS-assigned free ports."""
+    """Loopback addresses, a distinct free port each. With ``base_port``
+    0 each port is drawn at random below the kernel's ephemeral range
+    and checked by a bind: a port-0 bind or an outgoing connection of
+    another process takes its port from that range, so between this
+    check and the communicator's own bind no such port can take it
+    (an OS-assigned port, released and bound again later, could be).
+    Otherwise each address gets ``base_port``, bound and released
+    first."""
     addrs: Dict[str, Tuple[str, int]] = {}
+    if base_port:
+        for w in world:
+            s = socket.socket()
+            s.bind(("127.0.0.1", base_port))
+            addrs[w] = ("127.0.0.1", s.getsockname()[1])
+            s.close()
+        return addrs
+    lo, _ = ephemeral_range()
+    if lo - _LOWEST_PORT < 2 * len(world):
+        raise RuntimeError(f"no room below the ephemeral ports ({lo}) "
+                           f"for {len(world)} loopback addresses")
+    taken: Set[int] = set()
     for w in world:
-        s = socket.socket()
-        s.bind(("127.0.0.1", base_port))
-        addrs[w] = ("127.0.0.1", s.getsockname()[1])
-        s.close()
+        while True:
+            port = _PORTS.randrange(_LOWEST_PORT, lo)
+            if port not in taken and _bindable(port):
+                break
+        taken.add(port)
+        addrs[w] = ("127.0.0.1", port)
     return addrs

@@ -13,7 +13,8 @@ and allocate nothing.
 rules (``rules``) the stand-ins come beside a tree like theirs of the
 ``PartitionSpec``s their logical axes resolve to, as the JAX package's
 carry a sharding; ``place_batch`` splits a real batch by those specs
-(``tokens``, ``labels`` and a ``loss_mask`` over ``pod x data``).
+(``tokens``, ``labels``, a ``loss_mask``, ``patches`` and ``frames``
+over ``pod x data``).
 """
 from __future__ import annotations
 
@@ -61,17 +62,21 @@ def batch_specs(cfg: ModelConfig, shape: InputShape, rules=None,
                    for k, (sh, _, ax) in items.items()}
 
 
-# the logical axes of each text batch key a sharded step splits
+# the logical axes of each batch key a sharded step splits, as
+# ``batch_specs`` gives them
 BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
-              "loss_mask": ("batch", "seq")}
+              "loss_mask": ("batch", "seq"),
+              "patches": ("batch", "seq", "embed"),
+              "frames": ("batch", "frames", "embed")}
 
 
 def place_batch(batch: Dict[str, Any], rules, specs=None
                 ) -> Dict[str, Parts]:
-    """A real text batch (tensors or arrays by key, ``BATCH_AXES``'s
-    keys) split over ``rules.mesh`` by ``specs`` (by key), else by the
-    specs its logical axes resolve to: the batch dim over ``pod x data``
-    where it divides."""
+    """A real batch (tensors or arrays by key, ``BATCH_AXES``'s keys:
+    the text, and a vision prefix's patches or an encoder's frames)
+    split over ``rules.mesh`` by ``specs`` (by key), else by the specs
+    its logical axes resolve to: the batch dim over ``pod x data`` where
+    it divides, so each row's patches or frames sit with its tokens."""
     batch = {k: torch.as_tensor(x) for k, x in batch.items()}
     if specs is None:
         specs = {k: rules.act_spec(BATCH_AXES[k], tuple(t.shape))

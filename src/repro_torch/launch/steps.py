@@ -14,19 +14,21 @@ optimizer slot to its ``PartitionSpec``. A decode step takes any mesh:
 under rules, ``cfg.decode_partial_softmax`` splits the KV cache's
 sequence over the mesh's ``model`` axis (``models/decode_sharded.py``).
 
-A train or prefill step on a mesh of more than one device runs the
-decoder-only families sharded (GQA attention, MLA, RWKV-6, Mamba and the
-hybrid, dense and MoE): ``place_params`` splits the params by their
+A train or prefill step on a mesh of more than one device runs every
+family sharded (GQA attention, MLA, RWKV-6, Mamba and the hybrid, dense
+and MoE; the encoder-decoder and the vision prefix, whose frames or
+patches are split with the tokens' rows): ``place_params`` splits the
+params by their
 resolved specs (``sharding.rules.Parts``; the optimizer's ``init`` of
 placed params places its slots alike, Adafactor's factored statistics
 by the specs their axes resolve to), the step splits the whole batch
 it is given over ``pod x data`` (``specs.place_batch``), and
 ``models/transformer.py``'s ``loss_fn_sharded`` / ``last_logits_sharded``
 combine the positions' shares with ``launch/mesh.py``'s collectives in
-axis order. Its values are those of the unsharded step. An encoder, a
-vision prefix and a sequence split (``act_rules["seq"]``, the dry-run's
-``seqshard``) still raise there, naming the ROADMAP item. On a
-one-device mesh a step gives the values of no mesh.
+axis order. Its values are those of the unsharded step. A sequence
+split (``act_rules["seq"]``, the dry-run's ``seqshard``) still raises
+there, naming the ROADMAP item. On a one-device mesh a step gives the
+values of no mesh.
 """
 from __future__ import annotations
 
@@ -51,29 +53,14 @@ def sharded(rules: Optional[MeshRules]) -> bool:
     return rules is not None and mesh_chips(rules.mesh) > 1
 
 
-def _unported(cfg: ModelConfig, rules: MeshRules) -> Optional[str]:
-    """What of ``cfg`` a sharded step does not run yet."""
-    for cond, what in (
-            (cfg.encoder is not None, "an encoder"),
-            (T.has_vision_prefix(cfg), "a vision prefix"),
-            (rules.act_rules.get("seq") is not None,
-             "a sequence split (act_rules['seq'])")):
-        if cond:
-            return what
-    return None
-
-
-def check_rules(cfg: ModelConfig, rules: Optional[MeshRules], what: str
-                ) -> None:
-    """Raise where ``rules``'s mesh has more than one device and ``cfg``
-    is of a family whose sharded step is not ported."""
-    if not sharded(rules):
-        return
-    why = _unported(cfg, rules)
-    if why is not None:
+def check_rules(rules: Optional[MeshRules], what: str) -> None:
+    """Raise where ``rules``'s mesh has more than one device and splits
+    the sequence (``act_rules["seq"]``), which a sharded step does not
+    run yet, whatever the family."""
+    if sharded(rules) and rules.act_rules.get("seq") is not None:
         raise NotImplementedError(
-            f"{what} of {why} on a mesh of {dict(rules.mesh.shape)} needs "
-            f"tensor- and data-parallel layers, not ported to repro_torch "
+            f"{what} with a sequence split (act_rules['seq']) on a mesh "
+            f"of {dict(rules.mesh.shape)} is not ported to repro_torch "
             f"yet: {SHARDED_STEPS}")
 
 
@@ -180,11 +167,10 @@ def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
     On a mesh of more than one device ``params`` and ``opt_state`` are
     placed (``place_params``; ``opt.init`` of placed params: SGD,
     AdamW or Adafactor) and ``batch`` is whole: each microbatch is the
-    unsharded step's, split over the rows, so accumulation gives the
-    unsharded step's values. A model with an encoder or a vision
-    prefix, or rules that split the sequence, raise there
-    (``check_rules``)."""
-    check_rules(cfg, rules, "a train step")
+    unsharded step's, split over the rows (frames and patches with
+    their tokens), so accumulation gives the unsharded step's values.
+    Rules that split the sequence raise there (``check_rules``)."""
+    check_rules(rules, "a train step")
     rows = _Rows(rules) if sharded(rules) else None
 
     def train_step(params, opt_state, batch
@@ -225,17 +211,18 @@ def make_prefill_step(cfg: ModelConfig, rules=None,
     before the decoder attends to them, or for a vision-prefix model
     ``batch["patches"]`` (b, num_tokens, d), prepended to the tokens;
     returns the last position's logits (b, vocab). On a mesh of more
-    than one device ``params`` are placed, the whole batch is split over
-    the rows, and the logits come back whole."""
-    check_rules(cfg, rules, "a prefill step")
+    than one device ``params`` are placed, the whole batch (frames and
+    patches with their tokens) is split over the rows, and the logits
+    come back whole."""
+    check_rules(rules, "a prefill step")
     rows = _Rows(rules) if sharded(rules) else None
 
     def prefill_step(params, batch) -> torch.Tensor:
         with torch.no_grad(), use_rules(rules):
             if rows is not None:
                 lay, by_row = rows(batch)
-                return T.last_logits_sharded(cfg, lay, params,
-                                             by_row["tokens"], compute_dtype)
+                return T.last_logits_sharded(cfg, lay, params, by_row,
+                                             compute_dtype)
             logits, _ = T.forward(cfg, params, batch, compute_dtype)
         # serving returns only the last-position logits
         return logits[:, -1, :]

@@ -26,6 +26,9 @@ position j projects its heads' columns of ``wq`` (and of ``wk`` /
 its rows of ``wo``; the partial outputs are summed at the row's home.
 Where the KV heads fall back to replication (glm4's 2 on a model axis
 of 4), position j passes the kernel only the KV heads its q heads use.
+``cross_attention_sharded`` splits whisper's cross-attention alike, k
+and v projected from each row's encoder output; both take each
+position's weights from ``_head_shares``.
 """
 from __future__ import annotations
 
@@ -175,33 +178,70 @@ def kv_heads_of(n_heads: int, n_kv: int, h_local: int, j: int):
     return lo, hi, torch.tensor(want)
 
 
+def _head_shares(cfg: ModelConfig, lay, params):
+    """(n, at): the model positions that share the layer's heads, and
+    ``at(r, j)``, the params position (r, j) computes with: its heads'
+    columns of ``wq`` (and of ``wk`` / ``wv`` over ``kv_heads``), its
+    rows of ``wo``, the qk-norm scales where the layer has them. Where
+    the KV heads fall back to replication, ``wk`` / ``wv`` hold only the
+    KV heads its q heads read (``kv_heads_of``)."""
+    n = lay.n_tp(params["wq"])
+    kv_split = n > 1 and lay.n_tp(params["wk"]) == n
+    h_l = cfg.eff_heads // n
+    w = {k: lay.weights(params[k], n) for k in ("wq", "wk", "wv", "wo")}
+    norms = {k: lay.weights(params[k]["scale"], n)
+             for k in ("q_norm", "k_norm") if k in params}
+
+    def at(r: int, j: int):
+        p = {k: v[j][r] for k, v in w.items()}
+        p.update({k: {"scale": v[j][r]} for k, v in norms.items()})
+        if n > 1 and not kv_split:
+            lo, hi, idx = kv_heads_of(cfg.eff_heads, cfg.n_kv_heads, h_l, j)
+            for k in ("wk", "wv"):
+                p[k] = p[k][:, lo:hi] if idx is None \
+                    else p[k][:, idx.to(p[k].device)]
+        return p
+    return n, at
+
+
 def self_attention_sharded(cfg: ModelConfig, lay, params, hs, positions,
                            causal: bool = True):
     """:func:`self_attention` of each row (``hs``, at the rows' homes)
     over ``heads`` split across ``model``; see the module's doc.
     ``positions`` is the list of the rows' (s,) positions."""
-    n = lay.n_tp(params["wq"])
-    kv_split = n > 1 and lay.n_tp(params["wk"]) == n
-    h_l = cfg.eff_heads // n
+    n, at = _head_shares(cfg, lay, params)
     window = cfg.window if cfg.attention == "swa" else 0
-    w = {k: lay.weights(params[k], n) for k in ("wq", "wk", "wv", "wo")}
-    norms = {k: lay.weights(params[k]["scale"], n)
-             for k in ("q_norm", "k_norm") if k in params}
     out = []
     for r, h in enumerate(hs):
         xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
         partial = []
         for j in range(n):
-            p = {k: v[j][r] for k, v in w.items()}
-            p.update({k: {"scale": v[j][r]} for k, v in norms.items()})
-            if n > 1 and not kv_split:
-                lo, hi, idx = kv_heads_of(cfg.eff_heads, cfg.n_kv_heads,
-                                          h_l, j)
-                for k in ("wk", "wv"):
-                    p[k] = p[k][:, lo:hi] if idx is None \
-                        else p[k][:, idx.to(p[k].device)]
+            p = at(r, j)
             q, k, v = _qkv(cfg, p, xs[j], positions[r].to(xs[j].device)[None])
             partial.append(_attend_out(p, q, k, v, causal, window))
+        out.append(M.psum(partial, lay.home(r)))
+    return out
+
+
+def cross_attention_sharded(cfg: ModelConfig, lay, params, hs, memory):
+    """:func:`cross_attention` of each row over ``heads`` split across
+    ``model``: position j projects q from the row's ``hs`` with its
+    heads' columns of ``wq`` and k, v from the row's ``memory`` (the
+    encoder's output, at the row's home) with its share of ``wk`` /
+    ``wv``, attends with the kernel, bidirectional, and multiplies by
+    its rows of ``wo``; the partial outputs are summed at the row's
+    home."""
+    n, at = _head_shares(cfg, lay, params)
+    out = []
+    for r, (h, mem) in enumerate(zip(hs, memory)):
+        devs = [lay.dev(r, j) for j in range(n)]
+        xs, ms = M.fan_out(h, devs), M.fan_out(mem, devs)
+        partial = []
+        for j in range(n):
+            p = at(r, j)
+            q = _proj(xs[j], p["wq"])
+            k, v = _proj(ms[j], p["wk"]), _proj(ms[j], p["wv"])
+            partial.append(_attend_out(p, q, k, v, False, 0))
         out.append(M.psum(partial, lay.home(r)))
     return out
 

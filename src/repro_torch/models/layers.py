@@ -191,6 +191,15 @@ def rmsnorm_sharded(lay, params, xs: Sequence[torch.Tensor], eps: float
     return [rmsnorm({"scale": s}, x, eps) for s, x in zip(scales, xs)]
 
 
+def layernorm_sharded(lay, params, xs: Sequence[torch.Tensor], eps: float
+                      ) -> List[torch.Tensor]:
+    """:func:`layernorm` of each row at its home, the scale and the bias
+    gathered there."""
+    scales, biases = (lay.weights(params[k], 1)[0] for k in ("scale", "bias"))
+    return [layernorm({"scale": s, "bias": b}, x, eps)
+            for s, b, x in zip(scales, biases, xs)]
+
+
 def gated_mlp_sharded(lay, params, hs: Sequence[torch.Tensor],
                       act: str = "silu") -> List[torch.Tensor]:
     """The gated MLP over ``mlp``'s split: model position j takes the
@@ -204,6 +213,26 @@ def gated_mlp_sharded(lay, params, hs: Sequence[torch.Tensor],
         out.append(M.psum([gated_mlp({k: v[j][r] for k, v in w.items()},
                                      xs[j], act) for j in range(n)],
                           lay.home(r)))
+    return out
+
+
+def mlp_sharded(lay, params, hs: Sequence[torch.Tensor], act: str = "gelu"
+                ) -> List[torch.Tensor]:
+    """The biased, non-gated MLP over ``mlp``'s split: model position j
+    takes the columns j of ``w_up``, the entries j of ``b_up`` and the
+    rows j of ``w_down``; the partial outputs are summed at each row's
+    home and ``b_down`` is added once, to the sum."""
+    n = lay.n_tp(params["w_up"])
+    w = {k: lay.weights(params[k], n) for k in ("w_up", "b_up", "w_down")}
+    b_down = lay.weights(params["b_down"], 1)[0]
+    out = []
+    for r, h in enumerate(hs):
+        xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
+        parts = []
+        for j in range(n):
+            u = xs[j] @ w["w_up"][j][r] + w["b_up"][j][r].to(h.dtype)
+            parts.append(_act(act)(u) @ w["w_down"][j][r])
+        out.append(M.psum(parts, lay.home(r)) + b_down[r].to(h.dtype))
     return out
 
 

@@ -40,15 +40,20 @@ cache's sequence over the ``model`` axis
 (``models/decode_sharded.py``).
 
 On a mesh of more than one device, ``loss_fn_sharded`` and
-``last_logits_sharded`` run the decoder-only families (GQA attention,
-MLA, RWKV-6 and Mamba mixers, the gated MLP and MoE, under rmsnorm)
-with placed params (``sharding.rules.Parts``) and the batch split into rows
-(``sharding.rules.Layout``; ``models/layers.py``'s ``*_sharded``
-conventions), with the values of ``loss_fn`` and ``forward``. A
-repeat's FSDP gathers run inside the unit ``_maybe_remat`` wraps, so
-under remat the gathered weights are recomputed in the backward and
-are not kept across the step. The loss's mask denominator, its metrics
-and the router losses are sums over every row.
+``last_logits_sharded`` run every family (GQA attention, MLA, RWKV-6
+and Mamba mixers, the gated MLP and MoE, under rmsnorm; the
+encoder-decoder's layernorm, biased MLP, encoder and cross-attention;
+the vision prefix) with placed params (``sharding.rules.Parts``) and
+the batch split into rows (``sharding.rules.Layout``;
+``models/layers.py``'s ``*_sharded`` conventions), with the values of
+``loss_fn`` and ``forward``. Each row's frames or patches travel with
+its tokens: ``encode_sharded`` turns the rows' frames into the rows'
+memory, and a row's patches are prepended to its embedded tokens and
+masked out of its labels. A repeat's FSDP gathers run inside the unit
+``_maybe_remat`` wraps, so under remat the gathered weights are
+recomputed in the backward and are not kept across the step. The
+loss's mask denominator, its metrics and the router losses are sums
+over every row.
 """
 from __future__ import annotations
 
@@ -270,9 +275,27 @@ def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _norm_sharded(cfg: ModelConfig, lay, p, xs) -> List[torch.Tensor]:
+    fn = layers.layernorm_sharded if _is_ln(cfg) else layers.rmsnorm_sharded
+    return fn(lay, p, xs, cfg.norm_eps)
+
+
+def _cross_sharded(cfg: ModelConfig, lay, p, xs, memory
+                   ) -> List[torch.Tensor]:
+    """:func:`_cross` of the rows: the cross-attention residual, where
+    the block has one."""
+    if memory is None or "cross" not in p:
+        return xs
+    hs = attention.cross_attention_sharded(
+        cfg, lay, p["cross"], _norm_sharded(cfg, lay, p["norm_x"], xs),
+        memory)
+    return [x + h for x, h in zip(xs, hs)]
+
+
 def _apply_block_sharded(cfg: ModelConfig, lay, mixer: str, ffn: str, p, xs,
-                         positions) -> Tuple[List[torch.Tensor], Dict]:
-    hs = layers.rmsnorm_sharded(lay, p["norm1"], xs, cfg.norm_eps)
+                         positions, memory=None
+                         ) -> Tuple[List[torch.Tensor], Dict]:
+    hs = _norm_sharded(cfg, lay, p["norm1"], xs)
     if _mla(cfg, mixer):
         hs = mla.mla_self_attention_sharded(cfg, lay, p["mixer"], hs,
                                             positions)
@@ -283,31 +306,46 @@ def _apply_block_sharded(cfg: ModelConfig, lay, mixer: str, ffn: str, p, xs,
         hs = mamba.mamba_mixer_sharded(cfg, lay, p["mixer"], hs)
     else:
         hs = rwkv.rwkv_mixer_sharded(cfg, lay, p["mixer"], hs)
-    xs = [x + h for x, h in zip(xs, hs)]
-    hs = layers.rmsnorm_sharded(lay, p["norm2"], xs, cfg.norm_eps)
+    xs = _cross_sharded(cfg, lay, p, [x + h for x, h in zip(xs, hs)], memory)
+    hs = _norm_sharded(cfg, lay, p["norm2"], xs)
     if ffn == "moe":
         hs, aux = moe.moe_ffn_sharded(cfg, lay, p["ffn"], hs, cfg.act)
+    elif _is_ln(cfg):
+        hs, aux = layers.mlp_sharded(lay, p["ffn"], hs, cfg.act), {}
     else:
         hs, aux = layers.gated_mlp_sharded(lay, p["ffn"], hs, cfg.act), {}
     return [x + h for x, h in zip(xs, hs)], aux
 
 
-def _stack_forward_sharded(cfg: ModelConfig, lay, params, xs, positions
-                           ) -> Tuple[List[torch.Tensor], Dict]:
+def _stack_forward_sharded(cfg: ModelConfig, lay, params, xs, positions,
+                           memory=None) -> Tuple[List[torch.Tensor], Dict]:
     """:func:`_stack` of the rows ``xs``: every row goes through a
-    repeat together (the MoE dispatch spans the rows)."""
+    repeat together (the MoE dispatch spans the rows); each block
+    attends to the rows' ``memory`` where it is given."""
     return _stack(cfg, params, xs, lambda mixer, ffn, p, xs:
                   _apply_block_sharded(cfg, lay, mixer, ffn, p, xs,
-                                       positions), lay.home(0))
+                                       positions, memory), lay.home(0))
 
 
-def _hidden_sharded(cfg: ModelConfig, lay, params, tokens, dtype):
-    """The rows' final-normed hidden states and the router losses."""
-    xs = layers.embed_sharded(lay, params["embed"], tokens, dtype)
+def _hidden_sharded(cfg: ModelConfig, lay, params,
+                    batch: Dict[str, List[torch.Tensor]], dtype):
+    """:func:`forward` up to the head on the rows of ``batch``: the
+    rows' final-normed hidden states and the router losses."""
+    xs = layers.embed_sharded(lay, params["embed"], batch["tokens"], dtype)
+    if has_vision_prefix(cfg):
+        xs = [torch.cat([pt.to(x.device, dtype), x], dim=1)
+              for pt, x in zip(batch["patches"], xs)]
     positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
-    xs, aux = _stack_forward_sharded(cfg, lay, params, xs, positions)
-    return layers.rmsnorm_sharded(lay, params["final_norm"], xs,
-                                  cfg.norm_eps), aux
+    if _is_ln(cfg):       # whisper's decoder: sinusoidal positions
+        xs = [x + _sinusoidal(x.shape[1], cfg.d_model,
+                              x.device).to(dtype)[None] for x in xs]
+    memory = None
+    if cfg.encoder is not None:
+        memory = encode_sharded(cfg, lay, params,
+                                [f.to(dtype) for f in batch["frames"]])
+    xs, aux = _stack_forward_sharded(cfg, lay, params, xs, positions,
+                                     memory)
+    return _norm_sharded(cfg, lay, params["final_norm"], xs), aux
 
 
 def _head_sharded(cfg: ModelConfig, lay, params, xs):
@@ -316,27 +354,47 @@ def _head_sharded(cfg: ModelConfig, lay, params, xs):
     return layers.head_sharded(lay, params["lm_head"]["w"], xs, False)
 
 
+def _prefix_labels(cfg: ModelConfig, labels, mask):
+    """``labels`` (b, s_text) and the loss mask (None for none) of a
+    batch, or of a row, as the loss takes them: a vision prefix's
+    ``num_tokens`` positions padded in front and masked out, as the JAX
+    package's ``loss_fn`` pads and masks them."""
+    if not has_vision_prefix(cfg):
+        return labels, mask
+    n = cfg.frontend.num_tokens
+    labels = F.pad(labels, (n, 0))
+    pm = (torch.arange(labels.shape[1], device=labels.device) >= n
+          ).float().expand(labels.shape)
+    return labels, pm if mask is None else mask * pm
+
+
 def loss_fn_sharded(cfg: ModelConfig, lay, params,
                     batch: Dict[str, List[torch.Tensor]],
                     dtype: torch.dtype = torch.bfloat16
                     ) -> Tuple[torch.Tensor, Dict]:
     """:func:`loss_fn` on a mesh: ``batch`` maps each key to its rows
-    (``tokens``, ``labels`` and an optional ``loss_mask``)."""
-    xs, aux = _hidden_sharded(cfg, lay, params, batch["tokens"], dtype)
+    (``tokens``, ``labels``, an optional ``loss_mask``, and ``frames``
+    or ``patches`` where the model takes them)."""
+    xs, aux = _hidden_sharded(cfg, lay, params, batch, dtype)
+    masks = batch.get("loss_mask") or [None] * len(xs)
+    labels, masks = zip(*(_prefix_labels(cfg, lab, m) for lab, m in
+                          zip(batch["labels"], masks)))
     loss, metrics = layers.softmax_xent_sharded(
-        lay, _head_sharded(cfg, lay, params, xs), batch["labels"],
-        batch.get("loss_mask"))
+        lay, _head_sharded(cfg, lay, params, xs), labels,
+        None if masks[0] is None else masks)
     return _with_router_losses(cfg, loss, metrics, aux)
 
 
 def last_logits_sharded(cfg: ModelConfig, lay, params,
-                        tokens: List[torch.Tensor],
+                        batch: Dict[str, List[torch.Tensor]],
                         dtype: torch.dtype = torch.bfloat16
                         ) -> torch.Tensor:
     """The last position's logits (b, vocab) of :func:`forward` on a
     mesh, whole on the first row's home: each row's vocab parts
-    gathered, the rows concatenated in order."""
-    xs, _ = _hidden_sharded(cfg, lay, params, tokens, dtype)
+    gathered, the rows concatenated in order. ``batch`` maps each key to
+    its rows (``tokens``, and ``frames`` or ``patches`` where the model
+    takes them)."""
+    xs, _ = _hidden_sharded(cfg, lay, params, batch, dtype)
     logits = _head_sharded(cfg, lay, params, [x[:, -1] for x in xs])
     return M.all_gather([M.all_gather(parts, -1, lay.home(0))
                          for parts in logits], 0, lay.home(0))
@@ -374,6 +432,28 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
         x = x + attention.self_attention(cfg, p["mixer"], h, causal=False)
         x = x + layers.mlp(p["ffn"], _norm(cfg, p["norm2"], x), cfg.act)
     return _norm(cfg, enc["final_norm"], x)
+
+
+def encode_sharded(cfg: ModelConfig, lay, params,
+                   frames: List[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`encode` of the rows' frames (each at its row's home): each
+    encoder block's attention over ``heads`` split across ``model``
+    (bidirectional) and its MLP over ``mlp``, as the decoder's; the rows'
+    ``memory``. No remat wraps a block, as :func:`encode` wraps none."""
+    xs = [f + _sinusoidal(f.shape[1], cfg.d_model,
+                          f.device).to(f.dtype)[None] for f in frames]
+    positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
+    enc = params["encoder"]
+    for p in P.unstack(enc["blocks"], cfg.encoder.n_layers):
+        hs = attention.self_attention_sharded(
+            cfg, lay, p["mixer"], _norm_sharded(cfg, lay, p["norm1"], xs),
+            positions, causal=False)
+        xs = [x + h for x, h in zip(xs, hs)]
+        hs = layers.mlp_sharded(lay, p["ffn"],
+                                _norm_sharded(cfg, lay, p["norm2"], xs),
+                                cfg.act)
+        xs = [x + h for x, h in zip(xs, hs)]
+    return _norm_sharded(cfg, lay, enc["final_norm"], xs)
 
 
 # ---------------------------------------------------------------------------
@@ -415,13 +495,8 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     front with ``num_tokens`` zeros and the prefix is masked out of
     ``loss_mask``, as in the JAX package."""
     logits, aux = forward(cfg, params, batch, dtype)
-    labels, mask = batch["labels"], batch.get("loss_mask")
-    if has_vision_prefix(cfg):
-        n = cfg.frontend.num_tokens
-        labels = F.pad(labels, (n, 0))
-        pm = (torch.arange(labels.shape[1], device=labels.device) >= n
-              ).float().expand(labels.shape)
-        mask = pm if mask is None else mask * pm
+    labels, mask = _prefix_labels(cfg, batch["labels"],
+                                  batch.get("loss_mask"))
     loss, metrics = layers.softmax_xent(logits, labels, mask)
     return _with_router_losses(cfg, loss, metrics, aux)
 

@@ -301,13 +301,33 @@ def test_train_cli_on_cpu(tmp_path):
 
 
 def test_mesh_rules_raise():
-    """Train and prefill steps of an encoder-decoder (whisper) on a mesh
-    of more than one device, and an Adafactor train step of a vision
-    prefix (internvl2) there, raise naming the ROADMAP item; a decode
-    step takes any mesh."""
+    """On a mesh of more than one device the train and prefill steps of
+    an encoder-decoder (whisper, AdamW) and the Adafactor train step of
+    a vision prefix (internvl2) build and take a step; with a sequence
+    split (``act_rules["seq"]``) they raise naming the ROADMAP item. A
+    decode step takes any mesh."""
     cfg = get_config("whisper-large-v3").reduced()
     vlm = get_config("internvl2-76b").reduced()
     rules = MeshRules(make_local_mesh(1, 2, devices=["cpu"] * 2))
+    rng = np.random.default_rng(0)
+    for c, opt, stub, n in ((cfg, tO.adamw(), "frames",
+                             cfg.encoder.n_frames),
+                            (vlm, tO.adafactor(), "patches",
+                             vlm.frontend.num_tokens)):
+        batch = _torch_batch(dict(_batch(c, b=2, s=8), **{stub: (
+            rng.standard_normal((2, n, c.d_model)) * 0.02).astype(
+                np.float32)}))
+        params = tST.place_params(c, tP.init_tree(
+            tT.model_spec(c), torch.Generator().manual_seed(0),
+            torch.float32, "cpu"), rules)
+        step = tST.make_train_step(c, opt, rules=rules,
+                                   compute_dtype=torch.float32)
+        _, _, metrics = step(params, opt.init(params), batch)
+        assert np.isfinite(float(metrics["loss"]))
+        logits = tST.make_prefill_step(c, rules, torch.float32)(
+            params, {k: v for k, v in batch.items() if k != "labels"})
+        assert logits.shape == (2, c.vocab)
+    rules.act_rules["seq"] = ("model",)
     for make in (lambda: tST.make_train_step(cfg, tO.adamw(), rules=rules),
                  lambda: tST.make_prefill_step(cfg, rules=rules),
                  lambda: tST.make_train_step(vlm, tO.adafactor(),

@@ -39,8 +39,14 @@ JAX package's.
   ``w_in`` alone is split); Mamba's ``w_in`` gradient in its columns
   through the column map; Adafactor's placed slots by the specs
   ``opt_state_specs`` resolves.
-* An encoder, a vision prefix and a sequence split raise naming ROADMAP
-  Queue 1 item 10b; decode takes any mesh.
+* The encoder-decoder and the vision prefix (item 10b's third part):
+  reduced whisper-large-v3 (AdamW; its 2 KV heads fall back on model
+  4) and internvl2-76b (Adafactor) on (2, 2), (1, 4), (4, 1) and (2,
+  1, 2), accum_steps 1 and 2, their frames or patches drawn with the
+  batch, held as the mixer families are; the biased MLP's output bias
+  added once over a model axis of 2 and 4.
+* A sequence split raises naming ROADMAP Queue 1 item 10b, for every
+  family; decode takes any mesh.
 * Remat ``minimal``: the backward recomputes no matmul without batch
   dims (the attention projections included).
 * Checkpoints: a sharded ``train()`` saves whole arrays that restore
@@ -104,8 +110,31 @@ def _np_params(cfg, seed=0):
 
 
 def _batch(cfg, b, s=16, seed=0):
-    return {k: torch.as_tensor(v) for k, v in
-            next(make_lm_batches(cfg.vocab, b, s, 1, seed=seed)).items()}
+    """Tokens and labels (b, s), and the frames (b, n_frames, d) or the
+    patches (b, num_tokens, d) an encoder or a vision prefix takes,
+    normal x 0.02 from a numpy generator of the seed (as
+    ``chip_smoke.py``'s ``train_batches`` draws them)."""
+    batch = next(make_lm_batches(cfg.vocab, b, s, 1, seed=seed))
+    rng = np.random.default_rng(seed)
+    for key, n in _stubs(cfg).items():
+        batch[key] = rng.standard_normal((b, n, cfg.d_model),
+                                         dtype=np.float32) * 0.02
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def _stubs(cfg):
+    """The stub inputs a model takes beside its tokens, by key, and
+    their length a row."""
+    if cfg.encoder is not None:
+        return {"frames": cfg.encoder.n_frames}
+    if tT.has_vision_prefix(cfg):
+        return {"patches": cfg.frontend.num_tokens}
+    return {}
+
+
+def _inputs(batch):
+    """A prefill step's batch: every key of ``batch`` but the labels."""
+    return {k: v for k, v in batch.items() if k != "labels"}
 
 
 def _rel(a, b):
@@ -160,12 +189,14 @@ def _port_step(cfg, np_params, batch, rules, accum, inner=None):
     return _port_steps(cfg, np_params, batch, rules, accum, inner)[0][:3]
 
 
-def _prefill(cfg, np_params, tokens, rules):
+def _prefill(cfg, np_params, tokens, rules, **stubs):
+    """``make_prefill_step``'s last logits of ``tokens`` and the frames
+    or patches in ``stubs``."""
     params = tP.from_numpy(np_params, "cpu")
     if tST.sharded(rules):
         params = tST.place_params(cfg, params, rules)
     return tST.make_prefill_step(cfg, rules, torch.float32)(
-        params, {"tokens": tokens})
+        params, {"tokens": tokens, **stubs})
 
 
 # the JAX package's step hands its optimizer the gradients; this one
@@ -194,7 +225,7 @@ def _jax_ref(arch, changes, b, seed, accum):
                                     accum_steps=accum)
         prefill = jST.make_prefill_step(jcfg, compute_dtype=jnp.float32)
         both = jax.jit(lambda p, bt: (train(p, {}, bt), prefill(
-            p, {"tokens": bt["tokens"]})))
+            p, _inputs(bt))))
         batch = _batch(cfg, b, seed=seed)
         (grads, _, metrics), logits = both(
             jax.tree.map(jnp.asarray, _np_params(cfg, seed)),
@@ -411,14 +442,15 @@ def test_attention_over_kv_heads_that_fall_back(heads, kv, model):
 @pytest.mark.parametrize("arch,changes", [
     ("deepseek-v2-lite-16b", {"seqshard": True}),
     ("rwkv6-7b", {"seqshard": True}),
-    ("jamba-1.5-large-398b", {"seqshard": True}), ("whisper-large-v3", {}),
-    ("internvl2-76b", {}), ("qwen3-14b", {"adafactor": True,
-                                          "seqshard": True}),
+    ("jamba-1.5-large-398b", {"seqshard": True}),
+    ("whisper-large-v3", {"seqshard": True}),
+    ("internvl2-76b", {"seqshard": True}),
+    ("qwen3-14b", {"adafactor": True, "seqshard": True}),
     ("qwen3-14b", {"seqshard": True})])
 def test_unported_families_raise(arch, changes):
-    """An encoder, a vision prefix and a sequence split raise on a mesh
-    of more than one device (MLA, RWKV-6, Mamba and Adafactor run there
-    since ROADMAP item 10b's second part: see the mixer cases below);
+    """A sequence split raises on a mesh of more than one device, for
+    every family (the encoder-decoder and the vision prefix run there
+    since ROADMAP item 10b's third part: see their cases below);
     Adafactor's ``init`` takes placed params."""
     cfg = get_config(arch).reduced()
     rules = _rules((1, 2))
@@ -613,6 +645,12 @@ def _assert_updates(opt, got, exp, g_got, g_exp):
 
 @pytest.mark.parametrize("case", MIXER_CASES, ids=[c[0] for c in MIXER_CASES])
 def test_sharded_mixers_match_unsharded_and_jax(case):
+    _check_family(case)
+
+
+def _check_family(case):
+    """A ``MIXER_CASES``-like case: its steps on the mesh against the
+    unsharded port's and, where the case says, the JAX package's."""
     _, arch, shape, changes, opt, b, accum, with_jax = case
     cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
     rules = _rules(shape)
@@ -649,11 +687,12 @@ def test_sharded_mixers_match_unsharded_and_jax(case):
     for (path, a), (_, e) in zip(tP.tree_items(again_g),
                                  tP.tree_items(got_g)):
         assert torch.equal(a, e), ("rerun", path)
-    logits = _prefill(cfg, np_params, batch["tokens"], rules)
-    assert _rel(logits, _prefill(cfg, np_params, batch["tokens"], None)) \
-        <= 1e-5
+    stubs = {k: batch[k] for k in _stubs(cfg)}
+    logits = _prefill(cfg, np_params, batch["tokens"], rules, **stubs)
+    assert _rel(logits, _prefill(cfg, np_params, batch["tokens"], None,
+                                 **stubs)) <= 1e-5
     assert torch.equal(logits, _prefill(cfg, np_params, batch["tokens"],
-                                        rules))
+                                        rules, **stubs))
     if "fallback" in case[0]:
         assert any(("heads" in f or "d_inner" in f) and "replicated" in f
                    for f in rules.fallbacks), rules.fallbacks
@@ -737,3 +776,65 @@ def test_adafactor_places_its_slots_by_their_specs(arch, shape):
             for key, t in zip(got.keys, got.parts):
                 assert t.shape == got.part_shape(key) and not t.any(), path
     walk(state, want)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder (whisper) and the vision prefix (internvl2)
+# ---------------------------------------------------------------------------
+
+# (id, arch, mesh shape, config changes, optimizer, batch, accum_steps,
+# held to the JAX package's step too), as MIXER_CASES: each model on
+# (2, 2), (1, 4), (4, 1) with accum_steps 2 and a pod x data x model
+# (2, 1, 2); whisper's 2 KV heads fall back on model 4; a JAX run a
+# model serves its accum-1 meshes
+ENC_VLM_CASES = [
+    ("whisper-2x2", "whisper-large-v3", (2, 2), {}, "adamw", 8, 1, True),
+    ("whisper-kvfallback-1x4", "whisper-large-v3", (1, 4), {}, "adamw", 8,
+     1, True),
+    ("whisper-4x1-accum2", "whisper-large-v3", (4, 1), {}, "adamw", 8, 2,
+     False),
+    ("whisper-pod2x1x2", "whisper-large-v3", (2, 1, 2), {}, "adamw", 8, 1,
+     False),
+    ("internvl2-2x2", "internvl2-76b", (2, 2), {}, "adafactor", 8, 1,
+     True),
+    ("internvl2-1x4-accum2", "internvl2-76b", (1, 4), {}, "adafactor", 8, 2,
+     False),
+    ("internvl2-4x1", "internvl2-76b", (4, 1), {}, "adafactor", 8, 1, True),
+    ("internvl2-pod2x1x2", "internvl2-76b", (2, 1, 2), {}, "adafactor", 8,
+     1, False),
+]
+
+
+@pytest.mark.parametrize("case", ENC_VLM_CASES,
+                         ids=[c[0] for c in ENC_VLM_CASES])
+def test_sharded_enc_vlm_match_unsharded_and_jax(case):
+    """The frames or patches go with their tokens' rows: the encoder
+    over the rows, the prefix prepended and masked out of each row's
+    loss; the same tolerances as the mixer families'."""
+    _check_family(case)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_mlp_sharded_adds_its_output_bias_once(model):
+    """Whisper's biased MLP over ``mlp`` split across ``model``: the
+    partial outputs summed, then ``b_down`` added once (each position
+    adding it would count it ``model`` times)."""
+    from repro_torch.models import layers as tlayers
+    cfg = get_config("whisper-large-v3").reduced()
+    params = tP.from_numpy(_np_params(cfg, seed=7), "cpu")
+    p = tP.tree_slice(params["blocks"]["pos0"]["ffn"], 0)
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32))
+    rules = _rules((1, model))
+    specs = tST.resolve_param_shardings(cfg, rules)[2]
+    placed = tP.unstack(tP.place_tree(
+        params["blocks"]["pos0"]["ffn"], specs["blocks"]["pos0"]["ffn"],
+        rules.mesh), cfg.n_repeats)[0]
+    assert tuple(placed["w_down"].spec)[0] == "model"
+    with torch.no_grad():
+        got = tlayers.mlp_sharded(R.Layout(rules.mesh, "data"), placed,
+                                  [x], cfg.act)[0]
+        exp = tlayers.mlp(p, x, cfg.act)
+    assert _rel(got, exp) <= 1e-5
+    # the bias counted once a position would be far off
+    assert _rel(got + (model - 1) * p["b_down"], exp) > 1e-2

@@ -445,6 +445,10 @@ def test_one_device_mesh_trains_bit_equal_and_larger_meshes_raise():
         assert torch.equal(a, b), p
     cfg = get_config("whisper-large-v3").reduced()
     big = R.MeshRules(M.make_local_mesh(1, 2, devices=["cpu"] * 2))
+    # the encoder-decoder builds on a larger mesh; a sequence split raises
+    ST.make_train_step(cfg, TO.adamw(), rules=big)
+    ST.make_prefill_step(cfg, rules=big)
+    big.act_rules["seq"] = ("model",)
     for make in (lambda: ST.make_train_step(cfg, TO.adamw(), rules=big),
                  lambda: ST.make_prefill_step(cfg, rules=big)):
         with pytest.raises(NotImplementedError,

@@ -72,11 +72,11 @@ def test_specs_match_jax(arch, shape):
 def test_mesh_rules_raise():
     """Under mesh rules every stand-in comes beside its resolved spec
     (``tests/test_torch_sharding.py`` holds them to the JAX package's);
-    the train and prefill steps those specs feed raise on a mesh of more
-    than one device for a family not ported there yet (internvl2-76b's
-    vision prefix), naming
-    the ROADMAP item, and ``place_batch`` splits a real batch by the
-    batch's specs."""
+    the train and prefill steps those specs feed build on a mesh of more
+    than one device for internvl2-76b's vision prefix and raise, naming
+    the ROADMAP item, where the rules split the sequence; ``place_batch``
+    splits a real batch by the batch's specs, a row's patches with its
+    tokens."""
     cfg, sh = get_config("qwen3-14b"), SHAPES["train_4k"]
     rules = MeshRules(make_local_mesh(1, 2, devices=["cpu"] * 2))
     batch, specs = tspecs.batch_specs(cfg, sh, rules, True)
@@ -89,8 +89,12 @@ def test_mesh_rules_raise():
     assert tuple(specs["blocks"]["pos0"]["k"]) == \
         (None, "data", "model", None, None)
     vlm = get_config("internvl2-76b")
-    for call in (lambda: tST.make_train_step(vlm, tO.adamw(), rules=rules),
-                 lambda: tST.make_prefill_step(vlm, rules=rules)):
+    tST.make_train_step(vlm, tO.adamw(), rules=rules)
+    tST.make_prefill_step(vlm, rules=rules)
+    seq = MeshRules(rules.mesh)
+    seq.act_rules["seq"] = ("model",)
+    for call in (lambda: tST.make_train_step(vlm, tO.adamw(), rules=seq),
+                 lambda: tST.make_prefill_step(vlm, rules=seq)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 10b"):
             call()
@@ -98,6 +102,17 @@ def test_mesh_rules_raise():
     parts = tspecs.place_batch({"tokens": tokens}, rules)["tokens"]
     assert tuple(parts.spec) == ("data", None) and len(parts.parts) == 1
     assert torch.equal(parts.whole(), tokens)
+    # on data 2 each row's patches are those of its tokens' rows
+    rows = MeshRules(make_local_mesh(2, 1, devices=["cpu"] * 2))
+    patches = torch.arange(8 * 4 * 5, dtype=torch.float32).reshape(8, 4, 5)
+    placed = tspecs.place_batch({"tokens": tokens, "patches": patches},
+                                rows)
+    assert tuple(placed["patches"].spec) == ("data", None, None)
+    for i in range(2):
+        assert torch.equal(placed["tokens"].part(data=i),
+                           tokens[4 * i:4 * (i + 1)])
+        assert torch.equal(placed["patches"].part(data=i),
+                           patches[4 * i:4 * (i + 1)])
 
 
 def test_train_lm_example_resumes_on_cpu(tmp_path, capsys):
