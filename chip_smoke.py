@@ -309,7 +309,7 @@ NVIDIA GPU.
    ``MeshRules``; the kernels held to their plain versions and timed at
    each shard's shapes first): granite-moe-3b-a800m on data 2 x model 2
    against the unsharded step at 8 layers and alone at 8, h2o-danube
-   at 12 of 24 layers, glm4's prefill on 1 x 4 at 20 layers; rwkv6-7b at 8
+   at 6 of 24 layers, glm4's prefill on 1 x 4 at 20 layers; rwkv6-7b at 8
    layers, the jamba cut with Adafactor and deepseek-v2-lite-16b at 4
    layers on 2 x 2 against their unsharded steps, rwkv6-7b's prefill on
    1 x 4 at 16 layers against the unsharded step in float64;
@@ -319,7 +319,14 @@ NVIDIA GPU.
    and both models' prefill on 1 x 4 (whisper at full depth, internvl2
    at 4 layers): loss, gradients, updated params and logits within
    their tolerances, two sharded runs bit-equal, launches exact, step
-   ms sharded and unsharded, peak memory, busy share;
+   ms sharded and unsharded, peak memory, busy share; and the same
+   checks with the sequence split (``act_rules["seq"]``: each row's
+   residual stream as sequence cells over ``model`` between layers),
+   held to the same unsharded references, launches equal to the unsplit
+   steps': granite's step at 8 layers (12k), rwkv6-7b's (12l) and
+   internvl2's prefill on 1 x 4 (12m, its 256 patches spanning two
+   cells of 192), with the residual stream's bytes a position holds
+   between layers with and without the split;
 13. prints all kernels in one ``kernels`` JSON line with each kernel's
    least possible time (bytes over the memory rate, or operations over
    the peak of the kernel's arithmetic route: 495 / 3 TFLOP/s for f32
@@ -5064,9 +5071,9 @@ def sharding_phase(torch, dev) -> tuple:
 # (its full 32 until phases 12d-12g came, 16 until phases 12h-12j came:
 # cut to keep the script's time)
 # 12b: h2o-danube-1.8b trained on data 2 x model 2 at full width, depth
-# 24 -> SHARD_H2O_LAYERS (its full depth until phases 12h-12j came, cut
-# to keep the script's time; the dense gated MLP's split and the loss
-# over 32,000 / 2 vocab)
+# 24 -> SHARD_H2O_LAYERS (its full depth until phases 12h-12j came, 12
+# until phases 12k-12m came, cut to keep the script's time; the dense
+# gated MLP's split and the loss over 32,000 / 2 vocab)
 # 12c: glm4-9b prefill on a 1 x 4 mesh (its 2 KV heads fall back to
 # replication on model 4) at full width, depth 40 -> SHARD_GLM4_LAYERS
 # so that the unsharded reference sits beside the sharded params
@@ -5096,10 +5103,15 @@ def sharding_phase(torch, dev) -> tuple:
 # depth (its vocab of 51,866 falls back to replication on model 4),
 # internvl2 at INTERNVL_TRAIN_LAYERS (16 q heads and 2 KV heads a
 # position)
+# 12k-12m: the sequence split (``act_rules["seq"] = ("model",)``): 12a's
+# compared step (512 tokens a row, 256 a cell), 12d's rwkv6-7b step (the
+# token shift and WKV across a cell boundary) and 12j's internvl2
+# prefill (256 patches and 512 tokens, 192 positions a cell), each from
+# params placed afresh and held to its phase's unsharded reference
 SHARD_MESH = (2, 2)
 SHARD_CMP_LAYERS = 8
 SHARD_ALONE_LAYERS = 8
-SHARD_H2O_LAYERS = 12
+SHARD_H2O_LAYERS = 6
 SHARD_GLM4_MESH = (1, 4)
 SHARD_GLM4_LAYERS = 20
 SHARD_MLA_LAYERS = 4
@@ -5268,29 +5280,81 @@ def _counted(counters) -> dict:
     return {name: c.count for name, c in counters.items()}
 
 
-def sharded_train_check(torch, dev, cfg, card: str,
-                        lr: float = LM_LR) -> dict:
-    """Phases 12a (at SHARD_CMP_LAYERS), 12b, 12d-12f, 12h and 12i: one
-    training step of ``cfg`` with its own optimizer at ``lr`` on a
-    SHARD_MESH mesh of this card against the unsharded step, from the
-    same params (seed 0) and batch (``lm_batch``: whisper's frames and
-    internvl2's patches too), the routing held alike
-    (``Routing.replay``): the loss
-    within 1e-5 relative, every gradient (``capture_optimizer``) within
-    1e-4 of its leaf's largest, every updated param within 1e-4 of its
-    leaf's largest (``update_err``: beyond AdamW's own share of the
-    gradients' difference); two sharded runs the same to the bit;
-    launches exact at ``sharded_launches_per_step``; then step ms of
-    both (SHARD_TIMED steps after one warm-up, each on its own params),
-    peak memory and a profiled sharded step's busy share. The unsharded
-    side's gradients wait on the card where four trees of their size
-    take at most SHARD_REF_ON_CARD_SHARE of it, else on the host, and
-    come back a leaf at a time to be compared; its updated params are
-    made a leaf at a time from the params drawn again
-    (``reference_updates``), and the second sharded run is held to the
-    first a leaf at a time (``capture_optimizer(against=...)``), so no
-    whole reference tree but the gradients is kept; ``stage_seconds``
-    say where the check's time goes."""
+def seq_rules(mesh):
+    """Mesh rules that split the sequence over ``model``
+    (``act_rules["seq"]``, the dry-run's ``seqshard``)."""
+    from repro_torch.sharding.rules import MeshRules
+    rules = MeshRules(mesh)
+    rules.act_rules["seq"] = ("model",)
+    return rules
+
+
+def stream_bytes(torch, cfg, rules, batch) -> int:
+    """The bytes of residual stream (f32) one mesh position holds
+    between layers in a step of ``cfg`` on ``batch`` under ``rules``: a
+    row's (b_row, s_total, d) at its home, or one of its sequence cells,
+    as the step's layout (``launch/steps.py`` ``_Rows``, asked with
+    fresh rules so that their fallbacks are not recorded twice) decides
+    it; computed from those shapes."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.sharding.rules import MeshRules
+    fresh = MeshRules(rules.mesh, act_rules=dict(rules.act_rules))
+    lay, rows = ST._Rows(cfg, fresh)(batch)
+    b, s = rows["tokens"][0].shape
+    s += vision_prefix(cfg)
+    return b * s * cfg.d_model * 4 // lay.n_cells
+
+
+def log_seq_split(phase: str, out: dict, card: str) -> None:
+    """One line for a sequence-split phase (12k-12m): its step (or
+    prefill) ms with the split, without it and unsharded, peak memory,
+    busy share, and the residual stream's bytes a position holds
+    between layers with and without the split."""
+    seq = out["seq_split"]
+    kind = "step" if "sharded_step_ms" in out else "prefill"
+    log(f"phase {phase}: {kind} ms with the split "
+        f"{seq[f'sharded_{kind}_ms']:.1f}, without "
+        f"{out[f'sharded_{kind}_ms']:.1f}, unsharded "
+        f"{out[f'unsharded_{kind}_ms']:.1f}; peak GB "
+        f"{seq['sharded_peak_gb']:.2f} / {out['sharded_peak_gb']:.2f}; busy "
+        f"{seq['sharded_busy_share']:.3f} / {out['sharded_busy_share']:.3f}; "
+        f"residual stream bytes a position holds between layers "
+        f"{seq['stream_bytes_per_position']} / "
+        f"{out['stream_bytes_per_position']}; launches {seq['launches']} "
+        f"(unsplit {out['launches']}); {card}")
+
+
+def sharded_train_check(torch, dev, cfg, card: str, lr: float = LM_LR,
+                        seq_split: bool = False) -> dict:
+    """Phases 12a (at SHARD_CMP_LAYERS), 12b, 12d-12f, 12h and 12i, and
+    with ``seq_split`` 12k (12a's) and 12l (12d's): one training step of
+    ``cfg`` with its own optimizer at ``lr`` on a SHARD_MESH mesh of
+    this card against the unsharded step, from the same params (seed 0)
+    and batch (``lm_batch``: whisper's frames and internvl2's patches
+    too), the routing held alike (``Routing.replay``): the loss within
+    1e-5 relative, every gradient (``capture_optimizer``) within 1e-4 of
+    its leaf's largest, every updated param within 1e-4 of its leaf's
+    largest (``update_err``: beyond AdamW's own share of the gradients'
+    difference); two sharded runs the same to the bit; launches exact
+    at ``sharded_launches_per_step``; then step ms of both (SHARD_TIMED
+    steps after one warm-up, each on its own params), peak memory and a
+    profiled sharded step's busy share. With ``seq_split`` the sharded
+    side runs again, from params placed afresh, under rules that split
+    the sequence over ``model`` (``seq_rules``), held to the same
+    unsharded reference with the same gates, its launches equal to the
+    unsplit step's, and both sides are timed once the reference is let
+    go, each from params placed afresh, so that their peaks hold the
+    same things; its numbers under ``seq_split`` and the residual
+    stream's bytes a position holds between layers with and without the
+    split (``stream_bytes``). The unsharded side's gradients wait on the
+    card where four trees of their size take at most
+    SHARD_REF_ON_CARD_SHARE of it, else on the host, and come back a
+    leaf at a time to be compared; its updated params are made a leaf
+    at a time from the params drawn again (``reference_updates``), and
+    the second sharded run is held to the first a leaf at a time
+    (``capture_optimizer(against=...)``), so no whole reference tree but
+    the gradients is kept; ``stage_seconds`` say where the check's time
+    goes."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import params as PRM
     from repro_torch.models import transformer as T
@@ -5344,93 +5408,149 @@ def sharded_train_check(torch, dev, cfg, card: str,
     out["unsharded_reference_on_card"] = on_card
     out["unsharded_reference_gb"] = ref_bytes / 1e9
     stage("unsharded_compared")
-    rules = MeshRules(repeated_mesh(dev, SHARD_MESH, ("data", "model")))
+    mesh = repeated_mesh(dev, SHARD_MESH, ("data", "model"))
+    want = sharded_launches_per_step(cfg, SHARD_MESH)
+
+    def compared(rules, placed, tag: str) -> tuple:
+        """The sharded step under ``rules`` from ``placed``: compared,
+        run again, updated and compared. Returns (its numbers, the
+        updated params)."""
+        cap, grads = capture_optimizer()
+        step_c = ST.make_train_step(cfg, cap, lr=0.0, rules=rules,
+                                    compute_dtype=torch.float32)
+        for c in counters.values():
+            c.reset()
+        with routing.replay():
+            _, _, m_s = step_c(placed, {}, batch)
+        launches = _counted(counters)
+        g_s = grads.pop()
+        cap, same = capture_optimizer(against=g_s)
+        with routing.replay():
+            ST.make_train_step(cfg, cap, lr=0.0, rules=rules,
+                               compute_dtype=torch.float32)(placed, {},
+                                                            batch)
+        same = same[0]
+        del cap
+        loss_err = abs(m_s["total_loss"].item() - loss_u.item()) \
+            / abs(loss_u.item())
+        grad_err, grad_leaf = 0.0, None
+        for (path, a), (_, b) in zip(PRM.tree_items(g_s),
+                                     PRM.tree_items(g_u)):
+            err = grad_rel_err((a,), (b.to(a.device),))
+            if err > grad_err:
+                grad_err, grad_leaf = err, "/".join(path)
+        if opt.name != "adamw":
+            # only AdamW's update check reads the gradients again
+            g_s = None
+        gc.collect()
+        stage(f"{tag}_captured_twice")
+        state = opt.init(placed)
+        with routing.replay():
+            placed, state, _ = ST.make_train_step(
+                cfg, opt, lr=lr, rules=rules,
+                compute_dtype=torch.float32)(placed, state, batch)
+        # the slots make room for the comparison and are drawn again for
+        # the timed steps, whose work does not depend on their values
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            upd_err = update_err(
+                torch, opt.name, whole_items(placed),
+                reference_updates(opt, draw(), g_u, lr),
+                None if g_s is None else whole_items(g_s),
+                whole_items(g_u), lr)
+        del g_s
+        gc.collect()
+        torch.cuda.empty_cache()
+        stage(f"{tag}_updated_and_compared")
+        return {"loss_sharded": m_s["total_loss"].item(),
+                "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                "grad_rel_err_leaf": grad_leaf,
+                "updated_rel_err": upd_err,
+                "two_runs_same_bits": same, "launches": launches,
+                "stream_bytes_per_position": stream_bytes(torch, cfg, rules,
+                                                          batch)}, placed
+
+    def timed(rules, placed, tag: str) -> dict:
+        """Step ms (SHARD_TIMED steps), peak memory and a profiled step's
+        busy share of the sharded step under ``rules`` from ``placed``,
+        with nothing of the check's reference on the card."""
+        step_s = ST.make_train_step(cfg, opt, lr=lr, rules=rules,
+                                    compute_dtype=torch.float32)
+        state = opt.init(placed)
+        torch.cuda.reset_peak_memory_stats()
+        times = _time_steps(torch, lambda: step_s(placed, state, batch),
+                            SHARD_TIMED)
+        got = {"sharded_step_ms": statistics.median(times),
+               "sharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        prof = profile_window(torch, lambda: step_s(placed, state, batch),
+                              min(times) / 1e3)
+        got["sharded_busy_share"] = prof["device_busy_share"]
+        got["sharded_profile"] = prof
+        del placed, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        stage(f"{tag}_timed_and_profiled")
+        return got
+
+    def placed_afresh(rules):
+        with torch.no_grad():
+            out = ST.place_params(cfg, draw(), rules)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    rules = MeshRules(mesh)
     placed = ST.place_params(cfg, params, rules)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    cap, grads = capture_optimizer()
-    step_c = ST.make_train_step(cfg, cap, lr=0.0, rules=rules,
-                                compute_dtype=torch.float32)
-    for c in counters.values():
-        c.reset()
-    with routing.replay():
-        _, _, m_s = step_c(placed, {}, batch)
-    launches = _counted(counters)
-    want = sharded_launches_per_step(cfg, SHARD_MESH)
-    g_s = grads.pop()
-    cap, same = capture_optimizer(against=g_s)
-    with routing.replay():
-        ST.make_train_step(cfg, cap, lr=0.0, rules=rules,
-                           compute_dtype=torch.float32)(placed, {}, batch)
-    same = same[0]
-    del cap
-    loss_err = abs(m_s["total_loss"].item() - loss_u.item()) \
-        / abs(loss_u.item())
-    grad_err, grad_leaf = 0.0, None
-    for (path, a), (_, b) in zip(PRM.tree_items(g_s), PRM.tree_items(g_u)):
-        err = grad_rel_err((a,), (b.to(a.device),))
-        if err > grad_err:
-            grad_err, grad_leaf = err, "/".join(path)
-    if opt.name != "adamw":
-        # only AdamW's update check reads the gradients again
-        g_s = None
-    gc.collect()
-    stage("sharded_captured_twice")
-    step_s = ST.make_train_step(cfg, opt, lr=lr, rules=rules,
-                                compute_dtype=torch.float32)
-    state = opt.init(placed)
-    with routing.replay():
-        placed, state, _ = step_s(placed, state, batch)
-    # the slots make room for the comparison and are drawn again for
-    # the timed steps, whose work does not depend on their values
-    del state
+    got, placed = compared(rules, placed, "sharded")
+    sides = [got]
+    if seq_split:
+        # each side's timing waits until the reference is let go, and
+        # runs from params placed afresh, so that both peaks hold the
+        # same: the params, the slots and the step
+        del placed
+        rules_seq = seq_rules(mesh)
+        got_seq, placed = compared(rules_seq, placed_afresh(rules_seq),
+                                   "seq_split")
+        del placed
+        sides.append(got_seq)
+    g_u = None
     gc.collect()
     torch.cuda.empty_cache()
-    with torch.no_grad():
-        upd_err = update_err(
-            torch, opt.name, whole_items(placed),
-            reference_updates(opt, draw(), g_u, lr),
-            None if g_s is None else whole_items(g_s), whole_items(g_u),
-            lr)
-    stage("sharded_updated_and_compared")
+    if seq_split:
+        got.update(timed(rules, placed_afresh(rules), "sharded"))
+        got_seq.update(timed(rules_seq, placed_afresh(rules_seq),
+                             "seq_split"))
+        got_seq["fallbacks"] = rules_seq.fallbacks
+        got_seq["routing_flips_replayed"] = routing.flips
+    else:
+        # the sharded step's time, on from the compared step
+        got.update(timed(rules, placed, "sharded"))
+        del placed
     out.update({"loss_unsharded": loss_u.item(),
-                "loss_sharded": m_s["total_loss"].item(),
-                "loss_rel_err": loss_err, "grad_rel_err": grad_err,
-                "grad_rel_err_leaf": grad_leaf,
-                "updated_rel_err": upd_err,
-                "routing_flips_replayed": routing.flips,
-                "two_runs_same_bits": same, "launches": launches,
+                "routing_flips_replayed": routing.flips, **got,
                 "launches_expected": want, "fallbacks": rules.fallbacks})
-    del g_s, g_u
-    gc.collect()
-    torch.cuda.empty_cache()
-    state = opt.init(placed)
-    # the sharded step's time, on from the compared step
-    torch.cuda.reset_peak_memory_stats()
-    times = _time_steps(torch, lambda: step_s(placed, state, batch),
-                        SHARD_TIMED)
-    out["sharded_step_ms"] = statistics.median(times)
-    out["sharded_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    prof = profile_window(torch, lambda: step_s(placed, state, batch),
-                          min(times) / 1e3)
-    out["sharded_busy_share"] = prof["device_busy_share"]
-    out["sharded_profile"] = prof
-    stage("sharded_timed_and_profiled")
+    if seq_split:
+        out["seq_split"] = got_seq
     out["stage_seconds"] = stages
+    split = " and with the sequence split (act_rules['seq'])" \
+        if seq_split else ""
     log(f"{cfg.arch_id} {cfg.n_layers} layers, sharded training step on "
-        f"a {SHARD_MESH} data x model mesh of {dev} vs unsharded ({card}): "
-        + json.dumps(out))
-    del placed, state
-    gc.collect()
-    torch.cuda.empty_cache()
-    if launches != want:
-        raise AssertionError(f"the sharded step launched {launches}, "
-                             f"expected {want}")
-    if not (loss_err <= 1e-5 and grad_err <= 1e-4 and upd_err <= 1e-4
-            and same):
-        raise AssertionError("the sharded training step disagrees with "
-                             "the unsharded one, or with itself")
+        f"a {SHARD_MESH} data x model mesh of {dev}{split} vs unsharded "
+        f"({card}): " + json.dumps(out))
+    for got in sides:
+        if got["launches"] != want:
+            raise AssertionError(f"the sharded step launched "
+                                 f"{got['launches']}, expected {want}")
+        if not (got["loss_rel_err"] <= 1e-5 and got["grad_rel_err"] <= 1e-4
+                and got["updated_rel_err"] <= 1e-4
+                and got["two_runs_same_bits"]):
+            raise AssertionError("the sharded training step disagrees "
+                                 "with the unsharded one, or with itself")
     return out
 
 
@@ -5501,22 +5621,30 @@ def sharded_train_alone(torch, dev, cfg, card: str) -> dict:
 
 def sharded_prefill_check(torch, dev, cfg, card: str, mesh,
                           fallback: str | None = None,
-                          float64_reference: bool = False) -> dict:
-    """Phases 12c, 12g and 12j: ``make_prefill_step`` of ``cfg`` on a
-    ``mesh`` (data, model) of this card against the unsharded step on
-    the same params (seed 0) and batch (``lm_batch`` without its labels:
-    (4, 512) tokens, whisper's (4, 448) with their frames, internvl2's
-    behind their patches): the last position's
-    logits within 1e-5 of their largest, two sharded runs the same to
-    the bit, launches exact, the rules' fallbacks (one naming
-    ``fallback`` where it is given); prefill ms of both (median of
-    SHARD_TIMED), peak memory, a profiled sharded prefill's busy
-    share. With ``float64_reference`` the logits are held to the
-    unsharded step run in float64 (params cast, the plain versions of
-    the kernels): where the f32 unsharded step's own rounding is near
-    1e-5 of the largest logit (rwkv6-7b's at 16 layers), a sharded step
-    as accurate as it cannot be held to it within 1e-5; both f32 steps'
-    distances to it, and to each other, are logged."""
+                          float64_reference: bool = False,
+                          seq_split: bool = False) -> dict:
+    """Phases 12c, 12g and 12j, and with ``seq_split`` 12m (12j's
+    internvl2): ``make_prefill_step`` of ``cfg`` on a ``mesh`` (data,
+    model) of this card against the unsharded step on the same params
+    (seed 0) and batch (``lm_batch`` without its labels: (4, 512)
+    tokens, whisper's (4, 448) with their frames, internvl2's behind
+    their patches): the last position's logits within 1e-5 of their
+    largest, two sharded runs the same to the bit, launches exact, the
+    rules' fallbacks (one naming ``fallback`` where it is given);
+    prefill ms of both (median of SHARD_TIMED), peak memory, a profiled
+    sharded prefill's busy share. With ``seq_split`` the sharded
+    prefill runs again under rules that split the sequence over
+    ``model`` (``seq_rules``), on the same placed params and held to the
+    same reference with the same gates, its launches equal to the
+    unsplit prefill's; its numbers under ``seq_split`` and the residual
+    stream's bytes a position holds between layers with and without the
+    split (``stream_bytes``). With ``float64_reference`` the logits are
+    held to the unsharded step run in float64 (params cast, the plain
+    versions of the kernels): where the f32 unsharded step's own
+    rounding is near 1e-5 of the largest logit (rwkv6-7b's at 16
+    layers), a sharded step as accurate as it cannot be held to it
+    within 1e-5; both f32 steps' distances to it, and to each other, are
+    logged."""
     from repro_torch.launch import steps as ST
     from repro_torch.sharding.rules import MeshRules
     params = draw_params(torch, dev, cfg)
@@ -5535,59 +5663,80 @@ def sharded_prefill_check(torch, dev, cfg, card: str, mesh,
         del p64
         gc.collect()
         torch.cuda.empty_cache()
-    rules = MeshRules(repeated_mesh(dev, mesh, ("data", "model")))
+    grid = repeated_mesh(dev, mesh, ("data", "model"))
+    rules = MeshRules(grid)
     with torch.no_grad():
         placed = ST.place_params(cfg, params, rules)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    step_s = ST.make_prefill_step(cfg, rules, torch.float32)
+    want = sharded_launches_per_step(cfg, mesh, train=False)
     counters = all_counters()
-    for c in counters.values():
-        c.reset()
-    torch.cuda.reset_peak_memory_stats()
-    got = step_s(placed, batch)
-    launches = _counted(counters)
-    again = step_s(placed, batch)
-    torch.cuda.synchronize()
+
     def rel(a, e):
         return ((a.double() - e.double()).abs().max()
                 / e.double().abs().max()).item()
-    err = rel(got, exp)
-    t_s = _time_steps(torch, lambda: step_s(placed, batch), SHARD_TIMED)
-    want = sharded_launches_per_step(cfg, mesh, train=False)
+
+    def side(rules) -> tuple:
+        step_s = ST.make_prefill_step(cfg, rules, torch.float32)
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        got = step_s(placed, batch)
+        launches = _counted(counters)
+        again = step_s(placed, batch)
+        torch.cuda.synchronize()
+        t_s = _time_steps(torch, lambda: step_s(placed, batch), SHARD_TIMED)
+        out = {"logits_rel_err": rel(got, exp),
+               "two_runs_same_bits": torch.equal(got, again),
+               "finite": bool(torch.isfinite(got).all()),
+               "fallbacks": rules.fallbacks,
+               "sharded_prefill_ms": statistics.median(t_s),
+               "sharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches,
+               "stream_bytes_per_position": stream_bytes(
+                   torch, cfg, rules, batch)}
+        prof = profile_window(torch, lambda: step_s(placed, batch),
+                              min(t_s) / 1e3)
+        out["sharded_busy_share"] = prof["device_busy_share"]
+        out["sharded_profile"] = prof
+        return out, got
+
+    got_side, got = side(rules)
     out = {"layers": cfg.n_layers, "mesh": list(mesh),
-           "shape": list(train_text_shape(cfg)), "logits_rel_err": err,
+           "shape": list(train_text_shape(cfg)),
            "reference": "unsharded, float64, plain versions"
            if float64_reference else "unsharded, float32, kernels",
-           "two_runs_same_bits": torch.equal(got, again),
-           "finite": bool(torch.isfinite(got).all()),
-           "fallbacks": rules.fallbacks,
            "unsharded_prefill_ms": statistics.median(t_u),
-           "sharded_prefill_ms": statistics.median(t_s),
-           "sharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches, "launches_expected": want}
+           **got_side, "launches_expected": want}
     if float64_reference:
         out["sharded_vs_unsharded_f32_rel_err"] = rel(got, exp32)
         out["unsharded_f32_vs_float64_rel_err"] = rel(exp32, exp)
-    prof = profile_window(torch, lambda: step_s(placed, batch),
-                          min(t_s) / 1e3)
-    out["sharded_busy_share"] = prof["device_busy_share"]
-    out["sharded_profile"] = prof
+    del got
+    sides = [got_side]
+    if seq_split:
+        rules_seq = seq_rules(grid)
+        out["seq_split"], _ = side(rules_seq)
+        sides.append(out["seq_split"])
+    split = " and with the sequence split (act_rules['seq'])" \
+        if seq_split else ""
     log(f"{cfg.arch_id} {cfg.n_layers} layers, sharded prefill on a "
-        f"{mesh} data x model mesh of {dev} vs unsharded "
+        f"{mesh} data x model mesh of {dev}{split} vs unsharded "
         f"({card}): " + json.dumps(out))
-    del placed, got, again, exp, exp32
+    del placed, exp, exp32
     gc.collect()
     torch.cuda.empty_cache()
-    if launches != want:
-        raise AssertionError(f"the sharded prefill launched {launches}, "
-                             f"expected {want}")
-    if not (err <= 1e-5 and out["two_runs_same_bits"] and out["finite"]
-            and (fallback is None
-                 or any(fallback in f for f in rules.fallbacks))):
-        raise AssertionError("the sharded prefill disagrees with the "
-                             "unsharded one, or with itself")
+    for got in sides:
+        if got["launches"] != want:
+            raise AssertionError(f"the sharded prefill launched "
+                                 f"{got['launches']}, expected {want}")
+        if not (got["logits_rel_err"] <= 1e-5 and got["two_runs_same_bits"]
+                and got["finite"]):
+            raise AssertionError("the sharded prefill disagrees with the "
+                                 "unsharded one, or with itself")
+    if not (fallback is None or any(fallback in f for f in rules.fallbacks)):
+        raise AssertionError(f"no fallback naming {fallback}: "
+                             f"{rules.fallbacks}")
     return out
 
 
@@ -5663,9 +5812,10 @@ def mixer_shard_shapes(cfg, mesh) -> dict:
 
 
 def mixer_shards(torch, dev, card: str) -> dict:
-    """Phases 12d-12g: each kernel at its shard's shape (``recurrence_at``,
-    ``path_kernels``), then rwkv6-7b, the jamba cut and deepseek trained
-    on SHARD_MESH against their unsharded steps (``sharded_train_check``)
+    """Phases 12d-12g and 12l: each kernel at its shard's shape
+    (``recurrence_at``, ``path_kernels``), then rwkv6-7b (also with the
+    sequence split, 12l), the jamba cut and deepseek trained on
+    SHARD_MESH against their unsharded steps (``sharded_train_check``)
     and rwkv6-7b's prefill on SHARD_RWKV_PREFILL_MESH
     (``sharded_prefill_check``)."""
     rwkv, jamba, mla = (rwkv_train_config(), jamba_train_config(),
@@ -5700,8 +5850,13 @@ def mixer_shards(torch, dev, card: str) -> dict:
     mark("phase 12f attention and gmm at the shard shapes")
     for phase, tag, cfg in zip(("12d", "12e", "12f"), MIXER_SHARD_TAGS,
                                (rwkv, jamba, mla)):
-        out[tag] = sharded_train_check(torch, dev, cfg, card)
-        mark(f"phase {phase} {tag}")
+        # 12l: rwkv6-7b's step with the sequence split too, held to 12d's
+        # reference (the token shift and WKV across a cell boundary)
+        out[tag] = sharded_train_check(torch, dev, cfg, card,
+                                       seq_split=tag == "rwkv6")
+        if tag == "rwkv6":
+            log_seq_split("12l", out[tag], card)
+        mark(f"phase {phase} {tag}" + (", 12l" if tag == "rwkv6" else ""))
     # the f32 unsharded step's own rounding is ~1.2e-5 of the largest
     # logit at 16 layers (PERF.md): the reference is float64
     out["rwkv6_prefill"] = sharded_prefill_check(
@@ -5746,20 +5901,36 @@ def enc_vlm_shard_shapes(whisper, internvl) -> dict:
                        internvl.head_dim), True)}
 
 
+def internvl_prefill_shard_shapes(cfg) -> tuple:
+    """q and k/v of the attention kernel's call in a row's and model
+    position's share of internvl2's prefill on
+    SHARD_ENC_VLM_PREFILL_MESH (phases 12j and 12m: with the sequence
+    split or without, each position attends over its row whole): 256
+    patches before 512 tokens, its 64 q and 8 KV heads over model."""
+    rows, model = SHARD_ENC_VLM_PREFILL_MESH
+    b, s = train_text_shape(cfg)
+    b, s = b // rows, s + vision_prefix(cfg)
+    return ((b, cfg.eff_heads // model, s, cfg.head_dim),
+            (b, cfg.n_kv_heads // model, s, cfg.head_dim))
+
+
 # the models of phases 12h-12j
 ENC_VLM_SHARD_TAGS = ("whisper", "internvl2")
 
 
 def enc_vlm_shards(torch, dev, card: str) -> dict:
-    """Phases 12h-12j: the attention kernel, forward and backward, at
-    whisper's and internvl2's shard shapes (``enc_vlm_shard_shapes``,
-    through ``path_kernels``), then whisper at WHISPER_CHECK_LAYERS +
+    """Phases 12h-12j and 12m: the attention kernel, forward and
+    backward, at whisper's and internvl2's shard shapes
+    (``enc_vlm_shard_shapes``, through ``path_kernels``), forward at
+    internvl2's prefill shard (``internvl_prefill_shard_shapes``), then
+    whisper at WHISPER_CHECK_LAYERS +
     WHISPER_CHECK_LAYERS layers (AdamW) and internvl2 at
     SHARD_INTERNVL_LAYERS (Adafactor at INTERNVL_TRAIN_LR) trained on
     SHARD_MESH against their unsharded steps (``sharded_train_check``),
     and both models' prefill on SHARD_ENC_VLM_PREFILL_MESH
     (``sharded_prefill_check``): whisper at full depth, its vocab
-    falling back on model 4, internvl2 at INTERNVL_TRAIN_LAYERS."""
+    falling back on model 4, internvl2 at INTERNVL_TRAIN_LAYERS, also
+    with the sequence split (12m)."""
     _, whisper = whisper_train_configs()
     internvl = enc_vlm_shard_config()
     out = {"kernels": {}}
@@ -5771,7 +5942,12 @@ def enc_vlm_shards(torch, dev, card: str) -> dict:
         out["kernels"][name] = path_kernels(
             torch, dev, cfg, card, qs, ks, [], f"{name} shard", 69 + i,
             att_timing=timing, causal=causal)
-    mark("phase 12h, 12i attention at the shard shapes")
+    # the forward at internvl2's prefill shard (12j, 12m)
+    out["kernels_prefill"] = path_kernels(
+        torch, dev, internvl, card,
+        *internvl_prefill_shard_shapes(internvl_train_config()), [],
+        "internvl2 prefill shard", 73, bwd=False, att_timing=timing)
+    mark("phase 12h, 12i, 12j attention at the shard shapes")
     out["whisper"] = sharded_train_check(torch, dev, whisper, card)
     mark("phase 12h whisper")
     out["internvl2"] = sharded_train_check(torch, dev, internvl, card,
@@ -5780,10 +5956,14 @@ def enc_vlm_shards(torch, dev, card: str) -> dict:
     out["whisper_prefill"] = sharded_prefill_check(
         torch, dev, whisper_config(), card, SHARD_ENC_VLM_PREFILL_MESH,
         "vocab")
+    # 12m: internvl2's prefill with the sequence split too (256 patches
+    # and 512 tokens, 192 positions a cell: the prefix spans cells 0 and
+    # 1), held to 12j's reference
     out["internvl2_prefill"] = sharded_prefill_check(
         torch, dev, internvl_train_config(), card,
-        SHARD_ENC_VLM_PREFILL_MESH)
-    mark("phase 12j whisper and internvl2 prefill")
+        SHARD_ENC_VLM_PREFILL_MESH, seq_split=True)
+    log_seq_split("12m", out["internvl2_prefill"], card)
+    mark("phase 12j whisper and internvl2 prefill, 12m")
     return out
 
 
@@ -5791,8 +5971,9 @@ def sharded_steps_phase(torch, dev) -> tuple:
     """Phase 12: the zoo's train and prefill steps on meshes of more
     than one device, every position on this card (``cuda:0`` repeated:
     every split, gather, partial product and reduce-scatter runs, one
-    process, no ``torch.distributed``). Returns (the launches of the
-    counted runs, the measured numbers)."""
+    process, no ``torch.distributed``), 12k-12m with the sequence split
+    too. Returns (the launches of the counted runs, the measured
+    numbers)."""
     t_phase = time.perf_counter()
     card = gpu_line()
     log(f"sharded steps phase: every mesh position on {dev} repeated "
@@ -5816,10 +5997,15 @@ def sharded_steps_phase(torch, dev) -> tuple:
                                                         SHARD_GLM4_MESH),
         [], "glm4 prefill shard", 63, bwd=False)
     mark("phase 12 kernels at the shard shapes")
+    # 12k: the same step with the sequence split too, held to 12a's
+    # reference (attention, the global dispatch over gathered rows, the
+    # vocab-split loss)
     out["granite"] = sharded_train_check(
         torch, dev, dataclasses.replace(granite,
-                                        n_layers=SHARD_CMP_LAYERS), card)
-    mark("phase 12a granite compared")
+                                        n_layers=SHARD_CMP_LAYERS), card,
+        seq_split=True)
+    log_seq_split("12k", out["granite"], card)
+    mark("phase 12a granite compared, 12k")
     log(f"phase 12a: granite alone at {SHARD_ALONE_LAYERS} of "
         f"{granite.n_layers} layers (16 before phases 12h-12j: cut to keep "
         f"the script's time)")
@@ -5828,8 +6014,8 @@ def sharded_steps_phase(torch, dev) -> tuple:
                                         n_layers=SHARD_ALONE_LAYERS), card)
     mark(f"phase 12a granite at {SHARD_ALONE_LAYERS} layers")
     log(f"phase 12b: h2o-danube at {SHARD_H2O_LAYERS} of {h2o.n_layers} "
-        f"layers (all {h2o.n_layers} before phases 12h-12j: cut to keep "
-        f"the script's time)")
+        f"layers (all {h2o.n_layers} before phases 12h-12j, 12 before "
+        f"phases 12k-12m: cut to keep the script's time)")
     out["h2o"] = sharded_train_check(
         torch, dev, dataclasses.replace(h2o, n_layers=SHARD_H2O_LAYERS),
         card)
@@ -5840,6 +6026,7 @@ def sharded_steps_phase(torch, dev) -> tuple:
     out.update(mixer_shards(torch, dev, card))
     ev = enc_vlm_shards(torch, dev, card)
     out["kernels_enc_vlm"] = ev.pop("kernels")
+    out["kernels_internvl2_prefill"] = ev.pop("kernels_prefill")
     out.update(ev)
     launches = {
         "sharded_granite_train": {k: v for k, v in out["granite_full"][
@@ -5858,7 +6045,11 @@ def sharded_steps_phase(torch, dev) -> tuple:
             "launches"].items() if v} for tag in ENC_VLM_SHARD_TAGS},
         **{f"sharded_{tag}_prefill": {k: v for k, v in out[
             f"{tag}_prefill"]["launches"].items() if v}
-           for tag in ENC_VLM_SHARD_TAGS}}
+           for tag in ENC_VLM_SHARD_TAGS},
+        # phases 12k-12m: the same steps with the sequence split
+        **{f"sharded_{key}_seq_split": {k: v for k, v in out[key][
+            "seq_split"]["launches"].items() if v}
+           for key in ("granite", "rwkv6", "internvl2_prefill")}}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"sharded steps phase: {out['seconds']:.1f} s; {card}")
     return launches, out
@@ -6097,7 +6288,11 @@ def main() -> int:
             # whisper's encoder, decoder self- and cross-attention (10
             # heads) and of internvl2's GQA (32 q heads on 4 KV heads)
             **{f"sharded_{name}_train": t["attention"]
-               for name, t in steps["kernels_enc_vlm"].items()}},
+               for name, t in steps["kernels_enc_vlm"].items()},
+            # internvl2's prefill share on 1 x 4 (16 q heads on 2 KV
+            # heads over 768 positions), with the sequence split or not
+            "sharded_internvl2_prefill": steps["kernels_internvl2_prefill"][
+                "attention"]},
         # the grouped matmul's at each of its four shapes of each MoE
         # model; the top-level times are those of granite's prefill
         # gate/up
@@ -6254,7 +6449,13 @@ def main() -> int:
         f"against {steps['whisper_prefill']['unsharded_prefill_ms']:.1f}, "
         f"internvl2 ({INTERNVL_TRAIN_LAYERS} layers) "
         f"{steps['internvl2_prefill']['sharded_prefill_ms']:.1f} against "
-        f"{steps['internvl2_prefill']['unsharded_prefill_ms']:.1f} ms; build "
+        f"{steps['internvl2_prefill']['unsharded_prefill_ms']:.1f} ms; with "
+        f"the sequence split granite "
+        f"{steps['granite']['seq_split']['sharded_step_ms']:.1f}, rwkv6-7b "
+        f"{steps['rwkv6']['seq_split']['sharded_step_ms']:.1f}, internvl2 "
+        f"prefill "
+        f"{steps['internvl2_prefill']['seq_split']['sharded_prefill_ms']:.1f}"
+        f" ms; build "
         f"{build}; zoo launches {zoo_runs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(gpu_line())               # again, beside the numbers

@@ -25,9 +25,13 @@ by the specs their axes resolve to), the step splits the whole batch
 it is given over ``pod x data`` (``specs.place_batch``), and
 ``models/transformer.py``'s ``loss_fn_sharded`` / ``last_logits_sharded``
 combine the positions' shares with ``launch/mesh.py``'s collectives in
-axis order. Its values are those of the unsharded step. A sequence
-split (``act_rules["seq"]``, the dry-run's ``seqshard``) still raises
-there, naming the ROADMAP item. On a one-device mesh a step gives the
+axis order. With a sequence split (``act_rules["seq"] = ("model",)``,
+the dry-run's ``seqshard``) each row's residual stream lives between
+layers as sequence cells over ``model`` (``sharding.rules.Layout``):
+a layer gathers its row's cells, and reduce-scatters its partial
+outputs back to them, where it would copy the row out of its home and
+sum the partials there. Its values are those of the unsharded step,
+with the split or without. On a one-device mesh a step gives the
 values of no mesh.
 """
 from __future__ import annotations
@@ -42,7 +46,7 @@ from repro_torch.launch.mesh import mesh_chips
 from repro_torch.models import params as PRM
 from repro_torch.models import transformer as T
 from repro_torch.models.params import tree_leaves, tree_map
-from repro_torch.sharding.rules import (SHARDED_STEPS, Layout, MeshRules,
+from repro_torch.sharding.rules import (Layout, MeshRules, P,
                                         map_in_tree_order, param_shardings,
                                         use_rules)
 from repro_torch.train import optimizer as O
@@ -51,17 +55,6 @@ from repro_torch.train import optimizer as O
 def sharded(rules: Optional[MeshRules]) -> bool:
     """Does a step under ``rules`` run on more than one mesh position?"""
     return rules is not None and mesh_chips(rules.mesh) > 1
-
-
-def check_rules(rules: Optional[MeshRules], what: str) -> None:
-    """Raise where ``rules``'s mesh has more than one device and splits
-    the sequence (``act_rules["seq"]``), which a sharded step does not
-    run yet, whatever the family."""
-    if sharded(rules) and rules.act_rules.get("seq") is not None:
-        raise NotImplementedError(
-            f"{what} with a sequence split (act_rules['seq']) on a mesh "
-            f"of {dict(rules.mesh.shape)} is not ported to repro_torch "
-            f"yet: {SHARDED_STEPS}")
 
 
 def resolve_param_shardings(cfg: ModelConfig, rules: Optional[MeshRules],
@@ -99,21 +92,34 @@ def place_params(cfg: ModelConfig, params, rules: MeshRules):
 
 class _Rows:
     """A sharded step's batch placement, resolved once a batch shape
-    (so ``MeshRules.fallbacks`` records it once, as a trace would)."""
+    (so ``MeshRules.fallbacks`` records it once, as a trace would): each
+    key split by its spec's batch entry alone, so that a row holds all
+    of its tokens, labels and patches whatever the spec makes of the
+    sequence; and the residual stream's split, decided on its own at
+    ``(b, s_total, d)``, the sequence after a vision prefix's patches
+    are prepended, as the JAX package constrains it there. Where
+    ``s_total`` does not divide over ``model`` the spec falls back to
+    replication (recorded) and each row stays whole at its home."""
 
-    def __init__(self, rules: MeshRules):
-        self.rules, self.specs = rules, {}
+    def __init__(self, cfg: ModelConfig, rules: MeshRules):
+        self.cfg, self.rules, self.specs = cfg, rules, {}
 
     def __call__(self, batch: Dict[str, Any]):
         """(the ``Layout`` of the batch's rows, each key's rows)."""
         key = tuple((k, tuple(v.shape)) for k, v in batch.items())
         if key not in self.specs:
-            self.specs[key] = {
-                k: self.rules.act_spec(S.BATCH_AXES[k], tuple(v.shape))
-                for k, v in batch.items()}
-        specs = self.specs[key]
-        parts = S.place_batch(batch, self.rules, specs)
-        lay = Layout(self.rules.mesh, specs["tokens"][0])
+            specs = {k: self.rules.act_spec(S.BATCH_AXES[k], tuple(v.shape))
+                     for k, v in batch.items()}
+            b, s = batch["tokens"].shape
+            if T.has_vision_prefix(self.cfg):
+                s += self.cfg.frontend.num_tokens
+            act = self.rules.act_spec(("batch", "seq", "embed"),
+                                      (b, s, self.cfg.d_model))
+            self.specs[key] = specs, act[1] == "model"
+        specs, seq = self.specs[key]
+        parts = S.place_batch(batch, self.rules,
+                              {k: P(sp[0]) for k, sp in specs.items()})
+        lay = Layout(self.rules.mesh, specs["tokens"][0], seq)
         return lay, {k: [p.part(**row) for row in lay.rows]
                      for k, p in parts.items()}
 
@@ -168,10 +174,9 @@ def make_train_step(cfg: ModelConfig, opt: O.Optimizer, lr: float = 3e-4,
     placed (``place_params``; ``opt.init`` of placed params: SGD,
     AdamW or Adafactor) and ``batch`` is whole: each microbatch is the
     unsharded step's, split over the rows (frames and patches with
-    their tokens), so accumulation gives the unsharded step's values.
-    Rules that split the sequence raise there (``check_rules``)."""
-    check_rules(rules, "a train step")
-    rows = _Rows(rules) if sharded(rules) else None
+    their tokens), so accumulation gives the unsharded step's values,
+    with or without a sequence split (``_Rows``)."""
+    rows = _Rows(cfg, rules) if sharded(rules) else None
 
     def train_step(params, opt_state, batch
                    ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
@@ -214,8 +219,7 @@ def make_prefill_step(cfg: ModelConfig, rules=None,
     than one device ``params`` are placed, the whole batch (frames and
     patches with their tokens) is split over the rows, and the logits
     come back whole."""
-    check_rules(rules, "a prefill step")
-    rows = _Rows(rules) if sharded(rules) else None
+    rows = _Rows(cfg, rules) if sharded(rules) else None
 
     def prefill_step(params, batch) -> torch.Tensor:
         with torch.no_grad(), use_rules(rules):

@@ -23,9 +23,11 @@ The projections are 2-D matmuls (``_proj``: ``aten.mm``), so remat
 device (``models/layers.py``'s ``*_sharded`` conventions): model
 position j projects its heads' columns of ``wq`` (and of ``wk`` /
 ``wv`` over ``kv_heads``), attends with the kernel, and multiplies by
-its rows of ``wo``; the partial outputs are summed at the row's home.
-Where the KV heads fall back to replication (glm4's 2 on a model axis
-of 4), position j passes the kernel only the KV heads its q heads use.
+its rows of ``wo`` on its row whole (``Layout.enter``); the partial
+outputs are summed back into the row (``Layout.leave``: at its home, or
+reduce-scattered to its sequence cells). Where the KV heads fall back
+to replication (glm4's 2 on a model axis of 4), position j passes the
+kernel only the KV heads its q heads use.
 ``cross_attention_sharded`` splits whisper's cross-attention alike, k
 and v projected from each row's encoder output; both take each
 position's weights from ``_head_shares``.
@@ -206,43 +208,44 @@ def _head_shares(cfg: ModelConfig, lay, params):
 
 def self_attention_sharded(cfg: ModelConfig, lay, params, hs, positions,
                            causal: bool = True):
-    """:func:`self_attention` of each row (``hs``, at the rows' homes)
+    """:func:`self_attention` of each row (``hs``, in ``lay``'s form)
     over ``heads`` split across ``model``; see the module's doc.
-    ``positions`` is the list of the rows' (s,) positions."""
+    ``positions`` is the list of the rows' (s,) positions, whole rows'."""
     n, at = _head_shares(cfg, lay, params)
     window = cfg.window if cfg.attention == "swa" else 0
     out = []
     for r, h in enumerate(hs):
-        xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
+        xs = lay.enter(r, h, n)
         partial = []
         for j in range(n):
             p = at(r, j)
             q, k, v = _qkv(cfg, p, xs[j], positions[r].to(xs[j].device)[None])
             partial.append(_attend_out(p, q, k, v, causal, window))
-        out.append(M.psum(partial, lay.home(r)))
+        out.append(lay.leave(r, partial))
     return out
 
 
 def cross_attention_sharded(cfg: ModelConfig, lay, params, hs, memory):
     """:func:`cross_attention` of each row over ``heads`` split across
     ``model``: position j projects q from the row's ``hs`` with its
-    heads' columns of ``wq`` and k, v from the row's ``memory`` (the
-    encoder's output, at the row's home) with its share of ``wk`` /
-    ``wv``, attends with the kernel, bidirectional, and multiplies by
-    its rows of ``wo``; the partial outputs are summed at the row's
-    home."""
+    heads' columns of ``wq`` (the row whole: a sequence split gathers
+    it) and k, v from the row's ``memory`` (the encoder's output, whole
+    at the row's home: no rule splits the frames) with its share of
+    ``wk`` / ``wv``, attends with the kernel, bidirectional, and
+    multiplies by its rows of ``wo``; the partial outputs are summed
+    back into the row."""
     n, at = _head_shares(cfg, lay, params)
     out = []
     for r, (h, mem) in enumerate(zip(hs, memory)):
-        devs = [lay.dev(r, j) for j in range(n)]
-        xs, ms = M.fan_out(h, devs), M.fan_out(mem, devs)
+        xs = lay.enter(r, h, n)
+        ms = M.fan_out(mem, [lay.dev(r, j) for j in range(n)])
         partial = []
         for j in range(n):
             p = at(r, j)
             q = _proj(xs[j], p["wq"])
             k, v = _proj(ms[j], p["wk"]), _proj(ms[j], p["wv"])
             partial.append(_attend_out(p, q, k, v, False, 0))
-        out.append(M.psum(partial, lay.home(r)))
+        out.append(lay.leave(r, partial))
     return out
 
 

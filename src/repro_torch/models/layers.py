@@ -11,13 +11,15 @@ Without mesh rules the JAX package's ``reduce_dtype`` is ``None``, so it
 has no counterpart here.
 
 The ``*_sharded`` functions run a layer on a mesh of more than one
-device (``sharding.rules.Layout``): activations are lists, one tensor a
-row (a batch position) at the row's home; params are ``Parts``, which
-``Layout.weights`` gathers whole over ``data`` (FSDP) on each position
-that uses them; a split over ``model`` is tensor parallelism, its
-partial products summed with ``launch/mesh.py``'s ``psum`` in axis
-order. Where a param's dim falls back to replication, the layer runs
-whole at the row's home.
+device (``sharding.rules.Layout``): activations are lists, one row (a
+batch position) each, a row one tensor at its home or, under a
+sequence split, its sequence cells over ``model``; params are
+``Parts``, which ``Layout.weights`` gathers whole over ``data`` (FSDP)
+on each position that uses them; a split over ``model`` is tensor
+parallelism: each position takes its row whole (``Layout.enter``) and
+the partial products are summed back into the row in axis order
+(``Layout.leave``). Where a param's dim falls back to replication, the
+layer runs whole on the row's home.
 """
 from __future__ import annotations
 
@@ -183,57 +185,57 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm_sharded(lay, params, xs: Sequence[torch.Tensor], eps: float
-                    ) -> List[torch.Tensor]:
-    """:func:`rmsnorm` of each row at its home, the scale gathered
-    there."""
-    scales = lay.weights(params["scale"], 1)[0]
-    return [rmsnorm({"scale": s}, x, eps) for s, x in zip(scales, xs)]
+def rmsnorm_sharded(lay, params, xs: Sequence, eps: float) -> List:
+    """:func:`rmsnorm` of each row, cell by cell, the scale gathered to
+    each cell's device."""
+    scales = lay.weights(params["scale"], lay.n_cells)
+    return lay.each(lambda r, j, x: rmsnorm({"scale": scales[j][r]}, x, eps),
+                    xs)
 
 
-def layernorm_sharded(lay, params, xs: Sequence[torch.Tensor], eps: float
-                      ) -> List[torch.Tensor]:
-    """:func:`layernorm` of each row at its home, the scale and the bias
-    gathered there."""
-    scales, biases = (lay.weights(params[k], 1)[0] for k in ("scale", "bias"))
-    return [layernorm({"scale": s, "bias": b}, x, eps)
-            for s, b, x in zip(scales, biases, xs)]
+def layernorm_sharded(lay, params, xs: Sequence, eps: float) -> List:
+    """:func:`layernorm` of each row, cell by cell, the scale and the
+    bias gathered to each cell's device."""
+    scales, biases = (lay.weights(params[k], lay.n_cells)
+                      for k in ("scale", "bias"))
+    return lay.each(lambda r, j, x: layernorm(
+        {"scale": scales[j][r], "bias": biases[j][r]}, x, eps), xs)
 
 
-def gated_mlp_sharded(lay, params, hs: Sequence[torch.Tensor],
-                      act: str = "silu") -> List[torch.Tensor]:
+def gated_mlp_sharded(lay, params, hs: Sequence, act: str = "silu"
+                      ) -> List:
     """The gated MLP over ``mlp``'s split: model position j takes the
-    columns j of ``w_gate`` / ``w_up`` and the rows j of ``w_down``; the
-    partial outputs are summed at each row's home."""
+    columns j of ``w_gate`` / ``w_up`` and the rows j of ``w_down`` on
+    its row whole (``Layout.enter``); the partial outputs are summed
+    back into the row (``Layout.leave``)."""
     n = lay.n_tp(params["w_gate"])
     w = {k: lay.weights(params[k], n) for k in ("w_gate", "w_up", "w_down")}
     out = []
     for r, h in enumerate(hs):
-        xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
-        out.append(M.psum([gated_mlp({k: v[j][r] for k, v in w.items()},
-                                     xs[j], act) for j in range(n)],
-                          lay.home(r)))
+        xs = lay.enter(r, h, n)
+        out.append(lay.leave(r, [gated_mlp({k: v[j][r] for k, v in
+                                            w.items()}, xs[j], act)
+                                 for j in range(n)]))
     return out
 
 
-def mlp_sharded(lay, params, hs: Sequence[torch.Tensor], act: str = "gelu"
-                ) -> List[torch.Tensor]:
+def mlp_sharded(lay, params, hs: Sequence, act: str = "gelu") -> List:
     """The biased, non-gated MLP over ``mlp``'s split: model position j
     takes the columns j of ``w_up``, the entries j of ``b_up`` and the
-    rows j of ``w_down``; the partial outputs are summed at each row's
-    home and ``b_down`` is added once, to the sum."""
+    rows j of ``w_down``; the partial outputs are summed back into the
+    row and ``b_down`` is added once, to each cell of the sum."""
     n = lay.n_tp(params["w_up"])
     w = {k: lay.weights(params[k], n) for k in ("w_up", "b_up", "w_down")}
-    b_down = lay.weights(params["b_down"], 1)[0]
+    b_down = lay.weights(params["b_down"], lay.n_cells)
     out = []
     for r, h in enumerate(hs):
-        xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
+        xs = lay.enter(r, h, n)
         parts = []
         for j in range(n):
-            u = xs[j] @ w["w_up"][j][r] + w["b_up"][j][r].to(h.dtype)
+            u = xs[j] @ w["w_up"][j][r] + w["b_up"][j][r].to(xs[j].dtype)
             parts.append(_act(act)(u) @ w["w_down"][j][r])
-        out.append(M.psum(parts, lay.home(r)) + b_down[r].to(h.dtype))
-    return out
+        out.append(lay.leave(r, parts))
+    return lay.each(lambda r, j, y: y + b_down[j][r].to(y.dtype), out)
 
 
 def embed_sharded(lay, params, tokens: Sequence[torch.Tensor],

@@ -26,8 +26,12 @@ column map, ``Layout.columns``, cuts them), its channels of the conv,
 ``w_dt``, ``b_dt``, ``a_log``, ``d_skip``, its rows of ``w_x`` and
 ``w_out``. ``u @ w_x`` is a partial product: its sum at the row's home
 gives every position the whole dt_rank input, B and C. The scan kernel
-runs on (b_row, s, d_inner / n) and the partial products with
-``w_out`` are summed at the home. Where ``d_inner`` does not split over
+runs on (b_row, s, d_inner / n) of the row whole (``Layout.enter``)
+and the partial products with ``w_out`` are summed back into the row
+(``Layout.leave``). Under a sequence split the row is gathered, as
+RWKV's is (``models/rwkv.py``): the causal conv and the scan see the
+whole sequence, and the ``w_x`` sum stays inside the layer, on the
+gathered sequence. Where ``d_inner`` does not split over
 ``model`` (even where 2 d_inner does, so that ``w_in`` alone is split)
 the mixer runs whole at the home, ``w_in`` gathered whole.
 """
@@ -129,9 +133,9 @@ def mamba_mixer(cfg: ModelConfig, params, x) -> torch.Tensor:
 
 
 def mamba_mixer_sharded(cfg: ModelConfig, lay, params, hs):
-    """:func:`mamba_mixer` of each row (``hs`` at the rows' homes) over
+    """:func:`mamba_mixer` of each row (``hs`` in ``lay``'s form) over
     ``d_inner`` split across ``model``; see the module's doc."""
-    _check_length(hs[0].shape[1])
+    _check_length(sum(c.shape[1] for c in lay.cells(hs[0])))
     di = cfg.mamba.d_inner(cfg.d_model)
     n = lay.n_tp(params["conv_w"])
     c = di // n
@@ -146,12 +150,13 @@ def mamba_mixer_sharded(cfg: ModelConfig, lay, params, hs):
     for r, h in enumerate(hs):
         devs = [lay.dev(r, j) for j in range(n)]
         ps = [{k: v[j][r] for k, v in w.items()} for j in range(n)]
-        uz = [_inner(p, x) for p, x in zip(ps, M.fan_out(h, devs))]
+        xs = lay.enter(r, h, n)
+        uz = [_inner(p, x) for p, x in zip(ps, xs)]
         proj = M.fan_out(M.psum([u @ p["w_x"] for p, (u, _) in zip(ps, uz)],
                                 lay.home(r)), devs)
-        out.append(M.psum([
-            _scan_out(p, h.dtype, u, z, *_split_proj(cfg, p, pr))
-            for p, (u, z), pr in zip(ps, uz, proj)], lay.home(r)))
+        out.append(lay.leave(r, [
+            _scan_out(p, xs[0].dtype, u, z, *_split_proj(cfg, p, pr))
+            for p, (u, z), pr in zip(ps, uz, proj)]))
     return out
 
 

@@ -26,12 +26,13 @@ leaves the one it was given as it was.
 one device (``models/layers.py``'s ``*_sharded`` conventions): the
 weights without a head dim (``w_dkv``, ``w_kr``, ``kv_norm``, ``w_dq``,
 ``q_norm``) are replicated over ``model``, so a row's latent, roped key
-and low-rank query are computed once, at its home, and sent to its
-model positions; position j holds its heads of ``w_uk``, ``w_uv``, the
-q projections and ``wo``, attends with the kernel (v padded as above)
-and multiplies by its rows of ``wo``; the partial outputs are summed at
-the home. Where the heads fall back to replication, the layer runs
-whole at the home.
+and low-rank query are computed once, at its home (a sequence split
+gathers the row there first, ``Layout.whole``), and sent to its model
+positions; position j holds its heads of ``w_uk``, ``w_uv``, the q
+projections and ``wo``, attends with the kernel (v padded as above) and
+multiplies by its rows of ``wo``; the partial outputs are summed back
+into the row (``Layout.leave``). Where the heads fall back to
+replication, the layer runs whole at the home.
 """
 from __future__ import annotations
 
@@ -165,9 +166,9 @@ _HEAD_WEIGHTS = ("w_uk", "w_uv", "wo", "wq_nope", "wq_rope", "w_uq_nope",
 
 def mla_self_attention_sharded(cfg: ModelConfig, lay, params, hs,
                                positions):
-    """:func:`mla_self_attention` of each row (``hs``, at the rows'
-    homes) over ``heads`` split across ``model``; see the module's doc.
-    ``positions`` is the list of the rows' (s,) positions."""
+    """:func:`mla_self_attention` of each row (``hs``, in ``lay``'s
+    form) over ``heads`` split across ``model``; see the module's doc.
+    ``positions`` is the list of the rows' (s,) positions, whole rows'."""
     n = lay.n_tp(params["w_uk"])
     w = {k: lay.weights(params[k], n) for k in _HEAD_WEIGHTS if k in params}
     home = {k: lay.weights(params[k], 1)[0]
@@ -176,6 +177,7 @@ def mla_self_attention_sharded(cfg: ModelConfig, lay, params, hs,
              for k in ("kv_norm", "q_norm") if k in params}
     out = []
     for r, h in enumerate(hs):
+        h = lay.whole(r, h)
         p0 = {k: v[r] for k, v in home.items()}
         p0.update({k: {"scale": v[r]} for k, v in norms.items()})
         pos = positions[r][None]
@@ -183,10 +185,10 @@ def mla_self_attention_sharded(cfg: ModelConfig, lay, params, hs,
         devs = [lay.dev(r, j) for j in range(n)]
         fanned = [M.fan_out(t, devs)
                   for t in (_q_source(cfg, p0, h), ckv, k_rope)]
-        out.append(M.psum([
+        out.append(lay.leave(r, [
             _attend_heads(cfg, {k: v[j][r] for k, v in w.items()},
                           *(f[j] for f in fanned), pos.to(devs[j]))
-            for j in range(n)], lay.home(r)))
+            for j in range(n)]))
     return out
 
 

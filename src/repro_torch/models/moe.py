@@ -20,7 +20,10 @@ row's slots offset by the exclusive prefix, over the rows before it, of
 their per-expert counts), the grouped dispatch is local to a sequence
 row as it is unsharded. Model position j runs the grouped matmul once,
 on its experts' rows of the capacity buffer, which hold every row's
-tokens; each row gathers its own tokens' outputs.
+tokens; each row gathers its own tokens' outputs. Under a sequence
+split each row's cells are gathered at its home before routing, so the
+token-major order, the capacity drops and the router losses are the
+unsharded layer's, and the output is cut back into the cells.
 """
 from __future__ import annotations
 
@@ -254,10 +257,14 @@ def _experts_sharded(lay, params, bufs, act: str) -> List[torch.Tensor]:
 
 def moe_ffn_sharded(cfg: ModelConfig, lay, params, hs, act: str = "silu"
                     ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
-    """:func:`moe_ffn` of each row (``hs`` (b_r, s, d) at the rows'
-    homes); see the module's doc. Returns (the rows' outputs, aux)."""
+    """:func:`moe_ffn` of each row (``hs`` (b_r, s, d) in ``lay``'s
+    form: a sequence split's cells are gathered at the row's home first,
+    so that routing and dispatch see the row's tokens in order); see the
+    module's doc. Returns (the rows' outputs, in ``lay``'s form, and
+    aux)."""
     m = cfg.moe
     home0 = lay.home(0)
+    cells, hs = hs, [lay.whole(r, h) for r, h in enumerate(hs)]
     routers = lay.weights(params["router"], 1)[0]
     routed = [_router(cfg, h.float(), w) for h, w in zip(hs, routers)]
     n_tok = sum(h.shape[0] * h.shape[1] for h in hs)
@@ -309,7 +316,8 @@ def moe_ffn_sharded(cfg: ModelConfig, lay, params, hs, act: str = "silu"
             w = (gv.reshape(-1) * keep).to(h.dtype)
             ys.append((out[e, c] * w[:, None]).reshape(b * s, m.top_k, d)
                       .sum(dim=1).reshape(b, s, d))
+    ys = [lay.leave(r, [y]) for r, y in enumerate(ys)]
     if m.num_shared:
-        shared = layers.gated_mlp_sharded(lay, params["shared"], hs, act)
-        ys = [y + sh for y, sh in zip(ys, shared)]
+        shared = layers.gated_mlp_sharded(lay, params["shared"], cells, act)
+        ys = lay.each(lambda r, j, y, sh: y + sh, ys, shared)
     return ys, aux

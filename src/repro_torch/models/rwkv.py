@@ -20,9 +20,14 @@ position j holds its heads' share of the projections, ``decay_b``, the
 per-head ``bonus`` / ``decay_base`` / group norm and the rows of
 ``w_o``, and the whole ``decay_a`` and token-shift mixes; every head's
 work is its own, so each position runs ``rwkv_mixer`` on its heads (the
-WKV kernel on (b_row, h / n, s, dh)) and its output is that position's
-partial product with ``w_o``, summed at the row's home. Where the heads
-fall back to replication, the layer runs whole at the home.
+WKV kernel on (b_row, h / n, s, dh)) on its row whole
+(``Layout.enter``) and its output is that position's partial product
+with ``w_o``, summed back into the row (``Layout.leave``). Under a
+sequence split the row is gathered, not walked cell by cell with a
+state passed on (neither WKV kernel takes a starting state): the token
+shift and the recurrence see the whole sequence, so a cell boundary
+needs no halo. Where the heads fall back to replication, the layer
+runs whole at the home.
 """
 from __future__ import annotations
 
@@ -34,7 +39,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rwkv6_ref
-from repro_torch.launch import mesh as M
 from repro_torch.models.params import Spec
 
 
@@ -126,16 +130,16 @@ def rwkv_mixer(cfg: ModelConfig, params, x) -> torch.Tensor:
 
 
 def rwkv_mixer_sharded(cfg: ModelConfig, lay, params, hs):
-    """:func:`rwkv_mixer` of each row (``hs`` at the rows' homes) over
+    """:func:`rwkv_mixer` of each row (``hs`` in ``lay``'s form) over
     ``heads`` split across ``model``; see the module's doc."""
     n = lay.n_tp(params["w_r"])
     w = {k: lay.weights(v, n) for k, v in params.items()}
     out = []
     for r, h in enumerate(hs):
-        xs = M.fan_out(h, [lay.dev(r, j) for j in range(n)])
-        out.append(M.psum([rwkv_mixer(cfg, {k: v[j][r] for k, v in w.items()},
-                                      xs[j]) for j in range(n)],
-                          lay.home(r)))
+        xs = lay.enter(r, h, n)
+        out.append(lay.leave(r, [
+            rwkv_mixer(cfg, {k: v[j][r] for k, v in w.items()}, xs[j])
+            for j in range(n)]))
     return out
 
 

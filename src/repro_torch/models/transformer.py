@@ -49,9 +49,14 @@ the batch split into rows (``sharding.rules.Layout``;
 ``loss_fn`` and ``forward``. Each row's frames or patches travel with
 its tokens: ``encode_sharded`` turns the rows' frames into the rows'
 memory, and a row's patches are prepended to its embedded tokens and
-masked out of its labels. A repeat's FSDP gathers run inside the unit
-``_maybe_remat`` wraps, so under remat the gathered weights are
-recomputed in the backward and are not kept across the step. The
+masked out of its labels. Under a sequence split a row's residual
+stream between layers is its sequence cells over ``model``
+(``Layout``), cut after the embedding, the prefix and the positions
+are in place; each layer gathers the row's cells and the head and loss
+take each row whole, so labels and masks are never cut. A repeat's
+FSDP gathers run inside the unit ``_maybe_remat`` wraps, so under
+remat the gathered weights are recomputed in the backward and are not
+kept across the step. The
 loss's mask denominator, its metrics and the router losses are sums
 over every row.
 """
@@ -289,7 +294,12 @@ def _cross_sharded(cfg: ModelConfig, lay, p, xs, memory
     hs = attention.cross_attention_sharded(
         cfg, lay, p["cross"], _norm_sharded(cfg, lay, p["norm_x"], xs),
         memory)
-    return [x + h for x, h in zip(xs, hs)]
+    return _add(lay, xs, hs)
+
+
+def _add(lay, xs, hs) -> List:
+    """The residual add of rows ``xs`` and ``hs``, cell by cell."""
+    return lay.each(lambda r, j, x, h: x + h, xs, hs)
 
 
 def _apply_block_sharded(cfg: ModelConfig, lay, mixer: str, ffn: str, p, xs,
@@ -306,7 +316,7 @@ def _apply_block_sharded(cfg: ModelConfig, lay, mixer: str, ffn: str, p, xs,
         hs = mamba.mamba_mixer_sharded(cfg, lay, p["mixer"], hs)
     else:
         hs = rwkv.rwkv_mixer_sharded(cfg, lay, p["mixer"], hs)
-    xs = _cross_sharded(cfg, lay, p, [x + h for x, h in zip(xs, hs)], memory)
+    xs = _cross_sharded(cfg, lay, p, _add(lay, xs, hs), memory)
     hs = _norm_sharded(cfg, lay, p["norm2"], xs)
     if ffn == "moe":
         hs, aux = moe.moe_ffn_sharded(cfg, lay, p["ffn"], hs, cfg.act)
@@ -314,7 +324,7 @@ def _apply_block_sharded(cfg: ModelConfig, lay, mixer: str, ffn: str, p, xs,
         hs, aux = layers.mlp_sharded(lay, p["ffn"], hs, cfg.act), {}
     else:
         hs, aux = layers.gated_mlp_sharded(lay, p["ffn"], hs, cfg.act), {}
-    return [x + h for x, h in zip(xs, hs)], aux
+    return _add(lay, xs, hs), aux
 
 
 def _stack_forward_sharded(cfg: ModelConfig, lay, params, xs, positions,
@@ -330,7 +340,11 @@ def _stack_forward_sharded(cfg: ModelConfig, lay, params, xs, positions,
 def _hidden_sharded(cfg: ModelConfig, lay, params,
                     batch: Dict[str, List[torch.Tensor]], dtype):
     """:func:`forward` up to the head on the rows of ``batch``: the
-    rows' final-normed hidden states and the router losses."""
+    rows' final-normed hidden states (in ``lay``'s form) and the router
+    losses. Each row is embedded whole at its home, behind its patches
+    and with whisper's positions, before a sequence split cuts it into
+    cells, so positions are whole rows' (RoPE's too: a layer attends on
+    its row whole)."""
     xs = layers.embed_sharded(lay, params["embed"], batch["tokens"], dtype)
     if has_vision_prefix(cfg):
         xs = [torch.cat([pt.to(x.device, dtype), x], dim=1)
@@ -341,8 +355,9 @@ def _hidden_sharded(cfg: ModelConfig, lay, params,
                               x.device).to(dtype)[None] for x in xs]
     memory = None
     if cfg.encoder is not None:
-        memory = encode_sharded(cfg, lay, params,
+        memory = encode_sharded(cfg, lay.rows_whole(), params,
                                 [f.to(dtype) for f in batch["frames"]])
+    xs = [lay.leave(r, [x]) for r, x in enumerate(xs)]
     xs, aux = _stack_forward_sharded(cfg, lay, params, xs, positions,
                                      memory)
     return _norm_sharded(cfg, lay, params["final_norm"], xs), aux
@@ -376,6 +391,9 @@ def loss_fn_sharded(cfg: ModelConfig, lay, params,
     (``tokens``, ``labels``, an optional ``loss_mask``, and ``frames``
     or ``patches`` where the model takes them)."""
     xs, aux = _hidden_sharded(cfg, lay, params, batch, dtype)
+    # the head's vocab split on each row whole, rather than the whole
+    # head on every cell
+    xs = [lay.whole(r, x) for r, x in enumerate(xs)]
     masks = batch.get("loss_mask") or [None] * len(xs)
     labels, masks = zip(*(_prefix_labels(cfg, lab, m) for lab, m in
                           zip(batch["labels"], masks)))
@@ -395,7 +413,8 @@ def last_logits_sharded(cfg: ModelConfig, lay, params,
     its rows (``tokens``, and ``frames`` or ``patches`` where the model
     takes them)."""
     xs, _ = _hidden_sharded(cfg, lay, params, batch, dtype)
-    logits = _head_sharded(cfg, lay, params, [x[:, -1] for x in xs])
+    logits = _head_sharded(cfg, lay, params,
+                           [lay.cells(x)[-1][:, -1] for x in xs])
     return M.all_gather([M.all_gather(parts, -1, lay.home(0))
                          for parts in logits], 0, lay.home(0))
 
@@ -436,8 +455,9 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
 
 def encode_sharded(cfg: ModelConfig, lay, params,
                    frames: List[torch.Tensor]) -> List[torch.Tensor]:
-    """:func:`encode` of the rows' frames (each at its row's home): each
-    encoder block's attention over ``heads`` split across ``model``
+    """:func:`encode` of the rows' frames (each at its row's home; ``lay``
+    keeps rows whole, as no rule splits the frames): each encoder
+    block's attention over ``heads`` split across ``model``
     (bidirectional) and its MLP over ``mlp``, as the decoder's; the rows'
     ``memory``. No remat wraps a block, as :func:`encode` wraps none."""
     xs = [f + _sinusoidal(f.shape[1], cfg.d_model,

@@ -16,10 +16,15 @@ place each mesh position's share on its device themselves
 (``models/tower.py``, ``models/decode_sharded.py``,
 ``core/vfl_step.py``, and the zoo's train and prefill steps through
 :class:`Parts`, which :func:`place` makes of a whole tensor and its
-spec: params, optimizer slots and the batch alike). So the JAX
+spec: params, optimizer slots and the batch by its batch dim). The JAX
 package's ``constrain``, a layout hint to XLA whose values never depend
-on it, has no counterpart, and neither has its ``shard_map`` wrapper:
-the port writes its collectives out (``launch/mesh.py``). Nor has
+on it, is read once: where the residual stream's ``("batch", "seq",
+"embed")`` spec gives the sequence the ``model`` axis (the dry-run's
+``seqshard``), a step's :class:`Layout` keeps each row between layers
+as sequence cells over ``model`` (Megatron-style sequence
+parallelism); inside a layer the port picks its own layout. Its
+``shard_map`` wrapper has no counterpart: the port writes its
+collectives out (``launch/mesh.py``). Nor has
 ``reduce_dtype``: it asks a promoting ``jnp.einsum`` for a bf16 result,
 and a product of bf16 tensors in torch is bf16 already (the port's
 weights and activations share a dtype, ``models/layers.py``).
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -35,11 +41,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.launch import mesh as M
-
-# the ROADMAP Queue 1 item that ports the other families' train and
-# prefill steps on a mesh of more than one device
-SHARDED_STEPS = ("ROADMAP Queue 1 item 10b (zoo train and prefill steps "
-                 "on a mesh of more than one device)")
 
 
 class PartitionSpec(tuple):
@@ -332,13 +333,81 @@ class Layout:
     """Where a sharded train or prefill step runs: its rows, the batch's
     positions over the mesh axes the batch's spec splits (row-major in
     the spec's order, so row r holds the r-th chunk of the batch), and
-    each row's positions over the ``model`` axis. Row r's activations
-    between layers live at its home, its model position 0."""
+    each row's positions over the ``model`` axis.
 
-    def __init__(self, mesh, batch_entry=None):
+    Between layers row r's activations are its cells. Where the
+    sequence is not split (``n_cells`` 1) the row is one tensor at its
+    home, its model position 0. Where it is (``seq``: the activations'
+    ``("batch", "seq", "embed")`` spec gives the sequence the ``model``
+    axis) the row is a list of ``n_model`` cells, cell j the sequence
+    chunk ``[j s / n, (j + 1) s / n)`` on position (r, j), and norms
+    and residual adds run cell by cell (:meth:`each`). A layer that
+    splits its work over ``model`` takes its input through
+    :meth:`enter` and gives its partial outputs to :meth:`leave`; a
+    layer that needs a row whole in one place takes it through
+    :meth:`whole`."""
+
+    def __init__(self, mesh, batch_entry=None, seq: bool = False):
         self.mesh = mesh
         self.rows = positions(mesh, entry_axes(batch_entry))
         self.n_model = mesh.shape.get("model", 1)
+        self.n_cells = self.n_model if seq else 1
+
+    def rows_whole(self) -> "Layout":
+        """This layout with every row whole at its home (the encoder's
+        frames, whose spec splits no sequence)."""
+        out = copy.copy(self)
+        out.n_cells = 1
+        return out
+
+    def cells(self, x) -> List[torch.Tensor]:
+        """Row ``x``'s cells in sequence order."""
+        return list(x) if self.n_cells > 1 else [x]
+
+    def _row(self, cells: Sequence[torch.Tensor]):
+        return list(cells) if self.n_cells > 1 else cells[0]
+
+    def each(self, fn, xs, *others) -> list:
+        """``fn(r, j, x, *o)`` of cell j of each row r of ``xs`` and the
+        same cells of ``others`` (lists of rows like ``xs``): new rows."""
+        return [self._row([fn(r, j, *c) for j, c in enumerate(zip(
+            self.cells(x), *(self.cells(o[r]) for o in others)))])
+            for r, x in enumerate(xs)]
+
+    def enter(self, r: int, x, n: int) -> Tuple[torch.Tensor, ...]:
+        """Row r whole on each of its first ``n`` model positions: the
+        row copied from its home (``launch/mesh.py`` ``fan_out``, whose
+        gradient is the positions' summed in order), or its cells
+        gathered in order along the sequence (``spread``, whose gradient
+        is the ordered reduce-scatter back to the cells)."""
+        devs = [self.dev(r, j) for j in range(n)]
+        if self.n_cells == 1:
+            return M.fan_out(x, devs)
+        lo = list(itertools.accumulate([0] + [c.shape[1] for c in x]))
+        return M.spread(list(x), [(slice(None), slice(a, b))
+                                  for a, b in zip(lo, lo[1:])], devs)
+
+    def whole(self, r: int, x) -> torch.Tensor:
+        """Row r whole at its home: ``x`` itself where the sequence is
+        not split, else its cells gathered there (:meth:`enter`)."""
+        return x if self.n_cells == 1 else self.enter(r, x, 1)[0]
+
+    def leave(self, r: int, parts: Sequence[torch.Tensor]):
+        """The sum of ``parts`` (whole rows, added in order: ``psum``)
+        as row r: at its home, or each cell's chunk of the sequence
+        summed on that cell's device (a reduce-scatter along the
+        sequence; the gradient of every part is every cell's). One part
+        is the row cut into its cells."""
+        if self.n_cells == 1:
+            return M.psum(parts, self.home(r))
+        s = parts[0].shape[1]
+        if s % self.n_cells:
+            raise ValueError(f"a sequence of {s} does not split into "
+                             f"{self.n_cells} cells")
+        c = s // self.n_cells
+        return [M.psum([p[:, j * c:(j + 1) * c] for p in parts],
+                       self.dev(r, j)).contiguous()
+                for j in range(self.n_cells)]
 
     def dev(self, r: int, j: int = 0) -> torch.device:
         pos = dict(self.rows[r])

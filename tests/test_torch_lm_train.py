@@ -20,11 +20,11 @@ from ``make_lm_batches`` go through both packages:
 * ``train()`` on reduced ``h2o-danube-1.8b`` lowers the loss and serves
   its params, as ``tests/test_system.py``'s trainer test; the CLI with
   ``--device cpu`` in a subprocess, and with ``--mesh`` (the (1, 1)
-  mesh) the same final metrics; train and prefill steps of a family not
-  ported to a larger mesh yet (whisper-large-v3's encoder), and an
-  Adafactor train step of internvl2-76b's vision prefix there, raise
-  naming ROADMAP Queue 1 item 10b
-  (``tests/test_torch_sharded_steps.py`` holds the ported ones).
+  mesh) the same final metrics; the train and prefill steps of
+  whisper-large-v3 (AdamW) and internvl2-76b (Adafactor) step on a
+  larger mesh, with a sequence split too, that one held to the
+  unsharded step (``tests/test_torch_sharded_steps.py`` holds every
+  family's sharded steps).
 """
 import dataclasses
 import os
@@ -304,38 +304,45 @@ def test_mesh_rules_raise():
     """On a mesh of more than one device the train and prefill steps of
     an encoder-decoder (whisper, AdamW) and the Adafactor train step of
     a vision prefix (internvl2) build and take a step; with a sequence
-    split (``act_rules["seq"]``) they raise naming the ROADMAP item. A
-    decode step takes any mesh."""
+    split (``act_rules["seq"]``) they take it too, with the unsharded
+    step's metrics and last logits. A decode step takes any mesh."""
     cfg = get_config("whisper-large-v3").reduced()
     vlm = get_config("internvl2-76b").reduced()
-    rules = MeshRules(make_local_mesh(1, 2, devices=["cpu"] * 2))
+    mesh = make_local_mesh(1, 2, devices=["cpu"] * 2)
+    rules, seq = MeshRules(mesh), MeshRules(mesh)
+    seq.act_rules["seq"] = ("model",)
     rng = np.random.default_rng(0)
-    for c, opt, stub, n in ((cfg, tO.adamw(), "frames",
+    for c, opt, stub, n in ((cfg, tO.adamw, "frames",
                              cfg.encoder.n_frames),
-                            (vlm, tO.adafactor(), "patches",
+                            (vlm, tO.adafactor, "patches",
                              vlm.frontend.num_tokens)):
         batch = _torch_batch(dict(_batch(c, b=2, s=8), **{stub: (
             rng.standard_normal((2, n, c.d_model)) * 0.02).astype(
                 np.float32)}))
-        params = tST.place_params(c, tP.init_tree(
-            tT.model_spec(c), torch.Generator().manual_seed(0),
-            torch.float32, "cpu"), rules)
-        step = tST.make_train_step(c, opt, rules=rules,
-                                   compute_dtype=torch.float32)
-        _, _, metrics = step(params, opt.init(params), batch)
-        assert np.isfinite(float(metrics["loss"]))
-        logits = tST.make_prefill_step(c, rules, torch.float32)(
-            params, {k: v for k, v in batch.items() if k != "labels"})
-        assert logits.shape == (2, c.vocab)
-    rules.act_rules["seq"] = ("model",)
-    for make in (lambda: tST.make_train_step(cfg, tO.adamw(), rules=rules),
-                 lambda: tST.make_prefill_step(cfg, rules=rules),
-                 lambda: tST.make_train_step(vlm, tO.adafactor(),
-                                             rules=rules)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10b"):
-            make()
-    tST.make_decode_step(cfg, rules=rules)
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        got = {}
+        for name, r in (("none", None), ("rows", rules), ("seq", seq)):
+            params = tP.init_tree(tT.model_spec(c),
+                                  torch.Generator().manual_seed(0),
+                                  torch.float32, "cpu")
+            if r is not None:
+                params = tST.place_params(c, params, r)
+            o = opt()
+            step = tST.make_train_step(c, o, rules=r,
+                                       compute_dtype=torch.float32)
+            logits = tST.make_prefill_step(c, r, torch.float32)(params,
+                                                                inputs)
+            _, _, metrics = step(params, o.init(params), batch)
+            got[name] = metrics, logits
+        assert np.isfinite(float(got["rows"][0]["loss"]))
+        assert got["rows"][1].shape == (2, c.vocab)
+        (exp_m, exp_l), (seq_m, seq_l) = got["none"], got["seq"]
+        for k in exp_m:
+            np.testing.assert_allclose(float(seq_m[k]), float(exp_m[k]),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+        assert float((seq_l - exp_l).abs().max()) <= \
+            1e-5 * float(exp_l.abs().max())
+    tST.make_decode_step(cfg, rules=seq)
 
 
 def test_prefill_and_decode_steps_match_forward():

@@ -45,8 +45,26 @@ JAX package's.
   1, 2), accum_steps 1 and 2, their frames or patches drawn with the
   batch, held as the mixer families are; the biased MLP's output bias
   added once over a model axis of 2 and 4.
-* A sequence split raises naming ROADMAP Queue 1 item 10b, for every
-  family; decode takes any mesh.
+* The sequence split (``act_rules["seq"] = ("model",)``, each row's
+  residual stream as sequence cells over ``model`` between layers):
+  every family's steps held as the mixer families' are, to the port's
+  unsharded step and, on the keys of the cases above (so that one JAX
+  run serves both), the JAX package's: qwen3 (untied on (2, 2), tied on
+  (4, 1), accum_steps 2), h2o-danube's window of 5 across a cell
+  boundary on (2, 1, 2), glm4's KV fallback on (1, 4), granite's global
+  and grouped dispatch and expert data parallelism (``moedp``, on (2,
+  1, 2)) (and at capacity factor 0.5, every step dropping
+  assignments, under remat ``minimal`` and ``full``), rwkv6, minicpm3,
+  deepseek, jamba's two layers (the token shift and the conv across a
+  cell), whisper (its decoder split, its encoder not), internvl2 (its
+  prefix across a cell); a length that does not divide over ``model``
+  falls back, recorded, and one whose tokens do not divide while its
+  whole sequence does is split. The seven families that raised before
+  the split ran step with it on a model axis of 2 (the test keeps its
+  name); decode takes any mesh. ``Layout``'s gather and reduce-scatter
+  along the sequence, forward and backward, against the whole tensor;
+  each row holds all of its tokens, labels and patches; the MoE layer
+  over cells keeps the unsharded drops.
 * Remat ``minimal``: the backward recomputes no matmul without batch
   dims (the attention projections included).
 * Checkpoints: a sharded ``train()`` saves whole arrays that restore
@@ -448,26 +466,23 @@ def test_attention_over_kv_heads_that_fall_back(heads, kv, model):
     ("qwen3-14b", {"adafactor": True, "seqshard": True}),
     ("qwen3-14b", {"seqshard": True})])
 def test_unported_families_raise(arch, changes):
-    """A sequence split raises on a mesh of more than one device, for
-    every family (the encoder-decoder and the vision prefix run there
-    since ROADMAP item 10b's third part: see their cases below);
-    Adafactor's ``init`` takes placed params."""
+    """A sequence split on a mesh of more than one device runs for
+    every family (it raised before the split was ported; the name is
+    kept): one step of the reduced model on a model axis of 2 with
+    ``act_rules["seq"]``, held to the unsharded step as
+    ``_check_family`` holds it; Adafactor's ``init`` takes placed params;
+    decode takes any mesh."""
     cfg = get_config(arch).reduced()
     rules = _rules((1, 2))
     if changes.get("seqshard"):
         rules.act_rules["seq"] = ("model",)
-    opt = tO.adafactor() if changes.get("adafactor") else tO.adamw()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10b"):
-        tST.make_train_step(cfg, opt, rules=rules)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10b"):
-        tST.make_prefill_step(cfg, rules=rules)
+    opt = "adafactor" if changes.get("adafactor") else "adamw"
+    _check_family((arch, arch, (1, 2), {}, opt, 8, 1, False), rules)
     if changes.get("adafactor"):
         placed = tST.place_params(cfg, tP.from_numpy(_np_params(cfg),
                                                      "cpu"), rules)
-        assert isinstance(opt.init(placed)["slots"]["embed"]["table"][
-            "v_row"], R.Parts)
+        assert isinstance(tO.adafactor().init(placed)["slots"]["embed"][
+            "table"]["v_row"], R.Parts)
     tST.make_decode_step(cfg, rules=rules)          # any mesh
 
 
@@ -648,19 +663,36 @@ def test_sharded_mixers_match_unsharded_and_jax(case):
     _check_family(case)
 
 
-def _check_family(case):
-    """A ``MIXER_CASES``-like case: its steps on the mesh against the
-    unsharded port's and, where the case says, the JAX package's."""
+_PORT_RUNS = {}
+
+
+def _unsharded(cfg, np_params, batch, accum, opt, steps, key):
+    """The port's unsharded steps (``_port_steps``) and prefill logits of
+    a ``_check_family`` case, run once a module for each ``key``: the
+    sequence-split cases reuse their unsplit twins' reference."""
+    if key not in _PORT_RUNS:
+        stubs = {k: batch[k] for k in _stubs(cfg)}
+        _PORT_RUNS[key] = (
+            _port_steps(cfg, np_params, batch, None, accum, _OPTS[opt](),
+                        steps),
+            _prefill(cfg, np_params, batch["tokens"], None, **stubs))
+    return _PORT_RUNS[key]
+
+
+def _check_family(case, rules=None):
+    """A ``MIXER_CASES``-like case: its steps on the mesh (``rules``,
+    else the case's mesh shape's default rules) against the unsharded
+    port's and, where the case says, the JAX package's."""
     _, arch, shape, changes, opt, b, accum, with_jax = case
     cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
-    rules = _rules(shape)
+    rules = rules or _rules(shape)
     np_params = _np_params(cfg, seed=1)
     batch = _batch(cfg, b, seed=1)
     # Adafactor's first step reads no slot (beta2 = 0 at step 1): a
     # second step reads back the slots the first wrote
     steps = 2 if opt == "adafactor" else 1
-    exp = _port_steps(cfg, np_params, batch, None, accum, _OPTS[opt](),
-                      steps)
+    exp, exp_logits = _unsharded(cfg, np_params, batch, accum, opt, steps, (
+        arch, repr(sorted(changes.items())), b, accum, opt))
     got = _port_steps(cfg, np_params, batch, rules, accum, _OPTS[opt](),
                       steps)
     (exp_p, exp_m, exp_g, exp_s), (got_p, got_m, got_g, got_s) = \
@@ -689,8 +721,7 @@ def _check_family(case):
         assert torch.equal(a, e), ("rerun", path)
     stubs = {k: batch[k] for k in _stubs(cfg)}
     logits = _prefill(cfg, np_params, batch["tokens"], rules, **stubs)
-    assert _rel(logits, _prefill(cfg, np_params, batch["tokens"], None,
-                                 **stubs)) <= 1e-5
+    assert _rel(logits, exp_logits) <= 1e-5
     assert torch.equal(logits, _prefill(cfg, np_params, batch["tokens"],
                                         rules, **stubs))
     if "fallback" in case[0]:
@@ -838,3 +869,177 @@ def test_mlp_sharded_adds_its_output_bias_once(model):
     assert _rel(got, exp) <= 1e-5
     # the bias counted once a position would be far off
     assert _rel(got + (model - 1) * p["b_down"], exp) > 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the sequence split (act_rules["seq"]): each row's residual stream as
+# sequence cells over ``model`` between layers
+# ---------------------------------------------------------------------------
+
+# granite's reduced MoE at capacity factor 0.5: every step overflows an
+# expert and drops assignments
+_OVERFLOW = {"moe": dataclasses.replace(
+    get_config("granite-moe-3b-a800m").reduced().moe, capacity_factor=0.5)}
+
+# (id, arch, mesh shape, config changes, optimizer, batch, accum_steps,
+# held to the JAX package's step too), as MIXER_CASES, each run with
+# ``act_rules["seq"] = ("model",)``; a case held to JAX shares its key
+# with a case above, so ``_jax_ref``'s run serves it. The 16-token rows
+# (24 positions behind internvl2's 8 patches) cut into cells of 8 on
+# model 2 and of 4 (6) on model 4: h2o's window of 5 and the recurrences'
+# token shift and conv cross a cell boundary, internvl2's prefix spans
+# cells 0 and 1; on model 3 qwen3's 16 positions do not divide (the
+# spec falls back, recorded, and rows stay whole) and internvl2's
+# tokens do not while its 24 positions do (cells of 8)
+SEQ_CASES = [
+    ("qwen3-2x2-accum2", "qwen3-14b", (2, 2), {}, "adamw", 8, 2, True),
+    ("qwen3-tied-4x1-accum2", "qwen3-14b", (4, 1),
+     {"tie_embeddings": True}, "adamw", 8, 2, False),
+    ("h2o-window-pod2x1x2", "h2o-danube-1.8b", (2, 1, 2), {"window": 5},
+     "adamw", 4, 1, False),
+    ("glm4-kvfallback-1x4-accum2", "glm4-9b", (1, 4), {}, "adamw", 4, 2,
+     False),
+    ("granite-global-2x2", "granite-moe-3b-a800m", (2, 2), {}, "adamw", 8,
+     1, True),
+    ("granite-grouped-2x2-accum2", "granite-moe-3b-a800m", (2, 2),
+     {"moe_group_dispatch": True}, "adamw", 8, 2, True),
+    ("granite-moedp-pod2x1x2", "granite-moe-3b-a800m", (2, 1, 2),
+     {"moe_expert_parallel": False}, "adamw", 8, 1, True),
+    ("granite-global-overflow-1x4-minimal", "granite-moe-3b-a800m", (1, 4),
+     dict(_OVERFLOW, remat_policy="minimal"), "adamw", 4, 1, False),
+    ("granite-grouped-overflow-2x2-full", "granite-moe-3b-a800m", (2, 2),
+     dict(_OVERFLOW, moe_group_dispatch=True, remat_policy="full"),
+     "adamw", 4, 1, False),
+    ("rwkv6-1x4", "rwkv6-7b", (1, 4), {}, "adamw", 8, 1, True),
+    ("minicpm3-2x2-accum2", "minicpm3-4b", (2, 2), {}, "adamw", 8, 2, True),
+    ("deepseek-1x4", "deepseek-v2-lite-16b", (1, 4), {}, "adamw", 8, 1,
+     True),
+    ("jamba2-2x2-adafactor", "jamba-1.5-large-398b", (2, 2), JAMBA2,
+     "adafactor", 8, 1, True),
+    ("whisper-2x2", "whisper-large-v3", (2, 2), {}, "adamw", 8, 1, True),
+    ("internvl2-1x4", "internvl2-76b", (1, 4), {}, "adafactor", 8, 1,
+     True),
+    ("qwen3-indivisible-1x3", "qwen3-14b", (1, 3), {}, "adamw", 4, 1,
+     False),
+    ("internvl2-tokens-indivisible-1x3", "internvl2-76b", (1, 3), {},
+     "adafactor", 4, 1, False),
+]
+
+
+@pytest.mark.parametrize("case", SEQ_CASES, ids=[c[0] for c in SEQ_CASES])
+def test_sequence_split_matches_unsharded_and_jax(case):
+    """The steps with a sequence split, at the unsharded step's and the
+    JAX package's tolerances (``_check_family``); the residual stream is
+    cut into cells where its whole length divides over ``model``, and a
+    length that does not falls back, recorded in the JAX package's
+    words."""
+    _, arch, shape, changes, _, b, accum, _ = case
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    rules = _rules(shape)
+    rules.act_rules["seq"] = ("model",)
+    _check_family(case, rules)
+    s_total = 16 + _stubs(cfg).get("patches", 0)
+    lay, rows = tST._Rows(cfg, rules)(_batch(cfg, b // accum))
+    assert lay.n_cells == (shape[-1] if s_total % shape[-1] == 0 else 1)
+    assert all(t.shape[1] == 16 for t in rows["tokens"])
+    fell_back = f"act: dim seq={s_total} not divisible by ('model',)"
+    assert any(f.startswith(fell_back) for f in rules.fallbacks) == \
+        (lay.n_cells == 1 and shape[-1] > 1)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_layout_cells_gather_and_reduce_scatter(model):
+    """``Layout.leave`` cuts a row into its cells and sums partial rows
+    into them, ``enter`` and ``whole`` gather the cells in order; the
+    values and gradients of the whole tensor's ops, the same bits over
+    two runs."""
+    mesh = M.make_mesh((1, model), AXES[2], ["cpu"] * model)
+    lay = R.Layout(mesh, "data", seq=True)
+    assert lay.n_cells == model and R.Layout(mesh, "data").n_cells == 1
+    rng = np.random.default_rng(8)
+    parts = [torch.as_tensor(rng.standard_normal((2, 12, 3)).astype(
+        np.float32)).requires_grad_() for _ in range(model)]
+    weights = torch.as_tensor(rng.standard_normal((model, 2, 12, 3))
+                              .astype(np.float32))
+
+    def run():
+        cells = lay.leave(0, parts)
+        gathered = lay.enter(0, cells, model) + (lay.whole(0, cells),)
+        loss = sum((w * g).sum() for w, g in zip(weights, gathered))
+        return cells, gathered, torch.autograd.grad(loss, parts)
+    cells, gathered, grads = run()
+    total = sum(parts).detach()
+    c = 12 // model
+    assert [tuple(x.shape) for x in cells] == [(2, c, 3)] * model
+    for j, x in enumerate(cells):
+        torch.testing.assert_close(x, total[:, j * c:(j + 1) * c],
+                                   rtol=1e-6, atol=1e-6)
+    for g in gathered:
+        torch.testing.assert_close(g, total, rtol=1e-6, atol=1e-6)
+    # every part's gradient is the gathered rows' weights summed, and the
+    # whole row's (the ``whole`` gather) once more
+    want = weights.sum(0)
+    for g in grads:
+        torch.testing.assert_close(g, want, rtol=1e-6, atol=1e-6)
+    again = run()
+    for a, b in zip(cells + list(gathered) + list(grads),
+                    again[0] + list(again[1]) + list(again[2])):
+        assert torch.equal(a, b)
+    # one part: the row cut into its cells, its gradient the cells'
+    x = total.clone().requires_grad_()
+    cut = lay.leave(0, [x])
+    assert torch.equal(torch.cat(cut, 1), total)
+    g, = torch.autograd.grad(sum((j + 1) * t.sum()
+                                 for j, t in enumerate(cut)), x)
+    assert torch.equal(g, torch.arange(1, model + 1).float()
+                       .repeat_interleave(c)[None, :, None].expand_as(x))
+
+
+def test_rows_take_every_token_under_a_sequence_split():
+    """With ``act_rules["seq"]`` the tokens' spec splits the sequence
+    over ``model``, but a step's rows take the batch by its batch entry
+    alone: each row holds all of its tokens, labels and patches, not the
+    chunk at model position 0."""
+    cfg = get_config("internvl2-76b").reduced()
+    rules = _rules((2, 2))
+    rules.act_rules["seq"] = ("model",)
+    batch = _batch(cfg, 4)
+    assert tuple(rules.act_spec(("batch", "seq"), (4, 16))) == \
+        ("data", "model")
+    lay, rows = tST._Rows(cfg, rules)(batch)
+    assert lay.n_cells == 2 and len(lay.rows) == 2
+    for k in ("tokens", "labels", "patches"):
+        for r, t in enumerate(rows[k]):
+            assert torch.equal(t, batch[k][2 * r:2 * (r + 1)]), (k, r)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_moe_dispatch_over_cells_keeps_the_drops(grouped):
+    """At capacity factor 0.5 experts overflow: over rows cut into
+    sequence cells the layer gathers each row before routing, so its
+    output, its drops and its router losses are the unsharded layer's,
+    and its output comes back in cells."""
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    cfg = dataclasses.replace(cfg, moe_group_dispatch=grouped, moe=(
+        dataclasses.replace(cfg.moe, capacity_factor=0.5)))
+    params = tP.from_numpy(_np_params(cfg, seed=3), "cpu")
+    p = tP.tree_slice(params["blocks"]["pos0"]["ffn"], 0)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (4, 16, cfg.d_model)).astype(np.float32))
+    rules = _rules((2, 2))
+    lay = R.Layout(rules.mesh, "data", seq=True)
+    specs = tST.resolve_param_shardings(cfg, rules)[2]
+    placed = tP.unstack(tP.place_tree(
+        params["blocks"]["pos0"]["ffn"], specs["blocks"]["pos0"]["ffn"],
+        rules.mesh), cfg.n_repeats)[0]
+    with torch.no_grad():
+        exp, exp_aux = tmoe.moe_ffn(cfg, p, x, cfg.act)
+        cells = [lay.leave(r, [row]) for r, row in enumerate(x.chunk(2))]
+        got, got_aux = tmoe.moe_ffn_sharded(cfg, lay, placed, cells,
+                                            cfg.act)
+    assert all(len(row) == 2 and row[0].shape[1] == 8 for row in got)
+    torch.testing.assert_close(torch.cat([torch.cat(row, 1) for row in got]),
+                               exp, rtol=1e-5, atol=1e-6)
+    for k in exp_aux:
+        torch.testing.assert_close(got_aux[k], exp_aux[k], rtol=1e-6,
+                                   atol=0)

@@ -17,9 +17,9 @@ package's own sharded functions.
   within rtol 1e-5 / atol 1e-6; the device-count guard; a split-NN job
   with ``tower_shard=2`` against ``tower_shard=1``.
 * ``--mesh`` training: the (1, 1) mesh gives the values of no mesh bit
-  for bit; train and prefill steps of a family not ported to a larger
-  mesh yet (an encoder: whisper-large-v3) raise there naming ROADMAP
-  Queue 1 item 10b; decode takes any mesh.
+  for bit; whisper-large-v3's train and prefill steps on a larger mesh
+  with a sequence split give the unsharded step's loss and logits;
+  decode takes any mesh.
 * One JAX subprocess with 8 forced host devices (the test worker has
   one device, ``tests/conftest.py``) runs the JAX package's sharded
   tower (model 2 and 4), ``make_mesh_vfl_step`` (2 pods, masked, 3
@@ -445,15 +445,35 @@ def test_one_device_mesh_trains_bit_equal_and_larger_meshes_raise():
         assert torch.equal(a, b), p
     cfg = get_config("whisper-large-v3").reduced()
     big = R.MeshRules(M.make_local_mesh(1, 2, devices=["cpu"] * 2))
-    # the encoder-decoder builds on a larger mesh; a sequence split raises
+    # the encoder-decoder builds on a larger mesh, and steps with a
+    # sequence split: the unsharded step's loss and last logits
     ST.make_train_step(cfg, TO.adamw(), rules=big)
     ST.make_prefill_step(cfg, rules=big)
     big.act_rules["seq"] = ("model",)
-    for make in (lambda: ST.make_train_step(cfg, TO.adamw(), rules=big),
-                 lambda: ST.make_prefill_step(cfg, rules=big)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10b"):
-            make()
+    from repro_torch.data.synthetic import make_lm_batches
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(v) for k, v in next(make_lm_batches(
+        cfg.vocab, 2, 8, 1, seed=0)).items()}
+    batch["frames"] = torch.as_tensor(rng.standard_normal(
+        (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32) * 0.02)
+    got = []
+    for rules in (None, big):
+        params = TP.init_tree(TT.model_spec(cfg),
+                              torch.Generator().manual_seed(0),
+                              torch.float32, "cpu")
+        if rules is not None:
+            params = ST.place_params(cfg, params, rules)
+        logits = ST.make_prefill_step(cfg, rules, torch.float32)(
+            params, {k: v for k, v in batch.items() if k != "labels"})
+        opt = TO.adamw()
+        _, _, metrics = ST.make_train_step(
+            cfg, opt, rules=rules, compute_dtype=torch.float32)(
+                params, opt.init(params), batch)
+        got.append((float(metrics["loss"]), logits))
+    (exp_loss, exp_l), (loss, logits) = got
+    np.testing.assert_allclose(loss, exp_loss, rtol=1e-6)
+    assert float((logits - exp_l).abs().max()) <= \
+        1e-5 * float(exp_l.abs().max())
     ST.make_decode_step(cfg, rules=big)          # any mesh
 
 

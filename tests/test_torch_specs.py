@@ -8,8 +8,8 @@
   every ``SHAPES`` entry that ``shape_applicable`` admits; ``text_len``
   and ``cache_axes`` equal too, and each axis tuple as long as its
   leaf's rank. Under mesh rules each stand-in comes beside its spec,
-  and the train and prefill steps raise on a larger mesh naming the
-  ROADMAP item.
+  and the train and prefill steps build on a larger mesh, with a
+  sequence split too.
 * ``python -m repro_torch.examples.train_lm --steps 4 --device cpu``
   trains the example's small qwen3 (loss falling), checkpoints it and
   passes its resume check; by default it asks for the card."""
@@ -28,6 +28,8 @@ from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.launch import specs as tspecs  # noqa: E402
 from repro_torch.launch import steps as tST  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.models import params as tP  # noqa: E402
+from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.sharding.rules import MeshRules  # noqa: E402
 from repro_torch.train import optimizer as tO  # noqa: E402
 
@@ -73,8 +75,9 @@ def test_mesh_rules_raise():
     """Under mesh rules every stand-in comes beside its resolved spec
     (``tests/test_torch_sharding.py`` holds them to the JAX package's);
     the train and prefill steps those specs feed build on a mesh of more
-    than one device for internvl2-76b's vision prefix and raise, naming
-    the ROADMAP item, where the rules split the sequence; ``place_batch``
+    than one device for internvl2-76b's vision prefix, and where the
+    rules split the sequence the reduced model's prefill over patches
+    and tokens cut into cells is the unsharded one's; ``place_batch``
     splits a real batch by the batch's specs, a row's patches with its
     tokens."""
     cfg, sh = get_config("qwen3-14b"), SHAPES["train_4k"]
@@ -93,11 +96,27 @@ def test_mesh_rules_raise():
     tST.make_prefill_step(vlm, rules=rules)
     seq = MeshRules(rules.mesh)
     seq.act_rules["seq"] = ("model",)
-    for call in (lambda: tST.make_train_step(vlm, tO.adamw(), rules=seq),
-                 lambda: tST.make_prefill_step(vlm, rules=seq)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10b"):
-            call()
+    tST.make_train_step(vlm, tO.adamw(), rules=seq)
+    # the reduced model's 8 patches before 4 tokens, cut into two cells
+    # of 6 on the split (the prefix spans both): its prefill is the
+    # unsharded one's
+    small = vlm.reduced()
+    tokens = torch.arange(2 * 4).reshape(2, 4) % small.vocab
+    patches = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (2, small.frontend.num_tokens, small.d_model)).astype(
+            np.float32) * 0.02)
+    got = []
+    for r in (None, seq):
+        params = tP.init_tree(tT.model_spec(small),
+                              torch.Generator().manual_seed(0),
+                              torch.float32, "cpu")
+        if r is not None:
+            params = tST.place_params(small, params, r)
+        got.append(tST.make_prefill_step(small, r, torch.float32)(
+            params, {"tokens": tokens, "patches": patches}))
+    assert float((got[1] - got[0]).abs().max()) <= \
+        1e-5 * float(got[0].abs().max())
+    assert not any("seq=12" in f for f in seq.fallbacks)
     tokens = torch.arange(8 * 3).reshape(8, 3)
     parts = tspecs.place_batch({"tokens": tokens}, rules)["tokens"]
     assert tuple(parts.spec) == ("data", None) and len(parts.parts) == 1
