@@ -5280,6 +5280,18 @@ def _counted(counters) -> dict:
     return {name: c.count for name, c in counters.items()}
 
 
+def tensor_bytes(*trees) -> int:
+    """The bytes of the distinct storages that the tensors of ``trees``
+    (dicts, lists, ``Parts``) hold on the card."""
+    from repro_torch.launch.hlo_analysis import tensors
+    seen = {}
+    for tree in trees:
+        for t in tensors(tree):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
 def seq_rules(mesh):
     """Mesh rules that split the sequence over ``model``
     (``act_rules["seq"]``, the dry-run's ``seqshard``)."""
@@ -5382,11 +5394,20 @@ def sharded_train_check(torch, dev, cfg, card: str, lr: float = LM_LR,
     state = opt.init(params)
     step_u = ST.make_train_step(cfg, opt, lr=lr,
                                 compute_dtype=torch.float32)
+    for c in counters.values():
+        c.reset()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     times = _time_steps(torch, lambda: step_u(params, state, batch),
                         1 + SHARD_TIMED)
     out["unsharded_step_ms"] = statistics.median(times[1:])
     out["unsharded_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # one step's, for phase 13: the rise of the allocated bytes above
+    # the window's start, what the step starts from, its launches
+    out["unsharded_rise_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["unsharded_resident_bytes"] = tensor_bytes(params, state, batch)
+    out["unsharded_launches"] = {
+        k: n // (1 + SHARD_TIMED) for k, n in _counted(counters).items()}
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -5480,10 +5501,14 @@ def sharded_train_check(torch, dev, cfg, card: str, lr: float = LM_LR,
                                     compute_dtype=torch.float32)
         state = opt.init(placed)
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         times = _time_steps(torch, lambda: step_s(placed, state, batch),
                             SHARD_TIMED)
         got = {"sharded_step_ms": statistics.median(times),
-               "sharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+               "sharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "sharded_rise_bytes": torch.cuda.max_memory_allocated()
+               - base,
+               "sharded_resident_bytes": tensor_bytes(placed, state, batch)}
         prof = profile_window(torch, lambda: step_s(placed, state, batch),
                               min(times) / 1e3)
         got["sharded_busy_share"] = prof["device_busy_share"]
@@ -6055,6 +6080,125 @@ def sharded_steps_phase(torch, dev) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry-run's trace (``launch/dryrun.py``: the step run under
+# FakeTensorMode on a mesh of fake devices, nothing allocated, nothing
+# launched) of the steps phase 12 measured, on the host, held to those
+# measurements: 12a's granite unsharded and on data 2 x model 2, 12k's
+# with the sequence split, 12d's and 12l's rwkv6-7b, each mesh on
+# ``meta:0`` repeated as phase 12's is on this card repeated, in f32
+# ---------------------------------------------------------------------------
+
+# how far a trace's peak above its start may miss the measured rise of
+# the allocated bytes over one step
+DRYRUN_PEAK_SHARE = 0.05
+# the phase's host time; a trace that starts after half of it traces one
+# and two layers and extrapolates (logged)
+DRYRUN_BUDGET_S = 90.0
+# (e, c, d, f) of grouped matmuls whose plan the gmm's trace route makes
+# in Python: decode sizes (a d split) and a training size
+GMM_PLAN_SHAPES = [(40, 4, 1536, 512), (40, 4, 512, 1536), (4, 4, 8192, 128),
+                   (2, 16, 24576, 8192), (16, 1, 8192, 4096),
+                   (40, 512, 1536, 512)]
+
+
+def dryrun_phase(torch, dev, steps: dict) -> dict:
+    """Phase 13: each traced step's kernel calls equal its phase's
+    counted launches and ``sharded_launches_per_step``, exactly; the
+    bytes it starts from (params, AdamW slots, the batch) equal those
+    the card held, exactly; its peak above its start is within
+    DRYRUN_PEAK_SHARE of the card's measured rise over one step; its
+    largest roofline term (``launch/dryrun.py``'s datasheet rates, one
+    card, f32) is at most the measured step time. Also the gmm trace
+    route's plan against the kernel's, and the card's memory and SMs
+    (the dry-run's ``HBM_BYTES``). Raises with every miss."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.rules import MeshRules
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    props = torch.cuda.get_device_properties(dev)
+    log(f"phase 13: {props.name} total_memory {props.total_memory} bytes "
+        f"(launch/dryrun.py HBM_BYTES {D.HBM_BYTES}), "
+        f"{props.multi_processor_count} SMs; {card}")
+    misses = []
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        plans = {str(s): (gmm.plan(*s, props.multi_processor_count),
+                          gmm._plan(lib, *s)) for s in GMM_PLAN_SHAPES}
+    misses += [f"gmm plan {s}: traced {a}, the kernel's {b}"
+               for s, (a, b) in plans.items() if a != b]
+    granite = dataclasses.replace(moe_config(), n_layers=SHARD_CMP_LAYERS)
+    rwkv = rwkv_train_config()
+    mesh = make_local_mesh(*SHARD_MESH, devices=["meta:0"] * 4)
+    cases = [("12a unsharded", granite, None, steps["granite"], "unsharded"),
+             ("12a", granite, MeshRules(mesh), steps["granite"], "sharded"),
+             ("12k", granite, seq_rules(mesh),
+              steps["granite"]["seq_split"], "sharded"),
+             ("12d", rwkv, MeshRules(mesh), steps["rwkv6"], "sharded"),
+             ("12l", rwkv, seq_rules(mesh), steps["rwkv6"]["seq_split"],
+              "sharded")]
+    out = {"gmm_plans": plans, "card": card,
+           "total_memory": props.total_memory}
+    for phase, cfg, rules, got, side in cases:
+        b, s = train_text_shape(cfg)
+        shape = InputShape(f"phase {phase}", s, b, "train")
+        full = time.perf_counter() - t_phase < DRYRUN_BUDGET_S / 2
+        t = D.depth_trace(cfg, shape, rules, torch.float32, full_depth=full)
+        calls = {k: v for k, v in t["kernel_calls"].items() if v}
+        counted = {k: v for k, v in got[
+            "unsharded_launches" if side == "unsharded" else "launches"
+        ].items() if v}
+        want = {k: v for k, v in sharded_launches_per_step(
+            cfg, (1, 1) if rules is None else SHARD_MESH).items() if v}
+        rise = t["peak"][0] - t["start"][0]
+        measured = got[f"{side}_rise_bytes"]
+        rf = D.roofline(cfg, shape, t["collectives"], 1, torch.float32)
+        top = max(rf[k] for k in ("compute_s", "memory_s", "collective_s"))
+        step_s = got[f"{side}_step_ms"] / 1e3
+        row = {"traced_layers": t["traced_layers"],
+               "trace_s": t["seconds"], "ops": t.get("ops"),
+               "kernel_calls": calls, "launches_counted": counted,
+               "launches_expected": want,
+               "resident_bytes": t["start"][0],
+               "resident_bytes_on_card": got[f"{side}_resident_bytes"],
+               "rise_bytes": rise, "rise_bytes_on_card": measured,
+               "rise_miss": (rise - measured) / measured,
+               "roofline": rf, "step_s_on_card": step_s,
+               "roofline_over_step": top / step_s}
+        out[phase] = row
+        log(f"phase 13 {phase}: {cfg.arch_id} {cfg.n_layers} layers traced "
+            f"at {t['traced_layers']} in {t['seconds']:.1f} s; calls {calls}"
+            f" (counted {counted}); resident {t['start'][0]} B (card "
+            f"{row['resident_bytes_on_card']}); rise {rise} B (card "
+            f"{measured}, miss {row['rise_miss']:+.4f}); largest roofline "
+            f"term {rf['dominant']} {top * 1e3:.1f} ms over the measured "
+            f"{step_s * 1e3:.1f} ms: {row['roofline_over_step']:.3f}; {card}")
+        if not calls == counted == want:
+            misses.append(f"{phase}: traced calls {calls}, counted "
+                          f"{counted}, expected {want}")
+        if t["start"][0] != row["resident_bytes_on_card"]:
+            misses.append(f"{phase}: resident {t['start'][0]} B against "
+                          f"{row['resident_bytes_on_card']} on the card")
+        if abs(row["rise_miss"]) > DRYRUN_PEAK_SHARE:
+            misses.append(f"{phase}: traced rise {rise} B against "
+                          f"{measured} on the card")
+        if top > step_s:
+            misses.append(f"{phase}: roofline {top} s above the measured "
+                          f"step {step_s} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13: {out['seconds']:.1f} s of host time (budget "
+        f"{DRYRUN_BUDGET_S:.0f} s); {card}")
+    if out["seconds"] > DRYRUN_BUDGET_S:
+        misses.append(f"the phase took {out['seconds']:.1f} s")
+    if misses:
+        raise AssertionError("phase 13: " + "; ".join(misses))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6214,6 +6358,10 @@ def main() -> int:
     # position on this card
     steps_launches, steps = sharded_steps_phase(torch, dev)
     mark('sharded train and prefill steps')
+    # the dry-run's trace of phase 12's steps, held to what the card
+    # measured of them
+    dryrun_phase(torch, dev, steps)
+    mark('dry-run traces')
 
     # launches of each kernel on each path's counted run
     by_path = {

@@ -41,6 +41,17 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+# the device types of a trace's fake mesh positions (``launch/dryrun.py``:
+# a device index is a signed byte, so 256 positions a type): a tensor on
+# one has no data, and each wrapper takes its trace route for it
+TRACE_TYPES = ("meta", "lazy")
+
+
+def traced(t) -> bool:
+    """Is ``t`` on a trace's fake device (its wrapper's trace route)?"""
+    return t.device.type in TRACE_TYPES
+
+
 class LaunchCounter:
     """Count of one kernel's launches; a wrapper adds one where it
     launches its kernel and nowhere else. Thread-safe: in thread mode

@@ -10,7 +10,11 @@ reads in place of recomputing the softmax statistics.
 On a CUDA tensor each launches its kernel, or raises; on a CPU tensor
 it computes the plain version (``ref.attention_ref``, and for the
 backward that function's VJP, ``ref.attention_vjp_ref``), and that is
-the only way the plain version is taken.
+the only way the plain version is taken. On a trace's fake device
+(``meta``: a step traced by ``launch/hlo_analysis.py``) each takes its
+trace route: it allocates what the CUDA route allocates, by the same
+code, launches nothing and counts the call in ``trace_calls`` /
+``bwd_trace_calls``.
 
 Layout: q (b, h, sq, dh); k/v (b, kvh, sk, dh), contiguous, float32 or
 bfloat16; any head dim 1 <= dh <= 512 (16, 32, 64, 80 and 128 are
@@ -32,9 +36,13 @@ from repro_torch.kernels.ref import attention_ref, attention_vjp_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 512
+# the widest head the tensor-core routes take (csrc: kMaxMmaDh)
+MAX_MMA_HEAD_DIM = 128
 
 launches = _build.LaunchCounter()
 bwd_launches = _build.LaunchCounter()
+trace_calls = _build.LaunchCounter()
+bwd_trace_calls = _build.LaunchCounter()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -54,6 +62,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if _build.traced(q):
+        trace_calls.add()
+        return (o, lse) if return_lse else o
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -105,13 +116,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{q.device} (flash_attention(..., return_lse=True)), got "
                 f"{None if lse is None else (lse.dtype, tuple(lse.shape))}")
         # the route stages O and dO by 16-byte copies
-        o, do = (t.clone() if t.data_ptr() % 16 else t for t in (o, do))
+        o, do = (t.clone() if _misaligned(t) else t for t in (o, do))
         # D = rowsum(do * o), from the dq kernel to the dk / dv kernel;
         # with GQA each query head's share of dk and dv, which a third
         # kernel adds over the group
         dvec = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         part = (torch.empty((2, b, h, sk, dh), dtype=torch.float32,
                             device=q.device) if h > kvh else None)
+        if _build.traced(q):
+            bwd_trace_calls.add()
+            return dq, dk, dv
         entry = _build.library().repro_flash_attention_bwd_mma
         before = (lse.data_ptr(), dvec.data_ptr(),
                   None if part is None else part.data_ptr())
@@ -121,6 +135,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # first kernel to the second
         stats = torch.empty(3 * b * h * sq, dtype=torch.float32,
                             device=q.device)
+        if _build.traced(q):
+            bwd_trace_calls.add()
+            return dq, dk, dv
         entry = _build.library().repro_flash_attention_bwd
         before, after = (), (stats.data_ptr(),)
     with torch.cuda.device(q.device):
@@ -178,15 +195,32 @@ def bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """Which route :func:`flash_attention_bwd` runs for these CUDA
     tensors: the forward's gate (sq > 16, dh <= 128, aligned q, k, v)
     takes the tensor cores, "mma_3xtf32" / "mma_bf16"; the rest "simt",
-    the f32-FMA kernels."""
-    return variant(q, k, v)
+    the f32-FMA kernels. On a trace's fake device the same gate in Python
+    (a trace has no library), alignment from the storage offset."""
+    if not _build.traced(q):
+        return variant(q, k, v)
+    _check(q, k, v)
+    if q.shape[2] <= 16 or q.shape[3] > MAX_MMA_HEAD_DIM \
+            or any(_misaligned(t) for t in (q, k, v)):
+        return "simt"
+    return "mma_3xtf32" if q.dtype == torch.float32 else "mma_bf16"
+
+
+def _misaligned(t: torch.Tensor) -> bool:
+    """Does ``t`` start off a 16-byte boundary? A fake tensor has no
+    address: its storage's block is taken as aligned (the caching
+    allocator's are), so its offset into it decides."""
+    if _build.traced(t):
+        return bool(t.storage_offset() * t.element_size() % 16)
+    return bool(t.data_ptr() % 16)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not _build.traced(q):
         raise ValueError(f"flash_attention: tensors on {q.device}; the "
                          f"kernel takes CUDA tensors (CPU ones take the "
-                         f"plain version)")
+                         f"plain version, a trace's fake ones its trace "
+                         f"route)")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, "

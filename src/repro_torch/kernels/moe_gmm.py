@@ -4,7 +4,11 @@
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 computes the plain version (``ref.gmm_ref``), and that is the only way
-the plain version is taken. :class:`MoeGmm` (which ``ops.moe_gmm``
+the plain version is taken. On a trace's fake device (``meta``: a
+step traced by ``launch/hlo_analysis.py``) it takes its trace route: it
+allocates what the CUDA route allocates, the d split's scratch by the
+kernel's plan at an H100's SM count, launches nothing and counts the
+call in ``trace_calls``. :class:`MoeGmm` (which ``ops.moe_gmm``
 applies to CUDA tensors) gives it a gradient through two more launches
 of the same kernel, each a grouped matmul it already computes: dx = dy
 @ w^T and dw = x^T @ dy, per expert, on contiguous transposes.
@@ -28,8 +32,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gmm_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the plan's constants (csrc/moe_gmm.cu: kDecodeMaxC, kMinSplitStages)
+# and the SMs of an H100 SXM, which a trace plans for
+DECODE_MAX_C = 16
+MIN_SPLIT_STAGES = 8
+H100_SMS = 132
 
 launches = _build.LaunchCounter()
+trace_calls = _build.LaunchCounter()
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -40,12 +50,19 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     e, c, d = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
-    lib = _build.library()
+    if _build.traced(x):
+        lib, (_, _, splits) = None, plan(e, c, d, f, H100_SMS)
+    else:
+        lib = _build.library()
+        with torch.cuda.device(x.device):
+            _, _, splits = _plan(lib, e, c, d, f)
+    # the d split's parts, added by the kernel's second pass
+    ws = torch.empty(splits * e * c * f, dtype=torch.float32,
+                     device=x.device) if splits > 1 else None
+    if lib is None:
+        trace_calls.add()
+        return out
     with torch.cuda.device(x.device):
-        _, _, splits = _plan(lib, e, c, d, f)
-        # the d split's parts, added by the kernel's second pass
-        ws = torch.empty(splits * e * c * f, dtype=torch.float32,
-                         device=x.device) if splits > 1 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                                 None if ws is None else ws.data_ptr(),
@@ -86,6 +103,23 @@ def _plan(lib, e: int, c: int, d: int, f: int) -> Tuple[int, int, int]:
     return kernel, strip.value, splits.value
 
 
+def plan(e: int, c: int, d: int, f: int, sms: int) -> Tuple[int, int, int]:
+    """The kernel's plan (csrc/moe_gmm.cu ``plan``) on a card of ``sms``
+    SMs, in Python: (kernel, strip, splits) as :func:`_plan` gives
+    them."""
+    if c > DECODE_MAX_C:
+        return 1, 0, 1
+    target = 4 * sms
+    wide, narrow = -(-f // 128) * e, -(-f // 64) * e
+    strip = 64 if wide < target <= narrow else 128
+    blocks = narrow if strip == 64 else wide
+    kr = 4096 // strip
+    stages = -(-d // kr)
+    want = max(1, min(-(-target // blocks), stages // MIN_SPLIT_STAGES))
+    chunk = -(-stages // want) * kr
+    return 0, strip, -(-d // chunk)
+
+
 def variant(x: torch.Tensor, w: torch.Tensor) -> str:
     """Which kernel a call on these CUDA tensors runs, as the .cu
     dispatches it: "stream" (its strip width and d split) or "mma"
@@ -101,10 +135,10 @@ def variant(x: torch.Tensor, w: torch.Tensor) -> str:
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not _build.traced(x):
         raise ValueError(f"moe_gmm: tensors on {x.device}; the kernel "
                          f"takes CUDA tensors (CPU ones take the plain "
-                         f"version)")
+                         f"version, a trace's fake ones its trace route)")
     if w.device != x.device or w.dtype != x.dtype:
         raise ValueError(f"moe_gmm: w is {w.dtype} on {w.device}, x is "
                          f"{x.dtype} on {x.device}")

@@ -4,7 +4,12 @@ package's ``repro/kernels/ops.py``.
 ``kernel`` keeps the tower DSL's spellings:
 
 * ``auto``   — the hand-written CUDA kernel for a CUDA tensor, the plain
-  PyTorch version for a CPU tensor;
+  PyTorch version for a CPU tensor, the kernel's trace route for a
+  tensor on a trace's fake device (``meta``, or ``lazy`` past 256
+  positions: ``_build.TRACE_TYPES``; a trace of a step,
+  ``launch/hlo_analysis.py``): what the CUDA route allocates, no launch,
+  counted in the wrapper's ``trace_calls``; such a tensor has no data
+  for any kernel to read;
 * ``pallas`` — the hand-written kernel (the name is the JAX package's);
   a CPU tensor raises;
 * ``ref``    — the plain version, as asked.
@@ -30,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import quantize as _q
@@ -40,11 +46,25 @@ from repro_torch.kernels import selective_scan as _ssm
 KERNELS = ("auto", "pallas", "ref")
 
 
+# each wrapper's count of trace-route calls, by kernel name
+TRACE_COUNTERS = {"flash_attention": _fa.trace_calls,
+                  "flash_attention_bwd": _fa.bwd_trace_calls,
+                  "moe_gmm": _gmm.trace_calls,
+                  "quantize_int8": _q.trace_calls,
+                  "rwkv6_wkv": _wkv.trace_calls,
+                  "rwkv6_wkv_bwd": _wkv.bwd_trace_calls,
+                  "selective_scan": _ssm.trace_calls,
+                  "selective_scan_bwd": _ssm.bwd_trace_calls}
+
+
 def default_backend(x: torch.Tensor) -> str:
     """What ``kernel="auto"`` runs for ``x``: ``"cuda"`` (the hand
-    kernel) on a CUDA tensor, ``"ref"`` on a CPU tensor. It never
-    depends on whether a toolchain is installed."""
-    return "cuda" if x.device.type == "cuda" else "ref"
+    kernel) on a CUDA tensor, ``"trace"`` (its trace route) on a trace's
+    fake device, ``"ref"`` on a CPU tensor. It depends on the device
+    type alone, never on whether a toolchain is installed."""
+    if x.device.type == "cuda":
+        return "cuda"
+    return "trace" if _build.traced(x) else "ref"
 
 
 def needs_grad(*xs: torch.Tensor) -> bool:
@@ -56,11 +76,11 @@ def needs_grad(*xs: torch.Tensor) -> bool:
 
 def check_kernel(kernel: str, x: torch.Tensor, op: str) -> None:
     """Raise where ``kernel`` is no spelling of ``KERNELS``, or asks for
-    the hand-written kernel (``pallas``) on a tensor off the card."""
+    the hand-written kernel (``pallas``) on a CPU tensor."""
     if kernel not in KERNELS:
         raise ValueError(f"{op}: kernel must be auto|pallas|ref, got "
                          f"{kernel!r}")
-    if kernel == "pallas" and x.device.type != "cuda":
+    if kernel == "pallas" and default_backend(x) == "ref":
         raise ValueError(f"{op}: kernel='pallas' runs the hand-written "
                          f"CUDA kernel, but the tensor is on {x.device}")
 

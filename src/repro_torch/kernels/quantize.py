@@ -4,9 +4,11 @@
 
 On a CUDA tensor it launches the kernel, or raises; on a CPU tensor it
 computes the plain version (``ref.quantize_int8_ref``), and that is the
-only way the plain version is taken. A row of whole 16-byte chunks
-on a 16-byte aligned tensor runs the vector variant, any other the
-scalar one (``variant``).
+only way the plain version is taken. On a trace's fake device
+(``meta``) it takes its trace route: it allocates what the CUDA route
+allocates, launches nothing and counts the call in ``trace_calls``. A
+row of whole 16-byte chunks on a 16-byte aligned tensor runs the
+vector variant, any other the scalar one (``variant``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.kernels.ref import quantize_int8_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = _build.LaunchCounter()
+trace_calls = _build.LaunchCounter()
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -30,6 +33,9 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     rows, d = x.shape
     q = torch.empty((rows, d), dtype=torch.int8, device=x.device)
     scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    if _build.traced(x):
+        trace_calls.add()
+        return q, scale
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -52,10 +58,11 @@ def variant(x: torch.Tensor) -> str:
 
 
 def _check(x: torch.Tensor) -> None:
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not _build.traced(x):
         raise ValueError(f"quantize_int8: tensor on {x.device}; the "
                          f"kernel takes CUDA tensors (CPU ones take the "
-                         f"plain version)")
+                         f"plain version, a trace's fake ones its trace "
+                         f"route)")
     if x.dtype not in DTYPES:
         raise ValueError(f"quantize_int8: dtype {x.dtype} not in "
                          f"{sorted(map(str, DTYPES))}")

@@ -11,7 +11,11 @@ that function's VJP, ``ref.rwkv6_vjp_ref``), and that is the only way
 the plain version is taken. Under grad the forward kernel also writes
 the state before every 8th step, from which the backward kernel
 recomputes the states it walks back over; without grad it writes
-nothing more than y and the final state.
+nothing more than y and the final state. On a trace's fake device
+(``meta``: a step traced by ``launch/hlo_analysis.py``) each takes its
+trace route: it allocates what the CUDA route allocates, checkpoints
+included, by the same code, launches nothing and counts the call in
+``trace_calls`` / ``bwd_trace_calls``.
 
 Layout: r, k, v, w (b, h, s, dh), contiguous, all float32 or all
 bfloat16; u (h, dh) float32; any head dim dh >= 1 forward (32 and 64
@@ -37,6 +41,8 @@ MAX_GRAD_HEAD_DIM = 64
 
 launches = _build.LaunchCounter()
 bwd_launches = _build.LaunchCounter()
+trace_calls = _build.LaunchCounter()
+bwd_trace_calls = _build.LaunchCounter()
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,6 +76,9 @@ def wkv_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chk = (torch.empty((b, h, -(-s // CHECKPOINT), dh, dh),
                        dtype=torch.float32, device=r.device)
            if checkpoints else None)
+    if _build.traced(r):
+        trace_calls.add()
+        return y, s_final, chk
     lib = _build.library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -109,6 +118,9 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   device=r.device) for _ in range(4))
     du_part = torch.empty((b, h, dh), dtype=torch.float32, device=r.device)
     du = torch.empty((h, dh), dtype=torch.float32, device=r.device)
+    if _build.traced(r):
+        bwd_trace_calls.add()
+        return dr, dk, dv, dw, du
     lib = _build.library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -151,10 +163,10 @@ def _check_grad_width(dh: int) -> None:
 
 
 def _check(r, k, v, w, u) -> None:
-    if r.device.type != "cuda":
+    if r.device.type != "cuda" and not _build.traced(r):
         raise ValueError(f"rwkv6_wkv: tensors on {r.device}; the kernel "
                          f"takes CUDA tensors (CPU ones take the plain "
-                         f"version)")
+                         f"version, a trace's fake ones its trace route)")
     if r.dtype not in DTYPES:
         raise ValueError(f"rwkv6_wkv: dtype {r.dtype} not in "
                          f"{sorted(map(str, DTYPES))}")

@@ -10,7 +10,11 @@ computes the plain version (``ref.selective_scan_ref``, and for the
 backward that function's VJP, ``ref.selective_scan_vjp_ref``), and that
 is the only way the plain version is taken. Under grad the forward
 kernel also writes h before every 4th step, from which the backward
-kernel recomputes the states it walks back over.
+kernel recomputes the states it walks back over. On a trace's fake
+device (``meta``: a step traced by ``launch/hlo_analysis.py``) each
+takes its trace route: it allocates what the CUDA route allocates,
+checkpoints and scratch included, by the same code, launches nothing
+and counts the call in ``trace_calls`` / ``bwd_trace_calls``.
 
 Layout: dt, u (b, s, di); B, C (b, s, n); A (di, n) float32; all
 contiguous. dt, B and C are all float32 or all bfloat16, u is float32 or
@@ -40,6 +44,8 @@ MAX_GRAD_STATE = 16
 
 launches = _build.LaunchCounter()
 bwd_launches = _build.LaunchCounter()
+trace_calls = _build.LaunchCounter()
+bwd_trace_calls = _build.LaunchCounter()
 
 
 def selective_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
@@ -72,6 +78,9 @@ def scan_forward(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     h_final = torch.empty((b, di, n), dtype=torch.float32, device=dt.device)
     chk = (torch.empty((b, -(-s // CHECKPOINT), n, di), dtype=torch.float32,
                        device=dt.device) if checkpoints else None)
+    if _build.traced(dt):
+        trace_calls.add()
+        return y, h_final, chk
     lib = _build.library()
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
@@ -116,6 +125,9 @@ def selective_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor,
     da_part = torch.empty((b, di, n), **f32)
     dbc = torch.empty((2, b, s, n), **f32)
     da = torch.empty((di, n), **f32)
+    if _build.traced(dt):
+        bwd_trace_calls.add()
+        return ddt, dbc[0], dbc[1], du, da
     lib = _build.library()
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
@@ -159,10 +171,11 @@ def _check_grad_state(n: int) -> None:
 
 
 def _check(dt, bmat, cmat, u, a) -> None:
-    if dt.device.type != "cuda":
+    if dt.device.type != "cuda" and not _build.traced(dt):
         raise ValueError(f"selective_scan: tensors on {dt.device}; the "
                          f"kernel takes CUDA tensors (CPU ones take the "
-                         f"plain version)")
+                         f"plain version, a trace's fake ones its trace "
+                         f"route)")
     if dt.dtype not in DTYPES or u.dtype not in DTYPES:
         raise ValueError(f"selective_scan: dt is {dt.dtype}, u is "
                          f"{u.dtype}; each must be one of "

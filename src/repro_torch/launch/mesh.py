@@ -17,13 +17,22 @@ the CPU tests pass the CPU device repeated, and a one-card run passes
 ``cuda:0`` repeated, so every split, partial product and combine runs on
 one device. A mesh never reuses a device the caller did not name.
 
+Each collective names itself while it runs (:func:`collective`), and
+tags the autograd node of each copy it makes, so that a trace of a step
+(``launch/hlo_analysis.py``) files every byte a position receives
+under the collective that moved it, forward or backward. The name
+changes no value.
+
 No hardware constant lives here: where the port needs a rate it takes
-the card's own (``chip_smoke.py``).
+the card's own (``chip_smoke.py``), and the dry-run's datasheet
+estimate keeps its own (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -133,28 +142,81 @@ def mesh_chips(mesh) -> int:
 # tensor): the combine of two parts or more is a fresh tensor.
 # ---------------------------------------------------------------------------
 
+_collective: contextvars.ContextVar[Optional[str]] = \
+    contextvars.ContextVar("collective", default=None)
+# the key of an autograd node's ``metadata`` that names the collective
+# whose copy made the node
+NODE_KEY = "collective"
+
+
+@contextlib.contextmanager
+def collective(name: str) -> Iterator[None]:
+    """Name the copies made inside as the collective ``name`` (an outer
+    name holds: a ``psum`` inside a ``reduce_scatter`` is the
+    latter's). Values do not depend on it."""
+    tok = _collective.set(_collective.get() or name)
+    try:
+        yield
+    finally:
+        _collective.reset(tok)
+
+
+def current_collective() -> Optional[str]:
+    """The collective running now, else None."""
+    return _collective.get()
+
+
+def _to(x: torch.Tensor, device: DeviceLike) -> torch.Tensor:
+    """``x.to(device)``, a copy's autograd node tagged with the running
+    collective (its backward is that collective's)."""
+    y = x.to(device)
+    if y is not x and y.grad_fn is not None:
+        y.grad_fn.metadata[NODE_KEY] = _collective.get()
+    return y
+
 
 def psum(parts: Sequence[torch.Tensor], device: DeviceLike) -> torch.Tensor:
     """The sum of ``parts`` on ``device``, added in order."""
-    return functools.reduce(torch.add, [p.to(device) for p in parts])
+    with collective("psum"):
+        return functools.reduce(torch.add, [_to(p, device) for p in parts])
 
 
 def pmax(parts: Sequence[torch.Tensor], device: DeviceLike) -> torch.Tensor:
     """The elementwise maximum of ``parts`` on ``device``."""
-    return functools.reduce(torch.maximum, [p.to(device) for p in parts])
+    with collective("pmax"):
+        return functools.reduce(torch.maximum,
+                                [_to(p, device) for p in parts])
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int,
                device: DeviceLike) -> torch.Tensor:
     """``parts`` concatenated along ``dim`` on ``device``."""
-    return torch.cat([p.to(device) for p in parts], dim=dim)
+    with collective("all_gather"):
+        return torch.cat([_to(p, device) for p in parts], dim=dim)
 
 
 def broadcast(x: torch.Tensor, devices: Sequence[DeviceLike]
               ) -> Tuple[torch.Tensor, ...]:
     """``x`` on each of ``devices`` (the same tensor where it is there
     already: read it, do not write it)."""
-    return tuple(x.to(d) for d in devices)
+    with collective("broadcast"):
+        return tuple(_to(x, d) for d in devices)
+
+
+def scatter(pieces: Sequence[torch.Tensor], devices: Sequence[DeviceLike]
+            ) -> List[torch.Tensor]:
+    """``pieces[i]`` (pieces of one whole) on ``devices[i]`` (the piece
+    itself where it is there already)."""
+    with collective("scatter"):
+        return [_to(p, d) for p, d in zip(pieces, devices)]
+
+
+def gather(parts: Sequence[torch.Tensor], device: DeviceLike
+           ) -> List[torch.Tensor]:
+    """Each of ``parts`` on ``device``, uncombined (the part itself where
+    it is there already)."""
+    with collective("gather"):
+        return [_to(p, device) for p in parts]
 
 
 def reduce_scatter(parts: Sequence[torch.Tensor],
@@ -164,20 +226,23 @@ def reduce_scatter(parts: Sequence[torch.Tensor],
     """The sum of ``parts`` (added in order), and of it ``slices[i]`` on
     ``devices[i]``, a contiguous tensor each (an FSDP gradient's
     reduce-scatter: each position keeps its own chunk of the sum)."""
-    total = psum(parts, devices[0])
-    return [total[sl].to(d).contiguous() for sl, d in zip(slices, devices)]
+    with collective("reduce_scatter"):
+        total = psum(parts, devices[0])
+        return [_to(total[sl], d).contiguous()
+                for sl, d in zip(slices, devices)]
 
 
 def exclusive_prefix(parts: Sequence[torch.Tensor],
                      devices: Sequence[DeviceLike]) -> List[torch.Tensor]:
     """Position i gets the sum of ``parts[:i]`` (zeros at 0), added in
     order, on ``devices[i]``: an exclusive prefix sum over an axis."""
-    acc = torch.zeros_like(parts[0])
-    out = []
-    for p, d in zip(parts, devices):
-        out.append(acc.to(d))
-        acc = acc + p.to(acc.device)
-    return out
+    with collective("exclusive_prefix"):
+        acc = torch.zeros_like(parts[0])
+        out = []
+        for p, d in zip(parts, devices):
+            out.append(_to(acc, d))
+            acc = acc + _to(p, acc.device)
+        return out
 
 
 def _cat_dim(slices: Sequence[Tuple[slice, ...]]) -> int:
@@ -202,11 +267,13 @@ class _Spread(torch.autograd.Function):
     def forward(ctx, slices, targets, *parts):
         ctx.set_materialize_grads(False)
         ctx.slices, ctx.devices = slices, [p.device for p in parts]
-        if len(parts) == 1:
-            return tuple(parts[0].to(d, copy=True) for d in targets)
-        dim = _cat_dim(slices)
-        return tuple(torch.cat([p.to(d) for p in parts], dim)
-                     for d in targets)
+        ctx.name = _collective.get() or "spread"
+        with collective(ctx.name):
+            if len(parts) == 1:
+                return tuple(parts[0].to(d, copy=True) for d in targets)
+            dim = _cat_dim(slices)
+            return tuple(torch.cat([p.to(d) for p in parts], dim)
+                         for d in targets)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -214,7 +281,9 @@ class _Spread(torch.autograd.Function):
         none = (None, None)
         if not got:
             return none + (None,) * len(ctx.devices)
-        return none + tuple(reduce_scatter(got, ctx.devices, ctx.slices))
+        with collective(f"{ctx.name}_bwd"):
+            return none + tuple(reduce_scatter(got, ctx.devices,
+                                               ctx.slices))
 
 
 def spread(parts: Sequence[torch.Tensor], slices: Sequence[Tuple[slice, ...]],
@@ -230,4 +299,5 @@ def fan_out(x: torch.Tensor, targets: Sequence[DeviceLike]
             ) -> Tuple[torch.Tensor, ...]:
     """``x`` copied onto each of ``targets``; its gradient the targets'
     gradients added in order."""
-    return spread([x], [(slice(None),) * x.dim()], targets)
+    with collective("fan_out"):
+        return spread([x], [(slice(None),) * x.dim()], targets)

@@ -1,17 +1,33 @@
-"""Per-step VFL roofline accounting (:func:`step_account`): the training
-driver snapshots its CommStats counters around the fit phase and
-resolves them into a per-step compute-vs-wire split, surfaced in
-``Driver.result()["roofline"]``. This is what makes pipeline-depth wins
-explainable: depth helps exactly when neither fraction dominates.
+"""Roofline accounting, the counterpart of the JAX package's
+``repro/launch/roofline.py``.
 
-The JAX package's module of the same name also aggregates the LLM
-dry-run tables of ``launch/dryrun.py`` and ``launch/hlo_analysis.py``;
-that half waits for their port, ROADMAP Queue 1 item 10c (a
-compile-free H100 estimate of a sharded step).
+Two layers share this module:
+
+* **LLM dry-run aggregation**: ``launch/dryrun.py``'s records (a traced
+  step on a mesh of fake devices, its roofline an estimate from the
+  H100's datasheet rates) -> the markdown roofline table
+  (``python -m repro_torch.launch.roofline [--mesh single]``), the JAX
+  package's table in its words; "fits/chip" reads the busiest
+  position's traced peak (``per_device_gib_estimate``).
+* **Per-step VFL accounting** (:func:`step_account`): the training
+  driver snapshots its CommStats counters around the fit phase and
+  resolves them into a per-step compute-vs-wire split, surfaced in
+  ``Driver.result()["roofline"]``. This is what makes pipeline-depth
+  wins explainable: depth helps exactly when neither fraction
+  dominates.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import argparse
+import json
+from typing import Dict, List, Optional
+
+NOTES = {
+    "compute_s": "compute-bound: more chips or lower precision",
+    "memory_s": "HBM-bound: fuse reads / shrink cache or state traffic",
+    "collective_s": "collective-bound: resharding or dispatch schedule "
+                    "(see §Perf)",
+}
 
 
 def step_account(wall_s: float, steps: int, comm_delta: Dict[str, float],
@@ -76,3 +92,48 @@ def step_account(wall_s: float, steps: int, comm_delta: Dict[str, float],
         if isinstance(v, float):
             out[k] = round(v, 6)
     return out
+
+
+def rows_for(mesh: str) -> List[Dict]:
+    from repro_torch.launch.dryrun import RESULTS_DIR
+    rows = []
+    for f in sorted(RESULTS_DIR.glob(f"*__{mesh}.json")):
+        rows.append(json.loads(f.read_text()))
+    return rows
+
+
+def table(mesh: str) -> str:
+    out = ["| arch | shape | compute s | memory s | collective s | "
+           "dominant | MODEL/HLO | fits/chip | note |",
+           "|---|---|---|---|---|---|---|---|---|"]
+    for r in rows_for(mesh):
+        if r["status"] == "skipped":
+            out.append(f"| {r['arch']} | {r['shape']} | — | — | — | "
+                       f"skipped | — | — | {r['reason'][:40]} |")
+            continue
+        if r["status"] != "ok":
+            out.append(f"| {r['arch']} | {r['shape']} | — | — | — | ERROR "
+                       f"| — | — | |")
+            continue
+        rf = r["roofline"]
+        # MODEL_FLOPS / analytic flops (the useful-compute fraction)
+        ratio = rf["model_flops"] / max(rf["analytic_flops"], 1)
+        mem = r["memory"].get("per_device_gib_estimate", 0)
+        dom = rf["dominant"]
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {rf['compute_s']:.3f} | "
+            f"{rf['memory_s']:.3f} | {rf['collective_s']:.3f} | "
+            f"{dom.replace('_s', '')} | {ratio:.2f} | "
+            f"{mem:.2f} GiB | {NOTES[dom][:46]} |")
+    return "\n".join(out)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh", default="single")
+    args = ap.parse_args()
+    print(table(args.mesh))
+
+
+if __name__ == "__main__":
+    main()

@@ -26,13 +26,16 @@ it is given over ``pod x data`` (``specs.place_batch``), and
 ``models/transformer.py``'s ``loss_fn_sharded`` / ``last_logits_sharded``
 combine the positions' shares with ``launch/mesh.py``'s collectives in
 axis order. With a sequence split (``act_rules["seq"] = ("model",)``,
-the dry-run's ``seqshard``) each row's residual stream lives between
+the dry-run's ``seqshard`` lever, ``launch/dryrun.py``) each row's
+residual stream lives between
 layers as sequence cells over ``model`` (``sharding.rules.Layout``):
 a layer gathers its row's cells, and reduce-scatters its partial
 outputs back to them, where it would copy the row out of its home and
 sum the partials there. Its values are those of the unsharded step,
 with the split or without. On a one-device mesh a step gives the
-values of no mesh.
+values of no mesh. On a mesh of fake devices (``meta:i`` under
+``FakeTensorMode``) a step is traced, not run: ``launch/dryrun.py``
+reads what it holds, moves and calls.
 """
 from __future__ import annotations
 

@@ -219,7 +219,8 @@ def self_attention_sharded(cfg: ModelConfig, lay, params, hs, positions,
         partial = []
         for j in range(n):
             p = at(r, j)
-            q, k, v = _qkv(cfg, p, xs[j], positions[r].to(xs[j].device)[None])
+            pos = M.broadcast(positions[r], [xs[j].device])[0]
+            q, k, v = _qkv(cfg, p, xs[j], pos[None])
             partial.append(_attend_out(p, q, k, v, causal, window))
         out.append(lay.leave(r, partial))
     return out

@@ -54,19 +54,23 @@ def sharded_decode_attention(cfg: ModelConfig, params, x: torch.Tensor,
     g = h_eff // kvh
     scale = hd ** -0.5
 
+    # each position's slice of the cache, sent from the home every step
+    slices = [slice(i * s_local, (i + 1) * s_local) for i in range(n_model)]
+    k_slices = M.scatter([cache["k"][:, sl] for sl in slices], devs)
+    v_slices = M.scatter([cache["v"][:, sl] for sl in slices], devs)
     ks, vs, scores = [], [], []
-    for shard, dev in enumerate(devs):
+    for shard, (dev, k_shard, v_shard, q_at) in enumerate(zip(
+            devs, k_slices, v_slices, M.broadcast(q, devs))):
         offset = shard * s_local
-        k_shard = cache["k"][:, offset:offset + s_local].to(dev)
-        v_shard = cache["v"][:, offset:offset + s_local].to(dev)
         # the owning slice writes the new slot (clipped into range);
         # the others keep theirs
         local_idx = min(max(index - offset, 0), s_local - 1)
         if offset <= index < offset + s_local:
             at = torch.tensor([local_idx], device=dev)
-            k_shard = k_shard.index_copy(1, at, k_new.to(dev, k_shard.dtype))
-            v_shard = v_shard.index_copy(1, at, v_new.to(dev, v_shard.dtype))
-        qg = q.to(dev).reshape(b, 1, kvh, g, hd)
+            k_at, v_at = M.scatter([k_new, v_new], [dev, dev])
+            k_shard = k_shard.index_copy(1, at, k_at.to(k_shard.dtype))
+            v_shard = v_shard.index_copy(1, at, v_at.to(v_shard.dtype))
+        qg = q_at.reshape(b, 1, kvh, g, hd)
         s = torch.einsum("bqngd,bknd->bnqgk", qg.float() * scale,
                          k_shard.float())                  # (b,kv,1,g,S_l)
         slots = offset + torch.arange(s_local, device=dev)
@@ -78,8 +82,8 @@ def sharded_decode_attention(cfg: ModelConfig, params, x: torch.Tensor,
 
     m_glob = M.pmax([s.max(dim=-1).values for s in scores], home)
     ls, os_ = [], []
-    for s, v_shard, dev in zip(scores, vs, devs):
-        p = torch.exp(s - m_glob.to(dev)[..., None])
+    for s, v_shard, m_at in zip(scores, vs, M.broadcast(m_glob, devs)):
+        p = torch.exp(s - m_at[..., None])
         ls.append(p.sum(dim=-1))
         os_.append(torch.einsum("bnqgk,bknd->bqngd", p.to(v_shard.dtype),
                                 v_shard).float())

@@ -254,9 +254,10 @@ def embed_sharded(lay, params, tokens: Sequence[torch.Tensor],
     out = []
     for r, tok in enumerate(tokens):
         parts = []
+        toks = M.broadcast(tok, [tabs[j][r].device for j in range(n)])
         for j in range(n):
             t = tabs[j][r]
-            ids = tok.to(t.device).long() - j * v_l
+            ids = toks[j].long() - j * v_l
             inside = (ids >= 0) & (ids < v_l)
             rows = t[ids.clamp(0, v_l - 1)]
             parts.append(torch.where(inside[..., None], rows,
@@ -298,20 +299,21 @@ def softmax_xent_sharded(lay, logits: Sequence[Sequence[torch.Tensor]],
         home = lay.home(r)
         ls = [p.float() for p in parts]
         v_l = ls[0].shape[-1]
+        devs = [x.device for x in ls]
         m = M.pmax([x.max(-1).values for x in ls], home).detach()
-        se = M.psum([torch.exp(x - m.to(x.device)[..., None]).sum(-1)
-                     for x in ls], home)
+        se = M.psum([torch.exp(x - mj[..., None]).sum(-1)
+                     for x, mj in zip(ls, M.broadcast(m, devs))], home)
         lse = m + torch.log(se)
-        lab = labels[r].to(home).long()
+        lab = M.broadcast(labels[r], [home])[0].long()
         tgt, best_v, best_i = [], None, None
-        for j, x in enumerate(ls):
-            ids = lab.to(x.device) - j * v_l
+        for j, (x, lj) in enumerate(zip(ls, M.broadcast(lab, devs))):
+            ids = lj - j * v_l
             inside = (ids >= 0) & (ids < v_l)
             got = x.gather(-1, ids.clamp(0, v_l - 1)[..., None])[..., 0]
             tgt.append(torch.where(inside, got, got.new_zeros(())))
             i = x.argmax(-1)
-            v = x.gather(-1, i[..., None])[..., 0].to(home)
-            i = i.to(home) + j * v_l
+            v, i = M.gather([x.gather(-1, i[..., None])[..., 0], i], home)
+            i = i + j * v_l
             if best_v is None:
                 best_v, best_i = v, i
             else:
@@ -321,7 +323,7 @@ def softmax_xent_sharded(lay, logits: Sequence[Sequence[torch.Tensor]],
                 best_i = torch.where(take, i, best_i)
         nll = lse - M.psum(tgt, home)
         mask = (torch.ones_like(nll) if masks is None
-                else masks[r].to(home).float())
+                else M.broadcast(masks[r], [home])[0].float())
         nll_sums.append((nll * mask).sum())
         dens.append(mask.sum())
         hits.append(((best_i == lab) * mask).sum())

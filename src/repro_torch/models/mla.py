@@ -185,9 +185,10 @@ def mla_self_attention_sharded(cfg: ModelConfig, lay, params, hs,
         devs = [lay.dev(r, j) for j in range(n)]
         fanned = [M.fan_out(t, devs)
                   for t in (_q_source(cfg, p0, h), ckv, k_rope)]
+        poss = M.broadcast(pos, devs)
         out.append(lay.leave(r, [
             _attend_heads(cfg, {k: v[j][r] for k, v in w.items()},
-                          *(f[j] for f in fanned), pos.to(devs[j]))
+                          *(f[j] for f in fanned), poss[j])
             for j in range(n)]))
     return out
 

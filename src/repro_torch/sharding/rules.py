@@ -20,9 +20,12 @@ spec: params, optimizer slots and the batch by its batch dim). The JAX
 package's ``constrain``, a layout hint to XLA whose values never depend
 on it, is read once: where the residual stream's ``("batch", "seq",
 "embed")`` spec gives the sequence the ``model`` axis (the dry-run's
-``seqshard``), a step's :class:`Layout` keeps each row between layers
-as sequence cells over ``model`` (Megatron-style sequence
-parallelism); inside a layer the port picks its own layout. Its
+``seqshard`` lever, ``launch/dryrun.py``), a step's :class:`Layout`
+keeps each row between layers as sequence cells over ``model``
+(Megatron-style sequence parallelism); inside a layer the port picks
+its own layout. :func:`place` sends each part to its position under
+``launch/mesh.py``'s ``scatter`` name, so a trace of a step files the
+batch's placement with the collectives. Its
 ``shard_map`` wrapper has no counterpart: the port writes its
 collectives out (``launch/mesh.py``). Nor has
 ``reduce_dtype``: it asks a promoting ``jnp.einsum`` for a bf16 result,
@@ -311,10 +314,12 @@ def place(t: torch.Tensor, spec: PartitionSpec, mesh) -> Parts:
     out = Parts(spec, t.shape, mesh)
     src = t.detach()
     out.parts = []
-    for key in out.keys:
-        chunk = src[out.slices(key)]
-        out.parts.append(torch.empty(chunk.shape, dtype=chunk.dtype,
-                                     device=mesh.device(**key)).copy_(chunk))
+    with M.collective("scatter"):
+        for key in out.keys:
+            chunk = src[out.slices(key)]
+            out.parts.append(torch.empty(
+                chunk.shape, dtype=chunk.dtype,
+                device=mesh.device(**key)).copy_(chunk))
     return out
 
 
@@ -492,8 +497,9 @@ class Layout:
                 for lo, hi in ranges:
                     for p in range(lo // c, (hi - 1) // c + 1):
                         a, b = max(lo, p * c), min(hi, (p + 1) * c)
-                        pieces.append(parts[p][r].narrow(md, a - p * c, b - a)
-                                      .to(self.dev(r, j)))
+                        pieces.append(parts[p][r].narrow(md, a - p * c,
+                                                         b - a))
+                pieces = M.scatter(pieces, [self.dev(r, j)] * len(pieces))
                 at_j.append(torch.cat(pieces, md))
             out.append(at_j)
         return out

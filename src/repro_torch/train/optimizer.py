@@ -121,10 +121,16 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     def update(grads, state, params, lr):
         c = _count(state)
-        bc1 = 1 - torch.pow(b1, c)
-        bc2 = 1 - torch.pow(b2, c)
+        # 0-dim tensors on ``count``'s device, copied once to each
+        # device a part lives on (a CUDA tensor mixes with no other
+        # card's); a Python float would divide by its reciprocal on the
+        # card, other bits
+        bcs = {c.device: (1 - torch.pow(b1, c), 1 - torch.pow(b2, c))}
 
         def upd(p, g, m, v):
+            if p.device not in bcs:
+                bcs[p.device] = tuple(_on(x, p.device) for x in bcs[c.device])
+            bc1, bc2 = bcs[p.device]
             for pp, gp, mp, vp in _pieces(p, g.contiguous(), m, v):
                 g32 = gp.float()
                 mp.mul_(b1).add_((1 - b1) * g32)
@@ -240,7 +246,7 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                 # at its position (the others' are the same bits)
                 src = [next(i for i, k in enumerate(p.keys)
                             if _only(k, sl.axes) == key) for key in sl.keys]
-                new[name] = [_ema(beta2, old, sums[name][i].to(old.device)
+                new[name] = [_ema(beta2, old, _on(sums[name][i], old.device)
                                   / length[name])
                              for old, i in zip(sl.parts, src)]
             vr, vc = slot["v_row"], slot["v_col"]
@@ -250,10 +256,10 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                  for t, m in zip(new["v_row"], means)]
             us = []
             for key, gp in zip(p.keys, gs):
-                rp = r[vr.keys.index(_only(key, vr.axes))].to(gp.device)
+                rp = _on(r[vr.keys.index(_only(key, vr.axes))], gp.device)
                 cp = new["v_col"][vc.keys.index(_only(key, vc.axes))]
                 us.append(gp * torch.rsqrt(torch.clamp(rp, min=eps))[..., None]
-                          * torch.rsqrt(torch.clamp(cp.to(gp.device),
+                          * torch.rsqrt(torch.clamp(_on(cp, gp.device),
                                                     min=eps))[..., None, :])
         else:
             new = {"v": [_ema(beta2, old, gp.square() + eps)
@@ -294,8 +300,14 @@ def _only(key, axes):
     return {a: key[a] for a in axes}
 
 
+def _on(x, device):
+    """``x`` on ``device``: a copy from another position is a
+    ``broadcast`` (``launch/mesh.py``)."""
+    return M.broadcast(x, [device])[0]
+
+
 def _ema(beta2, old, x):
-    b = beta2.to(old.device)
+    b = _on(beta2, old.device)
     return b * old + (1 - b) * x
 
 
